@@ -1,0 +1,30 @@
+"""geot_tpu_torch — the PyTorch/CUDA port of geot_tpu for one NVIDIA H100.
+
+The JAX package `geot_tpu` stays the reference; this package imports
+nothing of it (nor JAX) and keeps its own copies of what it needs. The
+first slice covers GCN inference over block-aligned-tile (BAT) plans:
+
+    prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
+      -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
+
+Entry points run on the card (`device="cuda"`) unless the caller asks for
+the CPU, where every kernel wrapper runs its plain PyTorch version.
+"""
+
+from geot_tpu_torch.utils.device import resolve_device
+from geot_tpu_torch.graph import Graph, build_graph
+from geot_tpu_torch.ops import segment_spmm, dispatch_path
+from geot_tpu_torch.models import GCN, GCNConv, prepare_graph
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "resolve_device",
+    "Graph",
+    "build_graph",
+    "segment_spmm",
+    "dispatch_path",
+    "GCN",
+    "GCNConv",
+    "prepare_graph",
+]

@@ -1,0 +1,281 @@
+"""Block-aligned-tile (BAT) execution plan, host side.
+
+Port of `geot_tpu/graph/plan.py` (`compute_chunks` :147-179,
+`BatPlan` :419-463, `build_bat_plan_host` :466-557 — its numpy branch
+only — `_uniformize_bat_chunks` :560-598, `bat_plan_from_host`,
+`build_bat_plan`, `packed_width`). Given the same dst-sorted edges and
+knobs, the host arrays and meta equal the JAX package's exactly.
+
+A tile t is an (output window, value block) incidence: value block
+`vblock[t]` holds e_tile consecutive edges of the dst-sorted edge list, and
+the tile reduces the ones whose dst lies in window `out_block[t]` (rows
+[out_block[t]*s_tile, (out_block[t]+1)*s_tile)). Tiles are ordered by
+window; every window has at least one tile (coverage), so a kernel can
+write every output row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = [
+    "BatPlan",
+    "MAX_PREFETCH_TILES",
+    "compute_chunks",
+    "build_bat_plan_host",
+    "bat_plan_from_host",
+    "build_bat_plan",
+    "packed_width",
+    "with_chunks",
+]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+# cap on tiles per chunk, kept equal to the JAX package's so plans match
+# (there it bounds the kernel's scalar-prefetched out_block in TPU SMEM;
+# the CUDA kernel has no such limit)
+MAX_PREFETCH_TILES = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class BatPlan:
+    """Block-aligned-tile plan (torch tensors on one device).
+
+    out_block: [T] int32, non-decreasing — output window of tile t.
+    vblock:    [T] int32 — value block of tile t (n_vblocks = the all--1
+      sentinel block that uniformization pad tiles point at).
+    dst3:      [n_vblocks + 1, 1, e_tile] int32 — dst ids, -1 padded.
+    chunks:    ((t0, t1, w0, w1), ...) tile ranges [t0, t1) covering windows
+      [w0, w1); consecutive chunks may share one (hub) window.
+    """
+
+    out_block: torch.Tensor
+    vblock: torch.Tensor
+    dst3: torch.Tensor
+    e_tile: int
+    s_tile: int
+    num_segments: int
+    n_blocks: int
+    num_edges: int
+    n_vblocks: int
+    km_pack: int = 0
+    chunks: tuple = ()
+    chunk_blocks: int = 0
+    chunk_vblocks: int = 0
+    # first value block of each chunk (n_vblocks where a chunk starts with a
+    # pad tile), kept on the host so executing a chunk needs no device read
+    chunk_vbase: tuple = ()
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.out_block.shape[0])
+
+    @property
+    def padded_segments(self) -> int:
+        return self.n_blocks * self.s_tile
+
+    @property
+    def device(self) -> torch.device:
+        return self.out_block.device
+
+    def to(self, device) -> "BatPlan":
+        return dataclasses.replace(
+            self,
+            out_block=self.out_block.to(device),
+            vblock=self.vblock.to(device),
+            dst3=self.dst3.to(device),
+        )
+
+
+def compute_chunks(out_block: np.ndarray, max_tiles_per_chunk: int) -> tuple:
+    """Window-aligned chunk boundaries: greedy tile ranges of at most
+    `max_tiles_per_chunk`, cut at the last window start within the limit.
+    A window larger than the limit (a hub) is cut mid-window; consecutive
+    chunks then share that window and the executor add-combines it."""
+    max_tiles_per_chunk = min(max(max_tiles_per_chunk, 1), MAX_PREFETCH_TILES)
+    T = len(out_block)
+    if max_tiles_per_chunk <= 0 or T <= max_tiles_per_chunk:
+        return ()
+    first = np.concatenate([[0], np.nonzero(np.diff(out_block))[0] + 1])
+    chunks = []
+    t0 = 0
+    while t0 < T:
+        limit = t0 + max_tiles_per_chunk
+        if limit >= T:
+            t1 = T
+        else:
+            k = np.searchsorted(first, limit, side="right") - 1
+            t1 = int(first[k])
+            if t1 <= t0:
+                t1 = limit  # hub window: cut mid-window
+        w0, w1 = int(out_block[t0]), int(out_block[t1 - 1]) + 1
+        chunks.append((int(t0), int(t1), w0, w1))
+        t0 = t1
+    return tuple(chunks) if len(chunks) > 1 else ()
+
+
+def build_bat_plan_host(
+    dst: np.ndarray,
+    num_segments: int,
+    *,
+    e_tile: int = 512,
+    s_tile: int = 256,
+    km_pack: int = 0,
+    max_chunk_tiles: int = MAX_PREFETCH_TILES,
+):
+    """Host arrays + meta for a BatPlan over a dst-sorted edge list."""
+    if km_pack > 1:
+        raise NotImplementedError(
+            "packed BAT plans (km_pack > 1) are not ported yet: ROADMAP A.5 / B.3"
+        )
+    dst = np.asarray(dst, np.int64)
+    nnz = int(dst.shape[0])
+    if nnz > 1 and not bool(np.all(dst[1:] >= dst[:-1])):
+        raise ValueError("dst must be sorted ascending; use sort_edges_by_dst first")
+    if nnz and int(dst[-1]) >= num_segments:
+        raise ValueError(
+            f"dst contains id {int(dst[-1])} >= num_segments={num_segments}"
+        )
+    n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
+    n_vblocks = max(_cdiv(nnz, e_tile), 1)
+
+    win = dst // s_tile
+    blk = np.arange(nnz, dtype=np.int64) // e_tile
+    key = win * n_vblocks + blk  # lexicographic (win, blk); non-decreasing
+    # key is already sorted: O(n) run-compaction
+    if nnz:
+        head = np.empty(nnz, bool)
+        head[0] = True
+        np.not_equal(key[1:], key[:-1], out=head[1:])
+        uniq = key[head]
+    else:
+        uniq = key
+    ob = (uniq // n_vblocks).astype(np.int32)
+    vb = (uniq % n_vblocks).astype(np.int32)
+    # coverage tiles for empty windows (the kernel writes every out block)
+    missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), ob,
+                           assume_unique=False)
+    if len(missing):
+        ob = np.concatenate([ob, missing])
+        vb = np.concatenate([vb, np.zeros(len(missing), np.int32)])
+        order = np.argsort(ob, kind="stable")
+        ob, vb = ob[order], vb[order]
+        # coverage tiles inherit the running block: vblock stays
+        # non-decreasing
+        vb = np.maximum.accumulate(vb).astype(np.int32)
+
+    # one extra all--1 dst block at index n_vblocks: the sentinel target
+    # for pad tiles — matches no window, adds nothing
+    dst_pad = np.full((n_vblocks + 1) * e_tile, -1, np.int32)
+    dst_pad[:nnz] = dst
+    dst3 = dst_pad.reshape(n_vblocks + 1, 1, e_tile)
+
+    arrays = dict(out_block=ob, vblock=vb, dst3=dst3)
+    meta = dict(
+        e_tile=int(e_tile),
+        s_tile=int(s_tile),
+        num_segments=int(num_segments),
+        n_blocks=int(n_blocks),
+        num_edges=nnz,
+        n_vblocks=int(n_vblocks),
+        km_pack=0,
+        chunks=compute_chunks(ob, max_chunk_tiles),
+        chunk_blocks=0,
+        chunk_vblocks=0,
+    )
+    _uniformize_bat_chunks(arrays, meta)
+    return arrays, meta
+
+
+def _uniformize_bat_chunks(arrays: dict, meta: dict) -> None:
+    """Pad every chunk to identical (tiles, windows). Pad tiles cover the
+    extra windows once each and read the sentinel value block. (On the TPU
+    this lets every chunk share one compiled kernel; the port keeps it so
+    its plans equal the reference's.)"""
+    chunks = meta["chunks"]
+    if not chunks:
+        return
+    ob, vb = arrays["out_block"], arrays["vblock"]
+    T_max = max(t1 - t0 for t0, t1, _, _ in chunks)
+    W_max = max(w1 - w0 for _, _, w0, w1 in chunks)
+    n_c = len(chunks)
+    new_ob = np.zeros(n_c * T_max, ob.dtype)
+    new_vb = np.zeros(n_c * T_max, vb.dtype)
+    new_chunks = []
+    for i, (t0, t1, w0, w1) in enumerate(chunks):
+        nt = t1 - t0
+        base = i * T_max
+        new_ob[base : base + nt] = ob[t0:t1]
+        new_vb[base : base + nt] = vb[t0:t1]
+        pad_windows = list(range(w1, w0 + W_max))
+        pad_ob = (pad_windows + [w0 + W_max - 1] * T_max)[: T_max - nt]
+        new_ob[base + nt : base + T_max] = np.asarray(pad_ob, ob.dtype)
+        # pad tiles read the sentinel (-1) dst block
+        new_vb[base + nt : base + T_max] = meta["n_vblocks"]
+        new_chunks.append((base, base + T_max, int(w0), int(w1)))
+    arrays["out_block"], arrays["vblock"] = new_ob, new_vb
+    meta["chunks"] = tuple(new_chunks)
+    meta["chunk_blocks"] = int(W_max)
+    vspan = 1
+    for t0, t1, _, _ in chunks:
+        real = vb[t0:t1][vb[t0:t1] < meta["n_vblocks"]]
+        if len(real):
+            vspan = max(vspan, int(real[-1]) - int(real[0]) + 1)
+    meta["chunk_vblocks"] = int(vspan)
+
+
+def _check_window_order(ob: np.ndarray, vb: np.ndarray, n_vblocks: int) -> None:
+    """The CUDA kernel meets a window's edges in dst order: out_block must
+    be non-decreasing and a window's real tiles must have increasing
+    vblock. Plans from `build_bat_plan_host` always are."""
+    if len(ob) > 1 and not bool(np.all(ob[1:] >= ob[:-1])):
+        raise ValueError("BatPlan out_block must be non-decreasing")
+    real = vb < n_vblocks
+    o, v = ob[real], vb[real]
+    if len(o) > 1 and not bool(np.all((o[1:] != o[:-1]) | (v[1:] > v[:-1]))):
+        raise ValueError("BatPlan: a window's real tiles must have increasing vblock")
+
+
+def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    ob, vb = arrays["out_block"], arrays["vblock"]
+    _check_window_order(ob, vb, meta["n_vblocks"])
+    vbase = tuple(min(int(vb[c[0]]), meta["n_vblocks"]) for c in meta["chunks"])
+    return BatPlan(
+        out_block=torch.from_numpy(np.ascontiguousarray(arrays["out_block"])).to(dev),
+        vblock=torch.from_numpy(np.ascontiguousarray(arrays["vblock"])).to(dev),
+        dst3=torch.from_numpy(np.ascontiguousarray(arrays["dst3"])).to(dev),
+        chunk_vbase=vbase,
+        **meta,
+    )
+
+
+def build_bat_plan(dst, num_segments: int, *, device=None, **kwargs) -> BatPlan:
+    arrays, meta = build_bat_plan_host(dst, num_segments, **kwargs)
+    return bat_plan_from_host(arrays, meta, device=device)
+
+
+def with_chunks(bp: BatPlan, chunks: tuple) -> BatPlan:
+    """`bp` with its chunk schedule replaced by ragged chunks over its own
+    tiles (e.g. `compute_chunks` at a smaller cap, to force a split hub
+    window), keeping `chunk_vbase` in step and dropping the uniform-chunk
+    sizes. Reads vblock back to the host once."""
+    vb = bp.vblock.cpu().numpy()
+    vbase = tuple(min(int(vb[c[0]]), bp.n_vblocks) for c in chunks)
+    return dataclasses.replace(bp, chunks=tuple(chunks), chunk_vbase=vbase,
+                               chunk_blocks=0, chunk_vblocks=0)
+
+
+def packed_width(n: int) -> int:
+    """Smallest divisor of 128 that fits n (packed lane width), or 0 if n
+    needs the full-width path."""
+    for d in (8, 16, 32, 64):
+        if n <= d:
+            return d
+    return 0

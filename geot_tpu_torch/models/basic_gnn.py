@@ -1,0 +1,73 @@
+"""Stacked-conv GNN for inference.
+
+Port of `geot_tpu/models/basic_gnn.py:32-107` (`BasicGNN`, `GCN`) for
+`jk=None`, `norm=None`, ReLU, dropout (identity in eval mode):
+num_layers convs, each but the last followed by ReLU and dropout, the last
+mapping to `out_features`. Other norm/jk options raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from geot_tpu_torch.graph.structures import Graph
+from geot_tpu_torch.models.conv import GCNConv
+from geot_tpu_torch.utils.device import resolve_device
+
+__all__ = ["BasicGNN", "GCN"]
+
+
+class BasicGNN(nn.Module):
+    """Conv stack. Layer i is `convs[i]` (the reference's `<Conv>_{i}`)."""
+
+    conv_cls: type = GCNConv
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden_features: int,
+        num_layers: int,
+        out_features: Optional[int] = None,
+        *,
+        dropout_rate: float = 0.0,
+        norm: Optional[str] = None,
+        jk: Optional[str] = None,
+        backend: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if norm is not None:
+            raise NotImplementedError(f"norm={norm!r} is not ported (ROADMAP A.8)")
+        if jk is not None:
+            raise NotImplementedError(f"jk={jk!r} is not ported (ROADMAP A.8)")
+        dev = resolve_device(device)
+        self.dropout = nn.Dropout(dropout_rate)
+        out_dim = out_features or hidden_features
+        convs = []
+        width_in = in_features
+        for i in range(num_layers):
+            width = out_dim if i == num_layers - 1 else hidden_features
+            convs.append(self.conv_cls(width_in, width, generator=generator,
+                                       backend=backend, device=dev))
+            width_in = width
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        for i, conv in enumerate(self.convs):
+            x = conv(x, graph)
+            if i == len(self.convs) - 1:
+                break
+            x = torch.relu(x)
+            x = self.dropout(x)
+        return x
+
+
+class GCN(BasicGNN):
+    """GCNConv stack. The graph must include self-loops
+    (`prepare_graph(add_self_loops=True)`)."""
+
+    conv_cls = GCNConv

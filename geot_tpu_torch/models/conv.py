@@ -1,0 +1,157 @@
+"""GCN layer over the fused BAT SpMM.
+
+Port of `geot_tpu/models/conv.py:47-176` (`prepare_graph`,
+`gcn_edge_weight`, `GCNConv`). The aggregation is a direct call into
+`segment_spmm` over a prebuilt `Graph`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from geot_tpu_torch.graph.structures import Graph, build_graph
+from geot_tpu_torch.ops.api import segment_spmm
+from geot_tpu_torch.utils.device import resolve_device
+
+__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "glorot_uniform_"]
+
+
+def prepare_graph(
+    src,
+    dst,
+    num_nodes: int,
+    *,
+    add_self_loops: bool = True,
+    edge_weight=None,
+    normalize: Optional[str] = None,
+    improved: bool = False,
+    e_tile: int = 512,
+    s_tile: int = 256,
+    bat_e_tile: int = 1024,
+    bat_s_tile: int = 256,
+    feature_hint: int = 128,
+    layouts=("bat",),
+    max_chunk_bytes: int = 1 << 30,
+    device=None,
+) -> Graph:
+    """One-time host-side adjacency prep: optionally add self-loops (PyG
+    `add_remaining_self_loops` semantics: existing diagonal edges are
+    replaced by the full diagonal at fill 1, or 2 with `improved`),
+    optionally bake the symmetric GCN normalization into the edge weights
+    (`normalize='gcn'`), dst-sort and build the BAT plans.
+
+    Tiles are explicit (see `build_graph`); the reference's default
+    layouts add the slot layout, which is not ported. Note: with
+    `normalize='gcn'` a BAT-only graph has no cached slot weights, so
+    `GCNConv(normalize=True)` normalizes the weights a second time — the
+    reference does the same (ROADMAP §C). For GCN use `normalize=None`.
+    """
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    if add_self_loops:
+        fill = 2.0 if improved else 1.0
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        loop = np.arange(num_nodes, dtype=np.int32)
+        if edge_weight is not None:
+            edge_weight = np.concatenate(
+                [np.asarray(edge_weight, np.float32)[keep],
+                 np.full(num_nodes, fill, np.float32)]
+            )
+        elif improved:
+            edge_weight = np.concatenate(
+                [np.ones(len(src), np.float32), np.full(num_nodes, fill, np.float32)]
+            )
+        src = np.concatenate([src, loop])
+        dst = np.concatenate([dst, loop])
+    if normalize == "gcn":
+        base = (
+            np.ones(len(src), np.float32)
+            if edge_weight is None
+            else np.asarray(edge_weight, np.float32)
+        )
+        deg = np.zeros(num_nodes, np.float32)
+        np.add.at(deg, dst, base)
+        dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+        edge_weight = dinv[dst] * base * dinv[src]
+    elif normalize is not None:
+        raise ValueError(f"unknown normalize={normalize!r}")
+    return build_graph(
+        src, dst, num_nodes, edge_weight=edge_weight,
+        e_tile=e_tile, s_tile=s_tile, bat_e_tile=bat_e_tile,
+        bat_s_tile=bat_s_tile, feature_hint=feature_hint, layouts=layouts,
+        max_chunk_bytes=max_chunk_bytes, device=device,
+    )
+
+
+def gcn_edge_weight(graph: Graph, dtype=torch.float32) -> torch.Tensor:
+    """Symmetric GCN normalization over an already self-looped graph:
+    w_e = d_dst^-1/2 * base_e * d_src^-1/2 (edge order kept, so the plans
+    stay valid)."""
+    base = (
+        graph.edge_weight.to(dtype)
+        if graph.edge_weight is not None
+        else torch.ones(graph.num_edges, dtype=dtype, device=graph.device)
+    )
+    dst, src = graph.dst.long(), graph.src.long()
+    deg = torch.zeros(graph.num_nodes, dtype=dtype, device=graph.device)
+    deg.index_add_(0, dst, base)
+    dinv = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
+                       torch.zeros_like(deg))
+    return dinv[dst] * base * dinv[src]
+
+
+def glorot_uniform_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """flax `glorot_uniform` (variance scaling 1.0, fan_avg, uniform):
+    U(-a, a) with a = sqrt(6 / (fan_in + fan_out))."""
+    fan_out, fan_in = weight.shape
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        weight.uniform_(-a, a, generator=generator)
+
+
+class GCNConv(nn.Module):
+    """Graph convolution out = A_hat @ (X W) + b, A_hat = D^-1/2 (A+I) D^-1/2.
+
+    `lin` is a bias-free `nn.Linear` (weight [out, in] = the flax kernel
+    transposed) and `bias` a separate parameter, as in the reference's
+    flax module. The graph must already hold self-loops (`prepare_graph`).
+    With `normalize=True` the degree norm is computed per forward (the
+    reference skips it when the graph caches slot weights, which BAT-only
+    graphs never do); `normalize=False` aggregates with the graph's own
+    weights (or unweighted). Parameters are drawn on the CPU from
+    `generator` and moved to `device` (default: the CUDA card).
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        use_bias: bool = True,
+        normalize: bool = True,
+        backend: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.normalize = normalize
+        self.backend = backend
+        self.lin = nn.Linear(in_features, features, bias=False)
+        glorot_uniform_(self.lin.weight, generator)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        x = self.lin(x)
+        w = gcn_edge_weight(graph, x.dtype) if self.normalize else None
+        out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out

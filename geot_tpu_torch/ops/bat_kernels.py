@@ -1,0 +1,138 @@
+"""BAT segment sum: the CUDA kernel's wrapper and its plain version.
+
+Replaces `bat_segment_sum` / `_bat_kernel` of the JAX package
+(`geot_tpu/ops/pallas_segment.py:730-849`). The kernel is
+`ops/csrc/bat_segment_sum.cu`, built by nvcc for sm_90a and called through
+ctypes (see that file for its design and bound). For a tensor on the CPU
+the wrapper runs `bat_segment_sum_plain`; for a CUDA tensor it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from geot_tpu_torch.graph.plan import BatPlan
+from geot_tpu_torch.ops._build import load_kernel
+
+__all__ = ["bat_segment_sum", "bat_segment_sum_plain"]
+
+_KERNEL_COLS = 128  # columns one CUDA block covers (32 lanes x float4)
+
+
+def _bound_fn():
+    fn = load_kernel("bat_segment_sum").geot_bat_segment_sum
+    if fn.argtypes is None:
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [p, i64, i32, p, p, i64, p, p, i32, i32, i32, i32, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bat_segment_sum_plain(
+    bp: BatPlan,
+    vals: torch.Tensor,
+    w_edge: Optional[torch.Tensor] = None,
+    f_tile: int = 128,
+) -> torch.Tensor:
+    """Plain-torch BAT segment sum, the same function as the kernel:
+    for each tile t, sum w[e]*vals[e] over the edges e of value block
+    vblock[t] whose dst lies in window out_block[t], into row dst.
+    Rows e >= vals.shape[0] read as zero, weights e >= len(w_edge) as zero.
+    Returns [n_blocks*s_tile, F] float32 (every row written; empty rows 0).
+    `f_tile` is accepted for the kernel's signature and does not change
+    the result."""
+    del f_tile
+    E, s = bp.e_tile, bp.s_tile
+    dev = vals.device
+    ob = bp.out_block.to(dev).long()
+    edges = bp.vblock.to(dev).long()[:, None] * E + torch.arange(E, device=dev)
+    local = bp.dst3.to(dev).reshape(-1)[edges].long() - ob[:, None] * s
+    keep = (local >= 0) & (local < s)
+    e_idx = edges[keep]
+    rows = (ob[:, None] * s + local)[keep]
+    n_rows = vals.shape[0]
+    ok = e_idx < n_rows
+    v = torch.zeros(e_idx.shape[0], vals.shape[1], dtype=torch.float32, device=dev)
+    v[ok] = vals[e_idx[ok]].float()
+    if w_edge is not None:
+        we = torch.zeros(e_idx.shape[0], dtype=torch.float32, device=dev)
+        okw = e_idx < w_edge.shape[0]
+        we[okw] = w_edge.to(dev).float()[e_idx[okw]]
+        v = v * we[:, None]
+    out = torch.zeros(bp.n_blocks * s, vals.shape[1], dtype=torch.float32, device=dev)
+    return out.index_add_(0, rows, v)
+
+
+def _check(t: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, vals on {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def bat_segment_sum(
+    bp: BatPlan,
+    vals: torch.Tensor,
+    w_edge: Optional[torch.Tensor] = None,
+    f_tile: int = 128,
+) -> torch.Tensor:
+    """Wide BAT segment sum over EDGE-ordered values [>= nnz rows, F_pad]
+    (F_pad a multiple of f_tile, f_tile a multiple of 128) with optional
+    per-edge weights [nnz]. Returns [n_blocks*s_tile, F_pad] float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel and
+    add one to `bat_segment_sum.launches`."""
+    dev = vals.device
+    if dev.type == "cpu":
+        return bat_segment_sum_plain(bp, vals, w_edge, f_tile)
+    if dev.type != "cuda":
+        raise ValueError(f"bat_segment_sum: unsupported device {dev}")
+    _check(vals, "vals", torch.float32, 2, dev)
+    _check(bp.dst3, "dst3", torch.int32, 3, dev)
+    _check(bp.out_block, "out_block", torch.int32, 1, dev)
+    _check(bp.vblock, "vblock", torch.int32, 1, dev)
+    if w_edge is not None:
+        _check(w_edge, "w_edge", torch.float32, 1, dev)
+    F = vals.shape[1]
+    if f_tile % _KERNEL_COLS or F % f_tile:
+        raise ValueError(f"F_pad={F} must be a multiple of f_tile={f_tile}, "
+                         f"itself a multiple of {_KERNEL_COLS}")
+    if bp.e_tile % 32:
+        raise ValueError(f"e_tile={bp.e_tile} must be a multiple of 32")
+    if tuple(bp.dst3.shape) != (bp.n_vblocks + 1, 1, bp.e_tile):
+        raise ValueError(f"dst3 shape {tuple(bp.dst3.shape)} does not match the plan")
+    if bp.vblock.shape != bp.out_block.shape:
+        raise ValueError("vblock and out_block differ in length")
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned")
+    out = torch.empty(bp.n_blocks * bp.s_tile, F, dtype=torch.float32, device=dev)
+    # scratch: each tile's first and last row and their partial sums
+    part_rows = torch.empty(2 * bp.num_tiles, dtype=torch.int32, device=dev)
+    part_vals = torch.empty(2 * bp.num_tiles, F, dtype=torch.float32, device=dev)
+    fn = _bound_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            vals.data_ptr(), vals.shape[0], F,
+            bp.dst3.data_ptr(),
+            None if w_edge is None else w_edge.data_ptr(),
+            0 if w_edge is None else w_edge.shape[0],
+            bp.out_block.data_ptr(), bp.vblock.data_ptr(), bp.num_tiles,
+            bp.n_blocks, bp.e_tile, bp.s_tile, out.data_ptr(),
+            part_rows.data_ptr(), part_vals.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"bat_segment_sum kernel launch failed: cudaError {rc}")
+    bat_segment_sum.launches += 1
+    return out
+
+
+bat_segment_sum.launches = 0
