@@ -1,11 +1,16 @@
 """geot_tpu_torch — the PyTorch/CUDA port of geot_tpu for one NVIDIA H100.
 
 The JAX package `geot_tpu` stays the reference; this package imports
-nothing of it (nor JAX) and keeps its own copies of what it needs. The
-first slice covers GCN inference over block-aligned-tile (BAT) plans:
+nothing of it (nor JAX) and keeps its own copies of what it needs. It
+covers GCN inference and training over block-aligned-tile (BAT) plans:
 
     prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
       -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
+
+The backward of every fused SpMM runs the same kernel over the transpose
+plan; the gradient of per-call edge weights runs `sddmm_bat` (CUDA).
+`models.train` holds the trainer and the checkpoints shared with the JAX
+package.
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain PyTorch version.

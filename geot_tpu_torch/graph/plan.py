@@ -47,7 +47,8 @@ MAX_PREFETCH_TILES = 8192
 class BatPlan:
     """Block-aligned-tile plan (torch tensors on one device).
 
-    out_block: [T] int32, non-decreasing — output window of tile t.
+    out_block: [T] int32, non-decreasing within each chunk — output window
+      of tile t.
     vblock:    [T] int32 — value block of tile t (n_vblocks = the all--1
       sentinel block that uniformization pad tiles point at).
     dst3:      [n_vblocks + 1, 1, e_tile] int32 — dst ids, -1 padded.
@@ -71,6 +72,10 @@ class BatPlan:
     # first value block of each chunk (n_vblocks where a chunk starts with a
     # pad tile), kept on the host so executing a chunk needs no device read
     chunk_vbase: tuple = ()
+    # out_block non-decreasing over the whole plan, as bat_segment_sum needs
+    # when handed the plan whole (pad tiles of uniformized chunks can break
+    # it; such a plan runs chunk by chunk). Checked on the host when made.
+    monotone: bool = False
 
     @property
     def num_tiles(self) -> int:
@@ -230,28 +235,42 @@ def _uniformize_bat_chunks(arrays: dict, meta: dict) -> None:
     meta["chunk_vblocks"] = int(vspan)
 
 
-def _check_window_order(ob: np.ndarray, vb: np.ndarray, n_vblocks: int) -> None:
-    """The CUDA kernel meets a window's edges in dst order: out_block must
-    be non-decreasing and a window's real tiles must have increasing
-    vblock. Plans from `build_bat_plan_host` always are."""
-    if len(ob) > 1 and not bool(np.all(ob[1:] >= ob[:-1])):
-        raise ValueError("BatPlan out_block must be non-decreasing")
+def _check_window_order(
+    ob: np.ndarray, vb: np.ndarray, n_vblocks: int, chunks: tuple = ()
+) -> None:
+    """What the CUDA kernels rely on. bat_segment_sum meets a window's
+    edges in dst order: within each chunk (the whole plan when unchunked)
+    out_block must be non-decreasing and a window's real tiles must have
+    increasing vblock. The pad tiles of uniformized chunks may point past
+    the next chunk's first window, so the order is checked per chunk.
+    sddmm_bat writes each edge from its one owner tile: no (vblock,
+    out_block) pair may occur twice among the real tiles. Plans from
+    `build_bat_plan_host` always pass."""
+    for t0, t1 in [(c[0], c[1]) for c in chunks] or [(0, len(ob))]:
+        o, v = ob[t0:t1], vb[t0:t1]
+        if len(o) > 1 and not bool(np.all(o[1:] >= o[:-1])):
+            raise ValueError("BatPlan out_block must be non-decreasing within a chunk")
+        real = v < n_vblocks
+        o, v = o[real], v[real]
+        if len(o) > 1 and not bool(np.all((o[1:] != o[:-1]) | (v[1:] > v[:-1]))):
+            raise ValueError("BatPlan: a window's real tiles must have increasing vblock")
     real = vb < n_vblocks
-    o, v = ob[real], vb[real]
-    if len(o) > 1 and not bool(np.all((o[1:] != o[:-1]) | (v[1:] > v[:-1]))):
-        raise ValueError("BatPlan: a window's real tiles must have increasing vblock")
+    key = ob[real].astype(np.int64) * (n_vblocks + 1) + vb[real]
+    if len(np.unique(key)) != len(key):
+        raise ValueError("BatPlan repeats a (vblock, out_block) tile")
 
 
 def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
     dev = torch.device("cpu") if device is None else torch.device(device)
     ob, vb = arrays["out_block"], arrays["vblock"]
-    _check_window_order(ob, vb, meta["n_vblocks"])
+    _check_window_order(ob, vb, meta["n_vblocks"], meta["chunks"])
     vbase = tuple(min(int(vb[c[0]]), meta["n_vblocks"]) for c in meta["chunks"])
     return BatPlan(
         out_block=torch.from_numpy(np.ascontiguousarray(arrays["out_block"])).to(dev),
         vblock=torch.from_numpy(np.ascontiguousarray(arrays["vblock"])).to(dev),
         dst3=torch.from_numpy(np.ascontiguousarray(arrays["dst3"])).to(dev),
         chunk_vbase=vbase,
+        monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
     )
 
@@ -265,8 +284,10 @@ def with_chunks(bp: BatPlan, chunks: tuple) -> BatPlan:
     """`bp` with its chunk schedule replaced by ragged chunks over its own
     tiles (e.g. `compute_chunks` at a smaller cap, to force a split hub
     window), keeping `chunk_vbase` in step and dropping the uniform-chunk
-    sizes. Reads vblock back to the host once."""
+    sizes. Reads the plan back to the host once, to check the new chunks
+    as `bat_plan_from_host` checks its own."""
     vb = bp.vblock.cpu().numpy()
+    _check_window_order(bp.out_block.cpu().numpy(), vb, bp.n_vblocks, tuple(chunks))
     vbase = tuple(min(int(vb[c[0]]), bp.n_vblocks) for c in chunks)
     return dataclasses.replace(bp, chunks=tuple(chunks), chunk_vbase=vbase,
                                chunk_blocks=0, chunk_vblocks=0)

@@ -32,7 +32,8 @@ class Graph:
     src, dst: [nnz] int32, sorted by dst ascending.
     edge_weight: [nnz] float32 or None — static per-edge weights.
     bat / bat_t: forward plan (reduce over dst) and transpose plan (reduce
-      over src, edges sorted by src; drives the backward, not yet ported).
+      over src, edges sorted by src; drives the backward of every fused
+      SpMM).
     perm_t: [nnz] int32 — dst-sorted position of the e-th src-sorted edge.
     dst_t, edge_weight_t: dst[perm_t], edge_weight[perm_t].
     The reference's slot-layout fields (plan, w_slots, ...) are absent: the

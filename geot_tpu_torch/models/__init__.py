@@ -1,6 +1,15 @@
 from geot_tpu_torch.models.basic_gnn import GCN, BasicGNN
 from geot_tpu_torch.models.conv import GCNConv, gcn_edge_weight, prepare_graph
-from geot_tpu_torch.models.weights import params_from_flax
+from geot_tpu_torch.models.train import (
+    accuracy,
+    cross_entropy_loss,
+    load_checkpoint,
+    make_optimizer,
+    make_train_step,
+    save_checkpoint,
+    train_node_classifier,
+)
+from geot_tpu_torch.models.weights import params_from_flax, params_to_flax
 
 __all__ = [
     "GCN",
@@ -9,4 +18,12 @@ __all__ = [
     "gcn_edge_weight",
     "prepare_graph",
     "params_from_flax",
+    "params_to_flax",
+    "cross_entropy_loss",
+    "accuracy",
+    "make_optimizer",
+    "make_train_step",
+    "train_node_classifier",
+    "save_checkpoint",
+    "load_checkpoint",
 ]

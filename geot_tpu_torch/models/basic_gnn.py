@@ -1,9 +1,11 @@
-"""Stacked-conv GNN for inference.
+"""Stacked-conv GNN.
 
 Port of `geot_tpu/models/basic_gnn.py:32-107` (`BasicGNN`, `GCN`) for
-`jk=None`, `norm=None`, ReLU, dropout (identity in eval mode):
-num_layers convs, each but the last followed by ReLU and dropout, the last
-mapping to `out_features`. Other norm/jk options raise.
+`jk=None`, `norm=None`, ReLU and dropout: num_layers convs, each but the
+last followed by ReLU and dropout, the last mapping to `out_features`.
+Other norm/jk options raise. Dropout is the identity in eval mode; in
+training mode its masks come from the `torch.Generator` the caller passes
+to `forward`, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class BasicGNN(nn.Module):
         if jk is not None:
             raise NotImplementedError(f"jk={jk!r} is not ported (ROADMAP A.8)")
         dev = resolve_device(device)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = float(dropout_rate)
         out_dim = out_features or hidden_features
         convs = []
         width_in = in_features
@@ -56,13 +58,33 @@ class BasicGNN(nn.Module):
             width_in = width
         self.convs = nn.ModuleList(convs)
 
-    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """flax `nn.Dropout`: keep with probability 1 - rate, scale kept
+        values by 1 / (1 - rate)."""
+        rate = self.dropout_rate
+        if not self.training or rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs an explicit torch.Generator")
+        if generator.device != x.device:
+            raise ValueError(f"dropout generator is on {generator.device}, "
+                             f"activations on {x.device}: pass a generator on "
+                             f"the activations' device")
+        if rate >= 1.0:
+            return torch.zeros_like(x)
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        keep = u >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    def forward(
+        self, x: torch.Tensor, graph: Graph, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         for i, conv in enumerate(self.convs):
             x = conv(x, graph)
             if i == len(self.convs) - 1:
                 break
             x = torch.relu(x)
-            x = self.dropout(x)
+            x = self._dropout(x, generator)
         return x
 
 

@@ -1,9 +1,10 @@
-"""Carry the reference's flax GCN parameters into the port.
+"""Carry GCN parameters between the reference's flax layout and the port.
 
 The flax tree of `geot_tpu.models.GCN` holds, for layer i,
 `GCNConv_{i}/Dense_0/kernel` [in, out] and `GCNConv_{i}/bias` [out].
 The port's `GCN` keeps them as `convs.{i}.lin.weight` [out, in] (the
-kernel transposed) and `convs.{i}.bias`.
+kernel transposed) and `convs.{i}.bias`. `params_from_flax` and
+`params_to_flax` are inverses.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax"]
+__all__ = ["params_from_flax", "params_to_flax"]
 
 _LAYER = re.compile(r"^GCNConv_(\d+)$")
+_STATE = re.compile(r"^convs\.(\d+)\.(lin\.weight|bias)$")
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -39,3 +41,20 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 np.asarray(layer["bias"], np.float32).copy()
             )
     return state
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The flax params tree {"params": {"GCNConv_i": {"Dense_0": {"kernel"},
+    "bias"}}} of float32 numpy arrays, from the port's `GCN` state dict."""
+    tree: Dict[str, Dict] = {}
+    for key, value in state.items():
+        m = _STATE.match(key)
+        if m is None:
+            raise ValueError(f"unexpected parameter {key!r}: only GCNConv layers port")
+        layer = tree.setdefault(f"GCNConv_{int(m.group(1))}", {})
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if m.group(2) == "bias":
+            layer["bias"] = arr.copy()
+        else:
+            layer["Dense_0"] = {"kernel": np.ascontiguousarray(arr.T)}
+    return {"params": tree}

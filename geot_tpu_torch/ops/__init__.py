@@ -1,10 +1,25 @@
-from geot_tpu_torch.ops.api import dispatch_path, segment_counts, segment_spmm
+from geot_tpu_torch.ops.api import (
+    dispatch_path,
+    gather_scatter,
+    gather_weight_scatter,
+    index_scatter,
+    sddmm_coo,
+    segment_counts,
+    segment_spmm,
+)
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
 
 __all__ = [
     "dispatch_path",
     "segment_counts",
     "segment_spmm",
+    "gather_scatter",
+    "gather_weight_scatter",
+    "index_scatter",
+    "sddmm_coo",
     "bat_segment_sum",
     "bat_segment_sum_plain",
+    "sddmm_bat",
+    "sddmm_bat_plain",
 ]

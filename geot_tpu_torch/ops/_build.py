@@ -36,7 +36,10 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 300
 
 # kernel name -> source file under ops/csrc/
-SOURCES: Dict[str, str] = {"bat_segment_sum": "bat_segment_sum.cu"}
+SOURCES: Dict[str, str] = {
+    "bat_segment_sum": "bat_segment_sum.cu",
+    "sddmm_bat": "sddmm_bat.cu",
+}
 
 # loaded libraries of this process, by kernel name
 _LIBS: Dict[str, ctypes.CDLL] = {}

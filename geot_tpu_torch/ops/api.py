@@ -1,11 +1,17 @@
-"""Fused SpMM over BAT plans: the forward half of the reference op API.
+"""Fused SpMM and SDDMM over BAT plans, with their gradients.
 
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_f_tile` :87,
-`_chunk_plan` :107, `_plan_sum_chunked` :182,
-`_bat_sum` :335 (wide branch), `_spmm_fwd_bat` :750, `dispatch_path`
-:1298, `segment_spmm` :1367). Forward only: the transpose-plan backward
-(`_make_gws_bat`, `_make_gs_bat` as `torch.autograd.Function`s with the
-SDDMM weight gradient) is ROADMAP A.3 / A.6.
+`_chunk_plan` :107, `_plan_sum_chunked` :182, `_bat_sum` :335 (wide
+branch), `_spmm_fwd_bat` :750, `_make_gs_bat` :875, `_make_gws_bat` :900,
+`_make_iscat` :1092 (BatPlan branch), `_apply_reduce_post` :1159,
+`index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter`
+:1256, `dispatch_path` :1298, `segment_spmm` :1367, `_sddmm_bat_fwd`
+:1678, `sddmm_coo` :1704), BAT routes only.
+
+Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
+fused SpMM runs the same BAT kernel over the transpose plan `bat_t`; the
+gradient of per-call edge weights comes from the BAT SDDMM kernel. A
+gradient is computed only for the inputs that ask for one.
 """
 
 from __future__ import annotations
@@ -15,15 +21,29 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from geot_tpu_torch.graph.plan import BatPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
 
-__all__ = ["segment_spmm", "dispatch_path", "segment_counts"]
+__all__ = [
+    "segment_spmm",
+    "dispatch_path",
+    "segment_counts",
+    "gather_scatter",
+    "gather_weight_scatter",
+    "index_scatter",
+    "sddmm_coo",
+]
 
 BACKENDS = ("auto", "reference")
+# largest edge-order b-side gather [nnz, max(F, 128)] f32 the SDDMM kernel
+# path may materialise; past it the weight gradient comes from
+# sddmm_coo_ref (the reference's GEOT_SDDMM_MAX_BYTES default)
+SDDMM_MAX_BYTES = 4 << 30
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,6 +70,7 @@ def _chunk_plan(plan: BatPlan, c) -> BatPlan:
         chunks=(),
         chunk_blocks=0,
         chunk_vbase=(),
+        monotone=True,  # checked per chunk when the plan was made
     )
 
 
@@ -173,6 +194,162 @@ def segment_counts(bp: BatPlan) -> torch.Tensor:
     return out.index_add_(0, d[keep], torch.ones_like(d[keep], dtype=torch.float32))
 
 
+def _sddmm_bat_fwd(
+    bp: BatPlan, a: torch.Tensor, b: torch.Tensor, src: torch.Tensor
+) -> torch.Tensor:
+    """Per-edge dots <a[dst_e], b[src_e]> via the BAT SDDMM kernel: the a
+    side (dst rows) is read by window, the b side is gathered in edge
+    order. Returns [nnz] float32 in edge order.
+
+    a's rows pad to the plan's windows plus the chunk-margin windows (pad
+    tiles of uniformized chunks may point past n_blocks); b's gather pads
+    to whole value blocks (pad rows gather node 0 and meet only -1 dst
+    ids). The reference pads its gather further to a TPU-friendly size;
+    the trimmed result does not depend on it."""
+    n = a.shape[1]
+    f_tile = _pick_f_tile(n)
+    f_pad = _round_up(max(n, 1), f_tile)
+    margin = bp.chunk_blocks if bp.chunks else 0
+    rows_a = (bp.n_blocks + margin) * bp.s_tile
+    a_p = F.pad(a.float(), (0, f_pad - n, 0, rows_a - a.shape[0])).contiguous()
+    b_p = F.pad(b.float(), (0, f_pad - n)) if f_pad != n else b.float()
+    nnz = src.shape[0]
+    src_pad = F.pad(src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
+    b_vals = b_p.index_select(0, src_pad)
+    return sddmm_bat(bp, a_p, b_vals, f_tile=f_tile)[:nnz]
+
+
+class _GatherScatterBat(torch.autograd.Function):
+    """Unweighted fused SpMM over the BAT plan; backward = the same sum
+    over the transpose plan (`_make_gs_bat`)."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst_t, bat, bat_t):
+        ctx.save_for_backward(dst_t)
+        ctx.bat_t = bat_t
+        return _spmm_fwd_bat(bat, x, src, None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (dst_t,) = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _spmm_fwd_bat(ctx.bat_t, g.contiguous(), dst_t, None)
+        return dx, None, None, None, None
+
+
+class _GatherWeightScatterBat(torch.autograd.Function):
+    """Weighted fused SpMM over the BAT plan (`_make_gws_bat`).
+
+    static_w=True: `w` is a graph constant and `w_t_or_perm` its
+    transpose-order copy; no gradient for `w`. static_w=False: per-call
+    weights, `w_t_or_perm` is perm_t (transpose weights are w[perm_t]) and
+    dw comes from the SDDMM kernel. dx = the weighted sum over `bat_t`."""
+
+    @staticmethod
+    def forward(ctx, x, w, src, dst, dst_t, w_t_or_perm, bat, bat_t, static_w):
+        ctx.static_w = static_w
+        ctx.bat, ctx.bat_t = bat, bat_t
+        want_dw = not static_w and ctx.needs_input_grad[1]
+        ctx.save_for_backward(x if want_dw else None, w, src, dst, dst_t, w_t_or_perm)
+        return _spmm_fwd_bat(bat, x, src, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, src, dst, dst_t, w_t_or_perm = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_t = w_t_or_perm if ctx.static_w else w[w_t_or_perm.long()]
+            dx = _spmm_fwd_bat(ctx.bat_t, g, dst_t, w_t)
+        if not ctx.static_w and ctx.needs_input_grad[1]:
+            # dw[e] = <g[dst_e], x[src_e]>: the SDDMM kernel while its
+            # edge-order gather fits the budget
+            if src.shape[0] * max(x.shape[1], 128) * 4 <= SDDMM_MAX_BYTES:
+                dw = _sddmm_bat_fwd(ctx.bat, g, x, src)
+            else:
+                dw = ref.sddmm_coo_ref(src, dst, g, x)
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None, None, None, None
+
+
+class _IndexScatterBat(torch.autograd.Function):
+    """Sorted segment sum of edge-ordered rows through the BAT kernel (the
+    `BatPlan` branch of `_make_iscat`); backward dvals = g[index]."""
+
+    @staticmethod
+    def forward(ctx, vals, index, plan):
+        ctx.save_for_backward(index)
+        n = vals.shape[1]
+        f_pad = _round_up(max(n, 1), _pick_f_tile(n))
+        v = F.pad(vals, (0, f_pad - n)) if f_pad != n else vals.contiguous()
+
+        def vals_fn(e_begin, size):
+            # a chunk's slice may run past the end: the kernel reads the
+            # missing rows as zero
+            return v if e_begin is None else v[e_begin : e_begin + size]
+
+        out = _bat_sum(plan, vals_fn, f_pad)
+        return out[:, :n] if f_pad != n else out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        dvals = g.index_select(0, index.long()) if ctx.needs_input_grad[0] else None
+        return dvals, None, None
+
+
+class _SddmmBat(torch.autograd.Function):
+    """out[e] = <a[dst_e], b[src_e]> through the SDDMM kernel. Backward:
+    da = sum_e g_e b[src_e] by dst (the weighted sum over `bat`) and
+    db = sum_e g_e a[dst_e] by src (over `bat_t`, weights g[perm_t])."""
+
+    @staticmethod
+    def forward(ctx, a, b, src, dst_t, perm_t, bat, bat_t):
+        ctx.save_for_backward(a, b, src, dst_t, perm_t)
+        ctx.bat, ctx.bat_t = bat, bat_t
+        return _sddmm_bat_fwd(bat, a, b, src)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b, src, dst_t, perm_t = ctx.saved_tensors
+        g = g.contiguous().float()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _spmm_fwd_bat(ctx.bat, b, src, g).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _spmm_fwd_bat(ctx.bat_t, a, dst_t, g[perm_t.long()]).to(b.dtype)
+        return da, db, None, None, None, None, None
+
+
+def _apply_reduce_post(out_sum: torch.Tensor, bp: BatPlan, reduce: str) -> torch.Tensor:
+    """mean = sum / in-degree, outside the autograd Functions."""
+    if reduce == "sum":
+        return out_sum
+    if reduce == "mean":
+        deg = segment_counts(bp)
+        shape = (-1,) + (1,) * (out_sum.dim() - 1)
+        return out_sum / torch.clamp(deg, min=1.0).reshape(shape).to(out_sum.dtype)
+    raise ValueError(f"unsupported fused reduce {reduce!r}")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
+
+
+def _bat_of(graph: Graph) -> BatPlan:
+    if graph.bat is None:
+        raise NotImplementedError(
+            "graph has no BAT plan: the slot-layout routes are ROADMAP A.9"
+        )
+    return graph.bat
+
+
 def dispatch_path(
     graph: Graph,
     *,
@@ -185,15 +362,11 @@ def dispatch_path(
     (per-call weights) or 'xla' (the plain reference; the name is the
     reference's). The reference's other routes — hybrid, bucketed, slot,
     slot_static, slot_dyn — raise NotImplementedError."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
+    _check_backend(backend)
     in_sum = reduce in ("sum", "mean")
     if backend == "reference" or not in_sum:
         return "xla"
-    if graph.bat is None:
-        raise NotImplementedError(
-            "graph has no BAT plan: the slot-layout routes are ROADMAP A.9"
-        )
+    _bat_of(graph)
     if not dynamic_w and graph.edge_weight is not None:
         return "bat_static"
     if not dynamic_w:
@@ -212,12 +385,9 @@ def segment_spmm(
     """Model-facing fused SpMM over a prebuilt Graph:
     out[d] = reduce over edges (s -> d) of w_e * x[s] (w_e = 1 unweighted).
     `edge_weight` (per call, dst-sorted edge order) overrides the graph's
-    static weights. Forward only."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "segment_spmm has no backward yet (transpose-plan autograd.Function "
-            "is ROADMAP A.3); call it under torch.no_grad() or inference_mode()"
-        )
+    static weights. Differentiable in `x` and in a per-call
+    `edge_weight`: the backward runs the transpose plan, and dw the SDDMM
+    kernel."""
     w = edge_weight if edge_weight is not None else graph.edge_weight
     path = dispatch_path(graph, dynamic_w=edge_weight is not None,
                          reduce=reduce, backend=backend)
@@ -227,8 +397,131 @@ def segment_spmm(
         return ref.gather_weight_scatter_ref(
             graph.src, graph.dst, w, x, graph.num_nodes, reduce
         )
-    out = _spmm_fwd_bat(graph.bat, x, graph.src, w)
-    if reduce == "mean":
-        deg = segment_counts(graph.bat)
-        out = out / torch.clamp(deg, min=1.0)[:, None].to(out.dtype)
+    if path == "bat_static":
+        out = _GatherWeightScatterBat.apply(
+            x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
+            graph.edge_weight_t, graph.bat, graph.bat_t, True,
+        )
+    elif path == "bat":
+        out = _GatherScatterBat.apply(x, graph.src, graph.dst_t, graph.bat, graph.bat_t)
+    else:  # bat_dyn
+        out = _GatherWeightScatterBat.apply(
+            x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
+            graph.bat, graph.bat_t, False,
+        )
+    return _apply_reduce_post(out, graph.bat, reduce)
+
+
+def index_scatter(
+    src: torch.Tensor,
+    index: torch.Tensor,
+    num_segments: int,
+    *,
+    reduce: str = "sum",
+    sorted: bool = True,
+    plan: Optional[BatPlan] = None,
+    backend: str = "auto",
+    axis: int = 0,
+) -> torch.Tensor:
+    """Sorted segment reduction out[index[i]] (+)= src[i] along `axis`.
+    With a `BatPlan` over `index` (sum or mean) the rows stream through the
+    BAT kernel in edge order; otherwise the plain reference runs. The
+    reference also asks its TPU tuning table whether a small call should
+    take the plain path instead; that table is a TPU measurement and is not
+    carried over. `sorted` is the reference's hint and changes nothing."""
+    del sorted
+    _check_backend(backend)
+    if axis != 0:
+        src = src.movedim(axis, 0)
+    if plan is not None and backend == "auto" and reduce in ("sum", "mean"):
+        if not isinstance(plan, BatPlan):
+            raise NotImplementedError("slot-layout plans are ROADMAP A.9")
+        if num_segments != plan.num_segments:
+            raise ValueError(f"num_segments={num_segments} but the plan has "
+                             f"{plan.num_segments}")
+        shape = src.shape
+        out = _IndexScatterBat.apply(src.reshape(shape[0], -1), index, plan)
+        out = _apply_reduce_post(out, plan, reduce)
+        out = out.reshape((out.shape[0],) + tuple(shape[1:]))
+    else:
+        out = ref.segment_reduce_ref(src, index, num_segments, reduce)
+    if axis != 0:
+        out = out.movedim(0, axis)
     return out
+
+
+def gather_scatter(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    src: torch.Tensor,
+    num_segments: int,
+    *,
+    reduce: str = "sum",
+    graph: Optional[Graph] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Unweighted fused SpMM over a dst-sorted COO edge list:
+    out[dst[e]] (+)= src[src[e]]. With `graph` (a prebuilt Graph whose
+    src/dst are these indices) it runs over the BAT plan, with the
+    transpose-plan backward; otherwise the plain reference."""
+    _check_backend(backend)
+    if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
+        out = _GatherScatterBat.apply(src, graph.src, graph.dst_t, _bat_of(graph),
+                                      graph.bat_t)
+        return _apply_reduce_post(out, graph.bat, reduce)
+    return ref.gather_scatter_ref(src_index, dst_index, src, num_segments, reduce)
+
+
+def gather_weight_scatter(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    weight: torch.Tensor,
+    src: torch.Tensor,
+    num_segments: int,
+    *,
+    reduce: str = "sum",
+    graph: Optional[Graph] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Edge-weighted fused SpMM: out[dst[e]] (+)= weight[e] * src[src[e]].
+    With `graph` it runs over the BAT plan: dsrc over the transpose plan,
+    dweight through the SDDMM kernel."""
+    _check_backend(backend)
+    if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
+        out = _GatherWeightScatterBat.apply(
+            src, weight, graph.src, graph.dst, graph.dst_t, graph.perm_t,
+            _bat_of(graph), graph.bat_t, False,
+        )
+        return _apply_reduce_post(out, graph.bat, reduce)
+    return ref.gather_weight_scatter_ref(
+        src_index, dst_index, weight, src, num_segments, reduce
+    )
+
+
+def sddmm_coo(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    graph: Optional[Graph] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Per-edge dot product out[e] = <a[dst[e]], b[src[e]]>. With a graph
+    that has a BAT plan (and whose src/dst are these indices) the SDDMM
+    kernel runs, while its edge-order gather fits SDDMM_MAX_BYTES; its
+    gradients are the weighted sums over `bat` and `bat_t`. The
+    reference's width gate (b.shape[1] >= 64) is a TPU measurement and is
+    not carried over."""
+    _check_backend(backend)
+    if (
+        graph is not None
+        and graph.bat is not None
+        and backend == "auto"
+        and src_index.shape[0] * max(b.shape[1], 128) * 4 <= SDDMM_MAX_BYTES
+    ):
+        if src_index.shape[0] != graph.num_edges:
+            raise ValueError("src_index does not match the graph's edges")
+        return _SddmmBat.apply(a, b, graph.src, graph.dst_t, graph.perm_t,
+                               graph.bat, graph.bat_t)
+    return ref.sddmm_coo_ref(src_index, dst_index, a, b)

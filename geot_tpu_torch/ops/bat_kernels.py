@@ -88,8 +88,16 @@ def bat_segment_sum(
     (F_pad a multiple of f_tile, f_tile a multiple of 128) with optional
     per-edge weights [nnz]. Returns [n_blocks*s_tile, F_pad] float32.
 
+    The kernel finds each window's tiles by a binary search over
+    out_block, so the plan must be ordered as a whole (`bp.monotone`). A
+    uniformized chunked plan whose pad tiles break that order is refused
+    on every device; run it chunk by chunk, as `segment_spmm` does.
+
     CPU tensors run the plain version; CUDA tensors launch the kernel and
     add one to `bat_segment_sum.launches`."""
+    if not bp.monotone:
+        raise ValueError("bat_segment_sum: out_block is not non-decreasing over "
+                         "the whole plan; run its chunks one by one")
     dev = vals.device
     if dev.type == "cpu":
         return bat_segment_sum_plain(bp, vals, w_edge, f_tile)

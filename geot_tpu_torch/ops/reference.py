@@ -1,15 +1,21 @@
 """Plain-torch oracles for the fused gather(-weight)-scatter ops.
 
 Port of `geot_tpu/ops/reference.py:37-105` (`segment_reduce_ref` for sum
-and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`). They share
-no code with the tiled path, so tests hold that path against them.
+and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`) and `:117-127`
+(`sddmm_coo_ref`). They share no code with the tiled path, so tests hold
+that path against them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_reduce_ref", "gather_scatter_ref", "gather_weight_scatter_ref"]
+__all__ = [
+    "segment_reduce_ref",
+    "gather_scatter_ref",
+    "gather_weight_scatter_ref",
+    "sddmm_coo_ref",
+]
 
 VALID_REDUCE = ("sum", "mean")
 
@@ -58,3 +64,14 @@ def gather_weight_scatter_ref(
     """out[dst[e]] += weight[e] * src[src[e]]."""
     vals = src[src_index.long()] * weight[:, None].to(src.dtype)
     return segment_reduce_ref(vals, dst_index, num_segments, reduce)
+
+
+def sddmm_coo_ref(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+) -> torch.Tensor:
+    """Per-edge dot product: out[e] = <a[dst[e]], b[src[e]]> (the weight
+    gradient of gather_weight_scatter)."""
+    return (a[dst_index.long()] * b[src_index.long()]).sum(dim=-1)

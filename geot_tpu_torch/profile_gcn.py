@@ -1,12 +1,15 @@
-"""Where one GCN inference request spends its time on the card.
+"""Where one GCN inference request, or one training step, spends its time
+on the card.
 
-    python -m geot_tpu_torch.profile_gcn [--requests 3]
+    python -m geot_tpu_torch.profile_gcn [--mode serve|train] [--iters 3]
 
-Builds the configuration `chip_smoke.py` serves (3-layer GCN, hidden 128,
+Builds the configuration `chip_smoke.py` drives (3-layer GCN, hidden 128,
 40 classes, ogbn-arxiv-shaped synthetic graph, seed 0), warms up, then
-traces `--requests` forward passes with `torch.profiler` and prints the
-device time by kernel and the device's busy share of the traced wall time.
-Needs a CUDA card.
+traces `--iters` forward passes (`--mode serve`) or `make_train_step`
+steps (`--mode train`: forward, backward over the
+transpose plan, AdamW with lr 0.01 and weight decay 5e-4) with
+`torch.profiler`, and prints the device time by kernel and the device's
+busy share of the traced wall time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--mode", choices=("serve", "train"), default="serve")
+    ap.add_argument("--iters", type=int, default=3,
+                    help="requests (serve) or training steps (train) to trace")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -27,7 +32,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
-    from geot_tpu_torch.models import GCN, prepare_graph
+    from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
 
     dev = torch.device("cuda")
     n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
@@ -35,21 +40,36 @@ def main(argv=None) -> int:
     g = prepare_graph(data.src, data.dst, n, device=dev)
     x = torch.from_numpy(data.x).to(dev)
     model = GCN(f, 128, 3, c, generator=torch.Generator().manual_seed(args.seed),
-                device=dev).eval()
-    with torch.inference_mode():
-        for _ in range(3):
-            model(x, g)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.requests):
+                device=dev)
+    if args.mode == "serve":
+        model.eval()
+        what = "requests"
+
+        def run():
+            with torch.inference_mode():
                 model(x, g)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+    else:
+        y = torch.from_numpy(data.y.astype("int64")).to(dev)
+        mask = torch.from_numpy(data.train_mask).to(dev)
+        step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
+        what = "training steps"
+
+        def run():
+            step(x, g, y, mask)
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(ev.time_range.elapsed_us() for ev in events)
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15), flush=True)
-    print(f"{torch.cuda.get_device_name(0)}: {args.requests} requests, traced wall "
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20), flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: {args.iters} {what}, traced wall "
           f"{wall_us / 1e3:.4f} ms, device kernel time {busy_us / 1e3:.4f} ms, "
           f"busy share {busy_us / max(wall_us, 1e-9):.4f} "
           f"({len(events)} device events)", flush=True)

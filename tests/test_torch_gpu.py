@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card against its plain version.
+"""The CUDA kernels on the card against their plain versions.
 
 Marked `gpu`; each test skips without a card (decided inside the fixture,
 so every pytest worker collects the same tests). The machine with the card
@@ -11,6 +11,9 @@ Tolerance: the kernel sums each row in edge order in f32, the plain
 version with `index_add_` (atomics on the card, so any order): f32 sums of
 the same terms in two orders, rows of up to ~1500 terms of magnitude ~1,
 so rtol/atol 1e-4 (the reference's own hub-split bound, test_ops.py:362).
+The SDDMM kernel sums each dot lane-wise then by a warp shuffle, the plain
+version with `sum`: f32 sums of the same 40-256 products in two orders,
+held to 1e-4 * sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`).
 """
 
 import dataclasses
@@ -24,6 +27,7 @@ from geot_tpu_torch.graph.structures import build_graph
 from geot_tpu_torch.models import GCN
 from geot_tpu_torch.ops import api
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
 
 pytestmark = pytest.mark.gpu
 TOL_HUB = dict(rtol=1e-4, atol=1e-4)
@@ -93,6 +97,34 @@ def test_segment_spmm_chunked_hub_on_card(cuda):
     torch.testing.assert_close(out2.cpu(), exp, **TOL_HUB)
 
 
+def test_kernel_refuses_plan_out_of_order(cuda):
+    """A uniformized chunked plan whose pad tiles run past the next
+    chunk's first window is not ordered as a whole; the kernel's binary
+    search over out_block would miss tiles, so the wrapper refuses it whole
+    on the card, and segment_spmm runs it chunk by chunk."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    src, dst = _hubby(rng, n, 30000, 3000, hub=3)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    for cap in range(3, 80):
+        bp = tplan.build_bat_plan(dst, n, e_tile=256, s_tile=64, max_chunk_tiles=cap,
+                                  device=cuda)
+        if not bp.monotone:
+            break
+    else:
+        raise AssertionError("no cap gives pad tiles past the next chunk")
+    vals = torch.from_numpy(rng.standard_normal((len(dst), 128)).astype(np.float32)).to(cuda)
+    before = bat_segment_sum.launches
+    with pytest.raises(ValueError, match="non-decreasing over the whole plan"):
+        bat_segment_sum(bp, vals)
+    assert bat_segment_sum.launches == before
+    out = api._bat_sum(bp, lambda e0, size: vals if e0 is None else vals[e0:e0 + size], 128)
+    exp = torch.zeros(n, 128, device=cuda).index_add_(0, torch.from_numpy(dst).long().to(cuda),
+                                                      vals)
+    torch.testing.assert_close(out, exp, **TOL_HUB)
+
+
 def test_gcn_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(5)
     n = 2000
@@ -109,3 +141,101 @@ def test_gcn_on_card_matches_cpu(cuda):
         oc = mc(x.to(cuda), gc)
         oh = mh(x, gh)
     torch.testing.assert_close(oc.cpu(), oh, rtol=1e-4, atol=1e-4)
+
+
+def _chunked_plan_past_n_blocks(dst, n, e_tile, s_tile, device):
+    """A uniformized chunked plan one of whose pad tiles points past
+    n_blocks (the a rows there are chunk-margin pad rows)."""
+    for cap in range(3, 64):
+        bp = tplan.build_bat_plan(dst, n, e_tile=e_tile, s_tile=s_tile,
+                                  max_chunk_tiles=cap, device=device)
+        if bp.chunks and int(bp.out_block.max()) >= bp.n_blocks:
+            return bp
+    raise AssertionError("no chunk cap puts a pad tile past n_blocks")
+
+
+def _sddmm_inputs(bp, rng, f_pad, cuda, ragged):
+    rows_a = (bp.n_blocks + (bp.chunk_blocks if bp.chunks else 0)) * bp.s_tile
+    rows_b = bp.num_edges if ragged else bp.n_vblocks * bp.e_tile
+    a = torch.from_numpy(rng.standard_normal((rows_a, f_pad)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((rows_b, f_pad)).astype(np.float32)).to(cuda)
+    return a, b
+
+
+@pytest.mark.parametrize("f_pad", [128, 256])
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_sddmm_kernel_matches_plain(cuda, f_pad, chunked, ragged):
+    rng = np.random.default_rng(f_pad + 2 * chunked + ragged)
+    n = 700
+    _, dst = _hubby(rng, n, 5000, 1500)
+    dst = np.sort(dst)
+    if chunked:
+        bp = _chunked_plan_past_n_blocks(dst, n, 64, 32, cuda)
+    else:
+        bp = tplan.build_bat_plan(dst, n, e_tile=64, s_tile=32, device=cuda)
+    a, b = _sddmm_inputs(bp, rng, f_pad, cuda, ragged)
+    # NaN in the memory the allocator hands out next: an unwritten or
+    # wrongly read slot shows
+    torch.full(((bp.n_vblocks + 1) * bp.e_tile,), float("nan"), device=cuda)
+    before = sddmm_bat.launches
+    k = sddmm_bat(bp, a, b, f_tile=256 if f_pad == 256 else 128)
+    torch.cuda.synchronize()
+    assert sddmm_bat.launches == before + 1
+    p = sddmm_bat_plain(bp, a, b)
+    lim = 1e-4 * sddmm_bat_plain(bp, a.abs(), b.abs()) + 1e-5
+    assert k.shape == p.shape == ((bp.n_vblocks + 1) * bp.e_tile,)
+    assert torch.isfinite(k).all()
+    assert bool(((k - p).abs() <= lim).all()), float((k - p).abs().max())
+    assert bool((k[bp.num_edges:] == 0).all())
+
+
+def test_sddmm_kernel_deterministic(cuda):
+    rng = np.random.default_rng(3)
+    n = 700
+    _, dst = _hubby(rng, n, 5000, 1500)
+    bp = tplan.build_bat_plan(np.sort(dst), n, e_tile=1024, s_tile=256, device=cuda)
+    a, b = _sddmm_inputs(bp, rng, 128, cuda, False)
+    k = sddmm_bat(bp, a, b)
+    for _ in range(3):
+        torch.testing.assert_close(sddmm_bat(bp, a, b), k, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("needs", ["both", "w_only"])
+def test_gws_grad_kernel_vs_reference(cuda, needs):
+    """The gradient of gather_weight_scatter from the kernel path (dx over
+    the transpose plan, dw from sddmm_bat) against the reference backend's
+    autograd, on a hubby graph whose chunks split a hub window. `w_only`
+    is the case where only the weights need a gradient: the kernel path
+    must still give one."""
+    rng = np.random.default_rng(11)
+    n, F = 300, 48
+    src, dst = _hubby(rng, n, 3000, 1500, hub=3)
+    g = build_graph(src, dst, n, bat_e_tile=64, bat_s_tile=32,
+                    max_chunk_bytes=8 * 64 * 128 * 4, device=cuda)
+    assert len(g.bat.chunks) > 2
+    x0 = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda)
+    w0 = torch.from_numpy(rng.standard_normal(g.num_edges).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda)
+
+    def grads(backend):
+        x = x0.clone().requires_grad_(needs == "both")
+        w = w0.clone().requires_grad_()
+        out = api.gather_weight_scatter(g.src, g.dst, w, x, n, graph=g, backend=backend)
+        torch.vdot(out.reshape(-1), cot.reshape(-1)).backward()
+        return x.grad, w.grad
+
+    before = (sddmm_bat.launches, bat_segment_sum.launches)
+    dx, dw = grads("auto")
+    torch.cuda.synchronize()
+    n_fwd = len(g.bat.chunks)
+    n_bwd = (len(g.bat_t.chunks) or 1) if needs == "both" else 0
+    assert sddmm_bat.launches == before[0] + 1
+    assert bat_segment_sum.launches == before[1] + n_fwd + n_bwd
+    dx_r, dw_r = grads("reference")
+    assert dw is not None
+    torch.testing.assert_close(dw, dw_r, rtol=1e-4, atol=1e-4)
+    if needs == "both":
+        torch.testing.assert_close(dx, dx_r, **TOL_HUB)
+    else:
+        assert dx is None

@@ -215,10 +215,13 @@ def test_wrapper_device_rules():
     bp = tplan.bat_plan_from_host(arrays, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         bat_segment_sum(bp, torch.empty(3, 128, device="meta"))
+    # segment_spmm takes gradients (transpose-plan backward): d sum(out)/dx
+    # is each node's out-degree, in every column
     x = torch.zeros(4, 8, requires_grad=True)
     g = tbuild_graph(np.array([0, 1, 2], np.int32), dst, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="backward"):
-        tapi.segment_spmm(g, x)
+    tapi.segment_spmm(g, x).sum().backward()
+    torch.testing.assert_close(x.grad, torch.tensor([1.0, 1, 1, 0])[:, None].expand(4, 8),
+                               rtol=0, atol=0)
     # a window whose real tiles go back in vblock is refused: the kernel
     # meets a window's edges in dst order
     dst2 = np.array([0] * 40 + [1] * 30, np.int32)

@@ -169,3 +169,51 @@ def test_preprocess_matches():
     np.testing.assert_array_equal(np.asarray(jn[1]), tn[1].numpy())
     np.testing.assert_allclose(np.asarray(jn[2]), tn[2].numpy(), rtol=1e-6, atol=1e-7)
     assert isinstance(tn[2], torch.Tensor)
+
+
+def test_uniformized_pad_tiles_may_overlap_the_next_chunk():
+    """The pad tiles of a uniformized chunk cover windows up to
+    w0 + chunk_blocks, which may lie past the next chunk's first window:
+    out_block is then non-decreasing only within each chunk. Such a plan
+    (the JAX package builds and runs it) is accepted, and the port's sum
+    over it, chunk by chunk, equals the reference. Handed whole to
+    bat_segment_sum, whose kernel binary-searches out_block, it is
+    refused. A (vblock, out_block) tile repeated across two chunks is
+    refused when the plan is made."""
+    from geot_tpu_torch.ops import api as tapi
+    from geot_tpu_torch.ops import reference as tref
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    _, dst = _hub_graph(rng, n, 30000, 3000)
+    dst = np.sort(dst)
+    for cap in (40, 30, 20, 10):
+        ja, jm = jplan.build_bat_plan_host(dst, n, e_tile=256, s_tile=64, max_chunk_tiles=cap)
+        ob = ja["out_block"]
+        if not np.all(ob[1:] >= ob[:-1]):
+            break
+    else:
+        raise AssertionError("no cap gives pad tiles past the next chunk")
+    ta, tm = tplan.build_bat_plan_host(dst, n, e_tile=256, s_tile=64, max_chunk_tiles=cap)
+    _assert_host_equal(ja, jm, ta, tm)
+    bp = tplan.bat_plan_from_host(ta, tm)
+    vals = torch.from_numpy(rng.standard_normal((len(dst), 128)).astype(np.float32))
+    out = tapi._bat_sum(bp, lambda e0, size: vals if e0 is None else vals[e0:e0 + size], 128)
+    exp = tref.segment_reduce_ref(vals, torch.from_numpy(dst), n)
+    torch.testing.assert_close(out, exp, rtol=1e-4, atol=1e-4)
+    assert not bp.monotone
+    assert tplan.build_bat_plan(dst, n, e_tile=256, s_tile=64).monotone
+    with pytest.raises(ValueError, match="non-decreasing over the whole plan"):
+        bat_segment_sum(bp, vals)
+    # the same real tile at the end of one chunk and the start of the next
+    # (a split hub window): each chunk is in order, the plan is refused
+    ch = tm["chunks"]
+    a, b = next((a, b) for a, b in zip(ch[:-1], ch[1:]) if b[2] < a[3])
+    vb = ta["vblock"]
+    last_a = a[0] + int(np.nonzero(vb[a[0]:a[1]] < tm["n_vblocks"])[0][-1])
+    assert ta["out_block"][last_a] == ta["out_block"][b[0]]
+    vb2 = vb.copy()
+    vb2[b[0]] = vb[last_a]
+    with pytest.raises(ValueError, match=r"repeats a \(vblock, out_block\) tile"):
+        tplan.bat_plan_from_host(dict(ta, vblock=vb2), tm)
