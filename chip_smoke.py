@@ -4,10 +4,15 @@ time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width: a 3-layer GCN (hidden 128,
-40 classes) over an ogbn-arxiv-shaped synthetic graph (169,343 nodes,
-1,166,243 edges + self-loops, 128 features), weights from a seeded
-torch.Generator. Phases, each printed with its elapsed seconds:
+Runs the port's main paths at full width. Phases 1-9: a 3-layer GCN
+(hidden 128, 40 classes) over BAT plans of an ogbn-arxiv-shaped synthetic
+graph (169,343 nodes, 1,166,243 edges + self-loops, 128 features).
+Phases 10-14: a 3-layer GCN (100 features, hidden 128, 47 classes) over
+the hybrid stream+gather plans of an ogbn-products-shaped clustered graph
+(2,449,029 nodes, 61,859,140 edges + self-loops; mixing 0.3, communities
+of ~2,000 nodes, Zipf(1.0) degrees; the GCN norm baked in). Weights come
+from a seeded torch.Generator. Phases, each printed with its elapsed
+seconds:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
@@ -32,7 +37,23 @@ torch.Generator. Phases, each printed with its elapsed seconds:
      asserted;
   9. CUDA-event timings of a training step, a backward SpMM over the
      transpose plan, sddmm_bat, its plain version and the library
-     yardstick (torch.sparse.sampled_addmm, never called by the port).
+     yardstick (torch.sparse.sampled_addmm, never called by the port);
+ 10. the products-clustered graph's host build, with the seconds of each
+     step, each direction's split (stream share, families, remainder),
+     and dispatch_path == "hybrid";
+ 11. stream_segment_sum and stream_segment_acc against their plain
+     versions on every stream family of both directions (the forward's and
+     the backward's), weighted, at F 128 and at the last layer's F 47, with
+     bit-identical reruns;
+ 12. 5 GCN requests over the hybrid path, each against the reference path
+     (plain, over edge chunks) run in float64, launches per request
+     asserted;
+ 13. 5 AdamW training steps over the hybrid path, each beside the same step
+     on the reference path, launches per step asserted;
+ 14. CUDA-event timings of each stream kernel per family, its plain
+     version, the library yardstick (torch.sparse.mm over the family's own
+     CSR adjacency), one hybrid SpMM, one forward pass, one training step
+     and torch.sparse.mm over the whole weighted adjacency.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -40,6 +61,7 @@ that stalls past its budget ends the process. Needs a CUDA card: it never
 falls back to the CPU.
 """
 
+import dataclasses
 import faulthandler
 import json
 import subprocess
@@ -53,7 +75,9 @@ SEED = 0
 REQUESTS = 5
 TRAIN_STEPS = 5
 PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
-                  "sddmm": 120, "grad": 120, "train": 240, "timing_train": 180}
+                  "sddmm": 120, "grad": 120, "train": 240, "timing_train": 180,
+                  "hyb_build": 420, "hyb_kernel": 240, "hyb_serve": 240,
+                  "hyb_train": 360, "hyb_timing": 300}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -67,6 +91,8 @@ GRAD_RTOL = 1e-4       # first-step gradients: rtol, atol = GRAD_RTOL * max|g_re
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 LR, WEIGHT_DECAY = 0.01, 5e-4
+# the hybrid path's graph: DATASET_SHAPES["ogbn-products"] widths
+HYB_MIXING, HYB_COMMUNITY = 0.3, 2000
 
 
 def log(msg):
@@ -112,6 +138,303 @@ def bound_ms(n_bytes, n_flops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def expect_launches(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def stream_bound(sp, F, n_x_rows, accumulate):
+    """The least time of one stream kernel launch (its bytes read once and
+    written once: the slot metadata, the x blocks its tiles name, the read
+    and write of the visited windows (accumulate) or the write of every
+    window (sum); or its f32 flops, 2 per real edge and column), and its
+    bytes."""
+    T, E, s = sp.num_tiles, sp.e_tile, sp.s_tile
+    meta = T * E * (8 + (4 if sp.w3 is not None else 0)) + T * 8
+    meta += sp.items.numel() * 4 + sp.merges.numel() * 4
+    blocks = torch.unique(sp.sblock.long())
+    x_rows = (torch.clamp(n_x_rows - blocks * sp.x_rows, max=sp.x_rows, min=0)).sum()
+    x_bytes = int(x_rows) * F * 4
+    visited = int(torch.unique(sp.out_block).numel())
+    win_bytes = s * F * 4
+    out_bytes = 2 * visited * win_bytes if accumulate else sp.n_blocks * win_bytes
+    n_bytes = meta + x_bytes + out_bytes
+    bound, by = bound_ms(n_bytes, 2 * sp.num_edges * F)
+    return bound, by, n_bytes
+
+
+def pad_tiles(sp):
+    """The all -1 tiles the reference's uniformized chunks would add to
+    this family (the port's plans leave them out)."""
+    per = [t1 - t0 for t0, t1, _, _ in sp.chunks]
+    return len(per) * max(per, default=0) - sum(per)
+
+
+def family_csr(sp, n):
+    """The family's own weighted adjacency [n, n] in CSR (for the library
+    yardstick only)."""
+    keep = sp.srcl3.reshape(-1) >= 0
+    rows = sp.dst3.reshape(-1)[keep].long()
+    cols = (sp.sblock.long()[:, None] * sp.x_rows + sp.srcl3.reshape(sp.num_tiles, -1).long())
+    cols = cols.reshape(-1)[keep]
+    vals = sp.w3.reshape(-1)[keep]
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n, n),
+                                   check_invariants=False).coalesce().to_sparse_csr()
+
+
+def run_hybrid(dev, card):
+    """Phases 10-14: GCN serving and training over the hybrid stream+gather
+    path on the ogbn-products-shaped clustered graph. Returns the numbers
+    for the kernels line."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_clustered_graph
+    from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import (
+        stream_segment_acc,
+        stream_segment_acc_plain,
+        stream_segment_sum,
+        stream_segment_sum_plain,
+    )
+
+    counters = {"stream_segment_sum": stream_segment_sum,
+                "stream_segment_acc": stream_segment_acc,
+                "bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # 10. host build
+    arm("hyb_build")
+    n, e, f, c = DATASET_SHAPES["ogbn-products"]
+    t0 = time.perf_counter()
+    data = synthetic_clustered_graph(n, e, mixing=HYB_MIXING, mean_community=HYB_COMMUNITY,
+                                     power=1.0, feat_dim=f, num_classes=c, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = prepare_graph(data.src, data.dst, n, normalize="gcn", layouts=("bat", "stream"),
+                      device=dev)
+    t_prep = time.perf_counter() - t0
+    secs = g.build_stats["seconds"]
+    log(f"phase 10 host build: generate {t_gen:.2f}s; prepare_graph {t_prep:.2f}s "
+        f"(self-loops + gcn norm {t_prep - sum(secs.values()):.2f}s, "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in secs.items()) + ")")
+    log(f"graph: {n} nodes, {g.num_edges} edges (self-loops added), x [{n}, {f}]")
+    for direction, hyb in (("forward", g.hyb), ("transpose", g.hyb_t)):
+        st = g.build_stats["stream"].get(direction)
+        if st is None:
+            log(f"  {direction} split: not built (the forward split was rejected)")
+            continue
+        fams = ", ".join(f"E={sp.e_tile}: {sp.num_tiles} tiles ({pad_tiles(sp)} chunk pad "
+                         f"tiles of the reference left out), {max(len(sp.chunks), 1)} "
+                         f"chunks, {sp.num_edges} edges, {sp.merges.shape[0]} split windows"
+                         for sp in (hyb.stream if hyb is not None else ()))
+        log(f"  {direction} split: stream_frac={st['stream_frac']:.4f}, "
+            f"est hybrid {st['est_hybrid_ms']:.1f} vs margin {st['margin']} x all-BAT "
+            f"{st['est_all_bat_ms']:.1f} (census model units); families [{fams}]; "
+            f"remainder {st['rest_edges']} edges"
+            + (f" in {max(len(hyb.rest.chunks), 1)} BAT chunk(s)" if hyb and hyb.rest else ""))
+    path = api.dispatch_path(g)
+    if path != "hybrid":
+        raise AssertionError(f"dispatch_path is {path!r}, expected 'hybrid'")
+    log("phase 10 dispatch_path(graph) == 'hybrid'")
+    hyb, hyb_t = g.hyb, g.hyb_t
+    x = torch.from_numpy(data.x).to(dev)
+
+    # 11. both stream kernels against plain on every family the main path
+    # runs: the forward's and the transpose's (the backward), at F 128 (the
+    # hidden layers) and F 47 (the last layer; not a multiple of 4, so the
+    # kernel's scalar loads and stores)
+    arm("hyb_kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x128 = torch.randn(n, 128, generator=gen, device=dev)
+    errs = {"stream_segment_sum": 0.0, "stream_segment_acc": 0.0}
+    for F in (128, c):
+        xf = x128 if F == 128 else torch.randn(n, F, generator=gen, device=dev)
+        for direction, h in (("forward", hyb), ("transpose", hyb_t)):
+            for sp in h.stream:
+                what = f"phase 11 {direction} E={sp.e_tile} F={F}"
+                sp_abs = dataclasses.replace(sp, w3=sp.w3.abs())
+                carry0 = torch.randn(sp.n_blocks * sp.s_tile, F, generator=gen, device=dev)
+                k = stream_segment_sum(sp, xf)
+                torch.cuda.synchronize()
+                p = stream_segment_sum_plain(sp, xf)
+                a = stream_segment_sum_plain(sp_abs, xf.abs())
+                errs["stream_segment_sum"] = max(errs["stream_segment_sum"], check_close_abs_sum(
+                    k, p, a, f"{what} stream_segment_sum"))
+                if not torch.equal(stream_segment_sum(sp, xf), k):
+                    raise AssertionError(f"{what}: stream_segment_sum is not deterministic")
+                k = stream_segment_acc(sp, xf, carry0.clone())
+                torch.cuda.synchronize()
+                p = stream_segment_acc_plain(sp, xf, carry0.clone())
+                a = stream_segment_acc_plain(sp_abs, xf.abs(), carry0.abs())
+                errs["stream_segment_acc"] = max(errs["stream_segment_acc"], check_close_abs_sum(
+                    k, p, a, f"{what} stream_segment_acc"))
+                if not torch.equal(stream_segment_acc(sp, xf, carry0.clone()), k):
+                    raise AssertionError(f"{what}: stream_segment_acc is not deterministic")
+    log("phase 11 reruns bit-identical on every family, both directions, F 128 and "
+        f"F {c}")
+    del k, p, a, carry0, xf
+
+    # 12. serve: GCN requests over the hybrid path
+    arm("hyb_serve")
+    kw = dict(conv_kwargs={"normalize": False}, device=dev)
+    model = GCN(f, 128, 3, c, generator=torch.Generator().manual_seed(SEED), **kw).eval()
+    ref_model = GCN(f, 128, 3, c, backend="reference", **kw).eval()
+    ref_model.load_state_dict(model.state_dict())
+
+    def per_spmm(h):
+        return {"stream_segment_sum": 1, "stream_segment_acc": len(h.stream) - 1,
+                "bat_segment_sum": 0 if h.rest is None else max(len(h.rest.chunks), 1),
+                "sddmm_bat": 0}
+
+    fwd = {k: 3 * v for k, v in per_spmm(hyb).items()}
+    outs, req_s = [], []
+    reset()  # count the serving path's launches only
+    with torch.inference_mode():
+        for i in range(REQUESTS):
+            before = counts()
+            ts = time.perf_counter()
+            out = model(x, g)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - ts)
+            expect_launches({k: v - before[k] for k, v in counts().items()}, fwd,
+                            f"hybrid request {i}")
+            outs.append(out)
+    serve = counts()
+    log(f"phase 12 serve: {REQUESTS} requests, launches {serve} "
+        f"(per request {fwd}); request s: " + ", ".join(f"{t:.4f}" for t in req_s))
+    # the oracle: the reference path (plain, over edge chunks) in float64.
+    # In float32 its hub rows (up to ~4 M terms, summed by index_add_ in
+    # whatever order the atomics take) carry an error of their own near
+    # 1e-4, so the float32 reference path is logged against it too.
+    ref64 = GCN(f, 128, 3, c, backend="reference", **kw).double().eval()
+    ref64.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        ref = ref64(x.double(), g).float()
+        ref32 = ref_model(x, g)
+    del ref64
+
+    def rel_excess(a):
+        err = (a - ref).abs()
+        lim = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * ref.abs()
+        return float(err.max()), int((err > lim).sum())
+
+    for i, out in enumerate(outs):
+        if out.shape != (n, c) or not torch.isfinite(out).all():
+            raise AssertionError(f"hybrid request {i}: bad output {tuple(out.shape)}")
+        torch.testing.assert_close(out, ref, **MODEL_TOL)
+    mx, bad = rel_excess(outs[0])
+    mx32, bad32 = rel_excess(ref32)
+    log(f"phase 12 check: outputs [{n}, {c}] finite; against the float64 reference path "
+        f"(tolerance {MODEL_TOL}): hybrid path max abs err {mx:.3e}, {bad} over; "
+        f"float32 reference path max abs err {mx32:.3e}, {bad32} over")
+    del outs, ref, ref32, out
+
+    # 13. train: AdamW steps, hybrid path beside the reference path
+    arm("hyb_train")
+    ref_model.load_state_dict(model.state_dict())
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    step = make_train_step(model, make_optimizer(model, LR, WEIGHT_DECAY), has_dropout=False)
+    ref_step = make_train_step(ref_model, make_optimizer(ref_model, LR, WEIGHT_DECAY),
+                               has_dropout=False)
+    bwd = {k: 3 * v for k, v in per_spmm(hyb_t).items()}
+    per_step = {k: fwd[k] + bwd[k] for k in fwd}
+    losses, step_s = [], []
+    reset()  # count the training path's launches only
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        ts = time.perf_counter()
+        loss = step(x, g, y, mask)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - ts)
+        expect_launches({k: v - before[k] for k, v in counts().items()}, per_step,
+                        f"hybrid step {i}")
+        loss_r = ref_step(x, g, y, mask)
+        if i == 0:
+            pr = dict(ref_model.named_parameters())
+            for name, prm in model.named_parameters():
+                gr = pr[name].grad
+                torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
+                                           atol=GRAD_RTOL * float(gr.abs().max()))
+            log(f"phase 13 step 0 gradients agree per tensor "
+                f"(rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g_ref|)")
+        lk, lr_ = float(loss), float(loss_r)
+        if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
+            raise AssertionError(f"hybrid step {i}: loss {lk} vs reference {lr_}")
+        losses.append((lk, lr_))
+    train = counts()
+    for k in ("stream_segment_sum", "stream_segment_acc", "bat_segment_sum"):
+        if not train[k] or not serve[k]:
+            raise AssertionError(f"{k} was not launched on the hybrid path")
+    log(f"phase 13 train: {TRAIN_STEPS} steps, losses (hybrid, reference) "
+        + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses))
+    log(f"phase 13 launches: {train} = {TRAIN_STEPS} x (forward {fwd} + backward over "
+        f"hyb_t {bwd})")
+    log("phase 13 step wall s: " + ", ".join(f"{t:.4f}" for t in step_s))
+
+    # 14. timings
+    arm("hyb_timing")
+    fams = []
+    for i, sp in enumerate(hyb.stream):
+        carry = torch.zeros(sp.n_blocks * sp.s_tile, 128, device=dev)
+        fam = {"e_tile": sp.e_tile, "tiles": sp.num_tiles, "edges": sp.num_edges}
+        fam["sum_ms"] = cuda_ms(lambda: stream_segment_sum(sp, x128), iters=10)
+        fam["acc_ms"] = cuda_ms(lambda: stream_segment_acc(sp, x128, carry), iters=10)
+        fam["sum_plain_ms"] = cuda_ms(lambda: stream_segment_sum_plain(sp, x128),
+                                      iters=3, warmup=1)
+        fam["acc_plain_ms"] = cuda_ms(lambda: stream_segment_acc_plain(sp, x128, carry),
+                                      iters=3, warmup=1)
+        fam["sum_bound_ms"], fam["sum_bound_by"], nb_s = stream_bound(sp, 128, n, False)
+        fam["acc_bound_ms"], fam["acc_bound_by"], nb_a = stream_bound(sp, 128, n, True)
+        csr = family_csr(sp, n)
+        fam["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x128), iters=10)
+        del csr, carry
+        fams.append(fam)
+        log(f"{card} family E={sp.e_tile} ({sp.num_tiles} tiles, {sp.num_edges} edges): "
+            f"stream_segment_sum {fam['sum_ms']:.4f} ms (bound {fam['sum_bound_ms']:.4f} ms "
+            f"by {fam['sum_bound_by']}: {nb_s / 1e9:.3f} GB), stream_segment_acc "
+            f"{fam['acc_ms']:.4f} ms (bound {fam['acc_bound_ms']:.4f} ms: "
+            f"{nb_a / 1e9:.3f} GB); plain {fam['sum_plain_ms']:.4f} / "
+            f"{fam['acc_plain_ms']:.4f} ms; library torch.sparse.mm (the family's CSR) "
+            f"{fam['library_ms']:.4f} ms")
+    adj = torch.sparse_coo_tensor(
+        torch.stack([g.dst.long(), g.src.long()]), g.edge_weight, (n, n),
+        check_invariants=False).coalesce().to_sparse_csr()
+    t_lib = cuda_ms(lambda: torch.sparse.mm(adj, x128), iters=5)
+    del adj
+    with torch.inference_mode():
+        t_spmm = cuda_ms(lambda: api.segment_spmm(g, x128), iters=5)
+        t_fwd = cuda_ms(lambda: model(x, g), iters=3, warmup=1)
+    t_step = cuda_ms(lambda: step(x, g, y, mask), iters=3, warmup=1)
+    log(f"{card} hybrid segment_spmm (F 128, stream families + BAT remainder) {t_spmm:.4f} ms; "
+        f"library torch.sparse.mm (whole weighted adjacency, CSR) {t_lib:.4f} ms")
+    log(f"{card} hybrid GCN forward (3 layers) {t_fwd:.4f} ms; request wall "
+        f"{min(req_s) * 1e3:.4f} ms min")
+    log(f"{card} hybrid training step {t_step:.4f} ms; step wall {min(step_s) * 1e3:.4f} ms min")
+    faulthandler.cancel_dump_traceback_later()
+    rest = fams[1:]
+    return {
+        "serve": serve, "train": train, "errs": errs, "families": fams,
+        "sum": {"ms": fams[0]["sum_ms"], "plain_ms": fams[0]["sum_plain_ms"],
+                "bound_ms": fams[0]["sum_bound_ms"], "bound_by": fams[0]["sum_bound_by"],
+                "library_ms": fams[0]["library_ms"]},
+        "acc": {"ms": sum(fm["acc_ms"] for fm in rest),
+                "plain_ms": sum(fm["acc_plain_ms"] for fm in rest),
+                "bound_ms": sum(fm["acc_bound_ms"] for fm in rest),
+                "bound_by": rest[0]["acc_bound_by"] if rest else "bytes",
+                "library_ms": sum(fm["library_ms"] for fm in rest)},
+        "spmm_ms": t_spmm, "forward_ms": t_fwd, "train_step_ms": t_step,
+        "library_whole_ms": t_lib, "losses": losses,
+    }
 
 
 def main():
@@ -434,7 +757,25 @@ def main():
         f"{t_slib:.4f} ms; the CSR pattern merges {merged} duplicate edges "
         f"({pattern._nnz()} of {nnz} positions)")
     faulthandler.cancel_dump_traceback_later()
+    del pattern, b_t, a_nodes, b_nodes, b_vals, a_p, cot, vals_t
 
+    hy = run_hybrid(dev, card)
+
+    def hyb_entry(name, key, source_line):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "geot_tpu_torch/ops/csrc/stream_segment.cu",
+            "replaces": f"geot_tpu/ops/pallas_segment.py:{source_line}",
+            "launches": hy["train"][name],
+            "launches_by_path": {"hybrid_serve_requests": hy["serve"][name],
+                                 "hybrid_train_steps": hy["train"][name],
+                                 "hybrid_train_per_step": hy["train"][name] // TRAIN_STEPS},
+            "max_abs_err": hy["errs"][name],
+            **hy[key],
+        }
+
+    log(f"total {time.perf_counter() - T0:.2f}s")
     print(json.dumps({
         "kernels": [{
             "name": "bat_segment_sum",
@@ -445,7 +786,9 @@ def main():
             "launches_by_path": {"serve_requests": serve_launches,
                                  "train_steps": train_launches,
                                  "train_per_step": train_launches // TRAIN_STEPS,
-                                 "weight_grad": grad_launches["bat_segment_sum"]},
+                                 "weight_grad": grad_launches["bat_segment_sum"],
+                                 "hybrid_serve_requests": hy["serve"]["bat_segment_sum"],
+                                 "hybrid_train_steps": hy["train"]["bat_segment_sum"]},
             "max_abs_err": max_err,
             "ms": t_k,
             "plain_ms": t_p,
@@ -464,19 +807,24 @@ def main():
             "launches_by_path": {"serve_requests": serve_sddmm,
                                  "train_steps": train_sddmm,
                                  "train_per_step": train_sddmm // TRAIN_STEPS,
-                                 "weight_grad": grad_launches["sddmm_bat"]},
+                                 "weight_grad": grad_launches["sddmm_bat"],
+                                 "hybrid_serve_requests": hy["serve"]["sddmm_bat"],
+                                 "hybrid_train_steps": hy["train"]["sddmm_bat"]},
             "max_abs_err": max(sddmm_err, grad_err),
             "ms": t_sk,
             "plain_ms": t_sp,
             "bound_ms": s_bound,
             "bound_by": s_bound_by,
             "library_ms": t_slib,
-        }],
+        }, hyb_entry("stream_segment_sum", "sum", 1243),
+           hyb_entry("stream_segment_acc", "acc", 1176)],
         "card": smi,
         "forward_ms": t_fwd,
         "spmm_ms": t_spmm,
         "train_step_ms": t_step,
         "train_losses": losses,
+        "hybrid": {k: hy[k] for k in ("spmm_ms", "forward_ms", "train_step_ms",
+                                      "library_whole_ms", "losses", "families")},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,13 +2,17 @@
 
 The JAX package `geot_tpu` stays the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs. It
-covers GCN inference and training over block-aligned-tile (BAT) plans:
+covers GCN inference and training over block-aligned-tile (BAT) plans
+and over hybrid stream+gather plans:
 
     prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
       -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
+    layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid
+      -> stream_segment_sum / stream_segment_acc (CUDA, sm_90a) per stream
+         family + the BAT path over the remainder
 
-The backward of every fused SpMM runs the same kernel over the transpose
-plan; the gradient of per-call edge weights runs `sddmm_bat` (CUDA).
+The backward of every fused SpMM runs the same kernels over the transpose
+plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA).
 `models.train` holds the trainer and the checkpoints shared with the JAX
 package.
 

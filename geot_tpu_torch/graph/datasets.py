@@ -1,8 +1,9 @@
 """Synthetic graph generator and dataset shapes.
 
-Port of `geot_tpu/graph/datasets.py:53-127` (`DATASET_SHAPES`,
-`GraphData`, `synthetic_graph`): the same numpy generator calls in the
-same order, so one seed gives the same arrays as the JAX package.
+Port of `geot_tpu/graph/datasets.py:53-222` (`DATASET_SHAPES`,
+`GraphData`, `synthetic_graph`, `synthetic_clustered_graph`): the same
+numpy generator calls in the same order, so one seed gives the same arrays
+as the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["GraphData", "synthetic_graph", "DATASET_SHAPES"]
+__all__ = ["GraphData", "synthetic_graph", "synthetic_clustered_graph", "DATASET_SHAPES"]
 
 
 @dataclasses.dataclass
@@ -77,15 +78,88 @@ def synthetic_graph(
     if feat_dim:
         x = rng.standard_normal((num_nodes, feat_dim), dtype=np.float32)
     if num_classes:
-        y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
-        idx = rng.permutation(num_nodes)
-        n_tr, n_va = int(0.6 * num_nodes), int(0.2 * num_nodes)
-        train = np.zeros(num_nodes, dtype=bool)
-        val = np.zeros(num_nodes, dtype=bool)
-        test = np.zeros(num_nodes, dtype=bool)
-        train[idx[:n_tr]] = True
-        val[idx[n_tr : n_tr + n_va]] = True
-        test[idx[n_tr + n_va :]] = True
+        y, train, val, test = _splits(rng, num_nodes, num_classes)
+    return GraphData(
+        src=src, dst=dst, num_nodes=num_nodes, x=x, y=y,
+        train_mask=train, val_mask=val, test_mask=test, name=name,
+    )
+
+
+def _splits(rng, num_nodes: int, num_classes: int):
+    """Labels and the 60/20/20 train/val/test masks, drawn from `rng`."""
+    y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    idx = rng.permutation(num_nodes)
+    n_tr, n_va = int(0.6 * num_nodes), int(0.2 * num_nodes)
+    train = np.zeros(num_nodes, dtype=bool)
+    val = np.zeros(num_nodes, dtype=bool)
+    test = np.zeros(num_nodes, dtype=bool)
+    train[idx[:n_tr]] = True
+    val[idx[n_tr : n_tr + n_va]] = True
+    test[idx[n_tr + n_va :]] = True
+    return y, train, val, test
+
+
+def synthetic_clustered_graph(
+    num_nodes: int,
+    num_edges: int,
+    *,
+    mixing: float = 0.3,
+    mean_community: int = 2000,
+    power: float = 1.0,
+    feat_dim: int = 0,
+    num_classes: int = 0,
+    shuffle: bool = False,
+    seed: int = 0,
+    name: str = "synthetic-clustered",
+) -> GraphData:
+    """Degree-corrected planted-partition graph (community-structured), the
+    graph family on which the stream census accepts streaming.
+
+    Nodes fall into contiguous communities of lognormal sizes around
+    `mean_community`; destination degrees follow Zipf(`power`) with the
+    hubs spread over the communities; each edge's source is drawn from the
+    destination's community with probability 1 - `mixing`, else uniformly.
+    `shuffle` relabels the nodes at random. Labels are uniform at random,
+    as in the reference."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    total = 0
+    while total < num_nodes:
+        s = int(np.clip(rng.lognormal(np.log(mean_community), 0.8), 16, num_nodes))
+        s = min(s, num_nodes - total)
+        sizes.append(s)
+        total += s
+    sizes = np.asarray(sizes, np.int64)
+    offsets = np.zeros(len(sizes) + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+
+    ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
+    probs = ranks ** (-power)
+    cdf = np.cumsum(probs)
+    cdf /= cdf[-1]
+    # ranks permuted so hubs are spread across communities
+    rank_of_node = rng.permutation(num_nodes)
+    node_of_rank = np.argsort(rank_of_node)
+    dst = node_of_rank[np.searchsorted(cdf, rng.random(num_edges))].astype(np.int32)
+
+    comm = (np.searchsorted(offsets, dst, side="right") - 1).astype(np.int64)
+    intra = rng.random(num_edges) >= mixing
+    src = rng.integers(0, num_nodes, size=num_edges, dtype=np.int64)
+    lo = offsets[comm[intra]]
+    span = sizes[comm[intra]]
+    src[intra] = lo + (rng.random(int(intra.sum())) * span).astype(np.int64)
+    src = src.astype(np.int32)
+
+    if shuffle:
+        perm = rng.permutation(num_nodes).astype(np.int32)
+        src, dst = perm[src], perm[dst]
+
+    x = y = None
+    train = val = test = None
+    if feat_dim:
+        x = rng.standard_normal((num_nodes, feat_dim), dtype=np.float32)
+    if num_classes:
+        y, train, val, test = _splits(rng, num_nodes, num_classes)
     return GraphData(
         src=src, dst=dst, num_nodes=num_nodes, x=x, y=y,
         train_mask=train, val_mask=val, test_mask=test, name=name,

@@ -3,14 +3,16 @@
 Port of `geot_tpu/models/basic_gnn.py:32-107` (`BasicGNN`, `GCN`) for
 `jk=None`, `norm=None`, ReLU and dropout: num_layers convs, each but the
 last followed by ReLU and dropout, the last mapping to `out_features`.
-Other norm/jk options raise. Dropout is the identity in eval mode; in
-training mode its masks come from the `torch.Generator` the caller passes
-to `forward`, never from the global RNG.
+`conv_kwargs` and the compute `dtype` reach every conv, as in the
+reference's `_make_conv`. Other norm/jk options raise. Dropout is the
+identity in eval mode; in training mode its masks come from the
+`torch.Generator` the caller passes to `forward`, never from the global
+RNG.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -37,6 +39,8 @@ class BasicGNN(nn.Module):
         dropout_rate: float = 0.0,
         norm: Optional[str] = None,
         jk: Optional[str] = None,
+        conv_kwargs: Optional[Dict[str, Any]] = None,
+        dtype: Optional[torch.dtype] = None,
         backend: str = "auto",
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -49,12 +53,15 @@ class BasicGNN(nn.Module):
         dev = resolve_device(device)
         self.dropout_rate = float(dropout_rate)
         out_dim = out_features or hidden_features
+        kw = dict(conv_kwargs or {})
+        kw.setdefault("backend", backend)
+        kw.setdefault("dtype", dtype)
         convs = []
         width_in = in_features
         for i in range(num_layers):
             width = out_dim if i == num_layers - 1 else hidden_features
             convs.append(self.conv_cls(width_in, width, generator=generator,
-                                       backend=backend, device=dev))
+                                       device=dev, **kw))
             width_in = width
         self.convs = nn.ModuleList(convs)
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from geot_tpu_torch.graph.stream_plan import StreamKnobs
 from geot_tpu_torch.graph.structures import Graph, build_graph
 from geot_tpu_torch.ops.api import segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
@@ -37,6 +38,7 @@ def prepare_graph(
     feature_hint: int = 128,
     layouts=("bat",),
     max_chunk_bytes: int = 1 << 30,
+    stream_knobs: StreamKnobs = StreamKnobs(),
     device=None,
 ) -> Graph:
     """One-time host-side adjacency prep: optionally add self-loops (PyG
@@ -46,10 +48,13 @@ def prepare_graph(
     (`normalize='gcn'`), dst-sort and build the BAT plans.
 
     Tiles are explicit (see `build_graph`); the reference's default
-    layouts add the slot layout, which is not ported. Note: with
-    `normalize='gcn'` a BAT-only graph has no cached slot weights, so
+    layouts add the slot layout, which is not ported. `layouts=("bat",
+    "stream")` adds the hybrid plans where the cell census accepts them.
+    Note: with `normalize='gcn'` the graph has no cached slot weights, so
     `GCNConv(normalize=True)` normalizes the weights a second time — the
-    reference does the same (ROADMAP §C). For GCN use `normalize=None`.
+    reference does the same (ROADMAP §C). Over a graph with the norm baked
+    in, use `GCN(..., conv_kwargs={"normalize": False})` (the hybrid path
+    takes the graph's own weights only); else `normalize=None` here.
     """
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
@@ -85,25 +90,32 @@ def prepare_graph(
         src, dst, num_nodes, edge_weight=edge_weight,
         e_tile=e_tile, s_tile=s_tile, bat_e_tile=bat_e_tile,
         bat_s_tile=bat_s_tile, feature_hint=feature_hint, layouts=layouts,
-        max_chunk_bytes=max_chunk_bytes, device=device,
+        max_chunk_bytes=max_chunk_bytes, stream_knobs=stream_knobs, device=device,
     )
 
 
 def gcn_edge_weight(graph: Graph, dtype=torch.float32) -> torch.Tensor:
     """Symmetric GCN normalization over an already self-looped graph:
     w_e = d_dst^-1/2 * base_e * d_src^-1/2 (edge order kept, so the plans
-    stay valid)."""
+    stay valid), returned in `dtype`.
+
+    The degree is a float32 sum of each node's run of the dst-sorted edge
+    list (`torch.segment_reduce` over the runs' offsets, found by binary
+    search): a fixed order with no atomics, so reruns are bit-identical on
+    the card, also under `torch.use_deterministic_algorithms(True)`. It is
+    computed per forward, as in the reference."""
     base = (
         graph.edge_weight.to(dtype)
         if graph.edge_weight is not None
         else torch.ones(graph.num_edges, dtype=dtype, device=graph.device)
     )
-    dst, src = graph.dst.long(), graph.src.long()
-    deg = torch.zeros(graph.num_nodes, dtype=dtype, device=graph.device)
-    deg.index_add_(0, dst, base)
+    nodes = torch.arange(graph.num_nodes + 1, dtype=graph.dst.dtype, device=graph.device)
+    offsets = torch.searchsorted(graph.dst, nodes)
+    deg = torch.segment_reduce(base.float(), "sum", offsets=offsets, initial=0.0)
     dinv = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
                        torch.zeros_like(deg))
-    return dinv[dst] * base * dinv[src]
+    dst, src = graph.dst.long(), graph.src.long()
+    return (dinv[dst] * base.float() * dinv[src]).to(dtype)
 
 
 def glorot_uniform_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -122,10 +134,14 @@ class GCNConv(nn.Module):
     transposed) and `bias` a separate parameter, as in the reference's
     flax module. The graph must already hold self-loops (`prepare_graph`).
     With `normalize=True` the degree norm is computed per forward (the
-    reference skips it when the graph caches slot weights, which BAT-only
-    graphs never do); `normalize=False` aggregates with the graph's own
-    weights (or unweighted). Parameters are drawn on the CPU from
-    `generator` and moved to `device` (default: the CUDA card).
+    reference skips it when the graph caches slot weights, which the
+    port's graphs never do) and the SpMM takes it as per-call weights;
+    `normalize=False` aggregates with the graph's own weights (or
+    unweighted), which is what reaches the hybrid path. `dtype` is the
+    compute dtype (flax `dtype`): the input and the float32 parameters are
+    cast to it for the product, and the SpMM returns it (summing in
+    float32); None keeps the input's dtype. Parameters are drawn on the
+    CPU from `generator` and moved to `device` (default: the CUDA card).
     """
 
     def __init__(
@@ -136,6 +152,7 @@ class GCNConv(nn.Module):
         use_bias: bool = True,
         normalize: bool = True,
         backend: str = "auto",
+        dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
@@ -143,13 +160,17 @@ class GCNConv(nn.Module):
         dev = resolve_device(device)
         self.normalize = normalize
         self.backend = backend
+        self.dtype = dtype
         self.lin = nn.Linear(in_features, features, bias=False)
         glorot_uniform_(self.lin.weight, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        x = self.lin(x)
+        if self.dtype is None:
+            x = self.lin(x)
+        else:
+            x = torch.nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
         w = gcn_edge_weight(graph, x.dtype) if self.normalize else None
         out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
         if self.bias is not None:

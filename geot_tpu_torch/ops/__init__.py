@@ -9,6 +9,12 @@ from geot_tpu_torch.ops.api import (
 )
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
+from geot_tpu_torch.ops.stream_kernels import (
+    stream_segment_acc,
+    stream_segment_acc_plain,
+    stream_segment_sum,
+    stream_segment_sum_plain,
+)
 
 __all__ = [
     "dispatch_path",
@@ -22,4 +28,8 @@ __all__ = [
     "bat_segment_sum_plain",
     "sddmm_bat",
     "sddmm_bat_plain",
+    "stream_segment_acc",
+    "stream_segment_acc_plain",
+    "stream_segment_sum",
+    "stream_segment_sum_plain",
 ]

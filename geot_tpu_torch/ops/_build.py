@@ -39,6 +39,7 @@ NVCC_TIMEOUT_S = 300
 SOURCES: Dict[str, str] = {
     "bat_segment_sum": "bat_segment_sum.cu",
     "sddmm_bat": "sddmm_bat.cu",
+    "stream_segment": "stream_segment.cu",
 }
 
 # loaded libraries of this process, by kernel name

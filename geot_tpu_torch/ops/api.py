@@ -1,17 +1,22 @@
-"""Fused SpMM and SDDMM over BAT plans, with their gradients.
+"""Fused SpMM and SDDMM over BAT and hybrid stream+gather plans, with
+their gradients.
 
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_f_tile` :87,
 `_chunk_plan` :107, `_plan_sum_chunked` :182, `_bat_sum` :335 (wide
-branch), `_spmm_fwd_bat` :750, `_make_gs_bat` :875, `_make_gws_bat` :900,
-`_make_iscat` :1092 (BatPlan branch), `_apply_reduce_post` :1159,
-`index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter`
-:1256, `dispatch_path` :1298, `segment_spmm` :1367, `_sddmm_bat_fwd`
-:1678, `sddmm_coo` :1704), BAT routes only.
+branch), `_spmm_fwd_bat` :750, `_stream_accum` :778, `_stream_sum` :825,
+`_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855, `_make_gs_bat` :875,
+`_make_gws_bat` :900, `_make_iscat` :1092 (BatPlan branch),
+`_apply_reduce_post` :1159, `index_scatter` :1170, `gather_scatter`
+:1217, `gather_weight_scatter` :1256, `dispatch_path` :1298,
+`segment_spmm` :1367, `_sddmm_bat_fwd` :1678, `sddmm_coo` :1704), the BAT
+and hybrid routes.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
-fused SpMM runs the same BAT kernel over the transpose plan `bat_t`; the
-gradient of per-call edge weights comes from the BAT SDDMM kernel. A
-gradient is computed only for the inputs that ask for one.
+fused SpMM runs the same kernels over the transpose plan (`bat_t`,
+`hyb_t`); the gradient of per-call edge weights comes from the BAT SDDMM
+kernel. A gradient is computed only for the inputs that ask for one.
+Every op returns its input's dtype and sums in float32, as the
+reference's kernels do.
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from geot_tpu_torch.graph.plan import BatPlan
+from geot_tpu_torch.graph.stream_plan import HybridPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
 
 __all__ = [
     "segment_spmm",
@@ -160,12 +167,17 @@ def _spmm_fwd_bat(
     bp: BatPlan, x: torch.Tensor, src: torch.Tensor, w_edge: Optional[torch.Tensor]
 ) -> torch.Tensor:
     """sum_e w_e * x[src_e] by dst window via the BAT kernel: the gather
-    emits rows in raw EDGE order and weights stream in edge order.
+    emits rows in raw EDGE order and weights stream in edge order. Returns
+    [num_segments, n] float32 whatever x's dtype (the kernel sums float32;
+    callers cast back).
 
     x's columns are padded to the kernel's feature tile BEFORE the gather
     (so no chunk pays a pad copy of its gathered block). The reference does
     this only for n > 64 and pads narrow rows after the gather; the sums
     are the same."""
+    x = x.float()
+    if w_edge is not None:
+        w_edge = w_edge.float()
     n = x.shape[1]
     f_pad = _round_up(max(n, 1), _pick_f_tile(n))
     if f_pad != n:
@@ -184,6 +196,39 @@ def _spmm_fwd_bat(
 
     out = _bat_sum(bp, vals_fn, f_pad, w_edge=w_edge)
     return out[:, :n] if f_pad != n else out
+
+
+def _stream_sum(plans: tuple, x: torch.Tensor) -> torch.Tensor:
+    """Gather-free streaming segment sum over the stream families (weights
+    baked into each family's w3). The first family writes a fresh output
+    (`stream_segment_sum`, zeros where it visits no window) and the others
+    add into it in e_tile order (`stream_segment_acc`); the reference
+    starts from a zero carry and adds every family, which sums the same
+    terms in the same order. The reference runs each family's uniform
+    chunks under `lax.scan` (`_stream_accum`, for its scalar-prefetch
+    limit); the CUDA kernel takes a whole family in one launch. x stays
+    float32 or bfloat16 (other dtypes go through float32) and needs no
+    padding: the kernel reads rows past its end as zero and bounds its
+    columns. Returns [num_segments, n] float32."""
+    if not plans:
+        raise ValueError("_stream_sum: empty stream-family tuple (corrupt HybridPlan?)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    x = x.contiguous()
+    carry = stream_segment_sum(plans[0], x)
+    for sp in plans[1:]:
+        carry = stream_segment_acc(sp, x, carry)
+    return carry[: plans[0].num_segments]
+
+
+def _spmm_fwd_hybrid(hyb: HybridPlan, x: torch.Tensor) -> torch.Tensor:
+    """Streamed cells + BAT+gather remainder; the partial sums add.
+    Weights, if any, were baked into both parts when the graph was built.
+    Returns [num_segments, n] float32."""
+    out = _stream_sum(hyb.stream, x)
+    if hyb.rest is not None:
+        out += _spmm_fwd_bat(hyb.rest, x, hyb.rest_src, hyb.rest_w)
+    return out
 
 
 def segment_counts(bp: BatPlan) -> torch.Tensor:
@@ -227,7 +272,7 @@ class _GatherScatterBat(torch.autograd.Function):
     def forward(ctx, x, src, dst_t, bat, bat_t):
         ctx.save_for_backward(dst_t)
         ctx.bat_t = bat_t
-        return _spmm_fwd_bat(bat, x, src, None)
+        return _spmm_fwd_bat(bat, x, src, None).to(x.dtype)
 
     @staticmethod
     @once_differentiable
@@ -235,8 +280,27 @@ class _GatherScatterBat(torch.autograd.Function):
         (dst_t,) = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = _spmm_fwd_bat(ctx.bat_t, g.contiguous(), dst_t, None)
+            dx = _spmm_fwd_bat(ctx.bat_t, g.contiguous(), dst_t, None).to(g.dtype)
         return dx, None, None, None, None
+
+
+class _SpmmHybrid(torch.autograd.Function):
+    """Fused SpMM over the hybrid stream+gather plans, static or no weights
+    (`_make_spmm_hybrid`); backward = the same sum over `hyb_t`, no weight
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, hyb, hyb_t):
+        ctx.hyb_t = hyb_t
+        return _spmm_fwd_hybrid(hyb, x).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _spmm_fwd_hybrid(ctx.hyb_t, g.contiguous()).to(g.dtype)
+        return dx, None, None
 
 
 class _GatherWeightScatterBat(torch.autograd.Function):
@@ -253,7 +317,7 @@ class _GatherWeightScatterBat(torch.autograd.Function):
         ctx.bat, ctx.bat_t = bat, bat_t
         want_dw = not static_w and ctx.needs_input_grad[1]
         ctx.save_for_backward(x if want_dw else None, w, src, dst, dst_t, w_t_or_perm)
-        return _spmm_fwd_bat(bat, x, src, w)
+        return _spmm_fwd_bat(bat, x, src, w).to(x.dtype)
 
     @staticmethod
     @once_differentiable
@@ -263,7 +327,7 @@ class _GatherWeightScatterBat(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             w_t = w_t_or_perm if ctx.static_w else w[w_t_or_perm.long()]
-            dx = _spmm_fwd_bat(ctx.bat_t, g, dst_t, w_t)
+            dx = _spmm_fwd_bat(ctx.bat_t, g, dst_t, w_t).to(g.dtype)
         if not ctx.static_w and ctx.needs_input_grad[1]:
             # dw[e] = <g[dst_e], x[src_e]>: the SDDMM kernel while its
             # edge-order gather fits the budget
@@ -284,7 +348,8 @@ class _IndexScatterBat(torch.autograd.Function):
         ctx.save_for_backward(index)
         n = vals.shape[1]
         f_pad = _round_up(max(n, 1), _pick_f_tile(n))
-        v = F.pad(vals, (0, f_pad - n)) if f_pad != n else vals.contiguous()
+        v = vals.float()
+        v = F.pad(v, (0, f_pad - n)) if f_pad != n else v.contiguous()
 
         def vals_fn(e_begin, size):
             # a chunk's slice may run past the end: the kernel reads the
@@ -292,7 +357,7 @@ class _IndexScatterBat(torch.autograd.Function):
             return v if e_begin is None else v[e_begin : e_begin + size]
 
         out = _bat_sum(plan, vals_fn, f_pad)
-        return out[:, :n] if f_pad != n else out
+        return (out[:, :n] if f_pad != n else out).to(vals.dtype)
 
     @staticmethod
     @once_differentiable
@@ -326,12 +391,18 @@ class _SddmmBat(torch.autograd.Function):
         return da, db, None, None, None, None, None
 
 
-def _apply_reduce_post(out_sum: torch.Tensor, bp: BatPlan, reduce: str) -> torch.Tensor:
-    """mean = sum / in-degree, outside the autograd Functions."""
+def _apply_reduce_post(out_sum: torch.Tensor, bp: Optional[BatPlan], reduce: str,
+                       dst: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean = sum / in-degree, outside the autograd Functions. The degree
+    comes from the BAT plan, or from the dst-sorted edge list `dst` of a
+    graph without one."""
     if reduce == "sum":
         return out_sum
     if reduce == "mean":
-        deg = segment_counts(bp)
+        if bp is not None:
+            deg = segment_counts(bp)
+        else:
+            deg = torch.bincount(dst.long(), minlength=out_sum.shape[0]).float()
         shape = (-1,) + (1,) * (out_sum.dim() - 1)
         return out_sum / torch.clamp(deg, min=1.0).reshape(shape).to(out_sum.dtype)
     raise ValueError(f"unsupported fused reduce {reduce!r}")
@@ -358,14 +429,18 @@ def dispatch_path(
     backend: str = "auto",
 ) -> str:
     """Which implementation `segment_spmm` runs for this (graph, call):
-    'bat_static' (graph's own weights), 'bat' (unweighted), 'bat_dyn'
-    (per-call weights) or 'xla' (the plain reference; the name is the
-    reference's). The reference's other routes — hybrid, bucketed, slot,
-    slot_static, slot_dyn — raise NotImplementedError."""
+    'hybrid' (stream families + BAT remainder, the graph's own or no
+    weights; first whenever the graph has hybrid plans), 'bat_static'
+    (graph's own weights), 'bat' (unweighted), 'bat_dyn' (per-call
+    weights) or 'xla' (the plain reference; the name is the reference's).
+    The reference's other routes — bucketed, slot, slot_static, slot_dyn —
+    raise NotImplementedError."""
     _check_backend(backend)
     in_sum = reduce in ("sum", "mean")
     if backend == "reference" or not in_sum:
         return "xla"
+    if not dynamic_w and graph.hyb is not None:
+        return "hybrid"
     _bat_of(graph)
     if not dynamic_w and graph.edge_weight is not None:
         return "bat_static"
@@ -397,7 +472,9 @@ def segment_spmm(
         return ref.gather_weight_scatter_ref(
             graph.src, graph.dst, w, x, graph.num_nodes, reduce
         )
-    if path == "bat_static":
+    if path == "hybrid":
+        out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
+    elif path == "bat_static":
         out = _GatherWeightScatterBat.apply(
             x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
             graph.edge_weight_t, graph.bat, graph.bat_t, True,
@@ -409,7 +486,7 @@ def segment_spmm(
             x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
             graph.bat, graph.bat_t, False,
         )
-    return _apply_reduce_post(out, graph.bat, reduce)
+    return _apply_reduce_post(out, graph.bat, reduce, graph.dst)
 
 
 def index_scatter(
@@ -462,13 +539,17 @@ def gather_scatter(
 ) -> torch.Tensor:
     """Unweighted fused SpMM over a dst-sorted COO edge list:
     out[dst[e]] (+)= src[src[e]]. With `graph` (a prebuilt Graph whose
-    src/dst are these indices) it runs over the BAT plan, with the
+    src/dst are these indices) it runs over the hybrid plans of an
+    unweighted graph that has them, else over the BAT plan, with the
     transpose-plan backward; otherwise the plain reference."""
     _check_backend(backend)
     if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
-        out = _GatherScatterBat.apply(src, graph.src, graph.dst_t, _bat_of(graph),
-                                      graph.bat_t)
-        return _apply_reduce_post(out, graph.bat, reduce)
+        if graph.hyb is not None and graph.edge_weight is None:
+            out = _SpmmHybrid.apply(src, graph.hyb, graph.hyb_t)
+        else:
+            out = _GatherScatterBat.apply(src, graph.src, graph.dst_t, _bat_of(graph),
+                                          graph.bat_t)
+        return _apply_reduce_post(out, graph.bat, reduce, graph.dst)
     return ref.gather_scatter_ref(src_index, dst_index, src, num_segments, reduce)
 
 

@@ -4,11 +4,18 @@ Port of `geot_tpu/ops/reference.py:37-105` (`segment_reduce_ref` for sum
 and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`) and `:117-127`
 (`sddmm_coo_ref`). They share no code with the tiled path, so tests hold
 that path against them.
+
+The fused gathers run over edge chunks of at most REF_CHUNK_BYTES of
+gathered rows, in edge order, so the plain path stays within memory at
+ogbn-products size (64 M edges x 128 f32 would be a 33 GB gather).
+Their backward is written out (chunked too), so autograd keeps no
+gathered rows.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 __all__ = [
     "segment_reduce_ref",
@@ -18,6 +25,7 @@ __all__ = [
 ]
 
 VALID_REDUCE = ("sum", "mean")
+REF_CHUNK_BYTES = 1 << 30
 
 
 def segment_reduce_ref(
@@ -42,6 +50,80 @@ def segment_reduce_ref(
     return out
 
 
+def _scatter_chunks(rows, gather_idx, scatter_idx, weight, num_out, valid):
+    """out[scatter_idx[e]] += weight[e] * rows[gather_idx[e]] over the edges
+    e with valid[e] (weight None: 1), REF_CHUNK_BYTES of gathered rows at a
+    time, in edge order. rows is [N, D]."""
+    nnz = gather_idx.shape[0]
+    step = max(1, REF_CHUNK_BYTES // max(rows.shape[1] * rows.element_size(), 1))
+    out = torch.zeros(num_out, rows.shape[1], dtype=rows.dtype, device=rows.device)
+    for e0 in range(0, nnz, step):
+        sl = slice(e0, min(nnz, e0 + step))
+        ok = valid[sl]
+        vals = rows.index_select(0, gather_idx[sl][ok].long())
+        if weight is not None:
+            vals = vals * weight[sl][ok].to(rows.dtype)[:, None]
+        out.index_add_(0, scatter_idx[sl][ok].long(), vals)
+    return out
+
+
+class _GatherScatterRef(torch.autograd.Function):
+    """out[dst[e]] += w[e] * src[src[e]] over edge chunks, with an explicit
+    backward (also chunked) so that autograd keeps no gathered rows: dsrc
+    is the same sum over the transposed edges, dw[e] = <g[dst[e]],
+    src[src[e]]>. Edges whose dst lies outside [0, num_segments) add
+    nothing. src is [N, D]."""
+
+    @staticmethod
+    def forward(ctx, src, weight, src_index, dst_index, num_segments):
+        dst = dst_index.long()
+        valid = (dst >= 0) & (dst < num_segments)
+        want_dw = weight is not None and ctx.needs_input_grad[1]
+        ctx.n_src = src.shape[0]
+        ctx.save_for_backward(src if want_dw else None, weight, src_index, dst_index, valid)
+        return _scatter_chunks(src, src_index, dst_index, weight, num_segments, valid)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        src, weight, src_index, dst_index, valid = ctx.saved_tensors
+        dsrc = dw = None
+        if ctx.needs_input_grad[0]:
+            dsrc = _scatter_chunks(g, dst_index, src_index, weight, ctx.n_src, valid)
+        if src is not None:
+            dw = torch.zeros(src_index.shape[0], dtype=g.dtype, device=g.device)
+            nnz = src_index.shape[0]
+            step = max(1, REF_CHUNK_BYTES // max(g.shape[1] * g.element_size(), 1))
+            for e0 in range(0, nnz, step):
+                sl = slice(e0, min(nnz, e0 + step))
+                ok = valid[sl]
+                a = g.index_select(0, dst_index[sl][ok].long())
+                b = src.index_select(0, src_index[sl][ok].long())
+                dw[e0:sl.stop][ok] = (a * b).sum(dim=-1)
+            dw = dw.to(weight.dtype)
+        return dsrc, dw, None, None, None
+
+
+def _gather_scatter_chunked(src_index, dst_index, weight, src, num_segments, reduce):
+    """The fused gather(-weight)-scatter over edge chunks, then the mean's
+    division."""
+    if reduce not in VALID_REDUCE:
+        raise NotImplementedError(
+            f"reduce={reduce!r}: only sum and mean are ported (ROADMAP A.7)"
+        )
+    shape = src.shape
+    out = _GatherScatterRef.apply(src.reshape(shape[0], -1), weight, src_index,
+                                  dst_index, num_segments)
+    out = out.reshape((num_segments,) + tuple(shape[1:]))
+    if reduce == "mean":
+        idx = dst_index.long()
+        idx = idx[(idx >= 0) & (idx < num_segments)]
+        cnt = torch.zeros(num_segments, dtype=src.dtype, device=src.device)
+        cnt.index_add_(0, idx, torch.ones_like(idx, dtype=src.dtype))
+        out = out / torch.clamp(cnt, min=1).reshape((-1,) + (1,) * (src.dim() - 1))
+    return out
+
+
 def gather_scatter_ref(
     src_index: torch.Tensor,
     dst_index: torch.Tensor,
@@ -50,7 +132,7 @@ def gather_scatter_ref(
     reduce: str = "sum",
 ) -> torch.Tensor:
     """out[dst[e]] += src[src[e]] — unweighted fused SpMM."""
-    return segment_reduce_ref(src[src_index.long()], dst_index, num_segments, reduce)
+    return _gather_scatter_chunked(src_index, dst_index, None, src, num_segments, reduce)
 
 
 def gather_weight_scatter_ref(
@@ -62,8 +144,7 @@ def gather_weight_scatter_ref(
     reduce: str = "sum",
 ) -> torch.Tensor:
     """out[dst[e]] += weight[e] * src[src[e]]."""
-    vals = src[src_index.long()] * weight[:, None].to(src.dtype)
-    return segment_reduce_ref(vals, dst_index, num_segments, reduce)
+    return _gather_scatter_chunked(src_index, dst_index, weight, src, num_segments, reduce)
 
 
 def sddmm_coo_ref(

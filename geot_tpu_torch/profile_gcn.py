@@ -1,15 +1,20 @@
 """Where one GCN inference request, or one training step, spends its time
 on the card.
 
-    python -m geot_tpu_torch.profile_gcn [--mode serve|train] [--iters 3]
+    python -m geot_tpu_torch.profile_gcn [--graph arxiv|products-clustered]
+        [--mode serve|train|both] [--iters 3]
 
-Builds the configuration `chip_smoke.py` drives (3-layer GCN, hidden 128,
-40 classes, ogbn-arxiv-shaped synthetic graph, seed 0), warms up, then
-traces `--iters` forward passes (`--mode serve`) or `make_train_step`
-steps (`--mode train`: forward, backward over the
-transpose plan, AdamW with lr 0.01 and weight decay 5e-4) with
-`torch.profiler`, and prints the device time by kernel and the device's
-busy share of the traced wall time. Needs a CUDA card.
+Builds a configuration `chip_smoke.py` drives, seed 0: `arxiv` is the
+3-layer GCN (hidden 128, 40 classes) over BAT plans of the
+ogbn-arxiv-shaped synthetic graph; `products-clustered` the 3-layer GCN
+(100 features, hidden 128, 47 classes) over the hybrid stream+gather
+plans of the ogbn-products-shaped clustered graph (GCN norm baked in,
+`conv_kwargs={"normalize": False}`). Warms up, then traces `--iters`
+forward passes (`serve`) and/or `make_train_step` steps (`train`:
+forward, backward over the transpose plans, AdamW with lr 0.01 and
+weight decay 5e-4) with `torch.profiler`, and prints the device time by
+kernel and the device's busy share of the traced wall time. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("serve", "train"), default="serve")
+    ap.add_argument("--graph", choices=("arxiv", "products-clustered"), default="arxiv")
+    ap.add_argument("--mode", choices=("serve", "train", "both"), default="serve")
     ap.add_argument("--iters", type=int, default=3,
                     help="requests (serve) or training steps (train) to trace")
     ap.add_argument("--seed", type=int, default=0)
@@ -31,48 +37,63 @@ def main(argv=None) -> int:
         raise SystemExit("profile_gcn: needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.graph.datasets import (
+        DATASET_SHAPES,
+        synthetic_clustered_graph,
+        synthetic_graph,
+    )
     from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
 
     dev = torch.device("cuda")
-    n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
-    data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=args.seed)
-    g = prepare_graph(data.src, data.dst, n, device=dev)
-    x = torch.from_numpy(data.x).to(dev)
-    model = GCN(f, 128, 3, c, generator=torch.Generator().manual_seed(args.seed),
-                device=dev)
-    if args.mode == "serve":
-        model.eval()
-        what = "requests"
-
-        def run():
-            with torch.inference_mode():
-                model(x, g)
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.graph == "arxiv":
+        n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=args.seed)
+        g = prepare_graph(data.src, data.dst, n, device=dev)
+        model = GCN(f, 128, 3, c, generator=gen, device=dev)
     else:
-        y = torch.from_numpy(data.y.astype("int64")).to(dev)
-        mask = torch.from_numpy(data.train_mask).to(dev)
-        step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
-        what = "training steps"
+        n, e, f, c = DATASET_SHAPES["ogbn-products"]
+        data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
+                                         feat_dim=f, num_classes=c, seed=args.seed)
+        g = prepare_graph(data.src, data.dst, n, normalize="gcn",
+                          layouts=("bat", "stream"), device=dev)
+        model = GCN(f, 128, 3, c, conv_kwargs={"normalize": False}, generator=gen,
+                    device=dev)
+    x = torch.from_numpy(data.x).to(dev)
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
 
-        def run():
-            step(x, g, y, mask)
+    def serve():
+        model.eval()
+        with torch.inference_mode():
+            model(x, g)
 
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
+    def train():
+        step(x, g, y, mask)
+
+    modes = ("serve", "train") if args.mode == "both" else (args.mode,)
+    for mode in modes:
+        run = serve if mode == "serve" else train
+        what = "requests" if mode == "serve" else "training steps"
+        for _ in range(3):
             run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(ev.time_range.elapsed_us() for ev in events)
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20), flush=True)
-    print(f"{torch.cuda.get_device_name(0)}: {args.iters} {what}, traced wall "
-          f"{wall_us / 1e3:.4f} ms, device kernel time {busy_us / 1e3:.4f} ms, "
-          f"busy share {busy_us / max(wall_us, 1e-9):.4f} "
-          f"({len(events)} device events)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(ev.time_range.elapsed_us() for ev in events)
+        print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20),
+              flush=True)
+        print(f"{torch.cuda.get_device_name(0)}: {args.graph}, {args.iters} {what}, "
+              f"traced wall {wall_us / 1e3:.4f} ms, device kernel time "
+              f"{busy_us / 1e3:.4f} ms, busy share {busy_us / max(wall_us, 1e-9):.4f} "
+              f"({len(events)} device events)", flush=True)
     return 0
 
 

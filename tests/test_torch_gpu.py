@@ -13,7 +13,10 @@ the same terms in two orders, rows of up to ~1500 terms of magnitude ~1,
 so rtol/atol 1e-4 (the reference's own hub-split bound, test_ops.py:362).
 The SDDMM kernel sums each dot lane-wise then by a warp shuffle, the plain
 version with `sum`: f32 sums of the same 40-256 products in two orders,
-held to 1e-4 * sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`).
+held to 1e-4 * sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`). The
+stream kernel sums each row in slot order, the plain version with
+`index_add_`: the same rule. With bfloat16 x both read the same bf16
+values and sum in f32, so the rule holds there too.
 """
 
 import dataclasses
@@ -23,11 +26,18 @@ import pytest
 import torch
 
 from geot_tpu_torch.graph import plan as tplan
+from geot_tpu_torch.graph import stream_plan as tsp
 from geot_tpu_torch.graph.structures import build_graph
 from geot_tpu_torch.models import GCN
 from geot_tpu_torch.ops import api
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
+from geot_tpu_torch.ops.stream_kernels import (
+    stream_segment_acc,
+    stream_segment_acc_plain,
+    stream_segment_sum,
+    stream_segment_sum_plain,
+)
 
 pytestmark = pytest.mark.gpu
 TOL_HUB = dict(rtol=1e-4, atol=1e-4)
@@ -239,3 +249,179 @@ def test_gws_grad_kernel_vs_reference(cuda, needs):
         torch.testing.assert_close(dx, dx_r, **TOL_HUB)
     else:
         assert dx is None
+
+
+def _stream_edges(rng, n, hub_window_cells=12, cells=30, epc=1500, s_tile=256,
+                  x_rows=256):
+    """dst-sorted edges: `cells` dense (window, block) cells of `epc` edges,
+    `hub_window_cells` of them in window 0 (a window the kernel splits
+    over several blocks), one hub node in window 0, one 4,000-edge cell in
+    the last window (a family of larger tiles), and uniform noise."""
+    n_w, n_b = max(n // s_tile, 1), max(n // x_rows, 1)
+    cw = np.concatenate([np.zeros(hub_window_cells, np.int64),
+                         rng.integers(1, n_w - 1, cells - hub_window_cells)])
+    cb = rng.integers(0, n_b, cells)
+    dst = (cw[:, None] * s_tile + rng.integers(0, s_tile, (cells, epc))).reshape(-1)
+    src = (cb[:, None] * x_rows + rng.integers(0, x_rows, (cells, epc))).reshape(-1)
+    big_w, big_b = (n_w - 1) * s_tile, (n_b - 1) * x_rows
+    dst = np.concatenate([dst, np.full(3000, 5), rng.integers(0, n, 3000),
+                          big_w + rng.integers(0, s_tile, 4000)])
+    src = np.concatenate([src, rng.integers(0, x_rows, 3000), rng.integers(0, n, 3000),
+                          big_b + rng.integers(0, x_rows, 4000)])
+    dst, src = np.minimum(dst, n - 1), np.minimum(src, n - 1)
+    order = np.argsort(dst, kind="stable")
+    return src[order].astype(np.int32), dst[order].astype(np.int32)
+
+
+def _families(rng, cuda, weighted, e_tile=0, s_tile=256, x_rows=256, n=3000):
+    src, dst = _stream_edges(rng, n, s_tile=s_tile, x_rows=x_rows)
+    w = rng.standard_normal(len(src)).astype(np.float32) if weighted else None
+    # a forced tile size gets a cost model under which every dense cell streams
+    knobs = (tsp.StreamKnobs(min_stream_frac=0.05, tile_ns=(), fixed_ns=1.0, marg_ns=1.0)
+             if e_tile else tsp.StreamKnobs(min_stream_frac=0.05))
+    fams, _, _ = tsp.build_stream_split_host(
+        dst, src, n, n, s_tile=s_tile, x_rows=x_rows, e_tile=e_tile, edge_weight=w,
+        max_chunk_tiles=16, knobs=knobs, uniformize=True)
+    assert fams is not None
+    return [tsp.stream_plan_from_host(a, m, device=cuda) for a, m in fams]
+
+
+def _check_abs_sum(k, p, a):
+    lim = 1e-4 * a + 1e-5
+    assert torch.isfinite(k).all()
+    assert bool(((k - p).abs() <= lim).all()), float((k - p).abs().max())
+
+
+@pytest.mark.parametrize("mode", ["acc", "sum"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("F,dtype", [(128, torch.float32), (47, torch.float32),
+                                     (256, torch.float32), (128, torch.bfloat16),
+                                     (47, torch.bfloat16)])
+@pytest.mark.parametrize("tiles", ["auto", "e100_s64_x128"])
+def test_stream_kernels_match_plain(cuda, mode, weighted, F, dtype, tiles):
+    rng = np.random.default_rng(F + weighted + (mode == "acc"))
+    kw = {} if tiles == "auto" else dict(e_tile=100, s_tile=64, x_rows=128)
+    sps = _families(rng, cuda, weighted, **kw)
+    assert any(sp.merges.shape[0] for sp in sps), "no window split over blocks"
+    assert any(bool((sp.heavy >= 0).any()) for sp in sps), "no item with a heavy row"
+    n = 3000
+    # x rows end mid-block: the kernel reads the missing rows as zero
+    x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda).to(dtype)
+    fn = stream_segment_acc if mode == "acc" else stream_segment_sum
+    for sp in sps:
+        rows = sp.n_blocks * sp.s_tile
+        carry0 = torch.from_numpy(rng.standard_normal((rows, F)).astype(np.float32)).to(cuda)
+        # NaN in the memory the allocator hands out next: an unwritten row shows
+        torch.full((rows + 64, max(F, 128)), float("nan"), device=cuda)
+        before = fn.launches
+        if mode == "acc":
+            k = stream_segment_acc(sp, x, carry0.clone())
+            p = stream_segment_acc_plain(sp, x, carry0.clone())
+            a = stream_segment_acc_plain(
+                dataclasses.replace(sp, w3=None if sp.w3 is None else sp.w3.abs()),
+                x.abs(), carry0.abs())
+        else:
+            k = stream_segment_sum(sp, x)
+            p = stream_segment_sum_plain(sp, x)
+            a = stream_segment_sum_plain(
+                dataclasses.replace(sp, w3=None if sp.w3 is None else sp.w3.abs()), x.abs())
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert k.shape == p.shape == (rows, F) and k.dtype == torch.float32
+        _check_abs_sum(k, p, a)
+        # no atomics: reruns are bit-identical
+        again = (stream_segment_acc(sp, x, carry0.clone()) if mode == "acc"
+                 else stream_segment_sum(sp, x))
+        torch.testing.assert_close(again, k, rtol=0, atol=0)
+
+
+def test_stream_plan_out_of_order_refused(cuda):
+    """The kernel sums each window's tiles as one run, so a family whose
+    out_block goes back is refused when the plan is made."""
+    rng = np.random.default_rng(2)
+    src, dst = _stream_edges(rng, 3000)
+    fams, _, _ = tsp.build_stream_split_host(dst, src, 3000, 3000,
+                                             knobs=tsp.StreamKnobs(min_stream_frac=0.05))
+    arrays, meta = max(fams, key=lambda f: len(np.unique(f[0]["out_block"])))
+    bad = dict(arrays, out_block=arrays["out_block"][::-1].copy())
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tsp.stream_plan_from_host(bad, meta, device=cuda)
+
+
+def _hybrid_graph(device, weighted=True, n=3000):
+    rng = np.random.default_rng(9)
+    src, dst = _stream_edges(rng, n)
+    w = (rng.random(len(src)) + 0.1).astype(np.float32) if weighted else None
+    return build_graph(src, dst, n, edge_weight=w, feature_hint=128,
+                       layouts=("bat", "stream"), device=device), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_segment_spmm_on_card_matches_cpu(cuda, dtype):
+    gc, rng = _hybrid_graph(cuda)
+    gh, _ = _hybrid_graph("cpu")
+    assert api.dispatch_path(gc) == "hybrid"
+    x = torch.from_numpy(rng.standard_normal((gc.num_nodes, 100)).astype(np.float32))
+    xc = x.to(cuda).to(dtype).requires_grad_()
+    xh = x.to(dtype).requires_grad_()
+    before = (stream_segment_sum.launches, stream_segment_acc.launches)
+    oc = api.segment_spmm(gc, xc)
+    assert oc.dtype == dtype
+    n_fam = len(gc.hyb.stream)
+    assert stream_segment_sum.launches == before[0] + 1
+    assert stream_segment_acc.launches == before[1] + n_fam - 1
+    oh = api.segment_spmm(gh, xh)
+    tol = TOL_HUB if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    torch.testing.assert_close(oc.float().cpu(), oh.float(), **tol)
+    cot = torch.from_numpy(rng.standard_normal(tuple(oc.shape)).astype(np.float32))
+    (oc.float() * cot.to(cuda)).sum().backward()
+    (oh.float() * cot).sum().backward()
+    assert xc.grad.dtype == dtype
+    torch.testing.assert_close(xc.grad.float().cpu(), xh.grad.float(), **tol)
+
+
+def test_gcn_edge_weight_deterministic_on_card(cuda):
+    """The degree of gcn_edge_weight sums in a fixed order with no atomics
+    (ROADMAP C.3): with non-integer weights on a graph with a 20,000-edge
+    hub, reruns under torch.use_deterministic_algorithms(True) are bit
+    for bit the same."""
+    from geot_tpu_torch.models import gcn_edge_weight
+
+    rng = np.random.default_rng(4)
+    n = 5000
+    dst = np.concatenate([np.full(20000, 17), rng.integers(0, n, 60000)]).astype(np.int32)
+    src = rng.integers(0, n, len(dst)).astype(np.int32)
+    w = (rng.random(len(dst)) + 0.01).astype(np.float32)
+    g = build_graph(src, dst, n, edge_weight=w, device=cuda)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = gcn_edge_weight(g)
+        for _ in range(5):
+            torch.testing.assert_close(gcn_edge_weight(g), first, rtol=0, atol=0)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    gh = build_graph(src, dst, n, edge_weight=w, device="cpu")
+    torch.testing.assert_close(first.cpu(), gcn_edge_weight(gh), rtol=1e-6, atol=1e-7)
+
+
+def test_bf16_fused_ops_over_bat_on_card(cuda):
+    """bfloat16 in, bfloat16 out, float32 sums over the BAT path on the
+    card (ROADMAP C.2): the kernel's wrapper no longer sees bf16."""
+    rng = np.random.default_rng(8)
+    n, F = 700, 96
+    src, dst = _hubby(rng, n, 5000, 1500)
+    w = (rng.random(len(dst)) + 0.1).astype(np.float32)
+    gc = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32, device=cuda)
+    gh = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).bfloat16()
+    tol = dict(rtol=2 ** -7, atol=2 ** -7)
+    for op in (
+        lambda g, xx: api.segment_spmm(g, xx),
+        lambda g, xx: api.gather_scatter(g.src, g.dst, xx, n, graph=g),
+        lambda g, xx: api.gather_weight_scatter(g.src, g.dst, g.edge_weight, xx, n, graph=g),
+        lambda g, xx: api.index_scatter(xx[g.src.long()], g.dst, n, plan=g.bat),
+    ):
+        oc = op(gc, x.to(cuda))
+        assert oc.dtype == torch.bfloat16
+        torch.testing.assert_close(oc.float().cpu(), op(gh, x).float(), **tol)

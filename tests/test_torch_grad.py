@@ -298,3 +298,43 @@ def test_sddmm_wrapper_rules_and_unique_tiles():
     b = torch.ones(32, 128)
     assert sddmm_bat_plain(bp, a, b)[:3].tolist() == [128.0] * 3
     assert sddmm_bat_plain(bp2, a, b)[:3].tolist() == [256.0] * 3
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("grads", ["x", "x_and_w", "w"])
+def test_reference_path_grad_chunked_vs_jax(reduce, grads, monkeypatch):
+    """The port's plain reference path (chunked forward, hand-written
+    backward) against jax.grad of the JAX reference, with chunks of 37
+    edges: 10 full chunks and a ragged one of 30. Tolerance TOL_REF."""
+    rng = np.random.default_rng(17)
+    n, nnz, f = 50, 400, 9
+    monkeypatch.setattr(tref, "REF_CHUNK_BYTES", 37 * f * 4)
+    src, dst = _hubby(rng, n, nnz - 60, 60)
+    dst = np.sort(dst).astype(np.int32)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    w = rng.standard_normal(nnz).astype(np.float32)
+    cot = rng.standard_normal((n, f)).astype(np.float32)
+    js, jd = jnp.asarray(src), jnp.asarray(dst)
+    if grads == "x":
+        jdx = jax.grad(lambda xx: jnp.vdot(jref.gather_scatter_ref(js, jd, xx, n, reduce),
+                                           jnp.asarray(cot)))(jnp.asarray(x))
+        jdw = None
+    else:
+        jdx, jdw = jax.grad(lambda xx, ww: jnp.vdot(jref.gather_weight_scatter_ref(
+            js, jd, ww, xx, n, reduce), jnp.asarray(cot)), argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_(grads != "w")
+    ts, td = torch.from_numpy(src), torch.from_numpy(dst)
+    if grads == "x":
+        out = tref.gather_scatter_ref(ts, td, tx, n, reduce)
+    else:
+        tw = torch.from_numpy(w).requires_grad_()
+        out = tref.gather_weight_scatter_ref(ts, td, tw, tx, n, reduce)
+    torch.vdot(out.reshape(-1), torch.from_numpy(cot).reshape(-1)).backward()
+    if grads != "w":
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL_REF)
+    else:
+        assert tx.grad is None
+    if jdw is not None:
+        assert tw.grad.dtype == torch.float32
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), **TOL_REF)

@@ -179,3 +179,129 @@ def test_gcnconv_options_match_jax(improved, monkeypatch):
     with torch.inference_mode():
         t = tm(torch.from_numpy(x), tg)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL_PALLAS)
+
+
+def _baked_pair(layouts=("bat", "stream")):
+    """(JAX graph, port graph) over a community-structured graph with the
+    GCN norm baked in and, with "stream", the hybrid plans built (off the
+    tuning table's vetoed bucket: 1,024 nodes, ~25 k edges, average degree
+    ~24)."""
+    from geot_tpu.graph.datasets import synthetic_clustered_graph
+
+    d = synthetic_clustered_graph(1024, 24_000, mixing=0.1, mean_community=256, seed=0)
+    j0 = jprepare_graph(d.src, d.dst, 1024, normalize="gcn", layouts=("bat",),
+                        e_tile=TILES["e_tile"], s_tile=TILES["s_tile"])
+    jg = jbuild_graph(np.asarray(j0.src), np.asarray(j0.dst), 1024,
+                      edge_weight=np.asarray(j0.edge_weight), assume_sorted=True,
+                      layouts=layouts, **TILES)
+    tg = prepare_graph(d.src, d.dst, 1024, normalize="gcn", layouts=layouts,
+                       device="cpu", **TILES)
+    np.testing.assert_allclose(np.asarray(jg.edge_weight), tg.edge_weight.numpy(),
+                               rtol=1e-6, atol=1e-7)
+    assert (jg.hyb is not None) == (tg.hyb is not None) == ("stream" in layouts)
+    return jg, tg
+
+
+def test_gcn_over_hybrid_graph_matches_jax():
+    """GCN(conv_kwargs={"normalize": False}) over a graph whose norm was
+    baked in by prepare_graph(normalize="gcn", layouts=("bat", "stream")):
+    every layer's SpMM takes the hybrid path, in both packages."""
+    from geot_tpu.ops.api import dispatch_path as jdispatch_path
+    from geot_tpu_torch.ops.api import dispatch_path
+
+    jg, tg = _baked_pair()
+    assert dispatch_path(tg) == jdispatch_path(jg, backend="pallas") == "hybrid"
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1024, 24)).astype(np.float32)
+    jm = JGCN(hidden_features=32, num_layers=3, out_features=7, backend="pallas",
+              conv_kwargs={"normalize": False})
+    params = jm.init(jax.random.PRNGKey(2), jnp.asarray(x), jg)
+    j = jm.apply(params, jnp.asarray(x), jg)
+    tm = GCN(24, 32, 3, 7, conv_kwargs={"normalize": False}, device="cpu").eval()
+    assert all(not c.normalize for c in tm.convs)
+    tm.load_state_dict(params_from_flax(_flax_to_numpy(params)))
+    with torch.inference_mode():
+        t = tm(torch.from_numpy(x), tg)
+    assert t.shape == (1024, 7) and torch.isfinite(t).all()
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL_PALLAS)
+
+
+@pytest.mark.parametrize("path", ["bat", "hybrid"])
+def test_gcn_bf16_matches_jax(path):
+    """The compute dtype (flax `dtype`): bf16 products and activations,
+    float32 sums in the SpMM, float32 parameters, over the BAT path and
+    the hybrid path (the norm baked in, as the hybrid path needs).
+    Tolerance: the bf16 budget of test_stream.py (rtol 0.05, atol 0.2),
+    two layers."""
+    from geot_tpu.ops.api import dispatch_path as jdispatch_path
+    from geot_tpu_torch.ops.api import dispatch_path
+
+    jg, tg = _baked_pair(("bat", "stream") if path == "hybrid" else ("bat",))
+    want = "hybrid" if path == "hybrid" else "bat_static"
+    assert dispatch_path(tg) == jdispatch_path(jg, backend="pallas") == want
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1024, 16)).astype(np.float32)
+    kw = dict(conv_kwargs={"normalize": False})
+    jm = JGCN(hidden_features=32, num_layers=2, out_features=5, backend="pallas",
+              dtype=jnp.bfloat16, **kw)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(x), jg)
+    j = jm.apply(params, jnp.asarray(x), jg)
+    assert j.dtype == jnp.bfloat16
+    tm = GCN(16, 32, 2, 5, dtype=torch.bfloat16, device="cpu", **kw).eval()
+    tm.load_state_dict(params_from_flax(_flax_to_numpy(params)))
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    with torch.inference_mode():
+        t = tm(torch.from_numpy(x), tg)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               rtol=0.05, atol=0.2)
+
+
+def test_gcn_edge_weight_bf16_degree_sums_in_float32(monkeypatch):
+    """In bf16 the port sums the degree in float32 and rounds the weights
+    once; the reference sums the degree in bf16, which stalls at 256 on a
+    hub (ROADMAP C.6). The port's bf16 weights are the reference's float32
+    weights rounded to bf16."""
+    from geot_tpu.models.conv import gcn_edge_weight as jgcn_edge_weight
+
+    rng = np.random.default_rng(3)
+    n = 300
+    src, dst = _edges(rng, n, 2400)
+    jg, tg = _pair(src, dst, n, None, monkeypatch, 1 << 30)
+    t = gcn_edge_weight(tg, torch.bfloat16)
+    assert t.dtype == torch.bfloat16
+    j32 = np.asarray(jgcn_edge_weight(jg, jnp.float32))
+    np.testing.assert_allclose(t.float().numpy(), j32, rtol=2 ** -8, atol=0)
+    deg = np.bincount(tg.dst.numpy(), minlength=n)
+    assert deg.max() > 256  # the hub the bf16 reference degree stalls on
+    j16 = np.asarray(jgcn_edge_weight(jg, jnp.bfloat16), np.float32)
+    hub_edges = tg.dst.numpy() == deg.argmax()
+    assert np.abs(j16[hub_edges] - j32[hub_edges]).max() > 2 ** -8 * np.abs(j32).max()
+
+
+def test_gcn_edge_weight_deterministic_mode(monkeypatch):
+    """The degree is a sum in a fixed order with no atomics (ROADMAP C.3):
+    it runs under torch.use_deterministic_algorithms(True), and with
+    non-integer weights on a graph with a hub it matches the JAX function
+    and reruns bit for bit."""
+    from geot_tpu.models.conv import gcn_edge_weight as jgcn_edge_weight
+
+    rng = np.random.default_rng(8)
+    n = 200
+    src, dst = _edges(rng, n, 3000)
+    dst[:600] = 3  # a hub
+    w = (rng.random(len(src)) + 0.05).astype(np.float32)
+    jg0 = jprepare_graph(src, dst, n, edge_weight=w, layouts=("bat",),
+                         e_tile=TILES["e_tile"], s_tile=TILES["s_tile"])
+    tg = prepare_graph(src, dst, n, edge_weight=w, device="cpu", **TILES)
+    np.testing.assert_array_equal(np.asarray(jg0.dst), tg.dst.numpy())
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = gcn_edge_weight(tg), gcn_edge_weight(tg)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    np.testing.assert_allclose(a.numpy(), np.asarray(jgcn_edge_weight(jg0)),
+                               rtol=1e-6, atol=1e-7)
+    assert gcn_edge_weight(tg, torch.bfloat16).dtype == torch.bfloat16

@@ -218,3 +218,45 @@ def test_loss_and_accuracy_match_jax():
                               torch.from_numpy(mask))),
         float(jtrain.accuracy(jnp.asarray(logits), jnp.asarray(y), jnp.asarray(mask))),
         **TOL_F32)
+
+
+def test_train_step_lockstep_with_jax_over_hybrid_graph():
+    """Three AdamW steps of a GCN over a hybrid graph (the norm baked in by
+    normalize="gcn", conv_kwargs={"normalize": False}): the port's steps
+    run the hybrid path, forward and backward over `hyb_t`; the JAX model
+    its f32 reference backend, as above. Weights carried by
+    `params_from_flax`; tolerance 1e-5."""
+    from geot_tpu.graph.datasets import synthetic_clustered_graph
+    from geot_tpu_torch.ops.api import dispatch_path
+
+    d = synthetic_clustered_graph(1024, 24_000, mixing=0.1, mean_community=256,
+                                  feat_dim=12, num_classes=4, seed=1)
+    j0 = jprepare_graph(d.src, d.dst, 1024, normalize="gcn", layouts=("bat",),
+                        e_tile=64, s_tile=32)
+    jg = jbuild_graph(np.asarray(j0.src), np.asarray(j0.dst), 1024,
+                      edge_weight=np.asarray(j0.edge_weight), assume_sorted=True,
+                      layouts=("bat", "stream"), **TILES)
+    tg = prepare_graph(d.src, d.dst, 1024, normalize="gcn", layouts=("bat", "stream"),
+                       device="cpu", **TILES)
+    assert jg.hyb is not None and dispatch_path(tg) == "hybrid"
+    kw = dict(conv_kwargs={"normalize": False})
+    jm = JGCN(hidden_features=16, num_layers=3, out_features=4, backend="reference", **kw)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(d.x), jg)
+    tx = optax.adamw(0.01, weight_decay=5e-4)
+    opt_state = tx.init(params)
+    jstep = jtrain.make_train_step(jm, tx, has_dropout=False)
+    tm = GCN(12, 16, 3, 4, device="cpu", **kw)
+    tm.load_state_dict(params_from_flax(_np_tree(params)))
+    tstep = make_train_step(tm, make_optimizer(tm, 0.01, 5e-4), has_dropout=False)
+    xt, yt = torch.from_numpy(d.x), torch.from_numpy(d.y.astype(np.int64))
+    mt = torch.from_numpy(d.train_mask)
+    rng = jax.random.PRNGKey(1)
+    for _ in range(3):
+        params, opt_state, rng, jl = jstep(params, opt_state, rng, jnp.asarray(d.x), jg,
+                                           jnp.asarray(d.y), jnp.asarray(d.train_mask))
+        tl = tstep(xt, tg, yt, mt)
+        np.testing.assert_allclose(float(tl), float(jl), **TOL_F32)
+    want = params_from_flax(_np_tree(params))
+    got = tm.state_dict()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **TOL_F32, err_msg=k)
