@@ -1,6 +1,6 @@
 """Drive geot_tpu_torch on one CUDA card: build the kernels, hold each
-against its plain version, serve GCN inference requests, train the GCN,
-time it all.
+against its plain version, serve inference requests and train GCN and
+GraphSAGE, time it all.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,12 @@ graph (169,343 nodes, 1,166,243 edges + self-loops, 128 features).
 Phases 10-14: a 3-layer GCN (100 features, hidden 128, 47 classes) over
 the hybrid stream+gather plans of an ogbn-products-shaped clustered graph
 (2,449,029 nodes, 61,859,140 edges + self-loops; mixing 0.3, communities
-of ~2,000 nodes, Zipf(1.0) degrees; the GCN norm baked in). Weights come
+of ~2,000 nodes, Zipf(1.0) degrees; the GCN norm baked in). Phases 15-19:
+a 3-layer GraphSAGE (mean) and a 3-layer GCN (500 features, hidden 64, 7
+classes) over the slot plans of a flickr-shaped graph (89,250 nodes,
+899,756 Zipf(1.0) edges, the graph of `benchmarks/bench_models.py`; the
+GCN's with self-loops and the norm baked into slot weights), with the
+reference tuning table's knobs (`profile_gcn.FLICKR_SLOT`). Weights come
 from a seeded torch.Generator. Phases, each printed with its elapsed
 seconds:
 
@@ -53,7 +58,25 @@ seconds:
  14. CUDA-event timings of each stream kernel per family, its plain
      version, the library yardstick (torch.sparse.mm over the family's own
      CSR adjacency), one hybrid SpMM, one forward pass, one training step
-     and torch.sparse.mm over the whole weighted adjacency.
+     and torch.sparse.mm over the whole weighted adjacency;
+ 15. the flickr graph's host build for each model, and dispatch_path ==
+     "slot" (GraphSAGE, mean) and "slot_static" (GCN);
+ 16. plan_segment_sum_sr (F 500, 128), plan_segment_sum_sr_packed (F 64,
+     32, 16, 8, 7) and plan_segment_sum_pr (8 rows) against their plain
+     versions on both directions' real plans, with bit-identical reruns,
+     and the slot SpMM over a plan chunked so that its hub window splits;
+ 17. 5 requests per model, launches per request asserted (GraphSAGE: sr
+     1, sr_packed 2, pr 3; GCN: sr_packed 3), each against the same model
+     on the plain reference path;
+ 18. 5 AdamW training steps per model beside the reference path (launches
+     per step: GraphSAGE sr 1, sr_packed 4, pr 3; GCN sr_packed 6); the
+     step-0 gradients against the reference path in float32 and with its
+     sums in float64, both differentiated through the kernel path's ReLU
+     pattern;
+ 19. CUDA-event timings of each slot kernel at its main-path shape, its
+     plain version, the library yardstick (torch.sparse.mm over the plan's
+     slot -> row CSR), the slot SpMM per layer width, each model's forward
+     and training step, and each one's busy share (profile_gcn.trace).
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -77,7 +100,9 @@ TRAIN_STEPS = 5
 PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "sddmm": 120, "grad": 120, "train": 240, "timing_train": 180,
                   "hyb_build": 420, "hyb_kernel": 240, "hyb_serve": 240,
-                  "hyb_train": 360, "hyb_timing": 300}
+                  "hyb_train": 360, "hyb_timing": 300, "slot_build": 120,
+                  "slot_kernel": 180, "slot_serve": 120, "slot_train": 180,
+                  "slot_timing": 240}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -88,6 +113,9 @@ KERNEL_RTOL_ABS_SUM, KERNEL_ATOL = 1e-4, 1e-5
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-4       # per training step, kernel path vs reference path
 GRAD_RTOL = 1e-4       # first-step gradients: rtol, atol = GRAD_RTOL * max|g_ref|
+# hidden pre-activations whose sign may differ between the kernel path and a
+# reference path (phase 18), each within FLIP_RTOL * max|z| of its layer of 0
+FLIP_MAX, FLIP_RTOL = 16, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 LR, WEIGHT_DECAY = 0.01, 5e-4
@@ -436,6 +464,418 @@ def run_hybrid(dev, card):
         "library_whole_ms": t_lib, "losses": losses,
     }
 
+def slot_csr(plan, w):
+    """The plan's slot -> row matrix [n_blocks*s_tile, T*E] in CSR carrying
+    the slot weights w (for the library yardstick only)."""
+    wf = w.reshape(-1)
+    keep = torch.nonzero(wf != 0).reshape(-1)
+    rows = plan.dst_slots.reshape(-1).long()[keep]
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, keep]), wf[keep], (plan.n_blocks * plan.s_tile, wf.numel()),
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def slot_bound(plan, w, F):
+    """The least time of one slot kernel launch: each real slot's value
+    row, every slot's weight, each real slot's dst, out_block, and every
+    output row written once (bytes); or 2 f32 flops per real slot and
+    column."""
+    n_real = int((w != 0).sum())
+    n_bytes = (n_real * F * 4 + w.numel() * 4 + n_real * 4 + plan.num_tiles * 4
+               + plan.n_blocks * plan.s_tile * F * 4)
+    bound, by = bound_ms(n_bytes, 2 * n_real * F)
+    return bound, by, n_bytes
+
+
+def run_slot(dev, card):
+    """Phases 15-19: GraphSAGE and GCN serving and training over the slot
+    path on the flickr-shaped graph. Returns the numbers for the kernels
+    line."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.graph.plan import build_segment_plan
+    from geot_tpu_torch.models import (
+        MODELS,
+        GCNConv,
+        SAGEConv,
+        cross_entropy_loss,
+        make_optimizer,
+        make_train_step,
+        prepare_graph,
+    )
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops import reference as ref_ops
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+    from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, FLICKR_SLOT, trace
+
+    slot_names = ("plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr")
+    counters = {name: getattr(sk, name) for name in slot_names}
+    counters.update({"bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat,
+                     "stream_segment_sum": stream_segment_sum,
+                     "stream_segment_acc": stream_segment_acc})
+    plain = {"plan_segment_sum_sr": ref_ops.plan_segment_sum_sr_plain,
+             "plan_segment_sum_sr_packed": ref_ops.plan_segment_sum_sr_packed_plain,
+             "plan_segment_sum_pr": ref_ops.plan_segment_sum_pr_plain}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def spmm_sums_in(acc, g, h, reduce="sum"):
+        """The reference path's SpMM (`segment_spmm(..., backend="reference")`
+        over the graph's own weights) with its gather-scatter sums taken in
+        `acc` and cast back. With float64 this is the second oracle of phases
+        17-18: in float32 the reference path's sums over the 75 k-edge hub
+        row (index_add_, atomics) carry an error of their own (5.6e-4 on the
+        GCN's outputs); a whole float64 model would differ from both float32
+        paths by the float32 GEMMs over 89 k nodes instead."""
+        if g.edge_weight is None:
+            out = ref_ops.gather_scatter_ref(g.src, g.dst, h.to(acc), g.num_nodes, reduce)
+        else:
+            out = ref_ops.gather_weight_scatter_ref(g.src, g.dst, g.edge_weight.to(acc),
+                                                    h.to(acc), g.num_nodes, reduce)
+        return out.to(h.dtype)
+
+    def conv_sums_in(acc, conv, h, g):
+        """One layer of the reference path with `spmm_sums_in(acc, ...)`: a
+        GCNConv over a graph with baked weights, or a SAGEConv without the
+        output norm, in the parameters' dtype (the two models of this run)."""
+        if conv.dtype is not None:
+            raise AssertionError("the oracle layers take no compute dtype")
+        if isinstance(conv, GCNConv):
+            if conv.normalize and g.w_slots is None:
+                raise AssertionError("the oracle GCNConv takes the graph's baked norm")
+            out = spmm_sums_in(acc, g, conv.lin(h))
+            return out if conv.bias is None else out + conv.bias
+        if not isinstance(conv, SAGEConv) or conv.normalize:
+            raise AssertionError(f"no oracle layer for {conv}")
+        out = conv.lin_l(spmm_sums_in(acc, g, h, conv.aggr))
+        return out if conv.lin_r is None else out + conv.lin_r(h)
+
+    def forward_masked(m, x, g, masks, acc=None):
+        """m's forward pass (dropout off) with the hidden layers' ReLU
+        given by `masks` (None: ReLU), through m's own layers or, with
+        `acc`, through `conv_sums_in(acc, ...)`; returns (output, the hidden
+        layers' pre-activations, detached)."""
+        h, zs = x, []
+        for i, conv in enumerate(m.convs):
+            h = conv(h, g) if acc is None else conv_sums_in(acc, conv, h, g)
+            if i < len(m.convs) - 1:
+                zs.append(h.detach())
+                h = torch.relu(h) if masks is None else h * masks[i]
+        return h, zs
+
+    def relu_flips(z_kernel, z_ref, what):
+        """The hidden pre-activations whose sign differs between the kernel
+        path and a reference path: at most FLIP_MAX, each of them within
+        FLIP_RTOL * max|z_ref| (of its layer) of 0. Returns (count, the
+        largest |z_ref| / max|z_ref| among them)."""
+        count, worst = 0, 0.0
+        for a, b in zip(z_kernel, z_ref):
+            flip = (a > 0) != (b > 0)
+            if bool(flip.any()):
+                count += int(flip.sum())
+                worst = max(worst, float(b[flip].abs().max() / b.abs().max()))
+        if count > FLIP_MAX or worst > FLIP_RTOL:
+            raise AssertionError(
+                f"{what}: {count} hidden pre-activation(s) differ in sign from the reference "
+                f"path, the largest at {worst:.3e} * max|z| (allowed: {FLIP_MAX}, within "
+                f"{FLIP_RTOL} * max|z|)")
+        return count, worst
+
+    # 15. host build: the graph of bench_models.py, each model's plans
+    arm("slot_build")
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    t0 = time.perf_counter()
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    graphs, models = {}, {}
+    for name in ("graphsage", "gcn"):
+        cls, loops = MODELS[name]
+        t0 = time.perf_counter()
+        g = prepare_graph(data.src, data.dst, n, add_self_loops=loops,
+                          normalize="gcn" if loops else None, device=dev, **FLICKR_SLOT)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        graphs[name] = g
+        p, pt = g.plan, g.plan_t
+        deg = torch.bincount(g.dst.long(), minlength=n)
+        log(f"phase 15 {name} graph: prepare_graph {t_prep:.2f}s ("
+            + ", ".join(f"{k} {v:.2f}s" for k, v in g.build_stats["seconds"].items())
+            + f"); {g.num_edges} edges, plan {p.num_tiles} tiles x {p.e_tile} "
+            f"({p.num_tiles * p.e_tile} slots, pad {p.padding_ratio:.4f}), {p.n_blocks} "
+            f"windows, {len(p.chunks)} chunks; plan_t {pt.num_tiles} tiles; max in-degree "
+            f"{int(deg.max())}; largest window {int(torch.bincount(p.out_block.long()).max())} "
+            f"tiles")
+    log(f"phase 15 generate {t_gen:.2f}s; knobs {FLICKR_SLOT} (the reference table's TPU "
+        "picks)")
+    gs, gg = graphs["graphsage"], graphs["gcn"]
+    routes = (api.dispatch_path(gs, reduce="mean"), api.dispatch_path(gg))
+    if routes != ("slot", "slot_static"):
+        raise AssertionError(f"dispatch_path {routes}, expected ('slot', 'slot_static')")
+    log("phase 15 dispatch_path: GraphSAGE (mean) 'slot', GCN 'slot_static'")
+
+    # 16. each kernel against its plain version on the real plans, both
+    # directions, and one plan chunked so that its hub window splits
+    arm("slot_kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    errs = {k: 0.0 for k in slot_names}
+    cases = [("plan_segment_sum_sr", F, "graphsage", d, False) for F in (f, 128)
+             for d in ("plan", "plan_t")]
+    cases += [("plan_segment_sum_sr_packed", F, "gcn", d, False) for F in (64, 32, 16, 8, c)
+              for d in ("plan", "plan_t")]
+    cases += [("plan_segment_sum_sr_packed", 64, "graphsage", d, False)
+              for d in ("plan", "plan_t")]
+    cases += [("plan_segment_sum_pr", 8, "graphsage", d, False) for d in ("plan", "plan_t")]
+    # real edges of weight exactly 0, every third slot: the kernels skip
+    # them as they skip pads, so they fall inside the hub row's runs
+    cases += [(name, F, "gcn", "plan", True) for name, F in (
+        ("plan_segment_sum_sr", 128), ("plan_segment_sum_sr_packed", 64),
+        ("plan_segment_sum_sr_packed", 8), ("plan_segment_sum_pr", 8))]
+    for name, F, gname, d, zeroed in cases:
+        g = graphs[gname]
+        plan = getattr(g, d)
+        w = (g.w_slots if d == "plan" else g.w_slots_t) if gname == "gcn" else plan.mask
+        if zeroed:
+            third = torch.arange(w.numel(), device=dev).reshape(w.shape) % 3 == 1
+            w = torch.where(third, torch.zeros_like(w), w)
+            d += " with every third slot's weight 0"
+        slots = plan.num_tiles * plan.e_tile
+        shape = (F, slots) if name == "plan_segment_sum_pr" else (slots, F)
+        vals = (torch.ones(shape, device=dev) if name == "plan_segment_sum_pr"
+                else torch.randn(shape, generator=gen, device=dev))
+        k = counters[name](plan, vals, w)
+        torch.cuda.synchronize()
+        p = plain[name](plan, vals, w)
+        a = plain[name](plan, vals.abs(), w.abs())
+        errs[name] = max(errs[name], check_close_abs_sum(
+            k, p, a, f"phase 16 {name} F={F} {gname}.{d}"))
+        if not torch.equal(counters[name](plan, vals, w), k):
+            raise AssertionError(f"phase 16 {name} F={F} {gname}.{d}: not deterministic")
+        del vals, k, p, a
+    log(f"phase 16 {len(cases)} kernel checks within the abs-sum rule, reruns bit-identical")
+    dst_s, src_s = gs.dst.cpu().numpy(), gs.src.cpu().numpy()
+    hub_tiles = int(torch.bincount(gs.plan.out_block.long()).max())
+    chunk_slots = FLICKR_SLOT["e_tile"] * max(hub_tiles // 3, 2)
+    pc = build_segment_plan(dst_s, src_s, n, e_tile=FLICKR_SLOT["e_tile"],
+                            s_tile=FLICKR_SLOT["s_tile"], max_chunk_slots=chunk_slots,
+                            device=dev)
+    split = [c_ for a_, c_ in zip(pc.chunks[:-1], pc.chunks[1:]) if c_[2] < a_[3]]
+    if len(pc.chunks) < 3 or not split:
+        raise AssertionError("the chunked plan does not split the hub window")
+    x64 = torch.randn(n, 64, generator=gen, device=dev)
+    with torch.inference_mode():
+        got = api._slot_spmm(pc, x64, pc.mask)
+        vals = x64.index_select(0, gs.plan.src_slots.reshape(-1))
+        want = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals, gs.plan.mask)[:n]
+        a = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals.abs(), gs.plan.mask)[:n]
+    errs["plan_segment_sum_sr_packed"] = max(errs["plan_segment_sum_sr_packed"],
+                                             check_close_abs_sum(
+        got, want, a, f"phase 16 chunked plan ({len(pc.chunks)} uniform chunks of "
+        f"{chunk_slots} slots, hub window split {len(split)} time(s)) F=64"))
+    del pc, got, want, a, vals
+
+    # 17. serve: 5 requests per model, each against the reference path
+    arm("slot_serve")
+    x = torch.from_numpy(data.x).to(dev)
+    per_request = {"graphsage": {"plan_segment_sum_sr": 1, "plan_segment_sum_sr_packed": 2,
+                                 "plan_segment_sum_pr": 3},
+                   "gcn": {"plan_segment_sum_sr_packed": 3}}
+    per_step = {"graphsage": {"plan_segment_sum_sr": 1, "plan_segment_sum_sr_packed": 4,
+                              "plan_segment_sum_pr": 3},
+                "gcn": {"plan_segment_sum_sr_packed": 6}}
+    serve, train, req_s, step_s, ref_models = {}, {}, {}, {}, {}
+    for name in ("graphsage", "gcn"):
+        cls, _ = MODELS[name]
+        g = graphs[name]
+        model = cls(f, FLICKR_HIDDEN, 3, c, generator=torch.Generator().manual_seed(SEED),
+                    device=dev).eval()
+        ref_model = cls(f, FLICKR_HIDDEN, 3, c, backend="reference", device=dev).eval()
+        ref_model.load_state_dict(model.state_dict())
+        models[name], ref_models[name] = model, ref_model
+        want = {k: per_request[name].get(k, 0) for k in counters}
+        outs, req_s[name] = [], []
+        reset()  # count this model's serving launches only
+        with torch.inference_mode():
+            for i in range(REQUESTS):
+                before = counts()
+                ts = time.perf_counter()
+                out = model(x, g)
+                torch.cuda.synchronize()
+                req_s[name].append(time.perf_counter() - ts)
+                expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                                f"{name} request {i}")
+                outs.append(out)
+            serve[name] = counts()
+            ref = ref_model(x, g)
+            oracle, _ = forward_masked(ref_model, x, g, None, torch.float64)
+            # the oracle's layers are the reference model's, but for the sums
+            torch.testing.assert_close(forward_masked(ref_model, x, g, None, torch.float32)[0],
+                                       ref, **MODEL_TOL)
+        for i, out in enumerate(outs):
+            if out.shape != (n, c) or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} request {i}: bad output {tuple(out.shape)}")
+            torch.testing.assert_close(out, ref, **MODEL_TOL)
+        log(f"phase 17 {name}: {REQUESTS} requests, launches {serve[name]} (per request "
+            f"{per_request[name]}); outputs [{n}, {c}] finite, max |kernel path - reference "
+            f"path| = {float((outs[0] - ref).abs().max()):.3e} (tolerance {MODEL_TOL}); "
+            f"against the reference path with float64 sums: kernel path "
+            f"{float((outs[0] - oracle).abs().max()):.3e}, float32 reference path "
+            f"{float((ref - oracle).abs().max()):.3e}; request s: "
+            + ", ".join(f"{t:.4f}" for t in req_s[name]))
+        del outs, ref, out, oracle
+
+    # 18. train: 5 AdamW steps per model beside the reference path
+    arm("slot_train")
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    steps, losses = {}, {}
+    for name in ("graphsage", "gcn"):
+        model, ref_model, g = models[name], ref_models[name], graphs[name]
+        step = make_train_step(model, make_optimizer(model, LR, WEIGHT_DECAY),
+                               has_dropout=False)
+        ref_step = make_train_step(ref_model, make_optimizer(ref_model, LR, WEIGHT_DECAY),
+                                   has_dropout=False)
+        steps[name] = step
+        # the step-0 gradients of the reference path (float32, and with its
+        # sums in float64), from the same parameters and through the kernel
+        # path's own ReLU pattern: a pre-activation within rounding of 0 may
+        # take the other sign on the other path (one of the 11.4 M hidden
+        # pre-activations of GraphSAGE does, at ~1e-7), and relu' then
+        # differs there by the whole upstream gradient. relu_flips holds
+        # such sign flips to a few, each at rounding scale.
+        with torch.no_grad():
+            _, z_kernel = forward_masked(model, x, g, None)
+        relu_masks = [z > 0 for z in z_kernel]
+        g_ref_masked, flips = {}, {}
+        for tag, acc in (("f32", None), ("f64", torch.float64)):
+            ref_model.zero_grad(set_to_none=True)
+            out_o, z_ref = forward_masked(ref_model, x, g, relu_masks, acc)
+            cross_entropy_loss(out_o, y, mask).backward()
+            g_ref_masked[tag] = {k: prm.grad for k, prm in ref_model.named_parameters()}
+            flips[tag] = relu_flips(z_kernel, z_ref, f"phase 18 {name} ({tag} reference)")
+        ref_model.zero_grad(set_to_none=True)
+        del out_o, z_kernel, z_ref, relu_masks
+        want = {k: per_step[name].get(k, 0) for k in counters}
+        losses[name], step_s[name] = [], []
+        reset()  # count this model's training launches only
+        for i in range(TRAIN_STEPS):
+            before = counts()
+            ts = time.perf_counter()
+            loss = step(x, g, y, mask)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - ts)
+            expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                            f"{name} step {i}")
+            loss_r = ref_step(x, g, y, mask)
+            if i == 0:
+                pr = dict(ref_model.named_parameters())
+                excess = []
+                for pname, prm in model.named_parameters():
+                    ratios = []
+                    for gr in (g_ref_masked["f32"][pname], g_ref_masked["f64"][pname]):
+                        lim = GRAD_RTOL * gr.abs() + GRAD_RTOL * float(gr.abs().max())
+                        ratios.append(float(((prm.grad - gr).abs() / lim).max()))
+                        torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
+                                                   atol=GRAD_RTOL * float(gr.abs().max()))
+                    gr = g_ref_masked["f64"][pname]
+                    lim = GRAD_RTOL * gr.abs() + GRAD_RTOL * float(gr.abs().max())
+                    ratios.append(float(((pr[pname].grad - gr).abs() / lim).max()))
+                    excess.append((pname, *ratios))
+                log(f"phase 18 {name} step 0 gradients through the kernel path's ReLU "
+                    "pattern (hidden pre-activations of the kernel path that differ in sign "
+                    "from the float32 reference path / the reference path with float64 sums: "
+                    + ", ".join(f"{k_} {n_}, the largest |z_ref| {w_:.3e} * max|z_ref|"
+                                for k_, (n_, w_) in flips.items())
+                    + f"; allowed {FLIP_MAX}, within {FLIP_RTOL} * max|z_ref|), max |err| / "
+                    "(rtol |g| + atol) per "
+                    "tensor (kernel path vs the float32 reference path, kernel path vs the "
+                    "reference path with float64 sums, the float32 reference path with its "
+                    "own ReLU pattern vs the latter): "
+                    + ", ".join(f"{k} ({a:.3f}, {b:.3f}, {c:.3f})" for k, a, b, c in excess))
+            lk, lr_ = float(loss), float(loss_r)
+            if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
+                raise AssertionError(f"{name} step {i}: loss {lk} vs reference {lr_}")
+            losses[name].append((lk, lr_))
+        train[name] = counts()
+        log(f"phase 18 {name}: step 0 gradients agree per tensor with the reference path "
+            f"through the kernel path's ReLU pattern, in float32 and with float64 sums "
+            f"(rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g_ref|); {TRAIN_STEPS} steps, losses (kernel, reference) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses[name])
+            + f"; launches {train[name]} (per step {per_step[name]}); step wall s: "
+            + ", ".join(f"{t:.4f}" for t in step_s[name]))
+    for k in slot_names:
+        if not serve["graphsage"][k] or not train["graphsage"][k]:
+            raise AssertionError(f"{k} was not launched on the slot path")
+    del ref_models
+
+    # 19. timings: each kernel at its main-path shape, the slot SpMM per
+    # layer width, forward and training step per model, busy share
+    arm("slot_timing")
+    timing = {}
+    shapes = [("plan_segment_sum_sr", gs, gs.plan.mask, f),
+              ("plan_segment_sum_sr_packed", gg, gg.w_slots, FLICKR_HIDDEN),
+              ("plan_segment_sum_sr_packed", gg, gg.w_slots, c),
+              ("plan_segment_sum_pr", gs, gs.plan.mask, 8)]
+    for name, g, w, F in shapes:
+        plan = g.plan
+        slots = plan.num_tiles * plan.e_tile
+        if name == "plan_segment_sum_pr":
+            vals = torch.ones(F, slots, device=dev)
+        else:
+            vals = torch.randn(slots, F, generator=gen, device=dev)
+        fn, pl = counters[name], plain[name]
+        t_k = cuda_ms(lambda: fn(plan, vals, w))
+        t_p = cuda_ms(lambda: pl(plan, vals, w), iters=3, warmup=1)
+        csr = slot_csr(plan, w)
+        dense = vals.t() if name == "plan_segment_sum_pr" else vals
+        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, dense))
+        bound, by, nb = slot_bound(plan, w, F)
+        timing[(name, F)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                             "library_ms": t_lib}
+        log(f"{card} {name} F={F}: kernel {t_k:.4f} ms (bound {bound:.4f} ms by {by}: "
+            f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
+            f"slot -> row CSR with its slot weights) {t_lib:.4f} ms")
+        del vals, csr, dense
+    spmm = {}
+    with torch.inference_mode():
+        for F, g, w in ((f, gs, gs.plan.mask), (FLICKR_HIDDEN, gg, gg.w_slots), (c, gg, gg.w_slots)):
+            xf = torch.randn(n, F, generator=gen, device=dev)
+            spmm[F] = cuda_ms(lambda: api._slot_spmm(g.plan, xf, w))
+            log(f"{card} slot SpMM (gather x[src_slots] + kernel) F={F}: {spmm[F]:.4f} ms")
+    fwd, stp, busy = {}, {}, {}
+    for name in ("graphsage", "gcn"):
+        model, g = models[name], graphs[name]
+        model.eval()
+        with torch.inference_mode():
+            fwd[name] = cuda_ms(lambda: model(x, g), iters=10)
+        stp[name] = cuda_ms(lambda: steps[name](x, g, y, mask), iters=5, warmup=2)
+
+        def serve_once():
+            model.eval()
+            with torch.inference_mode():
+                model(x, g)
+
+        for mode, run in (("serve", serve_once), ("train", lambda: steps[name](x, g, y, mask))):
+            prof, wall_us, busy_us, events = trace(run, 3)
+            top = sorted(prof.key_averages(), key=lambda ev: -ev.self_device_time_total)[:6]
+            busy[(name, mode)] = busy_us / max(wall_us, 1e-9)
+            log(f"{card} {name} {mode} x3: traced wall {wall_us / 1e3:.4f} ms, device "
+                f"{busy_us / 1e3:.4f} ms, busy share {busy[(name, mode)]:.4f}; top device "
+                "time: " + "; ".join(f"{ev.key[:48]} {ev.self_device_time_total / 1e3:.4f} ms "
+                                     f"x{ev.count}" for ev in top))
+        log(f"{card} {name}: forward {fwd[name]:.4f} ms (request wall "
+            f"{min(req_s[name]) * 1e3:.4f} ms min); training step {stp[name]:.4f} ms (step "
+            f"wall {min(step_s[name]) * 1e3:.4f} ms min)")
+    faulthandler.cancel_dump_traceback_later()
+    return {"serve": serve, "train": train, "errs": errs, "timing": timing, "spmm_ms": spmm,
+            "forward_ms": fwd, "train_step_ms": stp, "busy": busy, "losses": losses}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -486,7 +926,7 @@ def main():
     arm("serve")
     n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
     data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=SEED)
-    g = prepare_graph(data.src, data.dst, n, device=dev)
+    g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
     bp, bpt = g.bat, g.bat_t
     n_chunks = max(len(bp.chunks), 1)
     n_chunks_t = max(len(bpt.chunks), 1)
@@ -760,6 +1200,7 @@ def main():
     del pattern, b_t, a_nodes, b_nodes, b_vals, a_p, cot, vals_t
 
     hy = run_hybrid(dev, card)
+    sl = run_slot(dev, card)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -773,6 +1214,23 @@ def main():
                                  "hybrid_train_per_step": hy["train"][name] // TRAIN_STEPS},
             "max_abs_err": hy["errs"][name],
             **hy[key],
+        }
+
+    def slot_entry(name, source_line, F):
+        by_path = {}
+        for m in ("graphsage", "gcn"):
+            by_path[f"{m}_serve_requests"] = sl["serve"][m][name]
+            by_path[f"{m}_train_steps"] = sl["train"][m][name]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "geot_tpu_torch/ops/csrc/slot_segment_sum.cu",
+            "replaces": f"geot_tpu/ops/pallas_segment.py:{source_line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": sl["errs"][name],
+            "F": F,
+            **sl["timing"][(name, F)],
         }
 
     log(f"total {time.perf_counter() - T0:.2f}s")
@@ -817,7 +1275,10 @@ def main():
             "bound_by": s_bound_by,
             "library_ms": t_slib,
         }, hyb_entry("stream_segment_sum", "sum", 1243),
-           hyb_entry("stream_segment_acc", "acc", 1176)],
+           hyb_entry("stream_segment_acc", "acc", 1176),
+           slot_entry("plan_segment_sum_sr", 1302, 500),
+           slot_entry("plan_segment_sum_sr_packed", 233, 64),
+           slot_entry("plan_segment_sum_pr", 1348, 8)],
         "card": smi,
         "forward_ms": t_fwd,
         "spmm_ms": t_spmm,
@@ -825,6 +1286,10 @@ def main():
         "train_losses": losses,
         "hybrid": {k: hy[k] for k in ("spmm_ms", "forward_ms", "train_step_ms",
                                       "library_whole_ms", "losses", "families")},
+        "slot": {"spmm_ms": sl["spmm_ms"], "forward_ms": sl["forward_ms"],
+                 "train_step_ms": sl["train_step_ms"], "losses": sl["losses"],
+                 "sr_packed_F7": sl["timing"][("plan_segment_sum_sr_packed", 7)],
+                 "busy_share": {f"{m}_{mode}": v for (m, mode), v in sl["busy"].items()}},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

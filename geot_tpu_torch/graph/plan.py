@@ -1,27 +1,44 @@
-"""Block-aligned-tile (BAT) execution plan, host side.
+"""Tiled execution plans, host side: the slot layout (`SegmentPlan`) and
+block-aligned tiles (`BatPlan`).
 
-Port of `geot_tpu/graph/plan.py` (`compute_chunks` :147-179,
-`BatPlan` :419-463, `build_bat_plan_host` :466-557 — its numpy branch
-only — `_uniformize_bat_chunks` :560-598, `bat_plan_from_host`,
-`build_bat_plan`, `packed_width`). Given the same dst-sorted edges and
-knobs, the host arrays and meta equal the JAX package's exactly.
+Port of `geot_tpu/graph/plan.py`: `SegmentPlan` :56-141,
+`compute_chunks` :147-179, `_uniformize_chunks` :182-229,
+`plan_tile_bounds` :232, `build_segment_plan_host` :242-384 (its numpy
+branch; the native builder gives equal arrays, `tests/test_native.py`),
+`_k_major_host` :387, `plan_from_host` :397, `BatPlan` :419-463,
+`build_bat_plan_host` :466-557 (its numpy branch only),
+`_uniformize_bat_chunks` :560-598, `bat_plan_from_host`,
+`build_bat_plan`, `packed_width` and `build_segment_plan` :622. Given the
+same dst-sorted edges and knobs, the host arrays and meta equal the JAX
+package's exactly.
 
-A tile t is an (output window, value block) incidence: value block
+Slot layout: tile t holds e_tile slots of consecutive dst-sorted edges
+whose dst all lie in window `out_block[t]`; a window's edges fill its
+tiles in order, and pad slots (mask 0) point at the window's base row.
+
+BAT: a tile t is an (output window, value block) incidence: value block
 `vblock[t]` holds e_tile consecutive edges of the dst-sorted edge list, and
 the tile reduces the ones whose dst lies in window `out_block[t]` (rows
-[out_block[t]*s_tile, (out_block[t]+1)*s_tile)). Tiles are ordered by
-window; every window has at least one tile (coverage), so a kernel can
-write every output row.
+[out_block[t]*s_tile, (out_block[t]+1)*s_tile)).
+
+In both, tiles are ordered by window and every window has at least one
+tile (coverage), so a kernel can write every output row.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = [
+    "SegmentPlan",
+    "build_segment_plan",
+    "build_segment_plan_host",
+    "plan_from_host",
+    "plan_tile_bounds",
     "BatPlan",
     "MAX_PREFETCH_TILES",
     "compute_chunks",
@@ -98,6 +115,56 @@ class BatPlan:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """Slot-layout plan (torch tensors on one device), T tiles of E slots.
+
+    src_slots: [T, E] int32 — source node per slot (0 on padding).
+    dst_slots: [T, E] int32 — destination row per slot; pad slots hold the
+      tile's window base (local row 0).
+    edge_pos:  [T, E] int32 — position in the caller's dst-sorted edge list
+      (0 on padding).
+    mask:      [T, E] float32 — 1 for real edges, 0 for padding.
+    out_block: [T] int32 — output window of tile t; non-decreasing within
+      each chunk, every window in [0, n_blocks) present.
+    e0:        [T] int32 — edge index of slot 0 of tile t (slot j holds
+      edge e0[t] + j where it is real).
+    chunks: ((t0, t1, w0, w1), ...) tile ranges covering windows [w0, w1);
+      with `chunk_blocks` > 0 they are uniformized (every chunk spans
+      chunk_blocks windows; pad tiles are all padding).
+    monotone: out_block non-decreasing over the whole plan (port-only; a
+      uniformized chunked plan may break it and then runs chunk by chunk).
+    """
+
+    src_slots: torch.Tensor
+    dst_slots: torch.Tensor
+    edge_pos: torch.Tensor
+    mask: torch.Tensor
+    out_block: torch.Tensor
+    e_tile: int
+    s_tile: int
+    num_segments: int
+    n_blocks: int
+    num_edges: int
+    num_src_nodes: int
+    mode_hint: str = "auto"
+    chunks: tuple = ()
+    chunk_blocks: int = 0
+    e0: Optional[torch.Tensor] = None
+    n_value_blocks: int = 0
+    pack_align: int = 1
+    monotone: bool = True
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.src_slots.shape[0])
+
+    @property
+    def padding_ratio(self) -> float:
+        total = self.num_tiles * self.e_tile
+        return float(total - self.num_edges) / float(max(self.num_edges, 1))
+
+
 def compute_chunks(out_block: np.ndarray, max_tiles_per_chunk: int) -> tuple:
     """Window-aligned chunk boundaries: greedy tile ranges of at most
     `max_tiles_per_chunk`, cut at the last window start within the limit.
@@ -123,6 +190,174 @@ def compute_chunks(out_block: np.ndarray, max_tiles_per_chunk: int) -> tuple:
         chunks.append((int(t0), int(t1), w0, w1))
         t0 = t1
     return tuple(chunks) if len(chunks) > 1 else ()
+
+
+def _uniformize_chunks(arrays: dict, meta: dict) -> None:
+    """Pad every chunk of a slot plan to identical (tiles, windows), in
+    place: the arrays become [n_chunks * T_max, E] with all-padding tiles
+    that cover the extra windows once each, then repeat the last one;
+    meta["chunks"] keeps the real window ranges and meta["chunk_blocks"] =
+    W_max. (On the TPU this lets every chunk share one compiled kernel; the
+    port keeps it so its plans equal the reference's.)"""
+    chunks = meta["chunks"]
+    if not chunks:
+        return
+    s_tile = meta["s_tile"]
+    T_max = max(t1 - t0 for t0, t1, _, _ in chunks)
+    W_max = max(w1 - w0 for _, _, w0, w1 in chunks)
+    n_c = len(chunks)
+    ob = arrays["out_block"]
+    new = {k: np.zeros((n_c * T_max,) + v.shape[1:], v.dtype) for k, v in arrays.items()}
+    new_chunks = []
+    for i, (t0, t1, w0, w1) in enumerate(chunks):
+        nt = t1 - t0
+        base = i * T_max
+        for k, v in arrays.items():
+            new[k][base : base + nt] = v[t0:t1]
+        pad_windows = list(range(w1, w0 + W_max))
+        pad_ob = (pad_windows + [w0 + W_max - 1] * T_max)[: T_max - nt]
+        new["out_block"][base + nt : base + T_max] = np.asarray(pad_ob, ob.dtype)
+        new["dst_slots"][base + nt : base + T_max] = (
+            np.asarray(pad_ob, np.int64)[:, None] * s_tile
+        ).astype(new["dst_slots"].dtype)
+        if "e0" in arrays and nt > 0:
+            # pad tiles inherit the last real tile's e0
+            new["e0"][base + nt : base + T_max] = arrays["e0"][t1 - 1]
+        new_chunks.append((base, base + T_max, int(w0), int(w1)))
+    arrays.update(new)
+    meta["chunks"] = tuple(new_chunks)
+    meta["chunk_blocks"] = int(W_max)
+
+
+def plan_tile_bounds(num_edges: int, num_segments: int, e_tile: int, s_tile: int) -> int:
+    """Upper bound on the tiles of a slot plan: one per full e_tile of
+    edges plus at most one partial (or coverage) tile per window."""
+    n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
+    return _cdiv(num_edges, e_tile) + n_blocks
+
+
+def build_segment_plan_host(
+    dst: np.ndarray,
+    src: Optional[np.ndarray],
+    num_segments: int,
+    *,
+    e_tile: int = 256,
+    s_tile: int = 256,
+    num_src_nodes: Optional[int] = None,
+    mode_hint: str = "auto",
+    max_chunk_slots: int = 4 << 20,
+    pack_align: int = 16,
+):
+    """Host arrays (dict of numpy) and meta of a slot plan over dst-sorted
+    edges. `src` None gives index_scatter-style plans (src_slots 0).
+    Window w's slots start at the pack-aligned edge index at or below its
+    first edge: the first `lead` slots of its first tile are padding, so
+    e0 is a multiple of `pack_align` (halved until it divides e_tile)."""
+    dst = np.asarray(dst)
+    nnz = int(dst.shape[0])
+    if nnz > 1 and not bool(np.all(dst[1:] >= dst[:-1])):
+        raise ValueError("dst must be sorted ascending; use sort_edges_by_dst first")
+    if nnz and int(dst[-1]) >= num_segments:
+        raise ValueError(
+            f"dst contains id {int(dst[-1])} >= num_segments={num_segments}"
+        )
+    if src is None:
+        src_arr = np.zeros(nnz, dtype=np.int32)
+        n_src = 1
+    else:
+        src_arr = np.asarray(src, dtype=np.int32)
+        n_src = int(num_src_nodes) if num_src_nodes is not None else (
+            int(src_arr.max()) + 1 if nnz else 1
+        )
+    n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
+    pack_align = max(int(pack_align), 1)
+    while e_tile % pack_align:
+        pack_align //= 2
+    pack = max(pack_align, 1)
+    meta = dict(
+        e_tile=int(e_tile),
+        s_tile=int(s_tile),
+        num_segments=int(num_segments),
+        n_blocks=n_blocks,
+        num_edges=nnz,
+        num_src_nodes=n_src,
+        mode_hint=mode_hint,
+        pack_align=int(pack),
+    )
+
+    block_of_edge = dst // s_tile if nnz else np.zeros(0, dtype=np.int64)
+    cnt = np.bincount(block_of_edge, minlength=n_blocks).astype(np.int64)
+    edge_start_of_block = np.zeros(n_blocks + 1, dtype=np.int64)
+    np.cumsum(cnt, out=edge_start_of_block[1:])
+    lead = (edge_start_of_block[:-1] % pack).astype(np.int64)
+    # at least one tile per window: an empty window gets an all-pad tile
+    tiles_per_block = np.maximum(_cdiv(cnt + lead, e_tile), 1)
+    tile_start = np.zeros(n_blocks + 1, dtype=np.int64)
+    np.cumsum(tiles_per_block, out=tile_start[1:])
+    num_tiles = int(tile_start[-1])
+
+    out_block = np.repeat(np.arange(n_blocks, dtype=np.int32), tiles_per_block)
+    seg_base = out_block.astype(np.int64) * s_tile
+    ks = np.arange(num_tiles, dtype=np.int64) - tile_start[out_block]
+    aligned_start = edge_start_of_block[:-1] - lead
+    e0 = (aligned_start[out_block] + ks * e_tile).astype(np.int32)
+
+    dst_slots = np.repeat(seg_base, e_tile).reshape(num_tiles, e_tile)
+    src_slots = np.zeros((num_tiles, e_tile), dtype=np.int32)
+    edge_pos = np.zeros((num_tiles, e_tile), dtype=np.int32)
+    mask = np.zeros((num_tiles, e_tile), dtype=np.float32)
+    if nnz:
+        p = (np.arange(nnz, dtype=np.int64) - edge_start_of_block[block_of_edge]
+             + lead[block_of_edge])
+        slot = (tile_start[block_of_edge] + p // e_tile) * e_tile + p % e_tile
+        dst_slots.reshape(-1)[slot] = dst
+        src_slots.reshape(-1)[slot] = src_arr
+        edge_pos.reshape(-1)[slot] = np.arange(nnz, dtype=np.int32)
+        mask.reshape(-1)[slot] = 1.0
+
+    meta["n_value_blocks"] = int(e0.max() if len(e0) else 0) // e_tile + 2
+    meta["chunks"] = compute_chunks(out_block, max_chunk_slots // e_tile)
+    arrays = dict(
+        src_slots=src_slots.astype(np.int32),
+        dst_slots=dst_slots.astype(np.int32),
+        edge_pos=edge_pos.astype(np.int32),
+        mask=mask.astype(np.float32),
+        out_block=out_block.astype(np.int32),
+        e0=e0,
+    )
+    _uniformize_chunks(arrays, meta)
+    return arrays, meta
+
+
+def _k_major_host(arr: np.ndarray, pack: int) -> np.ndarray:
+    """[T, E] slot array -> k-major [T, 1, E] (lane k*rows + r holds slot
+    r*pack + k), the layout of the reference's packed TPU kernels. Host
+    only: no kernel of the port reads a k-major copy yet, so `SegmentPlan`
+    carries none (the reference's slot plans carry `dst_km` / `mask_km`
+    for `feature_hint` <= 64, and only slice them); the packed BAT kernel
+    will (ROADMAP A.5 / B.3)."""
+    T, E = arr.shape
+    rows = E // pack
+    return np.ascontiguousarray(arr.reshape(T, rows, pack).transpose(0, 2, 1).reshape(T, 1, E))
+
+
+def plan_from_host(arrays: dict, meta: dict, device=None) -> SegmentPlan:
+    dev = torch.device("cpu") if device is None else torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ob = arrays["out_block"]
+    return SegmentPlan(
+        src_slots=t(arrays["src_slots"]),
+        dst_slots=t(arrays["dst_slots"]),
+        edge_pos=t(arrays["edge_pos"]),
+        mask=t(arrays["mask"]),
+        out_block=t(ob),
+        e0=t(arrays["e0"]) if "e0" in arrays else None,
+        monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
+        **meta,
+    )
 
 
 def build_bat_plan_host(
@@ -300,3 +535,18 @@ def packed_width(n: int) -> int:
         if n <= d:
             return d
     return 0
+
+
+def build_segment_plan(
+    dst: np.ndarray,
+    src: Optional[np.ndarray] = None,
+    num_segments: int = 0,
+    *,
+    device=None,
+    **kwargs,
+) -> SegmentPlan:
+    """A SegmentPlan over dst-sorted edges (see `build_segment_plan_host`).
+    The reference's `feature_hint` only adds the k-major copies, which the
+    port does not carry (`_k_major_host`)."""
+    arrays, meta = build_segment_plan_host(dst, src, num_segments, **kwargs)
+    return plan_from_host(arrays, meta, device=device)

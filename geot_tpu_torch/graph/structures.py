@@ -1,11 +1,12 @@
-"""Graph container with prebuilt BAT and hybrid stream+gather plans.
+"""Graph container with prebuilt slot, BAT and hybrid stream+gather plans.
 
 Port of `geot_tpu/graph/structures.py` (`Graph` :45-121, `_stable_sort_perm`
-:122-131, `build_graph` :140-397) for the layouts "bat" and "stream". The
-JAX builder asks its TPU tuning table for tiles unless all are given, and
-for a measured verdict on streaming; the port reads no table (ROADMAP
-A.14): it takes every tile explicitly, and the cell census alone decides
-whether a graph streams.
+:122-131, `_slot_weights_host` :115-119, `build_graph` :140-397) for the
+layouts "slot", "bat" and "stream". The JAX builder asks its TPU tuning
+table for tiles, the slot plans' mode hint and the layout preference
+unless all tiles are given, and for a measured verdict on streaming; the
+port reads no table (ROADMAP A.14): it takes every tile and preference
+explicitly, and the cell census alone decides whether a graph streams.
 """
 
 from __future__ import annotations
@@ -20,8 +21,11 @@ import torch
 from geot_tpu_torch.graph.plan import (
     MAX_PREFETCH_TILES,
     BatPlan,
+    SegmentPlan,
     build_bat_plan,
+    build_segment_plan_host,
     packed_width,
+    plan_from_host,
 )
 from geot_tpu_torch.graph.stream_plan import (
     HybridPlan,
@@ -34,9 +38,17 @@ from geot_tpu_torch.utils.device import resolve_device
 __all__ = ["Graph", "build_graph"]
 
 
+# layout preferences `build_graph` takes for the fused SpMM (the reference's
+# table also answers 'packed', which routes as 'sr'; 'bat_packed', ROADMAP
+# B.3; and 'xla', its TPU latency floor)
+PREFERENCES = ("bat", "sr")
+LAYOUTS = (("bat",), ("bat", "stream"), ("stream",), ("slot",), ("bat", "slot"),
+           ("bat", "slot", "stream"))
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """dst-sorted COO adjacency + BAT plans (torch tensors on one device).
+    """dst-sorted COO adjacency + plans (torch tensors on one device).
 
     src, dst: [nnz] int32, sorted by dst ascending.
     edge_weight: [nnz] float32 or None — static per-edge weights.
@@ -48,13 +60,17 @@ class Graph:
     hyb / hyb_t: hybrid stream+gather plans (forward, transpose), both set
       or both None (None when the cell census rejects streaming in either
       direction); static weights are baked into them.
+    plan / plan_t: slot-layout plans (forward over dst, transpose over
+      src), or None without the "slot" layout.
+    w_slots / w_slots_t: [T, e_tile] static weights in slot order (pads
+      0) for plan / plan_t, or None.
+    prefer / prefer_dyn: layout preference for graph-weight or unweighted
+      SpMM / per-call weights: "bat" or "sr" (the slot layout).
     build_stats: what `build_graph` decided and how long its host steps
       took (the reference keeps this in its module's LAST_BUILD_STATS):
       "stream" ({"forward", "transpose"}: each direction's census
       statistics and remainder edges) and "seconds" (per step). For
       logging only.
-    The reference's slot-layout fields (plan, w_slots, ...) are absent: the
-    slot layout is not ported (ROADMAP A.9).
     """
 
     src: torch.Tensor
@@ -68,6 +84,12 @@ class Graph:
     num_nodes: int = 0
     hyb: Optional[HybridPlan] = None
     hyb_t: Optional[HybridPlan] = None
+    plan: Optional[SegmentPlan] = None
+    plan_t: Optional[SegmentPlan] = None
+    w_slots: Optional[torch.Tensor] = None
+    w_slots_t: Optional[torch.Tensor] = None
+    prefer: str = "bat"
+    prefer_dyn: str = "bat"
     build_stats: dict = dataclasses.field(default_factory=dict, compare=False)
 
     @property
@@ -84,6 +106,13 @@ def _stable_sort_perm(key: np.ndarray) -> np.ndarray:
     counting sort when built; a stable permutation is unique, so both give
     the same array)."""
     return np.argsort(np.asarray(key), kind="stable")
+
+
+def _slot_weights_host(arrays: dict, w: np.ndarray) -> np.ndarray:
+    """Static edge weights in slot order, pads 0."""
+    ep = arrays["edge_pos"].reshape(-1)
+    ws = w[np.minimum(ep, len(w) - 1)].reshape(arrays["mask"].shape)
+    return (ws * arrays["mask"]).astype(np.float32)
 
 
 def _build_hybrid(
@@ -140,41 +169,50 @@ def build_graph(
     layouts: Tuple[str, ...] = ("bat",),
     max_chunk_bytes: int = 1 << 30,
     stream_knobs: StreamKnobs = StreamKnobs(),
+    prefer: str = "bat",
+    prefer_dyn: str = "bat",
+    mode_hint: str = "auto",
+    max_chunk_slots: int = 4 << 20,
     device=None,
 ) -> Graph:
     """Host-side preprocessing: sort by dst, build the forward + transpose
     plans of `layouts`, move everything to `device` (default: the CUDA
     card).
 
-    layouts: ("bat",), ("bat", "stream") or ("stream",). "bat" builds the
-    BAT plans; "stream" builds the hybrid stream+gather plans `hyb` and
-    `hyb_t` when the cell census (`stream_knobs`) accepts streaming in
-    both directions. The slot layout ("slot") is not ported (ROADMAP A.9).
-    The reference also consults its TPU tuning table for a measured
-    verdict on streaming (one entry, `spmm_hyb:7:13:1`: feature 128,
-    8-16 k edges, average degree 2-4, vetoes it); the port has no table,
-    so on graphs of that bucket the two packages can differ.
+    layouts: one of LAYOUTS. "slot" builds the slot-layout plans `plan`
+    and `plan_t` (e_tile x s_tile; pack-aligned to 16 edges when
+    `feature_hint` <= 64), with the static weights in slot order; "bat"
+    builds the BAT plans (bat_e_tile x bat_s_tile); "stream" builds the
+    hybrid stream+gather plans `hyb` and `hyb_t` when the cell census
+    (`stream_knobs`) accepts streaming in both directions and
+    `feature_hint` > 64. The reference also consults its TPU tuning table
+    for a measured verdict on streaming (one entry, `spmm_hyb:7:13:1`:
+    feature 128, 8-16 k edges, average degree 2-4, vetoes it); the port
+    has no table, so on graphs of that bucket the two packages can differ.
 
-    Tiles are explicit. The defaults bat_e_tile=1024, bat_s_tile=256 are
-    the reference's TPU picks and are not measured on H100; the stream
-    path's remainder takes the same BAT tiles. `e_tile` and `s_tile` size
-    the slot layout, which is not ported; they are accepted so call sites
-    match the reference. `max_chunk_bytes` caps one chunk's gathered
-    [tiles*bat_e_tile, feature_hint] f32 block (the reference's
-    GEOT_MAX_CHUNK_BYTES budget, `structures.py:257`), for the BAT plans
-    and the remainder alike.
+    What the reference takes from its table is explicit here: the tiles,
+    `prefer` / `prefer_dyn` (one of PREFERENCES: which layout the fused
+    SpMM takes for graph or no weights / per-call weights; a slot
+    preference degrades to "bat" without a slot plan) and the slot plans'
+    `mode_hint` ("auto", "sr" or "pr"). The defaults are the reference's
+    answer when all tiles are given. All of them are TPU picks, not
+    measured on H100. `max_chunk_slots` caps a slot plan's chunk;
+    `max_chunk_bytes` caps one chunk's gathered [tiles*bat_e_tile,
+    feature_hint] f32 block (the reference's GEOT_MAX_CHUNK_BYTES budget,
+    `structures.py:257`), for the BAT plans and the stream remainder alike.
     """
-    del e_tile, s_tile  # slot layout only (ROADMAP A.9)
     layouts = tuple(layouts)
-    if layouts not in (("bat",), ("bat", "stream"), ("stream",)):
+    if layouts not in LAYOUTS:
+        raise NotImplementedError(f"layouts={layouts!r}: one of {LAYOUTS}")
+    for name, p in (("prefer", prefer), ("prefer_dyn", prefer_dyn)):
+        if p not in PREFERENCES:
+            raise ValueError(f"{name}={p!r}: one of {PREFERENCES}")
+    nw = packed_width(feature_hint) if feature_hint else 0
+    if nw and "bat" in layouts:
         raise NotImplementedError(
-            f"layouts={layouts!r}: ('bat',), ('bat', 'stream') and ('stream',) "
-            "are ported; the slot layout is ROADMAP A.9"
-        )
-    if feature_hint and packed_width(feature_hint):
-        raise NotImplementedError(
-            f"feature_hint={feature_hint} asks for packed narrow-feature plans, "
-            "not ported yet (ROADMAP A.5 / B.3); use feature_hint >= 65"
+            f"feature_hint={feature_hint} asks for packed narrow-feature BAT plans, "
+            "not ported yet (ROADMAP A.5 / B.3); use feature_hint >= 65 or "
+            "layouts=('slot',)"
         )
     dev = resolve_device(device)
     stats: dict = {"stream": {}, "seconds": {}}
@@ -197,6 +235,24 @@ def build_graph(
     mct = max(min(MAX_PREFETCH_TILES, max_chunk_bytes // (row_b * bat_e_tile)), 1)
     bat_kw = dict(e_tile=bat_e_tile, s_tile=bat_s_tile, max_chunk_tiles=mct)
     secs["sort"] = time.perf_counter() - t0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    plan = plan_t = w_slots = w_slots_t = None
+    if "slot" in layouts:
+        t0 = time.perf_counter()
+        kw = dict(e_tile=e_tile, s_tile=s_tile, num_src_nodes=num_nodes,
+                  mode_hint=mode_hint, pack_align=16 if nw else 1,
+                  max_chunk_slots=max_chunk_slots)
+        arrs, meta = build_segment_plan_host(dst, src, num_nodes, **kw)
+        arrs_t, meta_t = build_segment_plan_host(src_t, dst[perm_t], num_nodes, **kw)
+        if edge_weight is not None and len(edge_weight):
+            w_slots = t(_slot_weights_host(arrs, edge_weight))
+            w_slots_t = t(_slot_weights_host(arrs_t, w_t))
+        plan = plan_from_host(arrs, meta, device=dev)
+        plan_t = plan_from_host(arrs_t, meta_t, device=dev)
+        secs["slot_plans"] = time.perf_counter() - t0
     bat = bat_t = None
     if "bat" in layouts:
         t0 = time.perf_counter()
@@ -204,7 +260,7 @@ def build_graph(
         bat_t = build_bat_plan(src_t, num_nodes, device=dev, **bat_kw)
         secs["bat_plans"] = time.perf_counter() - t0
     hyb = hyb_t = None
-    if "stream" in layouts and len(src):
+    if "stream" in layouts and nw == 0 and len(src):
         kw = dict(feature_hint=feature_hint, bat_kw=bat_kw, knobs=stream_knobs, dev=dev)
         hyb = _build_hybrid(dst, src, edge_weight, num_nodes, "forward", stats, **kw)
         if hyb is not None:
@@ -214,9 +270,6 @@ def build_graph(
                 # the forward streams but the transpose does not: autograd
                 # needs the pair, so both stay on the gather path
                 hyb = None
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return Graph(
         src=t(src),
@@ -230,5 +283,12 @@ def build_graph(
         num_nodes=int(num_nodes),
         hyb=hyb,
         hyb_t=hyb_t,
+        plan=plan,
+        plan_t=plan_t,
+        w_slots=w_slots,
+        w_slots_t=w_slots_t,
+        # slot preferences degrade to "bat" when no slot plan was built
+        prefer=prefer if plan is not None else "bat",
+        prefer_dyn=prefer_dyn if plan is not None else "bat",
         build_stats=stats,
     )

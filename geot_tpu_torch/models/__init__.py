@@ -1,5 +1,5 @@
-from geot_tpu_torch.models.basic_gnn import GCN, BasicGNN
-from geot_tpu_torch.models.conv import GCNConv, gcn_edge_weight, prepare_graph
+from geot_tpu_torch.models.basic_gnn import GCN, MODELS, BasicGNN, GraphSAGE
+from geot_tpu_torch.models.conv import GCNConv, SAGEConv, gcn_edge_weight, prepare_graph
 from geot_tpu_torch.models.train import (
     accuracy,
     cross_entropy_loss,
@@ -13,8 +13,11 @@ from geot_tpu_torch.models.weights import params_from_flax, params_to_flax
 
 __all__ = [
     "GCN",
+    "GraphSAGE",
+    "MODELS",
     "BasicGNN",
     "GCNConv",
+    "SAGEConv",
     "gcn_edge_weight",
     "prepare_graph",
     "params_from_flax",

@@ -1,6 +1,7 @@
 """Stacked-conv GNN.
 
-Port of `geot_tpu/models/basic_gnn.py:32-107` (`BasicGNN`, `GCN`) for
+Port of `geot_tpu/models/basic_gnn.py:32-119` (`BasicGNN`, `GCN`,
+`GraphSAGE`) and of `MODELS` for its two ported models, for
 `jk=None`, `norm=None`, ReLU and dropout: num_layers convs, each but the
 last followed by ReLU and dropout, the last mapping to `out_features`.
 `conv_kwargs` and the compute `dtype` reach every conv, as in the
@@ -18,10 +19,10 @@ import torch
 from torch import nn
 
 from geot_tpu_torch.graph.structures import Graph
-from geot_tpu_torch.models.conv import GCNConv
+from geot_tpu_torch.models.conv import GCNConv, SAGEConv
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BasicGNN", "GCN"]
+__all__ = ["BasicGNN", "GCN", "GraphSAGE", "MODELS"]
 
 
 class BasicGNN(nn.Module):
@@ -100,3 +101,17 @@ class GCN(BasicGNN):
     (`prepare_graph(add_self_loops=True)`)."""
 
     conv_cls = GCNConv
+
+
+class GraphSAGE(BasicGNN):
+    """SAGEConv stack, mean aggregation; the graph holds no self-loops."""
+
+    conv_cls = SAGEConv
+
+
+# name -> (model class, needs_self_loops), the entries of the reference's
+# MODELS (`geot_tpu/models/basic_gnn.py`) for the ported models
+MODELS = {
+    "gcn": (GCN, True),
+    "graphsage": (GraphSAGE, False),
+}

@@ -1,8 +1,8 @@
-"""GCN layer over the fused BAT SpMM.
+"""GCN and GraphSAGE layers over the fused SpMM.
 
-Port of `geot_tpu/models/conv.py:47-176` (`prepare_graph`,
-`gcn_edge_weight`, `GCNConv`). The aggregation is a direct call into
-`segment_spmm` over a prebuilt `Graph`.
+Port of `geot_tpu/models/conv.py:47-215` (`prepare_graph`,
+`gcn_edge_weight`, `GCNConv`, `SAGEConv`). The aggregation is a direct
+call into `segment_spmm` over a prebuilt `Graph`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from geot_tpu_torch.graph.structures import Graph, build_graph
 from geot_tpu_torch.ops.api import segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "glorot_uniform_"]
+__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "glorot_uniform_",
+           "lecun_normal_"]
 
 
 def prepare_graph(
@@ -36,25 +37,30 @@ def prepare_graph(
     bat_e_tile: int = 1024,
     bat_s_tile: int = 256,
     feature_hint: int = 128,
-    layouts=("bat",),
+    layouts=("bat", "slot"),
     max_chunk_bytes: int = 1 << 30,
     stream_knobs: StreamKnobs = StreamKnobs(),
+    prefer: str = "bat",
+    prefer_dyn: str = "bat",
+    mode_hint: str = "auto",
+    max_chunk_slots: int = 4 << 20,
     device=None,
 ) -> Graph:
     """One-time host-side adjacency prep: optionally add self-loops (PyG
     `add_remaining_self_loops` semantics: existing diagonal edges are
     replaced by the full diagonal at fill 1, or 2 with `improved`),
     optionally bake the symmetric GCN normalization into the edge weights
-    (`normalize='gcn'`), dst-sort and build the BAT plans.
+    (`normalize='gcn'`), dst-sort and build the plans of `layouts` (the
+    reference's default: BAT and slot).
 
-    Tiles are explicit (see `build_graph`); the reference's default
-    layouts add the slot layout, which is not ported. `layouts=("bat",
-    "stream")` adds the hybrid plans where the cell census accepts them.
-    Note: with `normalize='gcn'` the graph has no cached slot weights, so
-    `GCNConv(normalize=True)` normalizes the weights a second time — the
-    reference does the same (ROADMAP §C). Over a graph with the norm baked
-    in, use `GCN(..., conv_kwargs={"normalize": False})` (the hybrid path
-    takes the graph's own weights only); else `normalize=None` here.
+    Tiles, `prefer`, `prefer_dyn` and `mode_hint` are explicit (see
+    `build_graph`). `layouts=("bat", "stream")` adds the hybrid plans
+    where the cell census accepts them. With `normalize='gcn'` and a slot
+    layout the norm lives in the graph's slot weights, and
+    `GCNConv(normalize=True)` takes it as it is. On a graph without slot
+    plans (`layouts=("bat",)`, or `("bat", "stream")`) `GCNConv` normalizes
+    the baked weights a second time, as the reference does (ROADMAP C.1):
+    there use `GCN(..., conv_kwargs={"normalize": False})`.
     """
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
@@ -90,7 +96,9 @@ def prepare_graph(
         src, dst, num_nodes, edge_weight=edge_weight,
         e_tile=e_tile, s_tile=s_tile, bat_e_tile=bat_e_tile,
         bat_s_tile=bat_s_tile, feature_hint=feature_hint, layouts=layouts,
-        max_chunk_bytes=max_chunk_bytes, stream_knobs=stream_knobs, device=device,
+        max_chunk_bytes=max_chunk_bytes, stream_knobs=stream_knobs, prefer=prefer,
+        prefer_dyn=prefer_dyn, mode_hint=mode_hint, max_chunk_slots=max_chunk_slots,
+        device=device,
     )
 
 
@@ -127,16 +135,28 @@ def glorot_uniform_(weight: torch.Tensor, generator: Optional[torch.Generator]) 
         weight.uniform_(-a, a, generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """flax `lecun_normal` (nn.Dense's default kernel init: variance
+    scaling 1.0, fan_in, truncated normal): N(0, 1/fan_in) truncated at two
+    standard deviations, its std corrected for the truncation."""
+    fan_in = weight.shape[1]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=generator)
+
+
 class GCNConv(nn.Module):
     """Graph convolution out = A_hat @ (X W) + b, A_hat = D^-1/2 (A+I) D^-1/2.
 
     `lin` is a bias-free `nn.Linear` (weight [out, in] = the flax kernel
     transposed) and `bias` a separate parameter, as in the reference's
     flax module. The graph must already hold self-loops (`prepare_graph`).
-    With `normalize=True` the degree norm is computed per forward (the
-    reference skips it when the graph caches slot weights, which the
-    port's graphs never do) and the SpMM takes it as per-call weights;
-    `normalize=False` aggregates with the graph's own weights (or
+    With `normalize=True`: a graph with slot weights
+    (`prepare_graph(..., normalize='gcn')` with a slot layout) carries the
+    norm, and the SpMM takes the graph's own weights; otherwise the degree
+    norm is computed per forward and the SpMM takes it as per-call
+    weights. `normalize=False` aggregates with the graph's own weights (or
     unweighted), which is what reaches the hybrid path. `dtype` is the
     compute dtype (flax `dtype`): the input and the float32 parameters are
     cast to it for the product, and the SpMM returns it (summing in
@@ -171,8 +191,70 @@ class GCNConv(nn.Module):
             x = self.lin(x)
         else:
             x = torch.nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
-        w = gcn_edge_weight(graph, x.dtype) if self.normalize else None
+        w = gcn_edge_weight(graph, x.dtype) if self.normalize and graph.w_slots is None else None
         out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
+        return out
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE: out = lin_l(reduce_{j->i} x_j) + lin_r(x_i).
+
+    `lin_l` (the flax `Dense_0`, with bias) maps the aggregate, `lin_r`
+    (`Dense_1`, no bias) the root; with `normalize` each output row is
+    scaled to unit L2 norm. The aggregation is the unweighted fused SpMM
+    with `aggr` ("mean" or "sum"); the graph should hold no self-loops.
+    Weights are initialised as flax's `nn.Dense` does (lecun normal,
+    zero bias) from `generator`, on the CPU, and moved to `device`
+    (default: the CUDA card). `dtype` is the compute dtype, as in
+    `GCNConv`.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        aggr: str = "mean",
+        root_weight: bool = True,
+        normalize: bool = False,
+        use_bias: bool = True,
+        backend: str = "auto",
+        dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.aggr = aggr
+        self.normalize = normalize
+        self.backend = backend
+        self.dtype = dtype
+        self.lin_l = nn.Linear(in_features, features, bias=use_bias)
+        lecun_normal_(self.lin_l.weight, generator)
+        if use_bias:
+            nn.init.zeros_(self.lin_l.bias)
+        self.lin_r = None
+        if root_weight:
+            self.lin_r = nn.Linear(in_features, features, bias=False)
+            lecun_normal_(self.lin_r.weight, generator)
+        self.to(dev)
+
+    def _linear(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return lin(x)
+        b = None if lin.bias is None else lin.bias.to(self.dtype)
+        return torch.nn.functional.linear(x, lin.weight.to(self.dtype), b)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        agg = segment_spmm(graph, x, reduce=self.aggr, backend=self.backend)
+        out = self._linear(self.lin_l, agg)
+        if self.lin_r is not None:
+            out = out + self._linear(self.lin_r, x)
+        if self.normalize:
+            out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
+                                    min=1e-12)
         return out

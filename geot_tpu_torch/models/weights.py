@@ -1,10 +1,14 @@
-"""Carry GCN parameters between the reference's flax layout and the port.
+"""Carry GCN and GraphSAGE parameters between the reference's flax layout
+and the port.
 
 The flax tree of `geot_tpu.models.GCN` holds, for layer i,
-`GCNConv_{i}/Dense_0/kernel` [in, out] and `GCNConv_{i}/bias` [out].
-The port's `GCN` keeps them as `convs.{i}.lin.weight` [out, in] (the
-kernel transposed) and `convs.{i}.bias`. `params_from_flax` and
-`params_to_flax` are inverses.
+`GCNConv_{i}/Dense_0/kernel` [in, out] and `GCNConv_{i}/bias` [out]; the
+port's `GCN` keeps them as `convs.{i}.lin.weight` [out, in] (the kernel
+transposed) and `convs.{i}.bias`. The tree of `geot_tpu.models.GraphSAGE`
+holds `SAGEConv_{i}/Dense_0` {kernel, bias} (on the aggregate) and
+`SAGEConv_{i}/Dense_1` {kernel} (on the root); the port's `GraphSAGE`
+keeps them as `convs.{i}.lin_l.{weight, bias}` and `convs.{i}.lin_r.weight`.
+`params_from_flax` and `params_to_flax` are inverses.
 """
 
 from __future__ import annotations
@@ -17,44 +21,73 @@ import torch
 
 __all__ = ["params_from_flax", "params_to_flax"]
 
-_LAYER = re.compile(r"^GCNConv_(\d+)$")
-_STATE = re.compile(r"^convs\.(\d+)\.(lin\.weight|bias)$")
+_LAYER = re.compile(r"^(GCNConv|SAGEConv)_(\d+)$")
+_STATE = re.compile(r"^convs\.(\d+)\.(lin\.weight|bias|lin_l\.weight|lin_l\.bias|lin_r\.weight)$")
+# flax Dense module of each SAGEConv linear, and its torch name
+_SAGE_DENSE = {"Dense_0": "lin_l", "Dense_1": "lin_r"}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the port's `GCN` from the flax params, given as nested
-    dicts of numpy arrays (with or without the outer "params" key)."""
+    """State dict for the port's `GCN` or `GraphSAGE` from the flax params,
+    given as nested dicts of numpy arrays (with or without the outer
+    "params" key)."""
     tree = params.get("params", params)
     state: Dict[str, torch.Tensor] = {}
     for name, layer in tree.items():
         m = _LAYER.match(name)
         if m is None:
-            raise ValueError(f"unexpected flax module {name!r}: only GCNConv layers port")
-        extra = set(layer) - {"Dense_0", "bias"}
-        if extra or set(layer["Dense_0"]) != {"kernel"}:
+            raise ValueError(f"unexpected flax module {name!r}: only GCNConv and "
+                             "SAGEConv layers port")
+        i = int(m.group(2))
+        if m.group(1) == "GCNConv":
+            extra = set(layer) - {"Dense_0", "bias"}
+            if extra or set(layer["Dense_0"]) != {"kernel"}:
+                raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
+            state[f"convs.{i}.lin.weight"] = _t(np.asarray(layer["Dense_0"]["kernel"]).T)
+            if "bias" in layer:
+                state[f"convs.{i}.bias"] = _t(layer["bias"])
+            continue
+        if set(layer) - set(_SAGE_DENSE) or "Dense_0" not in layer:
             raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
-        i = int(m.group(1))
-        kernel = np.asarray(layer["Dense_0"]["kernel"], np.float32)
-        state[f"convs.{i}.lin.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
-        if "bias" in layer:
-            state[f"convs.{i}.bias"] = torch.from_numpy(
-                np.asarray(layer["bias"], np.float32).copy()
-            )
+        for dense, lin in _SAGE_DENSE.items():
+            if dense not in layer:
+                continue
+            allowed = {"kernel", "bias"} if dense == "Dense_0" else {"kernel"}
+            if not {"kernel"} <= set(layer[dense]) <= allowed:
+                raise ValueError(f"unexpected parameters in {name}/{dense}: "
+                                 f"{sorted(layer[dense])}")
+            state[f"convs.{i}.{lin}.weight"] = _t(np.asarray(layer[dense]["kernel"]).T)
+            if "bias" in layer[dense]:
+                state[f"convs.{i}.{lin}.bias"] = _t(layer[dense]["bias"])
     return state
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """The flax params tree {"params": {"GCNConv_i": {"Dense_0": {"kernel"},
-    "bias"}}} of float32 numpy arrays, from the port's `GCN` state dict."""
+    """The flax params tree {"params": {"GCNConv_i": ...}} or
+    {"params": {"SAGEConv_i": ...}} of float32 numpy arrays, from the
+    port's `GCN` or `GraphSAGE` state dict."""
     tree: Dict[str, Dict] = {}
     for key, value in state.items():
         m = _STATE.match(key)
         if m is None:
-            raise ValueError(f"unexpected parameter {key!r}: only GCNConv layers port")
-        layer = tree.setdefault(f"GCNConv_{int(m.group(1))}", {})
+            raise ValueError(f"unexpected parameter {key!r}: only GCNConv and SAGEConv "
+                             "layers port")
+        i, what = int(m.group(1)), m.group(2)
         arr = value.detach().cpu().numpy().astype(np.float32)
-        if m.group(2) == "bias":
-            layer["bias"] = arr.copy()
-        else:
-            layer["Dense_0"] = {"kernel": np.ascontiguousarray(arr.T)}
+        if what in ("lin.weight", "bias"):
+            layer = tree.setdefault(f"GCNConv_{i}", {})
+            if what == "bias":
+                layer["bias"] = arr.copy()
+            else:
+                layer["Dense_0"] = {"kernel": np.ascontiguousarray(arr.T)}
+            continue
+        lin, kind = what.split(".")
+        dense = "Dense_0" if lin == "lin_l" else "Dense_1"
+        entry = tree.setdefault(f"SAGEConv_{i}", {}).setdefault(dense, {})
+        entry["kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(arr.T) if kind == "weight" else arr.copy())
     return {"params": tree}

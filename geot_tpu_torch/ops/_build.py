@@ -40,6 +40,7 @@ SOURCES: Dict[str, str] = {
     "bat_segment_sum": "bat_segment_sum.cu",
     "sddmm_bat": "sddmm_bat.cu",
     "stream_segment": "stream_segment.cu",
+    "slot_segment_sum": "slot_segment_sum.cu",
 }
 
 # loaded libraries of this process, by kernel name

@@ -1,20 +1,24 @@
-"""Fused SpMM and SDDMM over BAT and hybrid stream+gather plans, with
+"""Fused SpMM and SDDMM over slot, BAT and hybrid stream+gather plans, with
 their gradients.
 
-Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_f_tile` :87,
-`_chunk_plan` :107, `_plan_sum_chunked` :182, `_bat_sum` :335 (wide
-branch), `_spmm_fwd_bat` :750, `_stream_accum` :778, `_stream_sum` :825,
-`_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855, `_make_gs_bat` :875,
-`_make_gws_bat` :900, `_make_iscat` :1092 (BatPlan branch),
-`_apply_reduce_post` :1159, `index_scatter` :1170, `gather_scatter`
-:1217, `gather_weight_scatter` :1256, `dispatch_path` :1298,
-`segment_spmm` :1367, `_sddmm_bat_fwd` :1678, `sddmm_coo` :1704), the BAT
-and hybrid routes.
+Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
+`_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155,
+`_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_bat_sum` :335 (wide
+branch), `_slot_spmm` :654, `_make_gws_static` :675 and `_make_gs` :1008
+(one Function), `_spmm_fwd_bat` :750, `_stream_accum` :778,
+`_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
+`_make_gs_bat` :875, `_make_gws_bat` :900, `segment_counts` :981,
+`_make_iscat` :1092 (BatPlan branch), `_apply_reduce_post` :1159,
+`index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter` :1256, `dispatch_path` :1298,
+`segment_spmm` :1367, `_sddmm_bat_fwd` :1678, `sddmm_coo` :1704), the
+slot_static, slot, BAT and hybrid routes. The slot layout gathers exactly
+`x[src_slots]`: the reference's gather pad (`_fast_gather_fn`, odd
+multiples of 512 rows) answers a TPU emitter and is not carried over.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
-fused SpMM runs the same kernels over the transpose plan (`bat_t`,
-`hyb_t`); the gradient of per-call edge weights comes from the BAT SDDMM
-kernel. A gradient is computed only for the inputs that ask for one.
+fused SpMM runs the same kernels over the transpose plan (`plan_t`,
+`bat_t`, `hyb_t`); the gradient of per-call edge weights comes from the
+BAT SDDMM kernel. A gradient is computed only for the inputs that ask for one.
 Every op returns its input's dtype and sums in float32, as the
 reference's kernels do.
 """
@@ -28,12 +32,17 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from geot_tpu_torch.graph.plan import BatPlan
+from geot_tpu_torch.graph.plan import BatPlan, SegmentPlan, packed_width
 from geot_tpu_torch.graph.stream_plan import HybridPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+from geot_tpu_torch.ops.slot_kernels import (
+    plan_segment_sum_pr,
+    plan_segment_sum_sr,
+    plan_segment_sum_sr_packed,
+)
 from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
 
 __all__ = [
@@ -61,19 +70,32 @@ def _pick_f_tile(n_features: int) -> int:
     return 256 if (n_features % 256 == 0 and n_features >= 256) else 128
 
 
-def _chunk_plan(plan: BatPlan, c) -> BatPlan:
-    """Slice chunk c = (t0, t1, w0, w1) out of a plan; its output rows
-    start at window w0. With uniform chunks the output spans
+def _chunk_plan(plan, c):
+    """Slice chunk c = (t0, t1, w0, w1) out of a BAT or slot plan; its
+    output rows start at window w0. With uniform chunks the output spans
     `chunk_blocks` windows and `num_segments` trims it to the real rows."""
     t0, t1, w0, w1 = c
     s = plan.s_tile
     nb = plan.chunk_blocks or (w1 - w0)
+    num_segments = min(max(plan.num_segments - w0 * s, 0), (w1 - w0) * s)
+    if isinstance(plan, SegmentPlan):
+        def cut(t):
+            return None if t is None else t[t0:t1]
+
+        return dataclasses.replace(
+            plan, src_slots=cut(plan.src_slots), dst_slots=cut(plan.dst_slots) - w0 * s,
+            edge_pos=cut(plan.edge_pos), mask=cut(plan.mask),
+            out_block=cut(plan.out_block) - w0, e0=cut(plan.e0),
+            n_blocks=nb, num_segments=num_segments, chunks=(),
+            chunk_blocks=0,
+            monotone=True,  # uniformized chunks are in order one by one
+        )
     return dataclasses.replace(
         plan,
         out_block=plan.out_block[t0:t1] - w0,
         vblock=plan.vblock[t0:t1],
         n_blocks=nb,
-        num_segments=min(max(plan.num_segments - w0 * s, 0), (w1 - w0) * s),
+        num_segments=num_segments,
         chunks=(),
         chunk_blocks=0,
         chunk_vbase=(),
@@ -81,7 +103,7 @@ def _chunk_plan(plan: BatPlan, c) -> BatPlan:
     )
 
 
-def _plan_sum_chunked(plan: BatPlan, run_one: Callable) -> torch.Tensor:
+def _plan_sum_chunked(plan, run_one: Callable) -> torch.Tensor:
     """Chunked tiled segment sum: `run_one(chunk_plan, i, chunk)` returns
     one chunk's trimmed output [chunk_segments, n]. Consecutive chunks that
     split a hub window mid-window share that window, and their outputs are
@@ -106,6 +128,55 @@ def _plan_sum_chunked(plan: BatPlan, run_one: Callable) -> torch.Tensor:
             pieces.append(o)
         prev_w1 = w1
     return torch.cat(pieces, dim=0)[: plan.num_segments]
+
+
+def _pick_mode(n_features: int, plan: SegmentPlan) -> str:
+    """"pr" (edges on the contiguous axis) only when the plan's mode hint
+    asks for it and the width allows, else "sr" (the reference's rule)."""
+    if plan.mode_hint == "pr" and plan.s_tile % 128 == 0 and n_features <= 128:
+        return "pr"
+    return "sr"
+
+
+def _plan_sum_one(plan: SegmentPlan, vals_slots: torch.Tensor, w_slots: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """One (unchunked) slot plan's sum [num_segments, n] float32, through
+    the kernel for the layout and width: pr, packed sr (n <= 64) or sr."""
+    n = vals_slots.shape[1]
+    if mode == "pr":
+        out_t = plan_segment_sum_pr(plan, vals_slots.t().contiguous(), w_slots)
+        return out_t[:, : plan.num_segments].t()
+    nw = packed_width(n)
+    if nw and plan.e_tile % (128 // nw) == 0:
+        return plan_segment_sum_sr_packed(plan, vals_slots, w_slots)[: plan.num_segments]
+    return plan_segment_sum_sr(plan, vals_slots, w_slots)[: plan.num_segments]
+
+
+def _plan_sum_gather(plan: SegmentPlan, gather_fn: Callable, w_slots: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Tiled segment sum over slot-ordered values: `gather_fn(lo, hi)`
+    returns the values [hi - lo, n] of slots [lo, hi), one chunk at a time,
+    so only one chunk's gather is ever held."""
+    mode = _pick_mode(n, plan)
+    E = plan.e_tile
+
+    def run_one(cp, i, c):
+        t0, t1 = c[0], c[1]
+        return _plan_sum_one(cp, gather_fn(t0 * E, t1 * E), w_slots[t0:t1], mode)
+
+    return _plan_sum_chunked(plan, run_one)
+
+
+def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor) -> torch.Tensor:
+    """out[dst_slot] += w_slot * x[src_slot] over the slots: the gather
+    emits exactly x[src_slots] ([slots, n] float32, pads gather node 0 and
+    weigh 0). With w_slots = plan.mask this is the unweighted sum (the
+    reference's `_w_slots(plan, None)`). Returns [num_segments, n]
+    float32."""
+    x = x.float().contiguous()
+    idx = plan.src_slots.reshape(-1)
+    return _plan_sum_gather(plan, lambda lo, hi: x.index_select(0, idx[lo:hi]), w_slots,
+                            x.shape[1])
 
 
 def _bat_sum(
@@ -231,12 +302,28 @@ def _spmm_fwd_hybrid(hyb: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def segment_counts(bp: BatPlan) -> torch.Tensor:
-    """Edges per segment (in-degree), from the plan's dst blocks."""
-    d = bp.dst3.reshape(-1).long()
-    keep = (d >= 0) & (d < bp.num_segments)
-    out = torch.zeros(bp.num_segments, dtype=torch.float32, device=d.device)
-    return out.index_add_(0, d[keep], torch.ones_like(d[keep], dtype=torch.float32))
+def segment_counts(plan) -> torch.Tensor:
+    """Edges per segment (in-degree) [num_segments] float32. Over a slot
+    plan with s_tile % 128 == 0 the pr kernel sums ones [8, slots] with
+    the mask as weights (chunk by chunk); otherwise, and over a BAT plan,
+    a scatter of the plan's dst ids (integer counts, exact in float32)."""
+    if isinstance(plan, SegmentPlan):
+        if plan.s_tile % 128 == 0:
+            E = plan.e_tile
+
+            def run_one(cp, i, c):
+                ones = torch.ones(8, (c[1] - c[0]) * E, dtype=torch.float32,
+                                  device=cp.mask.device)
+                return plan_segment_sum_pr(cp, ones, cp.mask)[0, : cp.num_segments]
+
+            return _plan_sum_chunked(plan, run_one)
+        d, wt = plan.dst_slots.reshape(-1).long(), plan.mask.reshape(-1)
+    else:
+        d = plan.dst3.reshape(-1).long()
+        wt = (d >= 0).float()
+    keep = (d >= 0) & (d < plan.num_segments)
+    out = torch.zeros(plan.num_segments, dtype=torch.float32, device=d.device)
+    return out.index_add_(0, d[keep], wt[keep])
 
 
 def _sddmm_bat_fwd(
@@ -262,6 +349,26 @@ def _sddmm_bat_fwd(
     src_pad = F.pad(src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
     b_vals = b_p.index_select(0, src_pad)
     return sddmm_bat(bp, a_p, b_vals, f_tile=f_tile)[:nnz]
+
+
+class _SlotSpmm(torch.autograd.Function):
+    """Fused SpMM over the slot plans with slot-order weights: the graph's
+    static weights (`slot_static`, `_make_gws_static`) or the masks
+    (`slot`, unweighted, `_make_gs`). Backward = the same sum over
+    `plan_t` with its weights; no weight gradient."""
+
+    @staticmethod
+    def forward(ctx, x, plan, plan_t, w_slots, w_slots_t):
+        ctx.plan_t, ctx.w_slots_t = plan_t, w_slots_t
+        return _slot_spmm(plan, x, w_slots).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _slot_spmm(ctx.plan_t, g, ctx.w_slots_t).to(g.dtype)
+        return dx, None, None, None, None
 
 
 class _GatherScatterBat(torch.autograd.Function):
@@ -391,21 +498,27 @@ class _SddmmBat(torch.autograd.Function):
         return da, db, None, None, None, None, None
 
 
-def _apply_reduce_post(out_sum: torch.Tensor, bp: Optional[BatPlan], reduce: str,
+def _apply_reduce_post(out_sum: torch.Tensor, plan, reduce: str,
                        dst: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mean = sum / in-degree, outside the autograd Functions. The degree
-    comes from the BAT plan, or from the dst-sorted edge list `dst` of a
-    graph without one."""
+    comes from the plan (slot or BAT; callers pass the slot plan when a
+    graph has both), or from the dst-sorted edge list `dst` of a graph
+    without one."""
     if reduce == "sum":
         return out_sum
     if reduce == "mean":
-        if bp is not None:
-            deg = segment_counts(bp)
+        if plan is not None:
+            deg = segment_counts(plan)
         else:
             deg = torch.bincount(dst.long(), minlength=out_sum.shape[0]).float()
         shape = (-1,) + (1,) * (out_sum.dim() - 1)
         return out_sum / torch.clamp(deg, min=1.0).reshape(shape).to(out_sum.dtype)
     raise ValueError(f"unsupported fused reduce {reduce!r}")
+
+
+def _plan_of(graph: Graph):
+    """The plan a mean's degree comes from: the slot plan, else BAT."""
+    return graph.plan if graph.plan is not None else graph.bat
 
 
 def _check_backend(backend: str) -> None:
@@ -415,9 +528,7 @@ def _check_backend(backend: str) -> None:
 
 def _bat_of(graph: Graph) -> BatPlan:
     if graph.bat is None:
-        raise NotImplementedError(
-            "graph has no BAT plan: the slot-layout routes are ROADMAP A.9"
-        )
+        raise NotImplementedError("graph has no BAT plan: build it with 'bat' in layouts")
     return graph.bat
 
 
@@ -431,22 +542,37 @@ def dispatch_path(
     """Which implementation `segment_spmm` runs for this (graph, call):
     'hybrid' (stream families + BAT remainder, the graph's own or no
     weights; first whenever the graph has hybrid plans), 'bat_static'
-    (graph's own weights), 'bat' (unweighted), 'bat_dyn' (per-call
+    (graph's own weights over BAT), 'slot_static' (graph's own weights in
+    slot order), 'bat' / 'slot' (unweighted), 'bat_dyn' (per-call
     weights) or 'xla' (the plain reference; the name is the reference's).
-    The reference's other routes — bucketed, slot, slot_static, slot_dyn —
-    raise NotImplementedError."""
+    The graph's `prefer` (graph or no weights) and `prefer_dyn` (per-call
+    weights) choose between BAT and slot where both exist. 'slot_dyn' and
+    the reference's bucketed route raise NotImplementedError."""
     _check_backend(backend)
     in_sum = reduce in ("sum", "mean")
     if backend == "reference" or not in_sum:
         return "xla"
     if not dynamic_w and graph.hyb is not None:
         return "hybrid"
-    _bat_of(graph)
-    if not dynamic_w and graph.edge_weight is not None:
+    have_slot = graph.plan is not None
+    use_bat = graph.bat is not None
+    if not (have_slot or use_bat):
+        raise NotImplementedError("graph has neither slot nor BAT plans")
+    if not dynamic_w and graph.edge_weight is not None and use_bat and (
+        graph.prefer == "bat" or graph.w_slots is None
+    ):
         return "bat_static"
+    if not dynamic_w and graph.w_slots is not None:
+        return "slot_static"
     if not dynamic_w:
-        return "bat"
-    return "bat_dyn"
+        return "bat" if use_bat and (graph.prefer == "bat" or not have_slot) else "slot"
+    if use_bat and (graph.prefer_dyn == "bat" or not have_slot):
+        return "bat_dyn"
+    raise NotImplementedError(
+        "slot_dyn (per-call weights over the slot plans) needs the aligned-edge-block "
+        "kernels plan_segment_sum_sr2 / _packed2, not ported yet (ROADMAP B.9, B.10); "
+        "build the graph with prefer_dyn='bat' and a BAT plan"
+    )
 
 
 def segment_spmm(
@@ -474,6 +600,11 @@ def segment_spmm(
         )
     if path == "hybrid":
         out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
+    elif path == "slot_static":
+        out = _SlotSpmm.apply(x, graph.plan, graph.plan_t, graph.w_slots, graph.w_slots_t)
+    elif path == "slot":
+        out = _SlotSpmm.apply(x, graph.plan, graph.plan_t, graph.plan.mask,
+                              graph.plan_t.mask)
     elif path == "bat_static":
         out = _GatherWeightScatterBat.apply(
             x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
@@ -486,7 +617,7 @@ def segment_spmm(
             x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
             graph.bat, graph.bat_t, False,
         )
-    return _apply_reduce_post(out, graph.bat, reduce, graph.dst)
+    return _apply_reduce_post(out, _plan_of(graph), reduce, graph.dst)
 
 
 def index_scatter(
@@ -512,7 +643,9 @@ def index_scatter(
         src = src.movedim(axis, 0)
     if plan is not None and backend == "auto" and reduce in ("sum", "mean"):
         if not isinstance(plan, BatPlan):
-            raise NotImplementedError("slot-layout plans are ROADMAP A.9")
+            raise NotImplementedError(
+                "index_scatter over a slot plan needs the aligned-edge-block kernels "
+                "(ROADMAP B.9, B.10)")
         if num_segments != plan.num_segments:
             raise ValueError(f"num_segments={num_segments} but the plan has "
                              f"{plan.num_segments}")
@@ -540,16 +673,20 @@ def gather_scatter(
     """Unweighted fused SpMM over a dst-sorted COO edge list:
     out[dst[e]] (+)= src[src[e]]. With `graph` (a prebuilt Graph whose
     src/dst are these indices) it runs over the hybrid plans of an
-    unweighted graph that has them, else over the BAT plan, with the
-    transpose-plan backward; otherwise the plain reference."""
+    unweighted graph that has them, else over the BAT plan, else over the
+    slot plans, with the transpose-plan backward; otherwise the plain
+    reference."""
     _check_backend(backend)
     if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
         if graph.hyb is not None and graph.edge_weight is None:
             out = _SpmmHybrid.apply(src, graph.hyb, graph.hyb_t)
-        else:
+        elif graph.bat is not None or graph.plan is None:
             out = _GatherScatterBat.apply(src, graph.src, graph.dst_t, _bat_of(graph),
                                           graph.bat_t)
-        return _apply_reduce_post(out, graph.bat, reduce, graph.dst)
+        else:
+            out = _SlotSpmm.apply(src, graph.plan, graph.plan_t, graph.plan.mask,
+                                  graph.plan_t.mask)
+        return _apply_reduce_post(out, _plan_of(graph), reduce, graph.dst)
     return ref.gather_scatter_ref(src_index, dst_index, src, num_segments, reduce)
 
 
@@ -565,15 +702,17 @@ def gather_weight_scatter(
     backend: str = "auto",
 ) -> torch.Tensor:
     """Edge-weighted fused SpMM: out[dst[e]] (+)= weight[e] * src[src[e]].
-    With `graph` it runs over the BAT plan: dsrc over the transpose plan,
-    dweight through the SDDMM kernel."""
+    With `graph` it runs over the BAT plan, the route `dispatch_path` picks
+    for per-call weights: dsrc over the transpose plan, dweight through the
+    SDDMM kernel."""
     _check_backend(backend)
     if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
+        dispatch_path(graph, dynamic_w=True)  # raises on slot_dyn
         out = _GatherWeightScatterBat.apply(
             src, weight, graph.src, graph.dst, graph.dst_t, graph.perm_t,
             _bat_of(graph), graph.bat_t, False,
         )
-        return _apply_reduce_post(out, graph.bat, reduce)
+        return _apply_reduce_post(out, _plan_of(graph), reduce)
     return ref.gather_weight_scatter_ref(
         src_index, dst_index, weight, src, num_segments, reduce
     )

@@ -1,9 +1,15 @@
-"""Plain-torch oracles for the fused gather(-weight)-scatter ops.
+"""Plain-torch oracles for the fused gather(-weight)-scatter ops, and the
+plain versions of the slot-layout kernels.
 
 Port of `geot_tpu/ops/reference.py:37-105` (`segment_reduce_ref` for sum
 and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`) and `:117-127`
 (`sddmm_coo_ref`). They share no code with the tiled path, so tests hold
 that path against them.
+
+`plan_segment_sum_sr_plain`, `plan_segment_sum_sr_packed_plain` and
+`plan_segment_sum_pr_plain` compute what the CUDA kernels of
+`ops/slot_kernels.py` compute, with the same arguments: the CPU path runs
+them, and the tests and `chip_smoke.py` hold the kernels against them.
 
 The fused gathers run over edge chunks of at most REF_CHUNK_BYTES of
 gathered rows, in edge order, so the plain path stays within memory at
@@ -22,6 +28,9 @@ __all__ = [
     "gather_scatter_ref",
     "gather_weight_scatter_ref",
     "sddmm_coo_ref",
+    "plan_segment_sum_sr_plain",
+    "plan_segment_sum_sr_packed_plain",
+    "plan_segment_sum_pr_plain",
 ]
 
 VALID_REDUCE = ("sum", "mean")
@@ -156,3 +165,35 @@ def sddmm_coo_ref(
     """Per-edge dot product: out[e] = <a[dst[e]], b[src[e]]> (the weight
     gradient of gather_weight_scatter)."""
     return (a[dst_index.long()] * b[src_index.long()]).sum(dim=-1)
+
+
+def plan_segment_sum_sr_plain(plan, vals_slots: torch.Tensor,
+                              w_slots: torch.Tensor) -> torch.Tensor:
+    """out[dst_slots[s]] += w_slots[s] * vals_slots[s] over the slots s of a
+    slot plan with w_slots[s] != 0 (pads have weight 0 and are not read),
+    in float32 with `index_add_`. vals_slots [>= T*E, F]; returns
+    [n_blocks*s_tile, F] float32, every row written."""
+    n = plan.num_tiles * plan.e_tile
+    dev = vals_slots.device
+    w = w_slots.reshape(-1).to(dev).float()
+    keep = torch.nonzero(w != 0).reshape(-1)
+    v = vals_slots[:n].index_select(0, keep).float() * w[keep][:, None]
+    out = torch.zeros(plan.n_blocks * plan.s_tile, vals_slots.shape[1], dtype=torch.float32,
+                      device=dev)
+    return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)
+
+
+def plan_segment_sum_sr_packed_plain(plan, vals_slots: torch.Tensor,
+                                     w_slots: torch.Tensor) -> torch.Tensor:
+    """`plan_segment_sum_sr_plain` for narrow rows (F <= 64)."""
+    if vals_slots.shape[1] > 64:
+        raise ValueError(f"packed slot sum takes F <= 64, got {vals_slots.shape[1]}")
+    return plan_segment_sum_sr_plain(plan, vals_slots, w_slots)
+
+
+def plan_segment_sum_pr_plain(plan, vals_slots_t: torch.Tensor,
+                              w_slots: torch.Tensor) -> torch.Tensor:
+    """The transposed layout: vals_slots_t [N, >= T*E] -> [N, n_blocks*s_tile]
+    float32, the transpose of `plan_segment_sum_sr_plain` over
+    vals_slots_t.T."""
+    return plan_segment_sum_sr_plain(plan, vals_slots_t.t(), w_slots).t().contiguous()

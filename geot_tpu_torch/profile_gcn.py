@@ -1,33 +1,104 @@
-"""Where one GCN inference request, or one training step, spends its time
-on the card.
+"""Where one inference request, or one training step, spends its time on
+the card.
 
-    python -m geot_tpu_torch.profile_gcn [--graph arxiv|products-clustered]
-        [--mode serve|train|both] [--iters 3]
+    python -m geot_tpu_torch.profile_gcn [--graph arxiv|products-clustered|flickr]
+        [--model gcn|graphsage] [--mode serve|train|both] [--iters 3]
 
 Builds a configuration `chip_smoke.py` drives, seed 0: `arxiv` is the
 3-layer GCN (hidden 128, 40 classes) over BAT plans of the
 ogbn-arxiv-shaped synthetic graph; `products-clustered` the 3-layer GCN
 (100 features, hidden 128, 47 classes) over the hybrid stream+gather
 plans of the ogbn-products-shaped clustered graph (GCN norm baked in,
-`conv_kwargs={"normalize": False}`). Warms up, then traces `--iters`
-forward passes (`serve`) and/or `make_train_step` steps (`train`:
-forward, backward over the transpose plans, AdamW with lr 0.01 and
-weight decay 5e-4) with `torch.profiler`, and prints the device time by
-kernel and the device's busy share of the traced wall time. Needs a CUDA
-card.
+`conv_kwargs={"normalize": False}`); `flickr` the 3-layer GCN or
+GraphSAGE (500 features, hidden 64, 7 classes) over the slot plans of the
+flickr-shaped graph (`FLICKR_SLOT`: the reference tuning table's picks;
+GCN with self-loops and the norm baked into slot weights, GraphSAGE
+without loops, mean aggregation). `--model graphsage` needs `--graph
+flickr`. Warms up, then traces `--iters` forward passes (`serve`) and/or
+`make_train_step` steps (`train`: forward, backward over the transpose
+plans, AdamW with lr 0.01 and weight decay 5e-4) with `torch.profiler`,
+and prints the device time by kernel and the device's busy share of the
+traced wall time. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable
 
 import torch
+
+# the flickr slot configuration: the reference tuning table's answer for
+# its bucket (spmm:7:19:3 "sr" e_tile 512 s_tile 256; spmm_dyn:7:19:3
+# "bat" 1024 x 256), TPU picks, not measured on the H100
+FLICKR_SLOT = dict(e_tile=512, s_tile=256, bat_e_tile=1024, bat_s_tile=256, mode_hint="sr",
+                   prefer="sr", prefer_dyn="bat", feature_hint=128, layouts=("bat", "slot"))
+FLICKR_HIDDEN = 64
+
+
+def build(graph: str, model_name: str, seed: int, dev: torch.device):
+    """(model, graph, x, y, train_mask) of one configuration, on `dev`."""
+    from geot_tpu_torch.graph.datasets import (
+        DATASET_SHAPES,
+        synthetic_clustered_graph,
+        synthetic_graph,
+    )
+    from geot_tpu_torch.models import GCN, MODELS, prepare_graph
+
+    if model_name != "gcn" and graph != "flickr":
+        raise SystemExit(f"profile_gcn: --model {model_name} runs on --graph flickr only")
+    gen = torch.Generator().manual_seed(seed)
+    if graph == "arxiv":
+        n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=seed)
+        g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
+        model = GCN(f, 128, 3, c, generator=gen, device=dev)
+    elif graph == "products-clustered":
+        n, e, f, c = DATASET_SHAPES["ogbn-products"]
+        data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
+                                         feat_dim=f, num_classes=c, seed=seed)
+        g = prepare_graph(data.src, data.dst, n, normalize="gcn",
+                          layouts=("bat", "stream"), device=dev)
+        model = GCN(f, 128, 3, c, conv_kwargs={"normalize": False}, generator=gen,
+                    device=dev)
+    else:
+        n, e, f, c = DATASET_SHAPES["flickr"]
+        data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=seed)
+        cls, loops = MODELS[model_name]
+        g = prepare_graph(data.src, data.dst, n, add_self_loops=loops,
+                          normalize="gcn" if loops else None, device=dev, **FLICKR_SLOT)
+        model = cls(f, FLICKR_HIDDEN, 3, c, generator=gen, device=dev)
+    x = torch.from_numpy(data.x).to(dev)
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    return model, g, x, y, mask
+
+
+def trace(run: Callable[[], object], iters: int, warmup: int = 3):
+    """Warm up, then profile `iters` calls of `run`. Returns (profiler,
+    traced wall us, device kernel us, device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(ev.time_range.elapsed_us() for ev in events)
+    return prof, wall_us, busy_us, events
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--graph", choices=("arxiv", "products-clustered"), default="arxiv")
+    ap.add_argument("--graph", choices=("arxiv", "products-clustered", "flickr"),
+                    default="arxiv")
+    ap.add_argument("--model", choices=("gcn", "graphsage"), default="gcn")
     ap.add_argument("--mode", choices=("serve", "train", "both"), default="serve")
     ap.add_argument("--iters", type=int, default=3,
                     help="requests (serve) or training steps (train) to trace")
@@ -35,33 +106,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_gcn: needs a CUDA card")
-    from torch.profiler import ProfilerActivity, profile
-
-    from geot_tpu_torch.graph.datasets import (
-        DATASET_SHAPES,
-        synthetic_clustered_graph,
-        synthetic_graph,
-    )
-    from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
+    from geot_tpu_torch.models import make_optimizer, make_train_step
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(args.seed)
-    if args.graph == "arxiv":
-        n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
-        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=args.seed)
-        g = prepare_graph(data.src, data.dst, n, device=dev)
-        model = GCN(f, 128, 3, c, generator=gen, device=dev)
-    else:
-        n, e, f, c = DATASET_SHAPES["ogbn-products"]
-        data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
-                                         feat_dim=f, num_classes=c, seed=args.seed)
-        g = prepare_graph(data.src, data.dst, n, normalize="gcn",
-                          layouts=("bat", "stream"), device=dev)
-        model = GCN(f, 128, 3, c, conv_kwargs={"normalize": False}, generator=gen,
-                    device=dev)
-    x = torch.from_numpy(data.x).to(dev)
-    y = torch.from_numpy(data.y.astype("int64")).to(dev)
-    mask = torch.from_numpy(data.train_mask).to(dev)
+    model, g, x, y, mask = build(args.graph, args.model, args.seed, dev)
     step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
 
     def serve():
@@ -74,24 +122,13 @@ def main(argv=None) -> int:
 
     modes = ("serve", "train") if args.mode == "both" else (args.mode,)
     for mode in modes:
-        run = serve if mode == "serve" else train
         what = "requests" if mode == "serve" else "training steps"
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                run()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = [ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(ev.time_range.elapsed_us() for ev in events)
+        prof, wall_us, busy_us, events = trace(serve if mode == "serve" else train,
+                                               args.iters)
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20),
               flush=True)
-        print(f"{torch.cuda.get_device_name(0)}: {args.graph}, {args.iters} {what}, "
-              f"traced wall {wall_us / 1e3:.4f} ms, device kernel time "
+        print(f"{torch.cuda.get_device_name(0)}: {args.graph} {args.model}, {args.iters} "
+              f"{what}, traced wall {wall_us / 1e3:.4f} ms, device kernel time "
               f"{busy_us / 1e3:.4f} ms, busy share {busy_us / max(wall_us, 1e-9):.4f} "
               f"({len(events)} device events)", flush=True)
     return 0

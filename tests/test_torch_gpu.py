@@ -16,7 +16,9 @@ version with `sum`: f32 sums of the same 40-256 products in two orders,
 held to 1e-4 * sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`). The
 stream kernel sums each row in slot order, the plain version with
 `index_add_`: the same rule. With bfloat16 x both read the same bf16
-values and sum in f32, so the rule holds there too.
+values and sum in f32, so the rule holds there too. The slot kernels sum
+each row in slot order, the plain versions with `index_add_`: the same
+rule.
 """
 
 import dataclasses
@@ -31,6 +33,8 @@ from geot_tpu_torch.graph.structures import build_graph
 from geot_tpu_torch.models import GCN
 from geot_tpu_torch.ops import api
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+from geot_tpu_torch.ops import reference as tref
+from geot_tpu_torch.ops import slot_kernels as tslot
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
 from geot_tpu_torch.ops.stream_kernels import (
     stream_segment_acc,
@@ -425,3 +429,139 @@ def test_bf16_fused_ops_over_bat_on_card(cuda):
         oc = op(gc, x.to(cuda))
         assert oc.dtype == torch.bfloat16
         torch.testing.assert_close(oc.float().cpu(), op(gh, x).float(), **tol)
+
+
+def _assert_abs_sum(k, p, a):
+    """|kernel - plain| <= 1e-4 * sum|terms| + 1e-5 per element."""
+    assert k.shape == p.shape and bool(torch.isfinite(k).all())
+    bad = (k - p).abs() > 1e-4 * a + 1e-5
+    assert not bool(bad.any()), f"{int(bad.sum())} elements over, max err {(k - p).abs().max()}"
+
+
+_SLOT = {
+    "sr": (tslot.plan_segment_sum_sr, tref.plan_segment_sum_sr_plain),
+    "sr_packed": (tslot.plan_segment_sum_sr_packed, tref.plan_segment_sum_sr_packed_plain),
+    "pr": (tslot.plan_segment_sum_pr, tref.plan_segment_sum_pr_plain),
+}
+
+
+@pytest.mark.parametrize("kernel,F", [("sr", 500), ("sr", 128), ("sr", 100), ("sr", 7),
+                                      ("sr_packed", 64), ("sr_packed", 32),
+                                      ("sr_packed", 16), ("sr_packed", 8), ("sr_packed", 7),
+                                      ("sr_packed", 1), ("pr", 8), ("pr", 3), ("pr", 100)])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (96, 128, 1), (32, 1, 1)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_slot_kernels_match_plain(cuda, kernel, F, tiles, weighted):
+    """Each slot kernel against its plain version on a plan with a hub row
+    spanning many tiles, pad slots before (pack_align 16) and after a
+    tile's real slots, and empty windows; every row is written (the output
+    memory is NaN-filled first), reruns are bit-identical, one launch."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(F + e_tile + weighted)
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda)
+    T, E = plan.num_tiles, plan.e_tile
+    w = plan.mask.clone()
+    if weighted:
+        w *= torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
+    shape = (F, T * E) if kernel == "pr" else (T * E, F)
+    vals = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    fn, plain = _SLOT[kernel]
+    torch.full((4 * plan.n_blocks * s_tile * max(F, 8),), float("nan"), device=cuda)
+    before = fn.launches
+    k = fn(plan, vals, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    p = plain(plan, vals, w)
+    _assert_abs_sum(k, p, plain(plan, vals.abs(), w.abs()))
+    assert torch.equal(fn(plan, vals, w), k)
+
+
+@pytest.mark.parametrize("kernel,F", [("sr_packed", 64), ("sr_packed", 32),
+                                      ("sr_packed", 16), ("sr_packed", 8), ("pr", 8),
+                                      ("sr", 128)])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16)])
+def test_slot_kernels_zero_weight_edges(cuda, kernel, F, tiles):
+    """Real slots of weight exactly 0 inside a row's run: every other slot
+    of the hub row and a third of the others. The kernels skip them as
+    they skip pads, and each run must still be summed once: the packed
+    kernels' segmented sum over the slots in flight must not carry a run
+    past a skipped slot (rows [5, -1, 5, 5] once added b + c twice)."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(F + e_tile)
+    n, hub = 1500, 9
+    src, dst = _hubby(rng, n, 6000, 3000, hub=hub)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda)
+    T, E = plan.num_tiles, plan.e_tile
+    w = plan.mask * torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
+    slot = torch.arange(T * E, device=cuda).reshape(T, E)
+    in_hub = (plan.dst_slots == hub) & (plan.mask > 0)
+    third = torch.from_numpy(rng.random((T, E)) < 1 / 3).to(cuda)
+    drop = (in_hub & (slot % 2 == 1)) | (~in_hub & third)
+    w = torch.where(drop, torch.zeros_like(w), w)
+    assert int((in_hub & (w == 0)).sum()) > 100 and int((in_hub & (w != 0)).sum()) > 100
+    shape = (F, T * E) if kernel == "pr" else (T * E, F)
+    vals = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    fn, plain = _SLOT[kernel]
+    k = fn(plan, vals, w)
+    torch.cuda.synchronize()
+    _assert_abs_sum(k, plain(plan, vals, w), plain(plan, vals.abs(), w.abs()))
+    assert torch.equal(fn(plan, vals, w), k)
+
+
+def test_slot_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(3)
+    dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
+    plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
+    v = torch.ones(plan.num_tiles * 64, 65, device=cuda)
+    with pytest.raises(ValueError, match="F <= 64"):
+        tslot.plan_segment_sum_sr_packed(plan, v, plan.mask)
+    with pytest.raises(ValueError, match="float32"):
+        tslot.plan_segment_sum_sr(plan, v.double(), plan.mask)
+    with pytest.raises(ValueError, match="w_slots"):
+        tslot.plan_segment_sum_sr(plan, v, plan.mask[:-1])
+    chunked = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32,
+                                       max_chunk_slots=64 * 5, device=cuda)
+    if not chunked.monotone:
+        with pytest.raises(ValueError, match="non-decreasing"):
+            tslot.plan_segment_sum_sr(chunked, v[: chunked.num_tiles * 64], chunked.mask)
+
+
+@pytest.mark.parametrize("model", ["gcn", "graphsage"])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_slot_models_on_card_match_cpu(cuda, model, chunked):
+    """GCN (slot_static) and GraphSAGE (slot, mean) over slot graphs, the
+    forward and the x gradient on the card against the CPU's plain path;
+    with a small max_chunk_slots the hub window splits across chunks."""
+    from geot_tpu_torch.models import MODELS, prepare_graph
+
+    cls, loops = MODELS[model]
+    rng = np.random.default_rng(11)
+    n = 3000
+    src, dst = _hubby(rng, n, 20000, 4000, hub=5)
+    kw = dict(add_self_loops=loops, normalize="gcn" if loops else None, e_tile=512,
+              s_tile=256, mode_hint="sr", prefer="sr", layouts=("bat", "slot"),
+              max_chunk_slots=512 * 6 if chunked else 4 << 20)
+    gc = prepare_graph(src, dst, n, device=cuda, **kw)
+    gh = prepare_graph(src, dst, n, device="cpu", **kw)
+    assert api.dispatch_path(gc, reduce="mean" if not loops else "sum") == (
+        "slot_static" if loops else "slot")
+    assert bool(gc.plan.chunks) == chunked
+    x = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    outs = []
+    for g, dev in ((gc, cuda), (gh, "cpu")):
+        m = cls(100, 64, 3, 7, generator=torch.Generator().manual_seed(0), device=dev)
+        xx = x.to(dev).requires_grad_()
+        out = m(xx, g)
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), xx.grad.cpu()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-4,
+                               atol=1e-4 * float(outs[1][1].abs().max()))

@@ -41,7 +41,7 @@ def _pair(src, dst, n, normalize, monkeypatch, budget):
                       edge_weight=None if j0.edge_weight is None else np.asarray(j0.edge_weight),
                       assume_sorted=True, layouts=("bat",), **TILES)
     tg = prepare_graph(src, dst, n, normalize=normalize, max_chunk_bytes=budget,
-                       device="cpu", **TILES)
+                       layouts=("bat",), device="cpu", **TILES)
     np.testing.assert_array_equal(np.asarray(jg.src), tg.src.numpy())
     np.testing.assert_array_equal(np.asarray(jg.dst), tg.dst.numpy())
     np.testing.assert_array_equal(np.asarray(jg.bat.vblock), tg.bat.vblock.numpy())

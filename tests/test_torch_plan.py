@@ -129,12 +129,35 @@ def test_build_graph_equal(weighted, budget, monkeypatch):
 
 
 def test_build_graph_rejects_unported_layouts():
-    src = np.array([0, 1], np.int32)
-    dst = np.array([1, 0], np.int32)
+    """The refusals that remain once the slot layout is ported: ("bat",
+    "slot") builds; per-call weights over a slot graph that prefers the
+    slot layout for them (slot_dyn) raise, naming the kernels it needs;
+    narrow-feature BAT plans raise (ROADMAP A.5 / B.3); layouts outside
+    LAYOUTS raise."""
+    from geot_tpu_torch.ops import api as tapi
+
+    src = np.array([0, 1, 2, 2], np.int32)
+    dst = np.array([1, 0, 0, 1], np.int32)
+    g = tbuild_graph(src, dst, 3, layouts=("bat", "slot"), device="cpu")
+    assert g.plan is not None and g.bat is not None and g.w_slots is None
+    x = torch.ones(3, 4)
+    torch.testing.assert_close(tapi.segment_spmm(g, x), torch.tensor([[2.0] * 4, [2.0] * 4,
+                                                                      [0.0] * 4]))
+    w = torch.ones(4)
+    gd = tbuild_graph(src, dst, 3, layouts=("slot",), prefer="sr", prefer_dyn="sr",
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
+        tapi.segment_spmm(gd, x, edge_weight=w)
+    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
+        tapi.gather_weight_scatter(gd.src, gd.dst, w, x, 3, graph=gd)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild_graph(src, dst, 2, layouts=("bat", "slot"), device="cpu")
+        tbuild_graph(src, dst, 3, feature_hint=32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild_graph(src, dst, 2, feature_hint=32, device="cpu")
+        tbuild_graph(src, dst, 3, feature_hint=32, layouts=("bat", "slot"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tbuild_graph(src, dst, 3, layouts=("slot", "bat"), device="cpu")
+    with pytest.raises(ValueError):
+        tbuild_graph(src, dst, 3, layouts=("slot",), prefer="bat_packed", device="cpu")
 
 
 def test_synthetic_graph_equal():
