@@ -1,6 +1,6 @@
 """Drive geot_tpu_torch on one CUDA card: build the kernels, hold each
-against its plain version, serve inference requests and train GCN and
-GraphSAGE, time it all.
+against its plain version, serve inference requests and train GCN,
+GraphSAGE and GAT, time it all.
 
     python3 chip_smoke.py
 
@@ -15,9 +15,13 @@ a 3-layer GraphSAGE (mean) and a 3-layer GCN (500 features, hidden 64, 7
 classes) over the slot plans of a flickr-shaped graph (89,250 nodes,
 899,756 Zipf(1.0) edges, the graph of `benchmarks/bench_models.py`; the
 GCN's with self-loops and the norm baked into slot weights), with the
-reference tuning table's knobs (`profile_gcn.FLICKR_SLOT`). Weights come
-from a seeded torch.Generator. Phases, each printed with its elapsed
-seconds:
+reference tuning table's knobs (`profile_gcn.FLICKR_SLOT`). Phases 20-24:
+on the same flickr graph with self-loops and no baked norm, a 3-layer GAT
+(hidden 64, 4 heads averaged: `plan_segment_sum_mh`) and a 3-layer GCN
+whose norm is a per-call weight (`slot_dyn`), over slot-only plans with
+feature_hint 64 (pack-aligned: `plan_segment_sum_packed2`) and 128
+(`plan_segment_sum_sr2`). Weights come from a seeded torch.Generator.
+Phases, each printed with its elapsed seconds:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
@@ -76,7 +80,31 @@ seconds:
  19. CUDA-event timings of each slot kernel at its main-path shape, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
      slot -> row CSR), the slot SpMM per layer width, each model's forward
-     and training step, and each one's busy share (profile_gcn.trace).
+     and training step, and each one's busy share (profile_gcn.trace);
+ 20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128),
+     dispatch_path == "slot_dyn" for the per-call weights, the AEB kernel
+     each width takes, and GAT's fused route;
+ 21. plan_segment_sum_mh ((H, D) = (4, 64), (4, 7), (3, 96), (8, 32), with
+     weights exactly 0 on chosen heads), plan_segment_sum_sr2 (slot values
+     with per-call weights, edge values with static and/or per-call
+     weights; F 500, 128, 64) and plan_segment_sum_packed2 (F 64, 32, 16,
+     8) against their plain versions on both directions' real plans, with
+     every third per-call weight exactly 0 too and bit-identical reruns;
+     each one's route over a plan chunked so that its hub window splits;
+ 22. 5 requests per model, launches per request asserted (GAT: mh 3; GCN:
+     packed2 3 / sr2 3), each against the same model on the reference path
+     in float64;
+ 23. 5 AdamW steps per model beside the reference path (launches per step:
+     GAT mh 3, its backward being gathers; GCN packed2 3 / sr2 3 and
+     sr_packed 3 over plan_t), the step-0 gradients against the reference
+     path in float32 and in float64 through the kernel path's ReLU
+     pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
+     at H*D 256 and 28, one forward and backward against the fused route;
+ 24. CUDA-event timings of each new kernel at its main-path shapes, its
+     plain version, the library yardstick (torch.sparse.mm over the plan's
+     CSR with the kernel's weights; mh: no single call, the sum of one per
+     head logged for information), each model's forward and training
+     step, and each one's busy share.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -102,7 +130,8 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "hyb_build": 420, "hyb_kernel": 240, "hyb_serve": 240,
                   "hyb_train": 360, "hyb_timing": 300, "slot_build": 120,
                   "slot_kernel": 180, "slot_serve": 120, "slot_train": 180,
-                  "slot_timing": 240}
+                  "slot_timing": 240, "gat_build": 120, "gat_kernel": 240, "gat_serve": 180,
+                  "gat_train": 240, "gat_timing": 240}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -464,6 +493,25 @@ def run_hybrid(dev, card):
         "library_whole_ms": t_lib, "losses": losses,
     }
 
+def relu_flips(z_kernel, z_ref, what):
+    """The hidden pre-activations whose sign differs between the kernel
+    path and a reference path: at most FLIP_MAX, each of them within
+    FLIP_RTOL * max|z_ref| (of its layer) of 0. Returns (count, the
+    largest |z_ref| / max|z_ref| among them)."""
+    count, worst = 0, 0.0
+    for a, b in zip(z_kernel, z_ref):
+        flip = (a > 0) != (b > 0)
+        if bool(flip.any()):
+            count += int(flip.sum())
+            worst = max(worst, float(b[flip].abs().max() / b.abs().max()))
+    if count > FLIP_MAX or worst > FLIP_RTOL:
+        raise AssertionError(
+            f"{what}: {count} hidden pre-activation(s) differ in sign from the reference "
+            f"path, the largest at {worst:.3e} * max|z| (allowed: {FLIP_MAX}, within "
+            f"{FLIP_RTOL} * max|z|)")
+    return count, worst
+
+
 def slot_csr(plan, w):
     """The plan's slot -> row matrix [n_blocks*s_tile, T*E] in CSR carrying
     the slot weights w (for the library yardstick only)."""
@@ -511,7 +559,8 @@ def run_slot(dev, card):
     from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, FLICKR_SLOT, trace
 
     slot_names = ("plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr")
-    counters = {name: getattr(sk, name) for name in slot_names}
+    counters = {name: getattr(sk, name) for name in slot_names + (
+        "plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")}
     counters.update({"bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat,
                      "stream_segment_sum": stream_segment_sum,
                      "stream_segment_acc": stream_segment_acc})
@@ -569,24 +618,6 @@ def run_slot(dev, card):
                 zs.append(h.detach())
                 h = torch.relu(h) if masks is None else h * masks[i]
         return h, zs
-
-    def relu_flips(z_kernel, z_ref, what):
-        """The hidden pre-activations whose sign differs between the kernel
-        path and a reference path: at most FLIP_MAX, each of them within
-        FLIP_RTOL * max|z_ref| (of its layer) of 0. Returns (count, the
-        largest |z_ref| / max|z_ref| among them)."""
-        count, worst = 0, 0.0
-        for a, b in zip(z_kernel, z_ref):
-            flip = (a > 0) != (b > 0)
-            if bool(flip.any()):
-                count += int(flip.sum())
-                worst = max(worst, float(b[flip].abs().max() / b.abs().max()))
-        if count > FLIP_MAX or worst > FLIP_RTOL:
-            raise AssertionError(
-                f"{what}: {count} hidden pre-activation(s) differ in sign from the reference "
-                f"path, the largest at {worst:.3e} * max|z| (allowed: {FLIP_MAX}, within "
-                f"{FLIP_RTOL} * max|z|)")
-        return count, worst
 
     # 15. host build: the graph of bench_models.py, each model's plans
     arm("slot_build")
@@ -875,6 +906,491 @@ def run_slot(dev, card):
     faulthandler.cancel_dump_traceback_later()
     return {"serve": serve, "train": train, "errs": errs, "timing": timing, "spmm_ms": spmm,
             "forward_ms": fwd, "train_step_ms": stp, "busy": busy, "losses": losses}
+
+
+def aeb_csr(plan, w_slots, w_edge):
+    """The edge -> row matrix of an AEB sum over edge-order values in CSR,
+    with the weights the kernel applies (w_slots times w_edge[e0 + j]).
+    For the library yardstick only."""
+    E = plan.e_tile
+    edge = (plan.e0.long()[:, None] + torch.arange(E, device=plan.e0.device)).reshape(-1)
+    w = w_slots.reshape(-1).clone()
+    live = torch.nonzero(w != 0).reshape(-1)
+    if w_edge is not None:
+        w[live] = w[live] * w_edge[edge[live]]
+    keep = torch.nonzero(w != 0).reshape(-1)
+    rows = plan.dst_slots.reshape(-1).long()[keep]
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, edge[keep]]), w[keep], (plan.n_blocks * plan.s_tile, plan.num_edges),
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def aeb_bound(plan, w_slots, w_edge, F):
+    """The least time of one AEB launch: each live slot's value row, weight
+    in edge order and dst, every slot's static weight or mask, e0 and
+    out_block, and every output row written once (bytes); or 2 f32 flops
+    per live slot and column."""
+    n_live = int((w_slots != 0).sum())
+    n_bytes = (n_live * F * 4 + w_slots.numel() * 4 + n_live * 4 + 2 * plan.num_tiles * 4
+               + plan.n_blocks * plan.s_tile * F * 4)
+    if w_edge is not None:
+        n_bytes += n_live * 4
+    bound, by = bound_ms(n_bytes, 2 * n_live * F)
+    return bound, by, n_bytes
+
+
+def mh_csr(plan, w_heads):
+    """The mh sum as one sparse matrix: over vals [S, H*D] viewed as
+    [S*H, D], the CSR [rows*H, S*H] with entry (dst(s)*H + h, s*H + h) =
+    w_heads[s, h] gives the output [rows, H*D] viewed as [rows*H, D] in one
+    torch.sparse.mm. For the library yardstick only."""
+    S, H = w_heads.shape
+    wf = w_heads.reshape(-1)
+    keep = torch.nonzero(wf != 0).reshape(-1)
+    s_, h_ = keep // H, keep % H
+    rows = plan.dst_slots.reshape(-1).long()[s_] * H + h_
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, keep]), wf[keep], (plan.n_blocks * plan.s_tile * H, S * H),
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def mh_bound(plan, w_heads, F):
+    """The least time of one mh launch: each live slot's value row and dst,
+    every slot's head weights, out_block, and every output row written
+    once (bytes); or 2 f32 flops per live slot and column."""
+    n_live = int((w_heads != 0).any(dim=1).sum())
+    n_bytes = (n_live * F * 4 + w_heads.numel() * 4 + n_live * 4 + plan.num_tiles * 4
+               + plan.n_blocks * plan.s_tile * F * 4)
+    bound, by = bound_ms(n_bytes, 2 * n_live * F)
+    return bound, by, n_bytes
+
+
+def run_gat_dyn(dev, card):
+    """Phases 20-24: GAT (4 heads averaged, hidden 64) and GCN with
+    per-call weights over the slot plans (slot_dyn, feature_hint 64 and
+    128), serving and training on the flickr-shaped graph. Returns the
+    numbers for the kernels line."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.graph.plan import build_segment_plan
+    from geot_tpu_torch.models import (
+        GAT,
+        GCN,
+        cross_entropy_loss,
+        make_optimizer,
+        make_train_step,
+    )
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops import reference as ref_ops
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+    from geot_tpu_torch.profile_gcn import FLICKR_GAT, FLICKR_HIDDEN, flickr_graph, trace
+
+    new = ("plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")
+    counters = {k: getattr(sk, k) for k in new + (
+        "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr")}
+    counters.update({"bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat,
+                     "stream_segment_sum": stream_segment_sum,
+                     "stream_segment_acc": stream_segment_acc})
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def forward_masked(m, x, g, masks):
+        """m's forward pass with the hidden layers' ReLU given by `masks`
+        (None: ReLU); returns (output, the hidden pre-activations)."""
+        h, zs = x, []
+        for i, conv in enumerate(m.convs):
+            h = conv(h, g)
+            if i < len(m.convs) - 1:
+                zs.append(h.detach())
+                h = torch.relu(h) if masks is None else h * masks[i].to(h.dtype)
+        return h, zs
+
+    # 20. host build: the flickr graph with self-loops, for GAT and for the
+    # per-call-weight GCN at feature_hint 64 and 128
+    arm("gat_build")
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=SEED)
+    graphs = {}
+    for name, kind, fh in (("gat", "gat", 128), ("gcn_dyn64", "gcn-dyn", 64),
+                           ("gcn_dyn128", "gcn-dyn", 128)):
+        t0 = time.perf_counter()
+        g = flickr_graph(data, kind, dev, fh)
+        torch.cuda.synchronize()
+        graphs[name] = g
+        p = g.plan
+        log(f"phase 20 {name} graph: prepare_graph {time.perf_counter() - t0:.2f}s; "
+            f"{g.num_edges} edges, plan {p.num_tiles} tiles x {p.e_tile} ({p.num_tiles * p.e_tile} "
+            f"slots), pack_align {p.pack_align}, {p.n_blocks} windows, {len(p.chunks)} chunks; "
+            f"plan_t {g.plan_t.num_tiles} tiles")
+    gg, g64, g128 = graphs["gat"], graphs["gcn_dyn64"], graphs["gcn_dyn128"]
+    routes = (api.dispatch_path(g64, dynamic_w=True), api.dispatch_path(g128, dynamic_w=True))
+    if routes != ("slot_dyn", "slot_dyn"):
+        raise AssertionError(f"dispatch_path of the per-call weights {routes}, expected slot_dyn")
+    packed = (api._aeb_packed_ok(g64.plan, FLICKR_HIDDEN), api._aeb_packed_ok(g64.plan, c),
+              api._aeb_packed_ok(g128.plan, FLICKR_HIDDEN))
+    if packed != (64, 8, 0):
+        raise AssertionError(f"AEB kernel names {packed}, expected packed2 at F 64 and {c} on "
+                             "the pack-aligned plan, sr2 on the other")
+    fused = gg.plan is not None and gg.num_edges <= api.GAT_FUSED_MAX_EDGES
+    if not fused:
+        raise AssertionError("the GAT graph does not take the fused slot-space route")
+    log(f"phase 20 dispatch_path: per-call weights 'slot_dyn' on both GCN graphs (one route, "
+        f"the edge-order gather and the AEB kernel, launched as the reference names it: "
+        f"packed2 at F 64 and {c} with pack_align 16, sr2 with pack_align 1); GAT fused "
+        f"({gg.num_edges} edges <= fused_max_edges {api.GAT_FUSED_MAX_EDGES})")
+
+    # 21. each new kernel against its plain version on both directions'
+    # real plans, with exact-zero weights, and on a chunked plan
+    arm("gat_kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    errs = {k: 0.0 for k in new}
+
+    def held(name, k, p, a, what, rerun):
+        errs[name] = max(errs[name], check_close_abs_sum(k, p, a, f"phase 21 {name} {what}"))
+        if not torch.equal(rerun(), k):
+            raise AssertionError(f"phase 21 {name} {what}: not deterministic")
+
+    n_checks = 0
+    for d in ("plan", "plan_t"):
+        plan = getattr(gg, d)
+        S = plan.num_tiles * plan.e_tile
+        mask = plan.mask.reshape(-1, 1)
+        for H, D in ((4, 64), (4, 7), (3, 96), (8, 32)):
+            vals = torch.randn(S, H * D, generator=gen, device=dev)
+            wh = torch.rand(S, H, generator=gen, device=dev) * mask
+            for zeroed in (False, True):
+                w = wh
+                if zeroed:  # heads 0 and 2 exactly 0 on every third slot, the rest kept
+                    third = (torch.arange(S, device=dev) % 3 == 1)[:, None]
+                    w = torch.where(third & (torch.arange(H, device=dev) % 2 == 0), 0.0, wh)
+                k = sk.plan_segment_sum_mh(plan, vals, w, D)
+                torch.cuda.synchronize()
+                held("plan_segment_sum_mh", k, ref_ops.plan_segment_sum_mh_plain(plan, vals, w, D),
+                     ref_ops.plan_segment_sum_mh_plain(plan, vals.abs(), w, D),
+                     f"(H, D) = ({H}, {D}) gat.{d}" + (" zero heads" if zeroed else ""),
+                     lambda: sk.plan_segment_sum_mh(plan, vals, w, D))
+                n_checks += 1
+            del vals, wh, w, k
+    for gname, g in (("gcn_dyn128", g128), ("gcn_dyn64", g64)):
+        for d in ("plan", "plan_t"):
+            plan = getattr(g, d)
+            S, nnz = plan.num_tiles * plan.e_tile, g.num_edges
+            we = torch.rand(nnz, generator=gen, device=dev) + 0.1
+            we_zero = torch.where(torch.arange(nnz, device=dev) % 3 == 1, 0.0, we)
+            ws = plan.mask * torch.randn(plan.mask.shape, generator=gen, device=dev)
+            cases = []
+            if gname == "gcn_dyn128":
+                for F in (f, 128, 64):
+                    cases += [("slot", F, None, we), ("slot", F, None, we_zero),
+                              ("edge", F, ws, None), ("edge", F, None, we), ("edge", F, ws, we)]
+            else:
+                cases += [("packed2", F, None, w_) for F in (64, 32, 16, 8)
+                          for w_ in (we, we_zero)]
+            for layout, F, w_s, w_e in cases:
+                rows = S if layout == "slot" else nnz
+                vals = torch.randn(rows, F, generator=gen, device=dev)
+                abs_kw = dict(w_slots=None if w_s is None else w_s.abs(),
+                              w_edge=None if w_e is None else w_e.abs())
+                what = (f"F={F} {gname}.{d} {layout} values, "
+                        + ("static" if w_s is not None else "mask")
+                        + (" x per-call" if w_e is not None else "") + " weights"
+                        + (" (every third 0)" if w_e is we_zero else ""))
+                if layout == "packed2":
+                    name, fn = "plan_segment_sum_packed2", sk.plan_segment_sum_packed2
+                    pl = ref_ops.plan_segment_sum_packed2_plain
+                    kw = dict(w_slots=w_s, w_edge=w_e)
+                else:
+                    name, fn = "plan_segment_sum_sr2", sk.plan_segment_sum_sr2
+                    pl = ref_ops.plan_segment_sum_sr2_plain
+                    kw = dict(vals_layout=layout, w_slots=w_s, w_edge=w_e)
+                    abs_kw["vals_layout"] = layout
+                k = fn(plan, vals, **kw)
+                torch.cuda.synchronize()
+                held(name, k, pl(plan, vals, **kw), pl(plan, vals.abs(), **abs_kw), what,
+                     lambda: fn(plan, vals, **kw))
+                n_checks += 1
+                del vals, k
+    # a plan chunked so that its hub window splits: the slot_dyn sums (both
+    # AEB routes) and mh, chunk by chunk, against the unchunked plain sums
+    dst_s, src_s = g64.dst.cpu().numpy(), g64.src.cpu().numpy()
+    hub_tiles = int(torch.bincount(g64.plan.out_block.long()).max())
+    for name, fh, F in (("plan_segment_sum_packed2", 64, 64),
+                        ("plan_segment_sum_sr2", 128, 64), ("plan_segment_sum_mh", 128, 256)):
+        pc = build_segment_plan(dst_s, src_s, n, e_tile=512, s_tile=256,
+                                pack_align=16 if fh == 64 else 1,
+                                max_chunk_slots=512 * max(hub_tiles // 3, 2), device=dev)
+        whole = g64.plan if fh == 64 else g128.plan
+        split = [b for a, b in zip(pc.chunks[:-1], pc.chunks[1:]) if b[2] < a[3]]
+        if len(pc.chunks) < 3 or not split:
+            raise AssertionError("the chunked plan does not split the hub window")
+        xf = torch.randn(n, F, generator=gen, device=dev)
+        with torch.inference_mode():
+            if name == "plan_segment_sum_mh":
+                wh = torch.rand(g64.num_edges, 4, generator=gen, device=dev)
+                got = api._mh_fwd(pc, xf.reshape(n, 4, 64), wh).reshape(n, F)
+                vals = xf.index_select(0, whole.src_slots.reshape(-1))
+                wsl = wh.index_select(0, whole.edge_pos.reshape(-1)) * whole.mask.reshape(-1, 1)
+                want = ref_ops.plan_segment_sum_mh_plain(whole, vals, wsl, 64)[:n]
+                a = ref_ops.plan_segment_sum_mh_plain(whole, vals.abs(), wsl, 64)[:n]
+            else:
+                we = torch.rand(g64.num_edges, generator=gen, device=dev)
+                got = api._spmm_fwd_slot_dyn(pc, xf, we, g64.src)
+                vals = xf.index_select(0, g64.src.long())
+                want = ref_ops.plan_segment_sum_sr2_plain(whole, vals, vals_layout="edge",
+                                                          w_edge=we)[:n]
+                a = ref_ops.plan_segment_sum_sr2_plain(whole, vals.abs(), vals_layout="edge",
+                                                       w_edge=we)[:n]
+        errs[name] = max(errs[name], check_close_abs_sum(
+            got, want, a, f"phase 21 {name} through its route on a chunked plan "
+            f"({len(pc.chunks)} uniform chunks, hub window split {len(split)} time(s)) F={F}"))
+        n_checks += 1
+        del pc, got, want, a, vals, xf
+    log(f"phase 21 {n_checks} kernel checks within the abs-sum rule, reruns bit-identical")
+
+    # 22. serve: 5 requests per model, each against the reference path in
+    # float64 (sums and all)
+    arm("gat_serve")
+    x = torch.from_numpy(data.x).to(dev)
+    mk = {"gat": lambda **kw: GAT(f, FLICKR_HIDDEN, 3, c, conv_kwargs=FLICKR_GAT, **kw),
+          "gcn_dyn64": lambda **kw: GCN(f, FLICKR_HIDDEN, 3, c, **kw),
+          "gcn_dyn128": lambda **kw: GCN(f, FLICKR_HIDDEN, 3, c, **kw)}
+    per_request = {"gat": {"plan_segment_sum_mh": 3},
+                   "gcn_dyn64": {"plan_segment_sum_packed2": 3},
+                   "gcn_dyn128": {"plan_segment_sum_sr2": 3}}
+    per_step = {"gat": {"plan_segment_sum_mh": 3},
+                "gcn_dyn64": {"plan_segment_sum_packed2": 3, "plan_segment_sum_sr_packed": 3},
+                "gcn_dyn128": {"plan_segment_sum_sr2": 3, "plan_segment_sum_sr_packed": 3}}
+    models, ref_models, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}
+    for name, g in graphs.items():
+        model = mk[name](generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+        ref_model = mk[name](backend="reference", device=dev).eval()
+        ref_model.load_state_dict(model.state_dict())
+        models[name], ref_models[name] = model, ref_model
+        want = {k: per_request[name].get(k, 0) for k in counters}
+        outs, req_s[name] = [], []
+        reset()  # count this model's serving launches only
+        with torch.inference_mode():
+            for i in range(REQUESTS):
+                before = counts()
+                ts = time.perf_counter()
+                out = model(x, g)
+                torch.cuda.synchronize()
+                req_s[name].append(time.perf_counter() - ts)
+                expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                                f"{name} request {i}")
+                outs.append(out)
+            serve[name] = counts()
+            ref64 = mk[name](backend="reference", device=dev).double().eval()
+            ref64.load_state_dict(model.state_dict())
+            oracle = ref64(x.double(), g).float()
+            ref32 = ref_model(x, g)
+            del ref64
+        for i, out in enumerate(outs):
+            if out.shape != (n, c) or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} request {i}: bad output {tuple(out.shape)}")
+            torch.testing.assert_close(out, oracle, **MODEL_TOL)
+        log(f"phase 22 {name}: {REQUESTS} requests, launches {serve[name]} (per request "
+            f"{per_request[name]}); outputs [{n}, {c}] finite; against the reference path in "
+            f"float64 (tolerance {MODEL_TOL}): kernel path max abs err "
+            f"{float((outs[0] - oracle).abs().max()):.3e}, float32 reference path "
+            f"{float((ref32 - oracle).abs().max()):.3e}; request s: "
+            + ", ".join(f"{t:.4f}" for t in req_s[name]))
+        del outs, out, oracle, ref32
+
+    # 23. train: 5 AdamW steps per model beside the reference path, and the
+    # composed GAT route against the fused one
+    arm("gat_train")
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    steps = {}
+    for name, g in graphs.items():
+        model, ref_model = models[name], ref_models[name]
+        step = make_train_step(model, make_optimizer(model, LR, WEIGHT_DECAY), has_dropout=False)
+        ref_step = make_train_step(ref_model, make_optimizer(ref_model, LR, WEIGHT_DECAY),
+                                   has_dropout=False)
+        steps[name] = step
+        # step-0 gradients of the reference path (float32, and all in
+        # float64) through the kernel path's ReLU pattern (phase 18's rule)
+        model.train(False)
+        with torch.no_grad():
+            _, z_kernel = forward_masked(model, x, g, None)
+        relu_masks = [z > 0 for z in z_kernel]
+        g_ref, flips = {}, {}
+        ref64 = mk[name](backend="reference", device=dev).double()
+        ref64.load_state_dict(model.state_dict())
+        for tag, m, xx in (("f32", ref_model, x), ("f64", ref64, x.double())):
+            m.zero_grad(set_to_none=True)
+            out_o, z_ref = forward_masked(m, xx, g, relu_masks)
+            cross_entropy_loss(out_o, y, mask).backward()
+            g_ref[tag] = {k: prm.grad.float() for k, prm in m.named_parameters()}
+            flips[tag] = relu_flips(z_kernel, [z.float() for z in z_ref],
+                                    f"phase 23 {name} ({tag} reference)")
+        ref_model.zero_grad(set_to_none=True)
+        del ref64, out_o, z_kernel, z_ref, relu_masks
+        want = {k: per_step[name].get(k, 0) for k in counters}
+        losses[name], step_s[name] = [], []
+        reset()  # count this model's training launches only
+        for i in range(TRAIN_STEPS):
+            before = counts()
+            ts = time.perf_counter()
+            loss = step(x, g, y, mask)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - ts)
+            expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                            f"{name} step {i}")
+            loss_r = ref_step(x, g, y, mask)
+            if i == 0:
+                excess = []
+                for pname, prm in model.named_parameters():
+                    ratios = []
+                    for tag in ("f32", "f64"):
+                        gr = g_ref[tag][pname]
+                        lim = GRAD_RTOL * gr.abs() + GRAD_RTOL * float(gr.abs().max())
+                        ratios.append(float(((prm.grad - gr).abs() / lim).max()))
+                        torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
+                                                   atol=GRAD_RTOL * float(gr.abs().max()))
+                    excess.append((pname, *ratios))
+                log(f"phase 23 {name} step 0 gradients through the kernel path's ReLU pattern "
+                    "(sign flips vs the float32 / float64 reference path: "
+                    + ", ".join(f"{k_} {n_} at {w_:.3e} * max|z|" for k_, (n_, w_) in flips.items())
+                    + "), max |err| / (rtol |g| + atol) per tensor (f32, f64): "
+                    + ", ".join(f"{k} ({a:.3f}, {b:.3f})" for k, a, b in excess))
+            lk, lr_ = float(loss), float(loss_r)
+            if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
+                raise AssertionError(f"{name} step {i}: loss {lk} vs reference {lr_}")
+            losses[name].append((lk, lr_))
+        train[name] = counts()
+        log(f"phase 23 {name}: {TRAIN_STEPS} steps, losses (kernel, reference) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses[name])
+            + f"; launches {train[name]} (per step {per_step[name]}); step wall s: "
+            + ", ".join(f"{t:.4f}" for t in step_s[name]))
+    for name, k in (("gat", "plan_segment_sum_mh"), ("gcn_dyn64", "plan_segment_sum_packed2"),
+                    ("gcn_dyn128", "plan_segment_sum_sr2")):
+        if not serve[name][k] or not train[name][k]:
+            raise AssertionError(f"{k} was not launched on the {name} path")
+    del ref_models
+    # the composed GAT route (edge-space softmax + mh_spmm) at both layer
+    # widths: one forward and one backward of gat_attention_spmm against
+    # the fused route on the same inputs. It aggregates with the mh kernel
+    # (forward over plan, backward over plan_t) at H*D 256 and 28 alike.
+    for H, D, want in ((4, FLICKR_HIDDEN, (1, 2)), (4, c, (1, 2))):
+        xh = torch.randn(n, H, D, generator=gen, device=dev)
+        a_s = 0.3 * torch.randn(n, H, generator=gen, device=dev)
+        a_d = 0.3 * torch.randn(n, H, generator=gen, device=dev)
+        co = torch.randn(n, H, D, generator=gen, device=dev)
+        res = []
+        for kw in ({}, {"fused_max_edges": 0}):
+            args = [t.clone().requires_grad_() for t in (xh, a_s, a_d)]
+            reset()
+            out = api.gat_attention_spmm(gg, *args, **kw)
+            torch.vdot(out.reshape(-1), co.reshape(-1)).backward()
+            torch.cuda.synchronize()
+            res.append((out.detach(), [t.grad for t in args], counts()["plan_segment_sum_mh"]))
+        (o_f, g_f, l_f), (o_c, g_c, l_c) = res
+        if (l_f, l_c) != want:
+            raise AssertionError(f"(H, D) = ({H}, {D}): mh launches fused {l_f}, composed "
+                                 f"{l_c}; expected {want}")
+        torch.testing.assert_close(o_c, o_f, **MODEL_TOL)
+        for a_, b_ in zip(g_c, g_f):
+            torch.testing.assert_close(a_, b_, rtol=GRAD_RTOL,
+                                       atol=GRAD_RTOL * float(b_.abs().max()))
+        log(f"phase 23 composed GAT route (fused_max_edges 0), (H, D) = ({H}, {D}): output "
+            f"max |composed - fused| {float((o_c - o_f).abs().max()):.3e}, gradients of xh, "
+            f"alpha_src, alpha_dst within rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g|; mh "
+            f"launches forward + backward: fused {l_f} (backward by gathers), composed {l_c}")
+    del res, xh, a_s, a_d, co, o_f, o_c, g_f, g_c
+
+    # 24. timings: each new kernel at its main-path shapes, forward and
+    # training step per model, busy share
+    arm("gat_timing")
+    timing = {}
+    for H, D in ((4, FLICKR_HIDDEN), (4, c)):
+        plan = gg.plan
+        S = plan.num_tiles * plan.e_tile
+        vals = torch.randn(S, H * D, generator=gen, device=dev)
+        wh = (torch.rand(S, H, generator=gen, device=dev) + 0.1) * plan.mask.reshape(-1, 1)
+        t_k = cuda_ms(lambda: sk.plan_segment_sum_mh(plan, vals, wh, D))
+        t_p = cuda_ms(lambda: ref_ops.plan_segment_sum_mh_plain(plan, vals, wh, D), iters=3,
+                      warmup=1)
+        csr = mh_csr(plan, wh)
+        v2 = vals.view(S * H, D)
+        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, v2))
+        # the yardstick computes the same function
+        lib_out = torch.sparse.mm(csr, v2).reshape(-1, H * D)
+        check_close_abs_sum(lib_out, ref_ops.plan_segment_sum_mh_plain(plan, vals, wh, D),
+                            ref_ops.plan_segment_sum_mh_plain(plan, vals.abs(), wh, D),
+                            f"phase 24 library yardstick of plan_segment_sum_mh H*D={H * D}")
+        bound, by, nb = mh_bound(plan, wh, H * D)
+        timing[("plan_segment_sum_mh", H * D)] = {
+            "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_lib}
+        log(f"{card} plan_segment_sum_mh H*D={H * D}: kernel {t_k:.4f} ms (bound {bound:.4f} ms "
+            f"by {by}: {nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the "
+            f"head-expanded slot -> row CSR [rows*{H}, slots*{H}] over vals viewed as "
+            f"[slots*{H}, {D}]) {t_lib:.4f} ms")
+        del vals, wh, csr, v2, lib_out
+    for name, g, F in (("plan_segment_sum_sr2", g128, FLICKR_HIDDEN),
+                       ("plan_segment_sum_sr2", g128, c),
+                       ("plan_segment_sum_packed2", g64, FLICKR_HIDDEN),
+                       ("plan_segment_sum_packed2", g64, c)):
+        plan = g.plan
+        we = torch.rand(g.num_edges, generator=gen, device=dev) + 0.1
+        # edge-order values, as the slot_dyn forward gives both
+        vals = torch.randn(g.num_edges, F, generator=gen, device=dev)
+        if name == "plan_segment_sum_sr2":
+            fn = lambda: sk.plan_segment_sum_sr2(plan, vals, vals_layout="edge",  # noqa: E731
+                                                 w_edge=we)
+            pl = lambda: ref_ops.plan_segment_sum_sr2_plain(  # noqa: E731
+                plan, vals, vals_layout="edge", w_edge=we)
+        else:
+            fn = lambda: sk.plan_segment_sum_packed2(plan, vals, w_edge=we)  # noqa: E731
+            pl = lambda: ref_ops.plan_segment_sum_packed2_plain(plan, vals, w_edge=we)  # noqa: E731
+        t_k = cuda_ms(fn)
+        t_p = cuda_ms(pl, iters=3, warmup=1)
+        csr = aeb_csr(plan, plan.mask, we)
+        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, vals))
+        bound, by, nb = aeb_bound(plan, plan.mask, we, F)
+        timing[(name, F)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                             "library_ms": t_lib}
+        log(f"{card} {name} F={F} (edge-order values, per-call weights, pack_align "
+            f"{plan.pack_align}): kernel {t_k:.4f} ms (bound {bound:.4f} ms by {by}: "
+            f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
+            f"edge -> row CSR with these weights) {t_lib:.4f} ms")
+        del vals, csr
+    fwd, stp, busy = {}, {}, {}
+    for name, g in graphs.items():
+        model = models[name]
+        model.eval()
+        with torch.inference_mode():
+            fwd[name] = cuda_ms(lambda: model(x, g), iters=10)
+        stp[name] = cuda_ms(lambda: steps[name](x, g, y, mask), iters=5, warmup=2)
+
+        def serve_once():
+            model.eval()
+            with torch.inference_mode():
+                model(x, g)
+
+        for mode, run in (("serve", serve_once), ("train", lambda: steps[name](x, g, y, mask))):
+            prof, wall_us, busy_us, events = trace(run, 3)
+            top = sorted(prof.key_averages(), key=lambda ev: -ev.self_device_time_total)[:6]
+            busy[(name, mode)] = busy_us / max(wall_us, 1e-9)
+            log(f"{card} {name} {mode} x3: traced wall {wall_us / 1e3:.4f} ms, device "
+                f"{busy_us / 1e3:.4f} ms, busy share {busy[(name, mode)]:.4f}; top device "
+                "time: " + "; ".join(f"{ev.key[:48]} {ev.self_device_time_total / 1e3:.4f} ms "
+                                     f"x{ev.count}" for ev in top))
+        log(f"{card} {name}: forward {fwd[name]:.4f} ms (request wall "
+            f"{min(req_s[name]) * 1e3:.4f} ms min); training step {stp[name]:.4f} ms (step "
+            f"wall {min(step_s[name]) * 1e3:.4f} ms min)")
+    faulthandler.cancel_dump_traceback_later()
+    return {"serve": serve, "train": train, "errs": errs, "timing": timing,
+            "forward_ms": fwd, "train_step_ms": stp, "busy": busy,
+            "losses": losses}
 
 
 def main():
@@ -1201,6 +1717,7 @@ def main():
 
     hy = run_hybrid(dev, card)
     sl = run_slot(dev, card)
+    gd = run_gat_dyn(dev, card)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -1232,6 +1749,24 @@ def main():
             "F": F,
             **sl["timing"][(name, F)],
         }
+
+    def new_entry(name, source, source_line, F):
+        by_path = {}
+        for m in ("gat", "gcn_dyn64", "gcn_dyn128"):
+            by_path[f"{m}_serve_requests"] = gd["serve"][m][name]
+            by_path[f"{m}_train_steps"] = gd["train"][m][name]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"geot_tpu_torch/ops/csrc/{source}",
+            "replaces": f"geot_tpu/ops/pallas_segment.py:{source_line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": gd["errs"][name],
+            "F": F,
+            **gd["timing"][(name, F)],
+        }
+        return entry
 
     log(f"total {time.perf_counter() - T0:.2f}s")
     print(json.dumps({
@@ -1278,7 +1813,10 @@ def main():
            hyb_entry("stream_segment_acc", "acc", 1176),
            slot_entry("plan_segment_sum_sr", 1302, 500),
            slot_entry("plan_segment_sum_sr_packed", 233, 64),
-           slot_entry("plan_segment_sum_pr", 1348, 8)],
+           slot_entry("plan_segment_sum_pr", 1348, 8),
+           new_entry("plan_segment_sum_mh", "slot_mh.cu", 1391, 4 * 64),
+           new_entry("plan_segment_sum_sr2", "slot_aeb.cu", 384, 64),
+           new_entry("plan_segment_sum_packed2", "slot_aeb.cu", 581, 64)],
         "card": smi,
         "forward_ms": t_fwd,
         "spmm_ms": t_spmm,
@@ -1290,6 +1828,11 @@ def main():
                  "train_step_ms": sl["train_step_ms"], "losses": sl["losses"],
                  "sr_packed_F7": sl["timing"][("plan_segment_sum_sr_packed", 7)],
                  "busy_share": {f"{m}_{mode}": v for (m, mode), v in sl["busy"].items()}},
+        "gat_slot_dyn": {
+            "forward_ms": gd["forward_ms"], "train_step_ms": gd["train_step_ms"],
+            "losses": gd["losses"],
+            "narrow": {f"{k}_F{F}": v for (k, F), v in gd["timing"].items() if F < 64},
+            "busy_share": {f"{m}_{mode}": v for (m, mode), v in gd["busy"].items()}},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,20 +2,24 @@
 
 The JAX package `geot_tpu` stays the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs. It
-covers GCN and GraphSAGE inference and training over slot-layout plans,
-block-aligned-tile (BAT) plans and hybrid stream+gather plans:
+covers GCN, GraphSAGE and GAT inference and training over slot-layout
+plans, block-aligned-tile (BAT) plans and hybrid stream+gather plans:
 
     prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
       -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
     prefer="sr": GCN / GraphSAGE -> segment_spmm -> _slot_spmm
       -> plan_segment_sum_sr / _sr_packed (CUDA, sm_90a); the mean's degree
          -> segment_counts -> plan_segment_sum_pr (CUDA, sm_90a)
+    per-call weights, prefer_dyn="sr": GCN -> segment_spmm -> _spmm_fwd_slot_dyn
+      -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a)
+    GAT -> GATConv -> gat_attention_spmm -> plan_segment_sum_mh (CUDA, sm_90a)
     layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid
       -> stream_segment_sum / stream_segment_acc (CUDA, sm_90a) per stream
          family + the BAT path over the remainder
 
 The backward of every fused SpMM runs the same kernels over the transpose
-plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA).
+plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA) over
+BAT plans and a plain per-edge dot over slot plans.
 `models.train` holds the trainer and the checkpoints shared with the JAX
 package.
 
@@ -26,7 +30,15 @@ the CPU, where every kernel wrapper runs its plain PyTorch version.
 from geot_tpu_torch.utils.device import resolve_device
 from geot_tpu_torch.graph import Graph, build_graph
 from geot_tpu_torch.ops import segment_spmm, dispatch_path
-from geot_tpu_torch.models import GCN, GCNConv, GraphSAGE, SAGEConv, prepare_graph
+from geot_tpu_torch.models import (
+    GAT,
+    GCN,
+    GATConv,
+    GCNConv,
+    GraphSAGE,
+    SAGEConv,
+    prepare_graph,
+)
 
 __version__ = "0.1.0"
 
@@ -40,5 +52,7 @@ __all__ = [
     "GCNConv",
     "GraphSAGE",
     "SAGEConv",
+    "GAT",
+    "GATConv",
     "prepare_graph",
 ]

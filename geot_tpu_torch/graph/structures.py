@@ -1,7 +1,8 @@
 """Graph container with prebuilt slot, BAT and hybrid stream+gather plans.
 
 Port of `geot_tpu/graph/structures.py` (`Graph` :45-121, `_stable_sort_perm`
-:122-131, `_slot_weights_host` :115-119, `build_graph` :140-397) for the
+:122-131, `_slot_weights_host` :115-119, `build_graph` :140-397, with
+`edge_pos_t` :233-236) for the
 layouts "slot", "bat" and "stream". The JAX builder asks its TPU tuning
 table for tiles, the slot plans' mode hint and the layout preference
 unless all tiles are given, and for a measured verdict on streaming; the
@@ -64,6 +65,10 @@ class Graph:
       src), or None without the "slot" layout.
     w_slots / w_slots_t: [T, e_tile] static weights in slot order (pads
       0) for plan / plan_t, or None.
+    edge_pos_t: [T_t, e_tile] int32, the dst-sorted edge of each slot of
+      plan_t (perm_t[plan_t.edge_pos]; pads hold perm_t[0]), so per-call
+      weights reach plan_t's slots in one gather; None without the "slot"
+      layout.
     prefer / prefer_dyn: layout preference for graph-weight or unweighted
       SpMM / per-call weights: "bat" or "sr" (the slot layout).
     build_stats: what `build_graph` decided and how long its host steps
@@ -88,6 +93,7 @@ class Graph:
     plan_t: Optional[SegmentPlan] = None
     w_slots: Optional[torch.Tensor] = None
     w_slots_t: Optional[torch.Tensor] = None
+    edge_pos_t: Optional[torch.Tensor] = None
     prefer: str = "bat"
     prefer_dyn: str = "bat"
     build_stats: dict = dataclasses.field(default_factory=dict, compare=False)
@@ -239,7 +245,7 @@ def build_graph(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    plan = plan_t = w_slots = w_slots_t = None
+    plan = plan_t = w_slots = w_slots_t = edge_pos_t = None
     if "slot" in layouts:
         t0 = time.perf_counter()
         kw = dict(e_tile=e_tile, s_tile=s_tile, num_src_nodes=num_nodes,
@@ -250,6 +256,10 @@ def build_graph(
         if edge_weight is not None and len(edge_weight):
             w_slots = t(_slot_weights_host(arrs, edge_weight))
             w_slots_t = t(_slot_weights_host(arrs_t, w_t))
+        ep_t = arrs_t["edge_pos"]
+        if len(src):
+            ep_t = perm_t.astype(np.int64)[ep_t.reshape(-1)].reshape(ep_t.shape)
+        edge_pos_t = t(ep_t.astype(np.int32))
         plan = plan_from_host(arrs, meta, device=dev)
         plan_t = plan_from_host(arrs_t, meta_t, device=dev)
         secs["slot_plans"] = time.perf_counter() - t0
@@ -287,6 +297,7 @@ def build_graph(
         plan_t=plan_t,
         w_slots=w_slots,
         w_slots_t=w_slots_t,
+        edge_pos_t=edge_pos_t,
         # slot preferences degrade to "bat" when no slot plan was built
         prefer=prefer if plan is not None else "bat",
         prefer_dyn=prefer_dyn if plan is not None else "bat",

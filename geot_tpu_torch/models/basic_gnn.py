@@ -1,7 +1,7 @@
 """Stacked-conv GNN.
 
-Port of `geot_tpu/models/basic_gnn.py:32-119` (`BasicGNN`, `GCN`,
-`GraphSAGE`) and of `MODELS` for its two ported models, for
+Port of `geot_tpu/models/basic_gnn.py:32-127` (`BasicGNN`, `GCN`,
+`GraphSAGE`, `GAT`) and of `MODELS` for its three ported models, for
 `jk=None`, `norm=None`, ReLU and dropout: num_layers convs, each but the
 last followed by ReLU and dropout, the last mapping to `out_features`.
 `conv_kwargs` and the compute `dtype` reach every conv, as in the
@@ -19,10 +19,10 @@ import torch
 from torch import nn
 
 from geot_tpu_torch.graph.structures import Graph
-from geot_tpu_torch.models.conv import GCNConv, SAGEConv
+from geot_tpu_torch.models.conv import GATConv, GCNConv, SAGEConv
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BasicGNN", "GCN", "GraphSAGE", "MODELS"]
+__all__ = ["BasicGNN", "GCN", "GraphSAGE", "GAT", "MODELS"]
 
 
 class BasicGNN(nn.Module):
@@ -109,9 +109,18 @@ class GraphSAGE(BasicGNN):
     conv_cls = SAGEConv
 
 
+class GAT(BasicGNN):
+    """GATConv stack (`conv_kwargs` carries heads, concat, ...; each
+    layer's width is its per-head width). The graph must include
+    self-loops."""
+
+    conv_cls = GATConv
+
+
 # name -> (model class, needs_self_loops), the entries of the reference's
 # MODELS (`geot_tpu/models/basic_gnn.py`) for the ported models
 MODELS = {
     "gcn": (GCN, True),
     "graphsage": (GraphSAGE, False),
+    "gat": (GAT, True),
 }

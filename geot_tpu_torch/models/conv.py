@@ -1,8 +1,9 @@
-"""GCN and GraphSAGE layers over the fused SpMM.
+"""GCN, GraphSAGE and GAT layers over the fused SpMM.
 
-Port of `geot_tpu/models/conv.py:47-215` (`prepare_graph`,
-`gcn_edge_weight`, `GCNConv`, `SAGEConv`). The aggregation is a direct
-call into `segment_spmm` over a prebuilt `Graph`.
+Port of `geot_tpu/models/conv.py:47-317` (`prepare_graph`,
+`gcn_edge_weight`, `GCNConv`, `SAGEConv`, `GATConv`). The aggregation is a
+direct call into `segment_spmm` (GAT: `gat_attention_spmm`) over a
+prebuilt `Graph`.
 """
 
 from __future__ import annotations
@@ -16,11 +17,11 @@ from torch import nn
 
 from geot_tpu_torch.graph.stream_plan import StreamKnobs
 from geot_tpu_torch.graph.structures import Graph, build_graph
-from geot_tpu_torch.ops.api import segment_spmm
+from geot_tpu_torch.ops.api import gat_attention_spmm, segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "glorot_uniform_",
-           "lecun_normal_"]
+__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "GATConv",
+           "glorot_uniform_", "lecun_normal_"]
 
 
 def prepare_graph(
@@ -133,6 +134,16 @@ def glorot_uniform_(weight: torch.Tensor, generator: Optional[torch.Generator]) 
     a = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         weight.uniform_(-a, a, generator=generator)
+
+
+def _glorot_uniform_heads_(param: torch.Tensor,
+                           generator: Optional[torch.Generator]) -> None:
+    """flax `glorot_uniform` on a [1, H, D] parameter (in_axis -2, out_axis
+    -1, receptive field 1): U(-a, a) with a = sqrt(6 / (H + D))."""
+    _, heads, dim = param.shape
+    a = math.sqrt(6.0 / (heads + dim))
+    with torch.no_grad():
+        param.uniform_(-a, a, generator=generator)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -257,4 +268,67 @@ class SAGEConv(nn.Module):
         if self.normalize:
             out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
                                     min=1e-12)
+        return out
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention: per-edge logits LeakyReLU(a_src . x_src
+    + a_dst . x_dst) per head, softmax over each destination's in-edges,
+    then out[i, h] = sum_j alpha_ij,h x_j,h (`gat_attention_spmm`, over the
+    graph's slot plans). `features` is the width of one head; the heads are
+    concatenated (`concat`) or averaged. The graph should hold self-loops.
+
+    `lin` is a bias-free `nn.Linear` to heads*features (the flax
+    `Dense_0/kernel` transposed); `att_src` / `att_dst` [1, heads,
+    features] and `bias` are the flax params of the same names, all
+    initialised as flax does (glorot uniform, zero bias) from `generator`
+    on the CPU, then moved to `device` (default: the CUDA card). `dtype`
+    is the compute dtype, as in `GCNConv`. The route is
+    `gat_attention_spmm`'s, with its default switches.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        heads: int = 1,
+        concat: bool = True,
+        negative_slope: float = 0.2,
+        use_bias: bool = True,
+        backend: str = "auto",
+        dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.heads, self.features, self.concat = heads, features, concat
+        self.negative_slope = negative_slope
+        self.backend = backend
+        self.dtype = dtype
+        self.lin = nn.Linear(in_features, heads * features, bias=False)
+        glorot_uniform_(self.lin.weight, generator)
+        self.att_src = nn.Parameter(torch.empty(1, heads, features))
+        self.att_dst = nn.Parameter(torch.empty(1, heads, features))
+        _glorot_uniform_heads_(self.att_src, generator)
+        _glorot_uniform_heads_(self.att_dst, generator)
+        dim = heads * features if concat else features
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        H, D = self.heads, self.features
+        if self.dtype is None:
+            xh = self.lin(x)
+        else:
+            xh = torch.nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
+        xh = xh.reshape(-1, H, D)
+        alpha_src = (xh * self.att_src.to(xh.dtype)).sum(dim=-1)  # [nodes, H]
+        alpha_dst = (xh * self.att_dst.to(xh.dtype)).sum(dim=-1)
+        out = gat_attention_spmm(graph, xh, alpha_src, alpha_dst,
+                                 negative_slope=self.negative_slope, backend=self.backend)
+        out = out.reshape(-1, H * D) if self.concat else out.mean(dim=1)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
         return out

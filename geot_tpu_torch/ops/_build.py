@@ -3,7 +3,8 @@
 Each source under `ops/csrc/` has a plain C interface and is compiled on
 first use, one `nvcc` per source (all started together), into a shared
 library under `<checkout>/build/geot_tpu_torch/`, named by a hash of the
-source and flags so that a stale library is never loaded:
+source, the headers under `ops/csrc/` and the flags so that a stale library
+is never loaded:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
@@ -41,6 +42,8 @@ SOURCES: Dict[str, str] = {
     "sddmm_bat": "sddmm_bat.cu",
     "stream_segment": "stream_segment.cu",
     "slot_segment_sum": "slot_segment_sum.cu",
+    "slot_aeb": "slot_aeb.cu",
+    "slot_mh": "slot_mh.cu",
 }
 
 # loaded libraries of this process, by kernel name
@@ -61,6 +64,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}_{tag}.so"
 

@@ -1,31 +1,38 @@
-"""Fused SpMM and SDDMM over slot, BAT and hybrid stream+gather plans, with
-their gradients.
+"""Fused SpMM, multi-head SpMM, GAT attention and SDDMM over slot, BAT and
+hybrid stream+gather plans, with their gradients.
 
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 `_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155,
-`_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_bat_sum` :335 (wide
-branch), `_slot_spmm` :654, `_make_gws_static` :675 and `_make_gs` :1008
-(one Function), `_spmm_fwd_bat` :750, `_stream_accum` :778,
+`_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_aeb_packed_ok` :267,
+`_aeb_sum` :281, `_bat_sum` :335 (wide branch), `_slot_spmm` :654,
+`_make_gws_static` :675 and `_make_gs` :1008 (one Function), `_spmm_fwd`
+:698 (its AEB branches), `_spmm_fwd_bat` :750, `_stream_accum` :778,
 `_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
-`_make_gs_bat` :875, `_make_gws_bat` :900, `segment_counts` :981,
-`_make_iscat` :1092 (BatPlan branch), `_apply_reduce_post` :1159,
-`index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter` :1256, `dispatch_path` :1298,
-`segment_spmm` :1367, `_sddmm_bat_fwd` :1678, `sddmm_coo` :1704), the
-slot_static, slot, BAT and hybrid routes. The slot layout gathers exactly
-`x[src_slots]`: the reference's gather pad (`_fast_gather_fn`, odd
-multiples of 512 rows) answers a TPU emitter and is not carried over.
+`_make_gs_bat` :875, `_make_gws_bat` :900, `_mh_fwd` :944,
+`segment_counts` :981, `_make_gws` :1028, `_make_mh` :1062, `_make_iscat`
+:1092 (BatPlan and AEB branches), `_apply_reduce_post` :1159,
+`index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter`
+:1256, `dispatch_path` :1298, `segment_spmm` :1367, `mh_spmm` :1486,
+`mh_spmm_transposed` :1510, `_make_mh_slot` :1523, `gat_attention_spmm`
+:1562, `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
+:1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The slot
+layout gathers exactly `x[src_slots]`: the reference's gather pad
+(`_fast_gather_fn`, odd multiples of 512 rows) answers a TPU emitter and
+is not carried over.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
 fused SpMM runs the same kernels over the transpose plan (`plan_t`,
 `bat_t`, `hyb_t`); the gradient of per-call edge weights comes from the
-BAT SDDMM kernel. A gradient is computed only for the inputs that ask for one.
-Every op returns its input's dtype and sums in float32, as the
-reference's kernels do.
+BAT SDDMM kernel over BAT plans and from a plain per-edge dot over slot
+plans, as in the reference. A gradient is computed only for the inputs
+that ask for one. Every op returns its input's dtype and sums in float32,
+as the reference's kernels do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -39,8 +46,11 @@ from geot_tpu_torch.ops import reference as ref
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
 from geot_tpu_torch.ops.slot_kernels import (
+    plan_segment_sum_mh,
+    plan_segment_sum_packed2,
     plan_segment_sum_pr,
     plan_segment_sum_sr,
+    plan_segment_sum_sr2,
     plan_segment_sum_sr_packed,
 )
 from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
@@ -53,6 +63,10 @@ __all__ = [
     "gather_weight_scatter",
     "index_scatter",
     "sddmm_coo",
+    "mh_spmm",
+    "mh_spmm_transposed",
+    "segment_softmax",
+    "gat_attention_spmm",
 ]
 
 BACKENDS = ("auto", "reference")
@@ -60,6 +74,10 @@ BACKENDS = ("auto", "reference")
 # path may materialise; past it the weight gradient comes from
 # sddmm_coo_ref (the reference's GEOT_SDDMM_MAX_BYTES default)
 SDDMM_MAX_BYTES = 4 << 30
+# gat_attention_spmm's route switch, the reference's value
+# (`GEOT_GAT_FUSED_MAX_EDGES`, api.py:1602-1606): a TPU figure, not
+# measured on the H100
+GAT_FUSED_MAX_EDGES = 8_000_000
 
 
 def _round_up(x: int, m: int) -> int:
@@ -121,7 +139,10 @@ def _plan_sum_chunked(plan, run_one: Callable) -> torch.Tensor:
                 raise ValueError("chunks may only overlap one window")
             last = pieces[-1]
             ov = min(s, o.shape[0], last.shape[0])
-            last[-ov:] += o[:ov]  # in place: `last` is this function's own
+            if torch.is_grad_enabled() and (last.requires_grad or o.requires_grad):
+                pieces[-1] = torch.cat([last[:-ov], last[-ov:] + o[:ov]])
+            else:
+                last[-ov:] += o[:ov]  # in place: `last` is this function's own
             if o.shape[0] > ov:
                 pieces.append(o[ov:])
         else:
@@ -177,6 +198,97 @@ def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor) -> tor
     idx = plan.src_slots.reshape(-1)
     return _plan_sum_gather(plan, lambda lo, hi: x.index_select(0, idx[lo:hi]), w_slots,
                             x.shape[1])
+
+
+def _aeb_packed_ok(plan: SegmentPlan, n: int) -> int:
+    """The reference's choice between its two AEB kernels: the packed lane
+    width where it runs `plan_segment_sum_packed2`, else 0 (sr2). n <= 64,
+    and the plan's e_tile and pack_align whole multiples of 128 // width
+    edges (the TPU's packed lane rows), at least 8 such rows per tile. On
+    the card both are one kernel; the rule only names the launch."""
+    nw = packed_width(n)
+    if not nw or plan.e0 is None:
+        return 0
+    pack = 128 // nw
+    if plan.e_tile % pack or plan.pack_align % pack or plan.e_tile // pack < 8:
+        return 0
+    return nw
+
+
+def _aeb_sum(plan: SegmentPlan, vals_fn: Callable, n: int,
+             w_edge: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tiled segment sum over EDGE-ordered values through the aligned-edge-
+    block kernel, under the name the reference would launch
+    (`plan_segment_sum_packed2` where `_aeb_packed_ok`, else
+    `plan_segment_sum_sr2` with edge values). No slot gather and no weight
+    permutation: slot j of tile t reads edge e0[t] + j. `vals_fn(e_begin,
+    size)` returns the value rows of edges [e_begin, e_begin + size) ([<=
+    size, n], float32, contiguous; missing rows read as zero), or of every
+    edge for size None. Weights: the plan's mask, times `w_edge` (per call,
+    edge order, float32) if given. Returns [num_segments, n] float32.
+
+    A chunk of a chunked plan reads its own slice of values, edges
+    [e_begin, e_begin + (t1 - t0 + 2) * e_tile) with e_begin its first
+    tile's e0 rounded down to e_tile, as the reference does; the kernel
+    indexes `w_edge` with the plan's global e0, so neither is rebased. The
+    chunks' first e0 come to the host once per call."""
+    E = plan.e_tile
+    nw = _aeb_packed_ok(plan, n)
+    starts = None
+    if plan.chunks:
+        first = torch.tensor([c[0] for c in plan.chunks], device=plan.e0.device)
+        starts = plan.e0.index_select(0, first).tolist()
+
+    def run_one(cp, i, c):
+        if i is None:
+            e_base, v = 0, vals_fn(0, None)
+        else:
+            e_base = starts[i] // E * E
+            v = vals_fn(e_base, (c[1] - c[0] + 2) * E)
+        if nw:
+            out = plan_segment_sum_packed2(cp, v, w_edge=w_edge, e_base=e_base)
+        else:
+            out = plan_segment_sum_sr2(cp, v, vals_layout="edge", w_edge=w_edge,
+                                       e_base=e_base)
+        return out[: cp.num_segments]
+
+    return _plan_sum_chunked(plan, run_one)
+
+
+def _spmm_fwd_slot_dyn(plan: SegmentPlan, x: torch.Tensor, w_edge: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
+    """sum_e w_e * x[src_e] by dst over the slot plan with per-call
+    edge-order weights: x gathered in EDGE order, one chunk at a time,
+    through the AEB kernel (`_aeb_sum`). The reference gathers x in slot
+    order for sr2 where its packed lane rows do not fit the plan's
+    pack_align, a TPU layout rule that is not carried over. Returns
+    [num_segments, n] float32."""
+    x = x.float().contiguous()
+    src_l = src.long()
+
+    def vals_fn(e_begin, size):
+        idx = src_l if size is None else src_l[e_begin : e_begin + size]
+        return x.index_select(0, idx)
+
+    return _aeb_sum(plan, vals_fn, x.shape[1], w_edge=w_edge.float().contiguous())
+
+
+def _edge_dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """out[e] = sum over the last axis of a[dst_e] * b[src_e] (a, b [n,
+    ..., D]) -> [nnz, ...] float32: the plain SDDMM of the reference's
+    slot-plan weight gradients (`sddmm_coo_ref`), over edge chunks of at
+    most REF_CHUNK_BYTES of gathered rows each."""
+    nnz = src.shape[0]
+    row_bytes = max(math.prod(a.shape[1:]) * 4, 1)
+    step = max(1, ref.REF_CHUNK_BYTES // row_bytes)
+    out = torch.empty((nnz,) + tuple(a.shape[1:-1]), dtype=torch.float32, device=a.device)
+    s_l, d_l = src.long(), dst.long()
+    for e0 in range(0, nnz, step):
+        sl = slice(e0, min(nnz, e0 + step))
+        out[sl] = (a.index_select(0, d_l[sl]).float()
+                   * b.index_select(0, s_l[sl]).float()).sum(dim=-1)
+    return out
 
 
 def _bat_sum(
@@ -498,6 +610,57 @@ class _SddmmBat(torch.autograd.Function):
         return da, db, None, None, None, None, None
 
 
+class _GatherWeightScatterSlot(torch.autograd.Function):
+    """Weighted fused SpMM over the slot plans with per-call edge-order
+    weights (`slot_dyn`, `_make_gws`). dx = the weighted sum over `plan_t`
+    with slot weights w[edge_pos_t] (sr / sr_packed); dw[e] = <g[dst_e],
+    x[src_e]>, the plain per-edge dot, as the reference takes it."""
+
+    @staticmethod
+    def forward(ctx, x, w, src, dst, plan, plan_t, edge_pos_t):
+        ctx.plan_t = plan_t
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, edge_pos_t)
+        return _spmm_fwd_slot_dyn(plan, x, w, src).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, src, dst, edge_pos_t = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            pt = ctx.plan_t
+            w_t = pt.mask * w.float().index_select(0, edge_pos_t.reshape(-1)).reshape(
+                pt.mask.shape)
+            dx = _slot_spmm(pt, g, w_t).to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _edge_dots(src, dst, g, x).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+class _IndexScatterSlot(torch.autograd.Function):
+    """Sorted segment sum of edge-ordered rows through the AEB kernels (the
+    `e0` branch of `_make_iscat` over a `SegmentPlan`): no slot gather;
+    backward dvals = g[index]."""
+
+    @staticmethod
+    def forward(ctx, vals, index, plan):
+        ctx.save_for_backward(index)
+        v = vals.float().contiguous()
+
+        def vals_fn(e_begin, size):
+            return v if size is None else v[e_begin : e_begin + size]
+
+        return _aeb_sum(plan, vals_fn, v.shape[1]).to(vals.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        dvals = g.index_select(0, index.long()) if ctx.needs_input_grad[0] else None
+        return dvals, None, None
+
+
 def _apply_reduce_post(out_sum: torch.Tensor, plan, reduce: str,
                        dst: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mean = sum / in-degree, outside the autograd Functions. The degree
@@ -568,11 +731,7 @@ def dispatch_path(
         return "bat" if use_bat and (graph.prefer == "bat" or not have_slot) else "slot"
     if use_bat and (graph.prefer_dyn == "bat" or not have_slot):
         return "bat_dyn"
-    raise NotImplementedError(
-        "slot_dyn (per-call weights over the slot plans) needs the aligned-edge-block "
-        "kernels plan_segment_sum_sr2 / _packed2, not ported yet (ROADMAP B.9, B.10); "
-        "build the graph with prefer_dyn='bat' and a BAT plan"
-    )
+    return "slot_dyn"
 
 
 def segment_spmm(
@@ -588,7 +747,7 @@ def segment_spmm(
     `edge_weight` (per call, dst-sorted edge order) overrides the graph's
     static weights. Differentiable in `x` and in a per-call
     `edge_weight`: the backward runs the transpose plan, and dw the SDDMM
-    kernel."""
+    kernel (over BAT) or the plain per-edge dot (over slot plans)."""
     w = edge_weight if edge_weight is not None else graph.edge_weight
     path = dispatch_path(graph, dynamic_w=edge_weight is not None,
                          reduce=reduce, backend=backend)
@@ -612,6 +771,9 @@ def segment_spmm(
         )
     elif path == "bat":
         out = _GatherScatterBat.apply(x, graph.src, graph.dst_t, graph.bat, graph.bat_t)
+    elif path == "slot_dyn":
+        out = _GatherWeightScatterSlot.apply(x, w, graph.src, graph.dst, graph.plan,
+                                             graph.plan_t, graph.edge_pos_t)
     else:  # bat_dyn
         out = _GatherWeightScatterBat.apply(
             x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
@@ -627,13 +789,15 @@ def index_scatter(
     *,
     reduce: str = "sum",
     sorted: bool = True,
-    plan: Optional[BatPlan] = None,
+    plan=None,
     backend: str = "auto",
     axis: int = 0,
 ) -> torch.Tensor:
     """Sorted segment reduction out[index[i]] (+)= src[i] along `axis`.
-    With a `BatPlan` over `index` (sum or mean) the rows stream through the
-    BAT kernel in edge order; otherwise the plain reference runs. The
+    With a `BatPlan` or a `SegmentPlan` over `index` (sum or mean) the rows
+    stream in edge order through the BAT kernel or the aligned-edge-block
+    slot kernels (packed2 for narrow rows on a pack-aligned plan, else
+    sr2); otherwise the plain reference runs. The
     reference also asks its TPU tuning table whether a small call should
     take the plain path instead; that table is a TPU measurement and is not
     carried over. `sorted` is the reference's hint and changes nothing."""
@@ -642,15 +806,14 @@ def index_scatter(
     if axis != 0:
         src = src.movedim(axis, 0)
     if plan is not None and backend == "auto" and reduce in ("sum", "mean"):
-        if not isinstance(plan, BatPlan):
-            raise NotImplementedError(
-                "index_scatter over a slot plan needs the aligned-edge-block kernels "
-                "(ROADMAP B.9, B.10)")
+        if not isinstance(plan, (BatPlan, SegmentPlan)):
+            raise TypeError(f"plan must be a BatPlan or a SegmentPlan, got {type(plan)}")
         if num_segments != plan.num_segments:
             raise ValueError(f"num_segments={num_segments} but the plan has "
                              f"{plan.num_segments}")
         shape = src.shape
-        out = _IndexScatterBat.apply(src.reshape(shape[0], -1), index, plan)
+        fn = _IndexScatterBat if isinstance(plan, BatPlan) else _IndexScatterSlot
+        out = fn.apply(src.reshape(shape[0], -1), index, plan)
         out = _apply_reduce_post(out, plan, reduce)
         out = out.reshape((out.shape[0],) + tuple(shape[1:]))
     else:
@@ -702,16 +865,20 @@ def gather_weight_scatter(
     backend: str = "auto",
 ) -> torch.Tensor:
     """Edge-weighted fused SpMM: out[dst[e]] (+)= weight[e] * src[src[e]].
-    With `graph` it runs over the BAT plan, the route `dispatch_path` picks
-    for per-call weights: dsrc over the transpose plan, dweight through the
-    SDDMM kernel."""
+    With `graph` it runs the route `dispatch_path` picks for per-call
+    weights: over the BAT plan (dweight through the SDDMM kernel) or over
+    the slot plans (`slot_dyn`, dweight the plain per-edge dot); dsrc over
+    the transpose plan."""
     _check_backend(backend)
     if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
-        dispatch_path(graph, dynamic_w=True)  # raises on slot_dyn
-        out = _GatherWeightScatterBat.apply(
-            src, weight, graph.src, graph.dst, graph.dst_t, graph.perm_t,
-            _bat_of(graph), graph.bat_t, False,
-        )
+        if dispatch_path(graph, dynamic_w=True) == "slot_dyn":
+            out = _GatherWeightScatterSlot.apply(src, weight, graph.src, graph.dst,
+                                                 graph.plan, graph.plan_t, graph.edge_pos_t)
+        else:
+            out = _GatherWeightScatterBat.apply(
+                src, weight, graph.src, graph.dst, graph.dst_t, graph.perm_t,
+                _bat_of(graph), graph.bat_t, False,
+            )
         return _apply_reduce_post(out, _plan_of(graph), reduce)
     return ref.gather_weight_scatter_ref(
         src_index, dst_index, weight, src, num_segments, reduce
@@ -745,3 +912,303 @@ def sddmm_coo(
         return _SddmmBat.apply(a, b, graph.src, graph.dst_t, graph.perm_t,
                                graph.bat, graph.bat_t)
     return ref.sddmm_coo_ref(src_index, dst_index, a, b)
+
+
+def _mh_fwd(plan: SegmentPlan, x: torch.Tensor, w_heads: torch.Tensor) -> torch.Tensor:
+    """x [nodes, H, D], w_heads [nnz, H] in the plan's edge order ->
+    [num_segments, H, D] float32 through `plan_segment_sum_mh`, chunk by
+    chunk: the flat [slots, H*D] gather of one chunk and its slot weights
+    w_heads[edge_pos] * mask. The reference pads H*D past 128 to its lane
+    tile; the kernel reads H*D columns as they are."""
+    n_nodes, H, D = x.shape
+    x2 = x.reshape(n_nodes, H * D).float().contiguous()
+    wh = w_heads.float()
+
+    def run_one(cp, i, c):
+        vals = x2.index_select(0, cp.src_slots.reshape(-1))
+        w = wh.index_select(0, cp.edge_pos.reshape(-1)) * cp.mask.reshape(-1, 1)
+        return plan_segment_sum_mh(cp, vals, w.contiguous(), D)[: cp.num_segments]
+
+    return _plan_sum_chunked(plan, run_one).reshape(plan.num_segments, H, D)
+
+
+class _MhSpmm(torch.autograd.Function):
+    """Multi-head SpMM over the slot plans (`_make_mh`). Backward: dx = the
+    same sum over `plan_t` with weights w[perm_t]; dw[e, h] = <g[dst_e, h],
+    x[src_e, h]>, the plain per-head dot."""
+
+    @staticmethod
+    def forward(ctx, x, w, src, dst, plan, plan_t, perm_t):
+        ctx.plan_t = plan_t
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, perm_t)
+        return _mh_fwd(plan, x, w).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, src, dst, perm_t = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mh_fwd(ctx.plan_t, g, w.index_select(0, perm_t.long())).to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _edge_dots(src, dst, g, x).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def mh_spmm(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    weight: torch.Tensor,
+    src: torch.Tensor,
+    num_segments: int,
+    *,
+    reduce: str = "sum",
+    graph: Optional[Graph] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Multi-head SpMM for GAT-style attention: src [nodes, H, D], weight
+    [nnz, H] (edge-major, dst-sorted) -> out[dst[e], h] += weight[e, h] *
+    src[src[e], h]. With `graph` (whose src/dst are these indices) it runs
+    over the graph's slot plans through `plan_segment_sum_mh`, with the
+    transpose-plan backward; otherwise the plain reference."""
+    if reduce != "sum":
+        raise ValueError("mh_spmm supports sum (matching the reference kernel)")
+    _check_backend(backend)
+    if graph is not None and backend == "auto":
+        if graph.plan is None:
+            raise NotImplementedError("mh_spmm over a graph runs on its slot plans: build "
+                                      "it with 'slot' in layouts")
+        return _MhSpmm.apply(src, weight, graph.src, graph.dst, graph.plan, graph.plan_t,
+                             graph.perm_t)
+    return ref.mh_spmm_ref(src_index, dst_index, weight, src, num_segments)
+
+
+def mh_spmm_transposed(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    weight_t: torch.Tensor,
+    src: torch.Tensor,
+    num_segments: int,
+    **kw,
+) -> torch.Tensor:
+    """Head-major weights [H, nnz]: `mh_spmm` of weight_t.T."""
+    return mh_spmm(src_index, dst_index, weight_t.t(), src, num_segments, **kw)
+
+
+class _GatherRows(torch.autograd.Function):
+    """t[idx] along axis 0 ([n] or [n, H] of a few columns): a 2-D gather
+    is one 1-D gather per column over the transpose. A row gather costs
+    about the same per row from 16 bytes to 1 KB wide (1.09 M rows of
+    [89,250, 4] float32: 0.66 ms, as 1-D gathers 0.02 ms; NVIDIA H100 80GB
+    HBM3, 700 W, torch 2.11, `python -m geot_tpu_torch.probe_slot
+    gathers`).
+
+    Backward: each row's sum of g over the entries that name it. Given
+    `offsets`, the n + 1 run boundaries of idx[order] (sorted; `order`
+    None: idx itself is sorted), it is the fixed-order segment sum of
+    g[order] (`_segment_reduce_cols`), so reruns are bit-identical.
+    Without, it is `index_add_` (atomics on the card): bit-identical only
+    where each row takes at most one nonzero term."""
+
+    @staticmethod
+    def forward(ctx, t, idx, order, offsets):
+        ctx.save_for_backward(idx, order, offsets)
+        ctx.n_rows = t.shape[0]
+        if t.dim() == 1:
+            return t.index_select(0, idx)
+        return t.t().contiguous().index_select(1, idx).t()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx, order, offsets = ctx.saved_tensors
+        if offsets is not None:
+            gs = g if order is None else g.index_select(0, order)
+            return (_segment_reduce_cols(gs.float().contiguous(), offsets, "sum").to(g.dtype),
+                    None, None, None)
+        out = g.new_zeros((ctx.n_rows,) + tuple(g.shape[1:]))
+        return out.index_add_(0, idx, g.contiguous()), None, None, None
+
+
+def _gather_rows(t: torch.Tensor, idx: torch.Tensor, order: Optional[torch.Tensor] = None,
+                 offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """t[idx] along axis 0 ([n] or [n, H] with few columns; the result of
+    a 2-D gather is a transposed view), through `_GatherRows`."""
+    return _GatherRows.apply(t, idx, order, offsets)
+
+
+def _runs(index: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The run boundaries [num_segments + 1] of a sorted index."""
+    nodes = torch.arange(num_segments + 1, dtype=index.dtype, device=index.device)
+    return torch.searchsorted(index, nodes)
+
+
+def _segment_reduce_cols(v: torch.Tensor, offsets: torch.Tensor, reduce: str) -> torch.Tensor:
+    """Per-column `reduce` over the runs of a sorted index ([nnz] or [nnz,
+    H] -> [S] or [S, H]) with one 1-D `torch.segment_reduce` over all
+    columns' segments: in a fixed order, with no atomics. Over 2-D data
+    segment_reduce walks each segment with one thread per column, 3 ms a
+    call on the flickr graph's 75 k-edge hub row (NVIDIA H100 80GB HBM3,
+    700 W, `profile_gcn --model gat`)."""
+    kw = {"initial": 0.0} if reduce == "sum" else {}
+    if v.dim() == 1:
+        return torch.segment_reduce(v, reduce, offsets=offsets, **kw)
+    S = offsets.shape[0] - 1
+    nnz, H = v.shape
+    # column h's segments are segments h*S .. h*S + S - 1 of the [H, nnz] copy
+    flat = torch.cat([(offsets[:-1][None, :]
+                       + nnz * torch.arange(H, device=v.device)[:, None]).reshape(-1),
+                      offsets.new_full((1,), nnz * H)])
+    return torch.segment_reduce(v.t().reshape(-1), reduce, offsets=flat, **kw).reshape(H, S).t()
+
+
+class _SegmentSum(torch.autograd.Function):
+    """`_segment_reduce_cols(v, offsets, "sum")`; backward: the output
+    gradient gathered back by the index (segment_reduce's own backward
+    walks each segment serially: 1.8 ms a call on the flickr graph's
+    75 k-edge hub, NVIDIA H100 80GB HBM3, 700 W, `profile_gcn --model
+    gat`)."""
+
+    @staticmethod
+    def forward(ctx, v, index, offsets):
+        ctx.save_for_backward(index)
+        return _segment_reduce_cols(v, offsets, "sum")
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        return _gather_rows(g, index), None, None
+
+
+def _softmax_stats(logits: torch.Tensor, index: torch.Tensor, offsets: torch.Tensor):
+    """(e, s) of a segment softmax over dst-sorted `index` (int64, run
+    boundaries `offsets`; [nnz] or [nnz, H] logits): e = exp(logits -
+    m[index]) with m the segment max (0 for an empty segment, and detached:
+    the softmax does not depend on it), s the segment sum of e. Both
+    reductions are `_segment_reduce_cols`, in a fixed order."""
+    m = _segment_reduce_cols(logits.detach(), offsets, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - _gather_rows(m, index))
+    return e, _SegmentSum.apply(e, index, offsets)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    index: torch.Tensor,
+    num_segments: int,
+    *,
+    indices_are_sorted: bool = True,
+) -> torch.Tensor:
+    """Softmax of per-edge logits [nnz] or [nnz, H] within each destination
+    segment, stabilised by the segment max (empty segments: max 0). The max
+    and the sum run over the dst-sorted runs with `torch.segment_reduce`,
+    and so does the gradient: no atomics. Unsorted indices are sorted first
+    (stably) and the result put back in their order."""
+    if not indices_are_sorted:
+        order = torch.argsort(index, stable=True)
+        out = torch.empty_like(logits)
+        out[order] = segment_softmax(logits[order], index[order], num_segments)
+        return out
+    idx, offsets = index.long(), _runs(index, num_segments)
+    e, s = _softmax_stats(logits, idx, offsets)
+    return e / _gather_rows(torch.clamp(s, min=1e-16), idx, offsets=offsets)
+
+
+class _MhSlot(torch.autograd.Function):
+    """Slot-space multi-head weighted segment sum (`_make_mh_slot`): vals
+    [T*E, H*D] and w [T*E, H], both slot-ordered -> [n_blocks*s_tile, H*D]
+    through `plan_segment_sum_mh`. Backward is pure gathers: g[dst_slots]
+    times w per head (dvals) and dotted with vals per head (dw)."""
+
+    @staticmethod
+    def forward(ctx, vals, w, plan, head_dim):
+        ctx.plan = plan
+        ctx.save_for_backward(vals, w)
+        return plan_segment_sum_mh(plan, vals.float().contiguous(), w.float().contiguous(),
+                                   head_dim).to(vals.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        vals, w = ctx.saved_tensors
+        te, hd = vals.shape
+        H = w.shape[1]
+        g3 = g.index_select(0, ctx.plan.dst_slots.reshape(-1)).reshape(te, H, hd // H)
+        dvals = dw = None
+        if ctx.needs_input_grad[0]:
+            dvals = (g3 * w[:, :, None].to(g3.dtype)).reshape(te, hd).to(vals.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (g3 * vals.reshape(te, H, hd // H)).sum(dim=-1).to(w.dtype)
+        return dvals, dw, None, None
+
+
+def gat_attention_spmm(
+    graph: Graph,
+    xh: torch.Tensor,
+    alpha_src: torch.Tensor,
+    alpha_dst: torch.Tensor,
+    *,
+    negative_slope: float = 0.2,
+    backend: str = "auto",
+    fused_max_edges: int = GAT_FUSED_MAX_EDGES,
+) -> torch.Tensor:
+    """GAT attention + multi-head aggregation: out[i, h] = sum over edges
+    j -> i of softmax_i(leaky_relu(alpha_src[j, h] + alpha_dst[i, h]))
+    * xh[j, h]. xh [nodes, H, D]; alpha_src / alpha_dst [nodes, H].
+    Differentiable in all three.
+
+    The attention is taken in edge order: the softmax's max and sum run
+    over the dst-sorted runs (`segment_softmax`'s statistics). Then, on
+    graphs of at most `fused_max_edges` edges, it is placed into the slot
+    layout by each slot's edge (pad slots weigh exactly 0), chunk by chunk,
+    and summed by `plan_segment_sum_mh` (`_MhSlot`, whose backward is pure
+    gathers). Past it, it feeds `mh_spmm` (the same kernel over `plan`,
+    and over `plan_t` for the xh gradient). The switch defaults to the
+    reference's `GEOT_GAT_FUSED_MAX_EDGES`, a TPU figure, not measured on
+    the H100; the reference's other switch, the plain aggregation below
+    H*D 64 on its composed route, is a TPU measurement and is not carried
+    over. backend="reference" runs the plain edge-space softmax and
+    `mh_spmm_ref` (edge order, no plan).
+
+    Each gather of per-node terms into edge order has a fixed-order
+    backward (`_gather_rows` with run boundaries; the src-indexed one
+    through `perm_t`, the src-sorted order), and so has the placement into
+    slots (one slot per edge). On the fused route the xh gradient adds
+    each slot's term at its source row with `index_add_` (atomics on the
+    card), so it alone varies in float32 summation order between reruns
+    (ROADMAP C.12)."""
+    _check_backend(backend)
+    n = graph.num_nodes
+    H = alpha_src.shape[1]
+    D = xh.shape[-1]
+    src_l, dst_l, perm_t = graph.src.long(), graph.dst.long(), graph.perm_t.long()
+    off_dst = _runs(graph.dst, n)
+    off_src = _runs(graph.src.index_select(0, perm_t), n)
+    logit = F.leaky_relu(_gather_rows(alpha_src, src_l, perm_t, off_src)
+                         + _gather_rows(alpha_dst, dst_l, offsets=off_dst),
+                         negative_slope)  # [nnz, H]
+    if backend == "reference":
+        att = ref.segment_softmax_ref(logit, graph.dst, n)
+        return ref.mh_spmm_ref(graph.src, graph.dst, att.to(xh.dtype), xh, n)
+    e, s = _softmax_stats(logit, dst_l, off_dst)
+    att = e / _gather_rows(torch.clamp(s, min=1e-16), dst_l, offsets=off_dst)
+    if graph.num_edges > fused_max_edges:
+        return mh_spmm(graph.src, graph.dst, att.to(xh.dtype), xh, n, graph=graph,
+                       backend=backend)
+    plan = graph.plan
+    if plan is None:
+        raise NotImplementedError("the fused GAT route runs on the graph's slot plans: build "
+                                  "it with 'slot' in layouts")
+    xflat = xh.reshape(-1, H * D)
+
+    def run_one(cp, i, c):
+        w = _gather_rows(att, cp.edge_pos.reshape(-1).long())
+        # the reference multiplies by the mask; a pad's weight is exactly 0
+        # here whatever the edge it names
+        w = torch.where(cp.mask.reshape(-1, 1) > 0, w, torch.zeros_like(w))
+        vals = xflat.index_select(0, cp.src_slots.reshape(-1))
+        return _MhSlot.apply(vals, w.to(vals.dtype), cp, D)[: cp.num_segments]
+
+    return _plan_sum_chunked(plan, run_one)[:n].reshape(n, H, D)

@@ -1,0 +1,587 @@
+// Slot-layout segment sums for Hopper (sm_90a): the kernels of slot_aeb.cu
+// and slot_mh.cu, each of which binds them to a plain C interface for
+// ctypes. They extend the design of slot_segment_sum.cu (sr, sr_packed,
+// pr), which keeps its own copy: built from this template, its 128-column
+// sr tile kernel took 71 registers instead of 64 and 10% more time at
+// F 500 (1.11 vs 1.01 ms on the flickr plan, NVIDIA H100 80GB HBM3, 700 W,
+// `python -m geot_tpu_torch.probe_slot ab`), and no change of launch
+// bounds, argument order or loop body closed the gap.
+//
+// One function over a slot plan (SegmentPlan: T tiles of E slots, tile t in
+// output window out_block[t], out_block non-decreasing):
+//
+//   out[dst[t*E + j], c] += w(t, j, c) * v(t, j, c)    for each live slot
+//
+// with dst[t*E + j] in window out_block[t]. What varies is where v and w
+// come from (`SlotSrc`):
+//
+//   values   slot order, row t*E + j of vals [>= T*E, F]; or edge order
+//            (the aligned-edge-block, AEB, kernels), row e0[t] + j - e_base
+//            of vals [n_rows, F], a row past n_rows read as zero
+//   weights  w[t*E + j], the slot weight (static, or the plan's mask); times
+//            w_edge[e0[t] + j], a per-call weight in edge order (AEB); or,
+//            multi-head, w[(t*E + j)*H + c / head_dim], the weight of
+//            column c's head, 0 past H heads
+//
+// Each kind (`kAeb`, `kHeads`) is its own template instance.
+//
+// A slot is live when its weight is not 0 (kHeads: when any of its H heads'
+// weights is not 0); a slot that is not live is not read. A plan's pad slots
+// have weight 0 and hold their window's base row, out of dst order (after a
+// tile's real slots, and before them when the plan is pack-aligned);
+// skipping them leaves every tile's live slots in dst order. A real edge of
+// weight 0 is skipped the same way, so a skipped slot may also sit inside
+// one row's run of slots. The TPU kernels add 0 * v there, which is the same
+// sum wherever v is finite. A multi-head slot of weight 0 on some heads only
+// stays live: its zero heads add 0 * v.
+//
+// Every row of every window is written exactly once (zeros included), with
+// no atomics, so reruns are bit-identical. The sums are float32. The F
+// columns are read in place: no padding to 128 lanes.
+//
+// The TPU grid runs the tiles in order and carries a window's sum in VMEM;
+// Hopper blocks run in no order. So, as in slot_segment_sum.cu:
+//
+//  1. slot_tile_kernel, one block of 8 warps per (tile, column slab). Each
+//     warp sums a contiguous eighth of the tile's slots in order and writes
+//     the rows whose slots all lie inside its eighth directly (and the empty
+//     rows between them); warp 0 then merges the warps' first and last rows
+//     in warp order. The tile's first and last rows go, as partial sums, to
+//     a scratch buffer. A power-law hub row spanning many tiles is summed
+//     tile by tile in parallel, never by one block.
+//  2. slot_window_kernel, one block of 8 warps per (window, slab), finds the
+//     window's tiles (binary search over out_block); each warp walks a
+//     contiguous eighth of them in order, adds the partials of consecutive
+//     tiles that share a row and writes the rows complete within its
+//     eighth and the empty rows between them; warp 0 merges the warps'
+//     first and last rows in warp order. (The first design, one warp per
+//     window, walked the 900 tiles of a power-law head window in 113
+//     dependent rounds.)
+//
+// A warp takes G lanes per slot, each lane 4 columns: G = 32 (a 128-column
+// slab) past 64 columns, G = F_pad / 4 for F_pad = 8, 16, 32 or 64. With
+// G < 32 a warp reads P = 32 / G consecutive slots at once (the TPU kernels'
+// packing of 128 / F edges into one lane row), adds equal rows among them
+// with a segmented suffix sum over shuffles, and then takes the runs in
+// order.
+//
+// Bound on the H100: bytes (each live slot's value row read once, the
+// weights, dst ids and output once); the flops (2 per value) are
+// negligible. The figures at the flickr shapes are in each source's header.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBatch = 8;      // slot groups in flight per warp
+constexpr int kTileBatch = 8;  // tiles whose partials are in flight per warp
+constexpr unsigned kFull = 0xffffffffu;
+
+// how a kernel reads values and writes rows
+constexpr int kRowVec = 0;     // row-major [*, F], F % 4 == 0, 16-byte aligned
+constexpr int kRowScalar = 1;  // row-major [*, F], any F
+
+// where a kernel's values and weights come from, a template parameter so
+// that each kind compiles only its own loads
+constexpr int kAeb = 1;    // values and/or per-call weights in edge order (sr2, packed2)
+constexpr int kHeads = 2;  // slot-order values, per-(slot, head) weights (mh)
+
+// Where a tile kernel's values and weights come from (see the top). The
+// kernel takes `vals` and `w` as __restrict__ parameters of their own; the
+// struct carries the rest.
+struct SlotSrc {
+  const float* vals;
+  const float* w;       // [T*E] slot weights, or [T*E, H] head weights (kHeads)
+  const int* e0;        // kAeb: [T] edge of slot 0 of each tile
+  int edge_vals;        // kAeb: 1 if the values are in edge order
+  int64_t e_base;       // kAeb: edge of vals' row 0 (edge order)
+  int64_t n_rows;       // kAeb: rows of vals (edge order)
+  const float* w_edge;  // kAeb: [n_w] per-call weights in edge order, or nullptr
+  int64_t n_w;
+  int H, head_dim;      // kHeads
+};
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+__device__ __forceinline__ float4 scale4(float s, const float4& v) {
+  return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
+}
+
+__device__ __forceinline__ float4 shfl4(const float4& v, int src) {
+  return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+                     __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+}
+
+__device__ __forceinline__ float4 shfl_down4(const float4& v, int d) {
+  return make_float4(__shfl_down_sync(kFull, v.x, d), __shfl_down_sync(kFull, v.y, d),
+                     __shfl_down_sync(kFull, v.z, d), __shfl_down_sync(kFull, v.w, d));
+}
+
+__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Columns col..col+3 of slot `i`; zero past F.
+template <int MODE>
+__device__ __forceinline__ float4 load4(const float* __restrict__ v, int64_t i, int F,
+                                        int col) {
+  if constexpr (MODE == kRowVec) {
+    if (col >= F) return zero4();
+    return __ldg(reinterpret_cast<const float4*>(v + i * F + col));
+  } else {
+    float r[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cc = col + c;
+      r[c] = 0.f;
+      if (cc < F) r[c] = __ldg(v + i * F + cc);
+    }
+    return make_float4(r[0], r[1], r[2], r[3]);
+  }
+}
+
+// Columns col..col+3 of output row `row` = a; nothing past F.
+template <int MODE>
+__device__ __forceinline__ void store4(float* __restrict__ o, int64_t row, int F,
+                                       int col, const float4& a) {
+  if constexpr (MODE == kRowVec) {
+    if (col < F) *reinterpret_cast<float4*>(o + row * F + col) = a;
+  } else {
+    const float r[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cc = col + c;
+      if (cc < F) o[row * F + cc] = r[c];
+    }
+  }
+}
+
+// The weight of slot `slot` (edge `edge`), 0 when the slot is not live or
+// `in` is false; kHeads: 1 when any head's weight is not 0, else 0. A
+// per-call weight is read only for a slot whose own weight is not 0: pads
+// and the slots past the last edge are never dereferenced.
+template <int KIND>
+__device__ __forceinline__ float slot_weight(const float* __restrict__ w_slots,
+                                             const SlotSrc& s, int64_t slot, int64_t edge,
+                                             bool in) {
+  if (!in) return 0.f;
+  if constexpr (KIND == kHeads) {
+    const float* wr = w_slots + slot * s.H;
+    for (int h = 0; h < s.H; ++h)
+      if (__ldg(wr + h) != 0.f) return 1.f;
+    return 0.f;
+  } else {
+    float w = __ldg(w_slots + slot);
+    if constexpr (KIND == kAeb) {
+      if (w != 0.f && s.w_edge != nullptr) w = edge < s.n_w ? w * __ldg(s.w_edge + edge) : 0.f;
+    }
+    return w;
+  }
+}
+
+// The weighted columns col..col+3 of a live slot. `hc` holds the head of
+// each of the lane's four columns (-1: inert), kHeads only.
+template <int MODE, int KIND>
+__device__ __forceinline__ float4 slot_value(const float* __restrict__ vals,
+                                             const float* __restrict__ w_slots,
+                                             const SlotSrc& s, int F, int col, int64_t slot,
+                                             int64_t edge, float w, const int (&hc)[4]) {
+  int64_t row = slot;
+  if constexpr (KIND == kAeb) {
+    if (s.edge_vals) {
+      row = edge - s.e_base;
+      if (row < 0 || row >= s.n_rows) return zero4();
+    }
+  }
+  const float4 v = load4<MODE>(vals, row, F, col);
+  if constexpr (KIND == kHeads) {
+    const float* wr = w_slots + slot * s.H;
+    float c[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c[k] = hc[k] >= 0 ? __ldg(wr + hc[k]) : 0.f;
+    return make_float4(c[0] * v.x, c[1] * v.y, c[2] * v.z, c[3] * v.w);
+  } else {
+    return scale4(w, v);
+  }
+}
+
+// The rows of window `win` as one warp sees them: group g of P = 32/G
+// groups, lane gl of G in its group, columns col..col+3. Group 0 writes a
+// row; a range of zero rows is shared by the groups.
+template <int G, int MODE>
+struct Rows {
+  float* out;
+  int64_t win_base;
+  int F, col, g;
+  __device__ __forceinline__ void put(int r, const float4& a) const {
+    if (g == 0) store4<MODE>(out, win_base + r, F, col, a);
+  }
+  __device__ __forceinline__ void zeros(int lo, int hi) const {
+    for (int r = lo + g; r < hi; r += 32 / G) store4<MODE>(out, win_base + r, F, col, zero4());
+  }
+};
+
+// 3 blocks per SM: at most 85 registers a thread. Left to itself ptxas
+// gives the packed (G < 32) instances ~100 (2 blocks per SM): built from
+// this template, sr_packed at F 7 and pr then ran 13-14% slower than their
+// own copies in slot_segment_sum.cu, ~80 registers, in the same call; with
+// the cap they matched them (NVIDIA H100 80GB HBM3, 700 W,
+// `python -m geot_tpu_torch.probe_slot ab`).
+constexpr int kTileBlocksPerSm = 3;
+
+template <int G, int MODE, int KIND>
+__global__ void __launch_bounds__(kThreads, kTileBlocksPerSm)
+slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, SlotSrc src,
+                 int F, const int* __restrict__ dst, const int* __restrict__ out_block, int E,
+                 int s_tile,
+                 float* __restrict__ out, int* __restrict__ part_rows,
+                 float* __restrict__ part_vals, int Fp) {
+  constexpr int P = 32 / G;
+  const int t = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / G, gl = lane % G;
+  const int col = blockIdx.y * (4 * G) + 4 * gl;
+  const int win = __ldg(out_block + t);
+  const int base = win * s_tile;
+  const Rows<G, MODE> o{out, (int64_t)base, F, col, g};
+  const int64_t slot0 = (int64_t)t * E;
+  int64_t edge0 = 0;
+  if constexpr (KIND == kAeb) edge0 = __ldg(src.e0 + t);
+  int hc[4] = {-1, -1, -1, -1};
+  if constexpr (KIND == kHeads) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int h = (col + k) / src.head_dim;
+      hc[k] = (col + k < F && h < src.H) ? h : -1;
+    }
+  }
+  // this warp's slots: a contiguous run, a multiple of P long
+  const int seg = ((E + kWarps - 1) / kWarps + P - 1) / P * P;
+  const int j_begin = min(warp * seg, E), j_end = min(j_begin + seg, E);
+
+  __shared__ int s_row[2 * kWarps];         // [warp][first, last] row
+  __shared__ float4 s_part[2 * kWarps][32];  // their partial sums
+
+  // this warp's runs: the first is kept (it may continue the previous
+  // warp's last row), the middle ones are complete and written, the last is
+  // kept (it may continue into the next warp). Every group holds the same
+  // sums (for its own columns).
+  float4 acc = zero4(), first_acc = zero4();
+  int cur = -1, first_row = -1;
+  for (int j0 = j_begin; j0 < j_end; j0 += kBatch * P) {
+    int rk[kBatch];
+    float wk[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int j = j0 + k * P + g;
+      wk[k] = slot_weight<KIND>(w, src, slot0 + j, edge0 + j, j < j_end);
+      rk[k] = wk[k] != 0.f ? __ldg(dst + slot0 + j) - base : -1;
+    }
+    float4 vk[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int j = j0 + k * P + g;
+      vk[k] = rk[k] >= 0
+                  ? slot_value<MODE, KIND>(vals, w, src, F, col, slot0 + j, edge0 + j, wk[k], hc)
+                  : zero4();
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      int r = rk[k];
+      float4 v = vk[k];
+      if (P == 1) {
+        if (r < 0) continue;  // warp-uniform: all lanes hold the one slot
+        if (r != cur) {
+          if (cur >= 0) {
+            if (first_row < 0) { first_row = cur; first_acc = acc; }
+            else o.put(cur, acc);
+            o.zeros(cur + 1, r);  // empty rows between two runs of this warp
+          }
+          cur = r;
+          acc = zero4();
+        }
+        add4(acc, v);
+        continue;
+      }
+      // P slots in flight, one per group, real rows non-decreasing over the
+      // groups; a skipped slot (a pad, or a real edge of weight 0) holds -1
+      // and zeros and may sit between two slots of one row. A segmented
+      // suffix sum over runs of equal adjacent groups: `end` marks a group
+      // whose run stops there, and a group stops adding once its range
+      // holds an end, so a run never reaches past a skipped slot. After
+      // it, the first group of each run holds the run's sum.
+      const int r_next = __shfl_down_sync(kFull, r, G);  // every lane shuffles
+      int end = g == P - 1 || r_next != r;
+#pragma unroll
+      for (int off = 1; off < P; off <<= 1) {
+        const float4 vo = shfl_down4(v, off * G);
+        const int end_o = __shfl_down_sync(kFull, end, off * G);
+        if (!end) add4(v, vo);  // !end: group g + off < P lies in the run
+        end |= end_o;
+      }
+      const int r_prev = __shfl_up_sync(kFull, r, G);
+      unsigned heads = __ballot_sync(kFull, gl == 0 && r >= 0 && (g == 0 || r_prev != r));
+      while (heads) {
+        const int h = __ffs(heads) - 1;
+        heads &= heads - 1;
+        const int rr = __shfl_sync(kFull, r, h);
+        const float4 vv = shfl4(v, h + gl);
+        if (rr != cur) {
+          if (cur >= 0) {
+            if (first_row < 0) { first_row = cur; first_acc = acc; }
+            else o.put(cur, acc);
+            o.zeros(cur + 1, rr);
+          }
+          cur = rr;
+          acc = zero4();
+        }
+        add4(acc, vv);
+      }
+    }
+  }
+  if (first_row < 0) {  // zero or one run
+    if (lane == 0) { s_row[2 * warp] = cur; s_row[2 * warp + 1] = -1; }
+    s_part[2 * warp][lane] = acc;
+  } else {
+    if (lane == 0) { s_row[2 * warp] = first_row; s_row[2 * warp + 1] = cur; }
+    s_part[2 * warp][lane] = first_acc;
+    s_part[2 * warp + 1][lane] = acc;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // merge the warps' boundary runs in warp order; the merged rows other
+  // than the tile's first and last are complete
+  int mrow = -1, last_i = -1;
+  float4 macc = zero4();
+  int tile_first = -1, pend = -1;
+  float4 tile_first_acc = zero4(), pend_acc = zero4();
+  for (int i = 0; i < 2 * kWarps; ++i) {
+    const int r = s_row[i];
+    if (r < 0) continue;
+    const float4 p = s_part[i][lane];
+    if (r == mrow) { add4(macc, p); last_i = i; continue; }
+    if (mrow >= 0) {
+      if (tile_first < 0) { tile_first = mrow; tile_first_acc = macc; }
+      else {
+        if (pend >= 0) o.put(pend, pend_acc);
+        pend = mrow;
+        pend_acc = macc;
+      }
+      // rows between a warp's first and last run were written by that warp
+      const bool same_warp = (last_i % 2 == 0) && (i == last_i + 1);
+      if (!same_warp) o.zeros(mrow + 1, r);
+    }
+    mrow = r;
+    macc = p;
+    last_i = i;
+  }
+  if (mrow >= 0) {
+    if (tile_first < 0) { tile_first = mrow; tile_first_acc = macc; }
+    else {
+      if (pend >= 0) o.put(pend, pend_acc);
+      pend = mrow;
+      pend_acc = macc;
+    }
+  }
+  if (g == 0) {
+    float4* pv = reinterpret_cast<float4*>(part_vals);
+    pv[((int64_t)(2 * t) * Fp + col) >> 2] = tile_first_acc;
+    pv[((int64_t)(2 * t + 1) * Fp + col) >> 2] = pend_acc;
+  }
+  if (blockIdx.y == 0 && lane == 0) {
+    part_rows[2 * t] = tile_first;
+    part_rows[2 * t + 1] = pend;
+  }
+}
+
+template <int G, int MODE>
+__global__ void __launch_bounds__(kThreads)
+slot_window_kernel(const int* __restrict__ part_rows, const float* __restrict__ part_vals,
+                   int Fp, const int* __restrict__ out_block, int T, int F, int s_tile,
+                   float* __restrict__ out) {
+  const int win = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / G, gl = lane % G;
+  const int col = blockIdx.y * (4 * G) + 4 * gl;
+  const Rows<G, MODE> o{out, (int64_t)win * s_tile, F, col, g};
+  const float4* pv = reinterpret_cast<const float4*>(part_vals);
+  const int t_begin = lower_bound(out_block, T, win);
+  const int t_end = lower_bound(out_block, T, win + 1);
+  // this warp's tiles: a contiguous eighth of the window's
+  const int per = (t_end - t_begin + kWarps - 1) / kWarps;
+  const int w_begin = min(t_begin + warp * per, t_end), w_end = min(w_begin + per, t_end);
+
+  __shared__ int s_row[2 * kWarps];
+  __shared__ float4 s_part[2 * kWarps][32];
+
+  // as in the tile kernel: the warp's first row is kept (it may continue
+  // the previous warp's last), rows complete within the warp are written,
+  // the last row is kept
+  float4 acc = zero4(), first_acc = zero4();
+  int cur = -1, first_row = -1;
+  for (int t0 = w_begin; t0 < w_end; t0 += kTileBatch) {
+    int a[kTileBatch], b[kTileBatch];
+    float4 pa[kTileBatch], pb[kTileBatch];
+#pragma unroll
+    for (int k = 0; k < kTileBatch; ++k) {
+      const int t = t0 + k;
+      const bool in = t < w_end;
+      a[k] = in ? __ldg(part_rows + 2 * t) : -1;
+      b[k] = in ? __ldg(part_rows + 2 * t + 1) : -1;
+      pa[k] = in ? __ldg(pv + (((int64_t)(2 * t) * Fp + col) >> 2)) : zero4();
+      pb[k] = in ? __ldg(pv + (((int64_t)(2 * t + 1) * Fp + col) >> 2)) : zero4();
+    }
+#pragma unroll
+    for (int k = 0; k < kTileBatch; ++k) {
+      if (a[k] < 0) continue;  // a tile with no live slot
+      if (a[k] != cur) {
+        if (cur >= 0) {
+          if (first_row < 0) { first_row = cur; first_acc = acc; }
+          else o.put(cur, acc);
+          o.zeros(cur + 1, a[k]);  // empty rows between tiles
+        }
+        cur = a[k];
+        acc = zero4();
+      }
+      add4(acc, pa[k]);
+      if (b[k] >= 0) {  // rows strictly between a and b: written by the tile
+        if (first_row < 0) { first_row = cur; first_acc = acc; }
+        else o.put(cur, acc);
+        cur = b[k];
+        acc = pb[k];
+      }
+    }
+  }
+  if (first_row < 0) {
+    if (lane == 0) { s_row[2 * warp] = cur; s_row[2 * warp + 1] = -1; }
+    s_part[2 * warp][lane] = acc;
+  } else {
+    if (lane == 0) { s_row[2 * warp] = first_row; s_row[2 * warp + 1] = cur; }
+    s_part[2 * warp][lane] = first_acc;
+    s_part[2 * warp + 1][lane] = acc;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // merge the warps' boundary rows in warp order; every merged row is
+  // complete, and the rows before, between and after them are zeros
+  int mrow = -1, last_i = -1;
+  float4 macc = zero4();
+  for (int i = 0; i < 2 * kWarps; ++i) {
+    const int r = s_row[i];
+    if (r < 0) continue;
+    const float4 p = s_part[i][lane];
+    if (r == mrow) { add4(macc, p); last_i = i; continue; }
+    if (mrow >= 0) {
+      o.put(mrow, macc);
+      // rows between a warp's first and last row were written by that warp
+      const bool same_warp = (last_i % 2 == 0) && (i == last_i + 1);
+      if (!same_warp) o.zeros(mrow + 1, r);
+    } else {
+      o.zeros(0, r);
+    }
+    mrow = r;
+    macc = p;
+    last_i = i;
+  }
+  if (mrow >= 0) o.put(mrow, macc);
+  o.zeros(mrow + 1, s_tile);
+}
+
+// Arguments shared by every launch: the plan (dst ids int32 [T*E],
+// out_block int32 [T] non-decreasing), the output and the scratch
+// (part_rows int32 [2*T], part_vals f32 [2*T, Fp], Fp = F rounded up to
+// the slab, `slot_scratch_width`).
+struct SlotLaunch {
+  int F;
+  const int* dst;
+  const int* out_block;
+  int T, n_windows, E, s_tile;
+  float* out;
+  int* part_rows;
+  float* part_vals;
+  cudaStream_t stream;
+};
+
+template <int G, int MODE, int KIND>
+int launch(const SlotSrc& src, const SlotLaunch& a) {
+  const int n_slabs = (a.F + 4 * G - 1) / (4 * G);
+  const int Fp = n_slabs * 4 * G;
+  if (a.T > 0) {
+    slot_tile_kernel<G, MODE, KIND><<<dim3(a.T, n_slabs), kThreads, 0, a.stream>>>(
+        src.vals, src.w, src, a.F, a.dst, a.out_block, a.E, a.s_tile, a.out,
+        a.part_rows, a.part_vals, Fp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  slot_window_kernel<G, MODE><<<dim3(a.n_windows, n_slabs), kThreads, 0, a.stream>>>(
+      a.part_rows, a.part_vals, Fp, a.out_block, a.T, a.F, a.s_tile, a.out);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, int KIND>
+int launch_g(int G, const SlotSrc& src, const SlotLaunch& a) {
+  switch (G) {
+    case 2: return launch<2, MODE, KIND>(src, a);
+    case 4: return launch<4, MODE, KIND>(src, a);
+    case 8: return launch<8, MODE, KIND>(src, a);
+    case 16: return launch<16, MODE, KIND>(src, a);
+    case 32: return launch<32, MODE, KIND>(src, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// lanes per slot for a column width: F_pad / 4 for F <= 64, else 32
+inline int lanes_for(int F) {
+  for (int d = 8; d <= 64; d *= 2)
+    if (F <= d) return d / 4;
+  return 32;
+}
+
+inline int slot_scratch_width(int F, int G) { return (F + 4 * G - 1) / (4 * G) * 4 * G; }
+
+// A row-major launch (values [*, F], output [n_windows*s_tile, F]): 16-byte
+// loads and stores where F % 4 == 0 and both arrays are 16-byte aligned.
+template <int KIND>
+int row_major(int G, const SlotSrc& src, const SlotLaunch& a) {
+  if (a.n_windows <= 0 || a.F <= 0) return (int)cudaSuccess;
+  const bool vec = a.F % 4 == 0 && ((uintptr_t)src.vals % 16 == 0) &&
+                   ((uintptr_t)a.out % 16 == 0);
+  return vec ? launch_g<kRowVec, KIND>(G, src, a) : launch_g<kRowScalar, KIND>(G, src, a);
+}
+
+inline SlotSrc slot_order_src(const void* vals, const void* w) {
+  SlotSrc s{};
+  s.vals = (const float*)vals;
+  s.w = (const float*)w;
+  s.H = 1;
+  s.head_dim = 1;
+  return s;
+}
+
+inline SlotLaunch row_major_launch(int F, const void* dst, const void* out_block, int T,
+                            int n_windows, int E, int s_tile, void* out, void* part_rows,
+                            void* part_vals, void* stream) {
+  return SlotLaunch{F, (const int*)dst, (const int*)out_block, T, n_windows, E, s_tile,
+                    (float*)out, (int*)part_rows, (float*)part_vals,
+                    (cudaStream_t)stream};
+}
+
+}  // namespace

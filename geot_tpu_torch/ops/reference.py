@@ -1,15 +1,17 @@
 """Plain-torch oracles for the fused gather(-weight)-scatter ops, and the
 plain versions of the slot-layout kernels.
 
-Port of `geot_tpu/ops/reference.py:37-105` (`segment_reduce_ref` for sum
-and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`) and `:117-127`
-(`sddmm_coo_ref`). They share no code with the tiled path, so tests hold
-that path against them.
+Port of `geot_tpu/ops/reference.py:37-127` (`segment_reduce_ref` for sum
+and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`,
+`mh_spmm_ref`, `sddmm_coo_ref`), and a plain `segment_softmax_ref`. They
+share no code with the tiled path, so tests hold that path against them.
 
-`plan_segment_sum_sr_plain`, `plan_segment_sum_sr_packed_plain` and
-`plan_segment_sum_pr_plain` compute what the CUDA kernels of
-`ops/slot_kernels.py` compute, with the same arguments: the CPU path runs
-them, and the tests and `chip_smoke.py` hold the kernels against them.
+`plan_segment_sum_sr_plain`, `plan_segment_sum_sr_packed_plain`,
+`plan_segment_sum_pr_plain`, `plan_segment_sum_sr2_plain`,
+`plan_segment_sum_packed2_plain` and `plan_segment_sum_mh_plain` compute
+what the CUDA kernels of `ops/slot_kernels.py` compute, with the same
+arguments: the CPU path runs them, and the tests and `chip_smoke.py` hold
+the kernels against them.
 
 The fused gathers run over edge chunks of at most REF_CHUNK_BYTES of
 gathered rows, in edge order, so the plain path stays within memory at
@@ -27,10 +29,15 @@ __all__ = [
     "segment_reduce_ref",
     "gather_scatter_ref",
     "gather_weight_scatter_ref",
+    "mh_spmm_ref",
     "sddmm_coo_ref",
+    "segment_softmax_ref",
     "plan_segment_sum_sr_plain",
     "plan_segment_sum_sr_packed_plain",
     "plan_segment_sum_pr_plain",
+    "plan_segment_sum_sr2_plain",
+    "plan_segment_sum_packed2_plain",
+    "plan_segment_sum_mh_plain",
 ]
 
 VALID_REDUCE = ("sum", "mean")
@@ -156,6 +163,36 @@ def gather_weight_scatter_ref(
     return _gather_scatter_chunked(src_index, dst_index, weight, src, num_segments, reduce)
 
 
+def mh_spmm_ref(
+    src_index: torch.Tensor,
+    dst_index: torch.Tensor,
+    weight: torch.Tensor,
+    src: torch.Tensor,
+    num_segments: int,
+    reduce: str = "sum",
+) -> torch.Tensor:
+    """Multi-head SpMM: src [nodes, H, D], weight [nnz, H] ->
+    out[dst[e], h] += weight[e, h] * src[src[e], h]."""
+    vals = src.index_select(0, src_index.long()) * weight[:, :, None].to(src.dtype)
+    return segment_reduce_ref(vals, dst_index, num_segments, reduce)
+
+
+def segment_softmax_ref(logits: torch.Tensor, index: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """Softmax of per-edge logits [nnz] or [nnz, H] within each segment of
+    `index` (any order): the max by `scatter_reduce`, the sums by
+    `index_add_`; an empty segment's max is 0."""
+    idx = index.long()
+    shape = (num_segments,) + tuple(logits.shape[1:])
+    full = idx.reshape((-1,) + (1,) * (logits.dim() - 1)).expand_as(logits)
+    m = torch.full(shape, float("-inf"), dtype=logits.dtype, device=logits.device)
+    m = m.scatter_reduce(0, full, logits.detach(), "amax")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - m.index_select(0, idx))
+    s = torch.zeros(shape, dtype=logits.dtype, device=logits.device).index_add(0, idx, e)
+    return e / torch.clamp(s, min=1e-16).index_select(0, idx)
+
+
 def sddmm_coo_ref(
     src_index: torch.Tensor,
     dst_index: torch.Tensor,
@@ -197,3 +234,79 @@ def plan_segment_sum_pr_plain(plan, vals_slots_t: torch.Tensor,
     float32, the transpose of `plan_segment_sum_sr_plain` over
     vals_slots_t.T."""
     return plan_segment_sum_sr_plain(plan, vals_slots_t.t(), w_slots).t().contiguous()
+
+
+def _edge_of_slots(plan, dev) -> torch.Tensor:
+    """[T*E] int64: the edge slot j of tile t holds where it is real,
+    e0[t] + j."""
+    e0 = plan.e0.to(dev).long()
+    return (e0[:, None] + torch.arange(plan.e_tile, device=dev)).reshape(-1)
+
+
+def plan_segment_sum_sr2_plain(plan, vals: torch.Tensor, *, vals_layout: str = "slot",
+                               w_slots=None, w_edge=None, e_base: int = 0) -> torch.Tensor:
+    """out[dst_slots[s]] += w(s) * v(s) over the slots s of a slot plan
+    with w(s) != 0, in float32 with `index_add_`. v(s) = vals[s] (slot
+    order, vals [>= T*E, F]) or vals[e0[t] + j - e_base] for slot j of
+    tile t (edge order; rows past the end of vals read as zero). w(s) =
+    w_slots[s] (default the plan's mask; 0 on pads), times w_edge[e0[t] + j]
+    where per-call edge-order weights are given (read only where w_slots
+    is not 0). Returns [n_blocks*s_tile, F] float32, every row written."""
+    if vals_layout not in ("slot", "edge"):
+        raise ValueError(f"vals_layout={vals_layout!r}: 'slot' or 'edge'")
+    dev = vals.device
+    ws = plan.mask if w_slots is None else w_slots
+    w = ws.reshape(-1).to(dev).float()
+    keep = torch.nonzero(w != 0).reshape(-1)
+    wk = w[keep]
+    edge = None
+    if w_edge is not None or vals_layout == "edge":
+        edge = _edge_of_slots(plan, dev)[keep]
+    if w_edge is not None:
+        we = w_edge.to(dev).float()
+        inside = edge < we.shape[0]
+        wk = wk * torch.where(inside, we[torch.clamp(edge, max=max(we.shape[0] - 1, 0))],
+                              torch.zeros_like(wk))
+        live = wk != 0
+        keep, wk, edge = keep[live], wk[live], edge[live]
+    F = vals.shape[1]
+    out = torch.zeros(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
+    if vals_layout == "slot":
+        v = vals[: plan.num_tiles * plan.e_tile].index_select(0, keep).float()
+    else:
+        row = edge - int(e_base)
+        inside = (row >= 0) & (row < vals.shape[0])
+        v = torch.zeros(row.shape[0], F, dtype=torch.float32, device=dev)
+        v[inside] = vals.index_select(0, row[inside]).float()
+    return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v * wk[:, None])
+
+
+def plan_segment_sum_packed2_plain(plan, vals_edges: torch.Tensor, *, w_slots=None,
+                                   w_edge=None, e_base: int = 0) -> torch.Tensor:
+    """`plan_segment_sum_sr2_plain` over edge-order values for narrow rows
+    (F <= 64)."""
+    if vals_edges.shape[1] > 64:
+        raise ValueError(f"packed2 takes F <= 64, got {vals_edges.shape[1]}")
+    return plan_segment_sum_sr2_plain(plan, vals_edges, vals_layout="edge", w_slots=w_slots,
+                                      w_edge=w_edge, e_base=e_base)
+
+
+def plan_segment_sum_mh_plain(plan, vals_slots: torch.Tensor, w_heads: torch.Tensor,
+                              head_dim: int) -> torch.Tensor:
+    """Multi-head slot sum over flat lanes: out[dst_slots[s], c] +=
+    w_heads[s, c // head_dim] * vals_slots[s, c] over the slots s with any
+    head's weight not 0; columns past H heads are inert. vals_slots
+    [>= T*E, F], w_heads [T*E, H] (0 on pads). Returns [n_blocks*s_tile, F]
+    float32, every row written."""
+    dev = vals_slots.device
+    n = plan.num_tiles * plan.e_tile
+    wh = w_heads.reshape(n, -1).to(dev).float()
+    H, F = wh.shape[1], vals_slots.shape[1]
+    keep = torch.nonzero((wh != 0).any(dim=1)).reshape(-1)
+    head = torch.arange(F, device=dev) // head_dim
+    lane_w = torch.zeros(keep.shape[0], F, dtype=torch.float32, device=dev)
+    real = head < H
+    lane_w[:, real] = wh[keep][:, head[real]]
+    v = vals_slots[:n].index_select(0, keep).float() * lane_w
+    out = torch.zeros(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
+    return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)

@@ -1,13 +1,17 @@
 """Slot-layout segment sums: the CUDA kernels' wrappers.
 
-Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed` and
-`plan_segment_sum_pr` of the JAX package
-(`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`). The kernels are
-`ops/csrc/slot_segment_sum.cu`, built by nvcc for sm_90a and called
-through ctypes (see that file for their design and bound); their plain
-versions are in `ops/reference.py`. For tensors on the CPU a wrapper runs
-its plain version; for CUDA tensors it launches its kernel or raises.
-Each returns float32 and reads F columns as they are (no lane padding).
+Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed`,
+`plan_segment_sum_pr`, `plan_segment_sum_sr2`, `plan_segment_sum_packed2`
+and `plan_segment_sum_mh` of the JAX package
+(`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`, `:384`, `:581`,
+`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (sr, sr_packed,
+pr), `slot_aeb.cu` (sr2, packed2: edge-order values and per-call weights)
+and `slot_mh.cu` (mh), one template in `slot_common.cuh`, built by nvcc for
+sm_90a and called through ctypes (see those files for their design and
+bound); their plain versions are in `ops/reference.py`. For tensors on the
+CPU a wrapper runs its plain version; for CUDA tensors it launches its
+kernel or raises. Each returns float32 and reads F columns as they are
+(no lane padding).
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ import torch
 from geot_tpu_torch.graph.plan import SegmentPlan
 from geot_tpu_torch.ops._build import load_kernel
 from geot_tpu_torch.ops.reference import (
+    plan_segment_sum_mh_plain,
+    plan_segment_sum_packed2_plain,
     plan_segment_sum_pr_plain,
+    plan_segment_sum_sr2_plain,
     plan_segment_sum_sr_packed_plain,
     plan_segment_sum_sr_plain,
 )
@@ -28,21 +35,29 @@ __all__ = [
     "plan_segment_sum_sr",
     "plan_segment_sum_sr_packed",
     "plan_segment_sum_pr",
+    "plan_segment_sum_sr2",
+    "plan_segment_sum_packed2",
+    "plan_segment_sum_mh",
 ]
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the plan's tail of every launch: out_block, T, n_windows, E, s_tile, out,
+# part_rows, part_vals, stream
+_TAIL = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
 _ARGTYPES = {
-    "geot_plan_segment_sum_sr": [_P, _I32, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
-    "geot_plan_segment_sum_sr_packed": [_P, _I32, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
-                                        _P, _P],
-    "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
-                                 _P, _P],
+    "geot_plan_segment_sum_sr": [_P, _I32, _P, _P] + _TAIL,
+    "geot_plan_segment_sum_sr_packed": [_P, _I32, _P, _P] + _TAIL,
+    "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P] + _TAIL,
+    "geot_plan_segment_sum_aeb": [_P, _I32, _I64, _I32, _I64, _P, _P, _P, _P, _I64] + _TAIL,
+    "geot_plan_segment_sum_mh": [_P, _I32, _P, _P, _I32, _I32] + _TAIL,
     "geot_slot_scratch_width": [_I32, _I32],
 }
+# the library of each kernel
+_LIB = {"geot_plan_segment_sum_aeb": "slot_aeb", "geot_plan_segment_sum_mh": "slot_mh"}
 
 
-def _bound(name: str):
-    fn = getattr(load_kernel("slot_segment_sum"), name)
+def _bound(name: str, lib: str = ""):
+    fn = getattr(load_kernel(lib or _LIB.get(name, "slot_segment_sum")), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -60,9 +75,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, plan: SegmentPlan, vals: torch.Tensor, w_slots: torch.Tensor,
-            n_cols: int, out: torch.Tensor, ld_in: int, packed: bool) -> None:
-    """Checks what the kernels rely on and launches kernel `name`."""
+def _launch(name: str, plan: SegmentPlan, vals: torch.Tensor, head: list, n_cols: int,
+            out: torch.Tensor, packed: bool) -> None:
+    """Checks what every slot kernel relies on and launches kernel `name`
+    with arguments `head` (pointers as tensors) and the plan's tail."""
     dev = vals.device
     T, E = plan.num_tiles, plan.e_tile
     if not plan.monotone:
@@ -71,23 +87,20 @@ def _launch(name: str, plan: SegmentPlan, vals: torch.Tensor, w_slots: torch.Ten
     if vals.dtype != torch.float32 or vals.dim() != 2 or not vals.is_contiguous():
         raise ValueError(f"{name}: values must be a contiguous 2-D float32 tensor, got "
                          f"{vals.dtype} {tuple(vals.shape)}")
-    _check(w_slots, "w_slots", torch.float32, (T, E), dev)
     _check(plan.dst_slots, "dst_slots", torch.int32, (T, E), dev)
     _check(plan.out_block, "out_block", torch.int32, (T,), dev)
     if T == 0 or E < 1 or plan.s_tile < 1:
         raise ValueError(f"{name}: the plan has no tiles")
-    width = _bound("geot_slot_scratch_width")(n_cols, int(packed))
+    width = _bound("geot_slot_scratch_width", _LIB.get(name, "slot_segment_sum"))(
+        n_cols, int(packed))
     part_rows = torch.empty(2 * T, dtype=torch.int32, device=dev)
     part_vals = torch.empty(2 * T, width, dtype=torch.float32, device=dev)
     fn = _bound(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = [vals.data_ptr(), n_cols]
-        if name == "geot_plan_segment_sum_pr":
-            args.append(ld_in)
-        args += [plan.dst_slots.data_ptr(), w_slots.data_ptr(), plan.out_block.data_ptr(),
-                 T, plan.n_blocks, E, plan.s_tile, out.data_ptr(), part_rows.data_ptr(),
-                 part_vals.data_ptr(), stream]
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in head]
+        args += [plan.out_block.data_ptr(), T, plan.n_blocks, E, plan.s_tile, out.data_ptr(),
+                 part_rows.data_ptr(), part_vals.data_ptr(), stream]
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -114,7 +127,9 @@ def plan_segment_sum_sr(plan: SegmentPlan, vals_slots: torch.Tensor,
     F = vals_slots.shape[1]
     out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
                       device=vals_slots.device)
-    _launch("geot_plan_segment_sum_sr", plan, vals_slots, w_slots, F, out, 0, False)
+    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots.device)
+    _launch("geot_plan_segment_sum_sr", plan, vals_slots,
+            [vals_slots, F, plan.dst_slots, w_slots], F, out, False)
     plan_segment_sum_sr.launches += 1
     return out
 
@@ -137,7 +152,9 @@ def plan_segment_sum_sr_packed(plan: SegmentPlan, vals_slots: torch.Tensor,
                          f"{plan.num_tiles * plan.e_tile} slots")
     out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
                       device=vals_slots.device)
-    _launch("geot_plan_segment_sum_sr_packed", plan, vals_slots, w_slots, F, out, 0, True)
+    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots.device)
+    _launch("geot_plan_segment_sum_sr_packed", plan, vals_slots,
+            [vals_slots, F, plan.dst_slots, w_slots], F, out, True)
     plan_segment_sum_sr_packed.launches += 1
     return out
 
@@ -157,11 +174,114 @@ def plan_segment_sum_pr(plan: SegmentPlan, vals_slots_t: torch.Tensor,
                          f"{plan.num_tiles * plan.e_tile} slots")
     out = torch.empty(N, plan.n_blocks * plan.s_tile, dtype=torch.float32,
                       device=vals_slots_t.device)
-    _launch("geot_plan_segment_sum_pr", plan, vals_slots_t, w_slots, N, out, ld, True)
+    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots_t.device)
+    _launch("geot_plan_segment_sum_pr", plan, vals_slots_t,
+            [vals_slots_t, N, ld, plan.dst_slots, w_slots], N, out, True)
     plan_segment_sum_pr.launches += 1
+    return out
+
+
+def _aeb_launch(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
+                w_edge, e_base: int) -> torch.Tensor:
+    """Checks the AEB kernel's arguments (values, their rows and layout,
+    the slot weights, e0 and the per-call weights) and launches it: sr2
+    and packed2 are one kernel on the card."""
+    dev = vals.device
+    T, E = plan.num_tiles, plan.e_tile
+    if vals_layout not in ("slot", "edge"):
+        raise ValueError(f"{name}: vals_layout={vals_layout!r}, 'slot' or 'edge'")
+    if vals_layout == "slot" and vals.shape[0] < T * E:
+        raise ValueError(f"{name}: vals has {vals.shape[0]} rows, the plan {T * E} slots")
+    if plan.e0 is None:
+        raise ValueError(f"{name}: the plan carries no e0")
+    _check(plan.e0, "e0", torch.int32, (T,), dev)
+    ws = plan.mask if w_slots is None else w_slots
+    _check(ws, "w_slots", torch.float32, (T, E), dev)
+    n_w = 0
+    if w_edge is not None:
+        _check(w_edge, "w_edge", torch.float32, (w_edge.shape[0],), dev)
+        n_w = int(w_edge.shape[0])
+    F = vals.shape[1]
+    head = [vals, F, vals.shape[0], int(vals_layout == "edge"), int(e_base), plan.dst_slots, ws,
+            plan.e0, w_edge if w_edge is not None else None, n_w]
+    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
+    _launch("geot_plan_segment_sum_aeb", plan, vals, head, F, out, True)
+    return out
+
+
+def plan_segment_sum_sr2(plan: SegmentPlan, vals: torch.Tensor, *, vals_layout: str = "slot",
+                         w_slots=None, w_edge=None, e_base: int = 0) -> torch.Tensor:
+    """Aligned-edge-block slot sum: values in slot order (vals [>= T*E,
+    F], `vals_layout="slot"`) or in edge order (slot j of tile t reads row
+    e0[t] + j - e_base of vals; rows past its end read as zero); weights
+    `w_slots` [T, E] (default the plan's mask, 0 on pads) times the
+    per-call edge-order `w_edge` [nnz] if given, indexed by the plan's own
+    (global) e0. -> [n_blocks*s_tile, F] float32.
+
+    CPU tensors run `plan_segment_sum_sr2_plain`; CUDA tensors launch the
+    kernel and add one to `plan_segment_sum_sr2.launches`."""
+    if _device_of(vals, "plan_segment_sum_sr2") == "cpu":
+        return plan_segment_sum_sr2_plain(plan, vals, vals_layout=vals_layout, w_slots=w_slots,
+                                          w_edge=w_edge, e_base=e_base)
+    out = _aeb_launch("plan_segment_sum_sr2", plan, vals, vals_layout, w_slots, w_edge, e_base)
+    plan_segment_sum_sr2.launches += 1
+    return out
+
+
+def plan_segment_sum_packed2(plan: SegmentPlan, vals_edges: torch.Tensor, *, w_slots=None,
+                             w_edge=None, e_base: int = 0) -> torch.Tensor:
+    """`plan_segment_sum_sr2` over edge-order values for narrow rows,
+    1 <= F <= 64, and on the card the same kernel: a warp reads
+    32 / (F_pad / 4) slots at once. The reference's precondition
+    `plan.pack_align % (128 // F) == 0` (whole packed lane rows) is a TPU
+    layout rule; this kernel reads each slot's row on its own and does not
+    need it.
+
+    CPU tensors run `plan_segment_sum_packed2_plain`; CUDA tensors launch
+    the kernel and add one to `plan_segment_sum_packed2.launches`."""
+    if _device_of(vals_edges, "plan_segment_sum_packed2") == "cpu":
+        return plan_segment_sum_packed2_plain(plan, vals_edges, w_slots=w_slots,
+                                              w_edge=w_edge, e_base=e_base)
+    F = vals_edges.shape[1]
+    if not 1 <= F <= 64:
+        raise ValueError(f"plan_segment_sum_packed2 takes 1 <= F <= 64, got {F}")
+    out = _aeb_launch("plan_segment_sum_packed2", plan, vals_edges, "edge", w_slots, w_edge,
+                      e_base)
+    plan_segment_sum_packed2.launches += 1
+    return out
+
+
+def plan_segment_sum_mh(plan: SegmentPlan, vals_slots: torch.Tensor, w_heads: torch.Tensor,
+                        head_dim: int) -> torch.Tensor:
+    """Multi-head slot sum over flat lanes: vals_slots [>= T*E, F] (slot
+    order, F = H*head_dim or wider: columns past H heads are inert),
+    w_heads [T*E, H] (0 on pads) -> [n_blocks*s_tile, F] float32, column c
+    weighted by head c // head_dim.
+
+    CPU tensors run `plan_segment_sum_mh_plain`; CUDA tensors launch the
+    kernel and add one to `plan_segment_sum_mh.launches`."""
+    if _device_of(vals_slots, "plan_segment_sum_mh") == "cpu":
+        return plan_segment_sum_mh_plain(plan, vals_slots, w_heads, head_dim)
+    T, E = plan.num_tiles, plan.e_tile
+    F = vals_slots.shape[1]
+    if vals_slots.shape[0] < T * E:
+        raise ValueError(f"vals_slots has {vals_slots.shape[0]} rows, the plan {T * E} slots")
+    if w_heads.dim() != 2 or head_dim < 1:
+        raise ValueError(f"w_heads must be [T*E, H] and head_dim >= 1, got "
+                         f"{tuple(w_heads.shape)} and {head_dim}")
+    H = w_heads.shape[1]
+    _check(w_heads, "w_heads", torch.float32, (T * E, H), vals_slots.device)
+    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
+                      device=vals_slots.device)
+    _launch("geot_plan_segment_sum_mh", plan, vals_slots,
+            [vals_slots, F, plan.dst_slots, w_heads, H, head_dim], F, out, True)
+    plan_segment_sum_mh.launches += 1
     return out
 
 
 plan_segment_sum_sr.launches = 0
 plan_segment_sum_sr_packed.launches = 0
 plan_segment_sum_pr.launches = 0
+plan_segment_sum_sr2.launches = 0
+plan_segment_sum_packed2.launches = 0
+plan_segment_sum_mh.launches = 0

@@ -2,7 +2,8 @@
 the card.
 
     python -m geot_tpu_torch.profile_gcn [--graph arxiv|products-clustered|flickr]
-        [--model gcn|graphsage] [--mode serve|train|both] [--iters 3]
+        [--model gcn|graphsage|gat|gcn-dyn] [--feature-hint 64|128]
+        [--mode serve|train|both] [--iters 3]
 
 Builds a configuration `chip_smoke.py` drives, seed 0: `arxiv` is the
 3-layer GCN (hidden 128, 40 classes) over BAT plans of the
@@ -13,8 +14,16 @@ plans of the ogbn-products-shaped clustered graph (GCN norm baked in,
 GraphSAGE (500 features, hidden 64, 7 classes) over the slot plans of the
 flickr-shaped graph (`FLICKR_SLOT`: the reference tuning table's picks;
 GCN with self-loops and the norm baked into slot weights, GraphSAGE
-without loops, mean aggregation). `--model graphsage` needs `--graph
-flickr`. Warms up, then traces `--iters` forward passes (`serve`) and/or
+without loops, mean aggregation). On flickr, `--model gat` is the 3-layer
+GAT (hidden 64, `FLICKR_GAT`: 4 heads averaged) over the same graph with
+self-loops and no norm (the fused route, `plan_segment_sum_mh`), and
+`--model gcn-dyn` the 3-layer GCN over a slot-only graph with self-loops
+and no baked norm, so each layer's norm is a per-call weight (`slot_dyn`,
+`FLICKR_DYN`: an edge-order gather and the aligned-edge-block kernel):
+`--feature-hint 64` gives pack-aligned plans, where the kernel launches as
+`plan_segment_sum_packed2` (the reference's pick), 128 (the default)
+unaligned ones, where it launches as `plan_segment_sum_sr2`. Models other than
+gcn need `--graph flickr`. Warms up, then traces `--iters` forward passes (`serve`) and/or
 `make_train_step` steps (`train`: forward, backward over the transpose
 plans, AdamW with lr 0.01 and weight decay 5e-4) with `torch.profiler`,
 and prints the device time by kernel and the device's busy share of the
@@ -35,16 +44,40 @@ import torch
 FLICKR_SLOT = dict(e_tile=512, s_tile=256, bat_e_tile=1024, bat_s_tile=256, mode_hint="sr",
                    prefer="sr", prefer_dyn="bat", feature_hint=128, layouts=("bat", "slot"))
 FLICKR_HIDDEN = 64
+# GAT's conv kwargs on flickr: four heads averaged (the GAT paper's
+# multi-head layers; bench_models.py runs one head)
+FLICKR_GAT = dict(heads=4, concat=False)
+# the per-call-weight GCN's graph: slot plans only, the slot layout
+# preferred for per-call weights (the reference's slot_dyn route)
+FLICKR_DYN = dict(e_tile=512, s_tile=256, mode_hint="sr", prefer="sr", prefer_dyn="sr",
+                  layouts=("slot",))
 
 
-def build(graph: str, model_name: str, seed: int, dev: torch.device):
+def flickr_graph(data, model_name: str, dev: torch.device, feature_hint: int = 128):
+    """The flickr graph of one model: GraphSAGE without self-loops; GCN
+    with them and the norm baked into slot weights; GAT and gcn-dyn with
+    them and no norm (gcn-dyn: `FLICKR_DYN` at `feature_hint`)."""
+    from geot_tpu_torch.models import prepare_graph
+
+    n = int(data.x.shape[0])
+    if model_name == "gcn-dyn":
+        return prepare_graph(data.src, data.dst, n, add_self_loops=True, normalize=None,
+                             feature_hint=feature_hint, device=dev, **FLICKR_DYN)
+    loops = model_name != "graphsage"
+    return prepare_graph(data.src, data.dst, n, add_self_loops=loops,
+                         normalize="gcn" if model_name == "gcn" else None, device=dev,
+                         **FLICKR_SLOT)
+
+
+def build(graph: str, model_name: str, seed: int, dev: torch.device,
+          feature_hint: int = 128):
     """(model, graph, x, y, train_mask) of one configuration, on `dev`."""
     from geot_tpu_torch.graph.datasets import (
         DATASET_SHAPES,
         synthetic_clustered_graph,
         synthetic_graph,
     )
-    from geot_tpu_torch.models import GCN, MODELS, prepare_graph
+    from geot_tpu_torch.models import GAT, GCN, MODELS, prepare_graph
 
     if model_name != "gcn" and graph != "flickr":
         raise SystemExit(f"profile_gcn: --model {model_name} runs on --graph flickr only")
@@ -65,10 +98,13 @@ def build(graph: str, model_name: str, seed: int, dev: torch.device):
     else:
         n, e, f, c = DATASET_SHAPES["flickr"]
         data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=seed)
-        cls, loops = MODELS[model_name]
-        g = prepare_graph(data.src, data.dst, n, add_self_loops=loops,
-                          normalize="gcn" if loops else None, device=dev, **FLICKR_SLOT)
-        model = cls(f, FLICKR_HIDDEN, 3, c, generator=gen, device=dev)
+        g = flickr_graph(data, model_name, dev, feature_hint)
+        if model_name == "gat":
+            model = GAT(f, FLICKR_HIDDEN, 3, c, conv_kwargs=FLICKR_GAT, generator=gen,
+                        device=dev)
+        else:
+            cls = GCN if model_name == "gcn-dyn" else MODELS[model_name][0]
+            model = cls(f, FLICKR_HIDDEN, 3, c, generator=gen, device=dev)
     x = torch.from_numpy(data.x).to(dev)
     y = torch.from_numpy(data.y.astype("int64")).to(dev)
     mask = torch.from_numpy(data.train_mask).to(dev)
@@ -98,7 +134,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--graph", choices=("arxiv", "products-clustered", "flickr"),
                     default="arxiv")
-    ap.add_argument("--model", choices=("gcn", "graphsage"), default="gcn")
+    ap.add_argument("--model", choices=("gcn", "graphsage", "gat", "gcn-dyn"), default="gcn")
+    ap.add_argument("--feature-hint", type=int, choices=(64, 128), default=128,
+                    help="gcn-dyn's plans: 64 pack-aligned (named packed2), 128 not (sr2)")
     ap.add_argument("--mode", choices=("serve", "train", "both"), default="serve")
     ap.add_argument("--iters", type=int, default=3,
                     help="requests (serve) or training steps (train) to trace")
@@ -109,7 +147,7 @@ def main(argv=None) -> int:
     from geot_tpu_torch.models import make_optimizer, make_train_step
 
     dev = torch.device("cuda")
-    model, g, x, y, mask = build(args.graph, args.model, args.seed, dev)
+    model, g, x, y, mask = build(args.graph, args.model, args.seed, dev, args.feature_hint)
     step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
 
     def serve():
@@ -127,7 +165,9 @@ def main(argv=None) -> int:
                                                args.iters)
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20),
               flush=True)
-        print(f"{torch.cuda.get_device_name(0)}: {args.graph} {args.model}, {args.iters} "
+        print(f"{torch.cuda.get_device_name(0)}: {args.graph} {args.model}"
+              + (f" (feature_hint {args.feature_hint})" if args.model == "gcn-dyn" else "")
+              + f", {args.iters} "
               f"{what}, traced wall {wall_us / 1e3:.4f} ms, device kernel time "
               f"{busy_us / 1e3:.4f} ms, busy share {busy_us / max(wall_us, 1e-9):.4f} "
               f"({len(events)} device events)", flush=True)

@@ -438,10 +438,51 @@ def _assert_abs_sum(k, p, a):
     assert not bool(bad.any()), f"{int(bad.sum())} elements over, max err {(k - p).abs().max()}"
 
 
+def _edge_order(plan, slot_rows):
+    """The edge-order copy [nnz, ...] of slot-ordered rows (real slots)."""
+    real = plan.mask.reshape(-1) > 0
+    out = torch.zeros((plan.num_edges,) + tuple(slot_rows.shape[1:]), dtype=slot_rows.dtype,
+                      device=slot_rows.device)
+    out[plan.edge_pos.reshape(-1)[real].long()] = slot_rows[: real.numel()][real]
+    return out
+
+
+def _two_heads(plan, w):
+    """[T*E, 2] head weights from slot weights w: head 0 is w, head 1 is
+    0.5 on every other real slot, so a slot of w 0 is zero on one head only
+    or on both."""
+    odd = (torch.arange(w.numel(), device=w.device) % 2 == 1).reshape(w.shape)
+    h1 = torch.where(odd, torch.zeros_like(w), 0.5 * plan.mask)
+    return torch.stack([w.reshape(-1), h1.reshape(-1)], dim=1).contiguous()
+
+
+def _aeb_pair(kernel):
+    """(kernel, plain) of an AEB or mh kernel as fn(plan, slot_vals, w):
+    `sr2` slot values with per-call weights w in edge order; `sr2_edge`
+    edge-order values with static slot weights w; `packed2` edge-order
+    values with per-call weights; `mh` two heads (`_two_heads`)."""
+    def make(sr2, packed2, mh):
+        def run(plan, v, w):
+            if kernel == "sr2":
+                return sr2(plan, v, w_edge=_edge_order(plan, w.reshape(-1)))
+            if kernel == "sr2_edge":
+                return sr2(plan, _edge_order(plan, v), vals_layout="edge", w_slots=w)
+            if kernel == "packed2":
+                return packed2(plan, _edge_order(plan, v), w_edge=_edge_order(plan, w.reshape(-1)))
+            return mh(plan, v, _two_heads(plan, w), v.shape[1] // 2)
+        return run
+
+    return (make(tslot.plan_segment_sum_sr2, tslot.plan_segment_sum_packed2,
+                 tslot.plan_segment_sum_mh),
+            make(tref.plan_segment_sum_sr2_plain, tref.plan_segment_sum_packed2_plain,
+                 tref.plan_segment_sum_mh_plain))
+
+
 _SLOT = {
     "sr": (tslot.plan_segment_sum_sr, tref.plan_segment_sum_sr_plain),
     "sr_packed": (tslot.plan_segment_sum_sr_packed, tref.plan_segment_sum_sr_packed_plain),
     "pr": (tslot.plan_segment_sum_pr, tref.plan_segment_sum_pr_plain),
+    **{k: _aeb_pair(k) for k in ("sr2", "sr2_edge", "packed2", "mh")},
 }
 
 
@@ -483,14 +524,19 @@ def test_slot_kernels_match_plain(cuda, kernel, F, tiles, weighted):
 
 @pytest.mark.parametrize("kernel,F", [("sr_packed", 64), ("sr_packed", 32),
                                       ("sr_packed", 16), ("sr_packed", 8), ("pr", 8),
-                                      ("sr", 128)])
+                                      ("sr", 128), ("sr2", 128), ("sr2", 16),
+                                      ("sr2_edge", 500), ("packed2", 64), ("packed2", 8),
+                                      ("mh", 128), ("mh", 14)])
 @pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16)])
 def test_slot_kernels_zero_weight_edges(cuda, kernel, F, tiles):
     """Real slots of weight exactly 0 inside a row's run: every other slot
     of the hub row and a third of the others. The kernels skip them as
     they skip pads, and each run must still be summed once: the packed
     kernels' segmented sum over the slots in flight must not carry a run
-    past a skipped slot (rows [5, -1, 5, 5] once added b + c twice)."""
+    past a skipped slot (rows [5, -1, 5, 5] once added b + c twice). The
+    AEB kernels meet the zeros as per-call weights in edge order (sr2,
+    packed2) or as static weights over edge-order values (sr2_edge); mh
+    as weights zero on one head only or on both (`_two_heads`)."""
     e_tile, s_tile, pack_align = tiles
     rng = np.random.default_rng(F + e_tile)
     n, hub = 1500, 9
@@ -565,3 +611,191 @@ def test_slot_models_on_card_match_cpu(cuda, model, chunked):
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-4,
                                atol=1e-4 * float(outs[1][1].abs().max()))
+
+
+@pytest.mark.parametrize("kernel,F", [("sr2", 500), ("sr2", 128), ("sr2", 64), ("sr2", 7),
+                                      ("sr2_edge", 128), ("sr2_edge", 100), ("sr2_edge", 7),
+                                      ("packed2", 64), ("packed2", 32), ("packed2", 16),
+                                      ("packed2", 8), ("packed2", 1)])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (96, 128, 1), (32, 1, 1)])
+@pytest.mark.parametrize("weights", ["static", "dynamic", "both"])
+def test_aeb_kernels_match_plain(cuda, kernel, F, tiles, weights):
+    """sr2 (slot- or edge-order values) and packed2 (edge order) against
+    their plain versions on plans with a hub row over many tiles, pad slots
+    before and after a tile's real ones, and empty windows; static and/or
+    per-call weights; values read from a slice of the edge order (e_base);
+    every row written (the memory NaN-filled first), reruns bit-identical,
+    one launch."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(F + e_tile + len(weights))
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda)
+    T, E, nnz = plan.num_tiles, plan.e_tile, len(dst)
+    ws = we = None
+    if weights in ("static", "both"):
+        ws = plan.mask * torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
+    if weights in ("dynamic", "both"):
+        we = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32)).to(cuda)
+    edge = kernel != "sr2"
+    rows = nnz if edge else T * E
+    vals = torch.from_numpy(rng.standard_normal((rows, F)).astype(np.float32)).to(cuda)
+    kw = dict(w_slots=ws, w_edge=we)
+    if edge:
+        kw["e_base"] = 40
+        vals = vals[40:]
+    if kernel.startswith("sr2"):
+        kw["vals_layout"] = "edge" if edge else "slot"
+        fn, plain = tslot.plan_segment_sum_sr2, tref.plan_segment_sum_sr2_plain
+    else:
+        fn, plain = tslot.plan_segment_sum_packed2, tref.plan_segment_sum_packed2_plain
+    abs_kw = dict(kw, w_slots=None if ws is None else ws.abs(),
+                  w_edge=None if we is None else we.abs())
+    torch.full((4 * plan.n_blocks * s_tile * max(F, 8),), float("nan"), device=cuda)
+    before = fn.launches
+    k = fn(plan, vals, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_abs_sum(k, plain(plan, vals, **kw), plain(plan, vals.abs(), **abs_kw))
+    assert torch.equal(fn(plan, vals, **kw), k)
+
+
+@pytest.mark.parametrize("H,D", [(4, 64), (4, 7), (3, 96), (8, 32), (2, 100), (4, 16),
+                                 (1, 1)])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (32, 1, 1)])
+def test_mh_kernel_matches_plain(cuda, H, D, tiles):
+    """plan_segment_sum_mh against its plain version: heads that straddle
+    a lane group or a 128-column slab ((3, 96): head 1 spans columns
+    96-191), a third of the (slot, head) weights exactly 0 on chosen heads
+    only, pads zero on every head; reruns bit-identical, one launch."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(H * 100 + D + e_tile)
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda)
+    S = plan.num_tiles * plan.e_tile
+    wh = torch.from_numpy(rng.standard_normal((S, H)).astype(np.float32)).to(cuda)
+    wh = wh * plan.mask.reshape(-1, 1)
+    wh[torch.from_numpy(rng.random((S, H)) < 1 / 3).to(cuda)] = 0.0
+    vals = torch.from_numpy(rng.standard_normal((S, H * D)).astype(np.float32)).to(cuda)
+    fn, plain = tslot.plan_segment_sum_mh, tref.plan_segment_sum_mh_plain
+    before = fn.launches
+    k = fn(plan, vals, wh, D)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_abs_sum(k, plain(plan, vals, wh, D), plain(plan, vals.abs(), wh.abs(), D))
+    assert torch.equal(fn(plan, vals, wh, D), k)
+
+
+def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
+    """Width, layout, dtype, shape and e0 are checked before a launch; a
+    plan whose out_block is not non-decreasing as a whole (uniformized
+    chunks) is refused, to be run chunk by chunk."""
+    rng = np.random.default_rng(4)
+    dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
+    plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
+    S = plan.num_tiles * 64
+    ve = torch.ones(2000, 65, device=cuda)
+    with pytest.raises(ValueError, match="F <= 64"):
+        tslot.plan_segment_sum_packed2(plan, ve)
+    with pytest.raises(ValueError, match="vals_layout"):
+        tslot.plan_segment_sum_sr2(plan, ve, vals_layout="slots")
+    with pytest.raises(ValueError, match="rows"):
+        tslot.plan_segment_sum_sr2(plan, ve)  # slot order needs T*E rows
+    with pytest.raises(ValueError, match="w_edge"):
+        tslot.plan_segment_sum_sr2(plan, ve, vals_layout="edge",
+                                   w_edge=torch.ones(2000, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="e0"):
+        tslot.plan_segment_sum_sr2(dataclasses.replace(plan, e0=None), ve, vals_layout="edge")
+    with pytest.raises(ValueError, match="w_heads"):
+        tslot.plan_segment_sum_mh(plan, torch.ones(S, 8, device=cuda),
+                                  torch.ones(S - 1, 2, device=cuda), 4)
+    chunked = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32,
+                                       max_chunk_slots=64 * 5, device=cuda)
+    if not chunked.monotone:
+        with pytest.raises(ValueError, match="non-decreasing"):
+            tslot.plan_segment_sum_sr2(chunked, ve[:, :8], vals_layout="edge")
+        with pytest.raises(ValueError, match="non-decreasing"):
+            tslot.plan_segment_sum_mh(chunked, torch.ones(chunked.num_tiles * 64, 8,
+                                                          device=cuda),
+                                      chunked.mask.reshape(-1, 1).contiguous(), 8)
+
+
+@pytest.mark.parametrize("model", ["gat", "gcn_dyn64", "gcn_dyn128"])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_gat_and_slot_dyn_models_on_card_match_cpu(cuda, model, chunked):
+    """GAT (4 heads averaged, the fused route) and GCN with its per-forward
+    norm over slot plans (slot_dyn; feature_hint 64: packed2, 128: sr2),
+    forward and the x gradient on the card against the CPU's plain path;
+    with a small max_chunk_slots the hub window splits across chunks.
+    index_scatter over the slot plan too."""
+    from geot_tpu_torch.models import GAT, prepare_graph
+
+    rng = np.random.default_rng(13)
+    n = 3000
+    src, dst = _hubby(rng, n, 20000, 4000, hub=5)
+    kw = dict(add_self_loops=True, e_tile=512, s_tile=256, mode_hint="sr", prefer="sr",
+              prefer_dyn="sr", layouts=("slot",),
+              feature_hint=64 if model == "gcn_dyn64" else 128,
+              max_chunk_slots=512 * 6 if chunked else 4 << 20)
+    gc = prepare_graph(src, dst, n, device=cuda, **kw)
+    gh = prepare_graph(src, dst, n, device="cpu", **kw)
+    assert bool(gc.plan.chunks) == chunked
+    if model != "gat":
+        assert api.dispatch_path(gc, dynamic_w=True) == "slot_dyn"
+    x = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    outs = []
+    for g, dev in ((gc, cuda), (gh, "cpu")):
+        gen = torch.Generator().manual_seed(0)
+        if model == "gat":
+            m = GAT(100, 64, 3, 7, conv_kwargs={"heads": 4, "concat": False}, generator=gen,
+                    device=dev)
+        else:
+            m = GCN(100, 64, 3, 7, generator=gen, device=dev)
+        xx = x.to(dev).requires_grad_()
+        out = m(xx, g)
+        out.square().sum().backward()
+        v = x.to(dev)[g.src.long()][:, :24]
+        sc = api.index_scatter(v, g.dst, n, plan=g.plan)
+        outs.append((out.detach().cpu(), xx.grad.cpu(), sc.cpu()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-4,
+                               atol=1e-4 * float(outs[1][1].abs().max()))
+    torch.testing.assert_close(outs[0][2], outs[1][2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", [{}, {"fused_max_edges": 0}])
+def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
+    """The gradients of alpha_src and alpha_dst sum in a fixed order (the
+    gathers' backward runs over the dst- or src-sorted runs), so reruns
+    give the same bits; so does the xh gradient on the composed route
+    (the mh kernel over plan_t). The fused route's xh gradient adds slot
+    terms with index_add_ and may differ in its last bits (ROADMAP C.12)."""
+    from geot_tpu_torch.models import prepare_graph
+
+    rng = np.random.default_rng(21)
+    n, H, D = 3000, 4, 16
+    src, dst = _hubby(rng, n, 20000, 4000, hub=5)
+    g = prepare_graph(src, dst, n, device=cuda, add_self_loops=True, e_tile=512, s_tile=256,
+                      mode_hint="sr", layouts=("slot",))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xh = torch.randn(n, H, D, generator=gen, device=cuda)
+    a_s = torch.randn(n, H, generator=gen, device=cuda)
+    a_d = torch.randn(n, H, generator=gen, device=cuda)
+    co = torch.randn(n, H, D, generator=gen, device=cuda)
+    grads = []
+    for _ in range(3):
+        args = [t.clone().requires_grad_() for t in (xh, a_s, a_d)]
+        out = api.gat_attention_spmm(g, *args, **route)
+        torch.vdot(out.reshape(-1), co.reshape(-1)).backward()
+        grads.append([t.grad for t in args])
+    for later in grads[1:]:
+        assert torch.equal(later[1], grads[0][1]) and torch.equal(later[2], grads[0][2])
+        if route:
+            assert torch.equal(later[0], grads[0][0])

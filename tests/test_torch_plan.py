@@ -129,12 +129,13 @@ def test_build_graph_equal(weighted, budget, monkeypatch):
 
 
 def test_build_graph_rejects_unported_layouts():
-    """The refusals that remain once the slot layout is ported: ("bat",
-    "slot") builds; per-call weights over a slot graph that prefers the
-    slot layout for them (slot_dyn) raise, naming the kernels it needs;
-    narrow-feature BAT plans raise (ROADMAP A.5 / B.3); layouts outside
-    LAYOUTS raise."""
+    """The refusals that remain once the slot layout and its per-call
+    weights are ported: ("bat", "slot") builds; per-call weights over a
+    slot graph that prefers the slot layout for them (slot_dyn) now run
+    and equal the plain path, with their gradients; narrow-feature BAT
+    plans raise (ROADMAP A.5 / B.3); layouts outside LAYOUTS raise."""
     from geot_tpu_torch.ops import api as tapi
+    from geot_tpu_torch.ops import reference as tref
 
     src = np.array([0, 1, 2, 2], np.int32)
     dst = np.array([1, 0, 0, 1], np.int32)
@@ -143,13 +144,23 @@ def test_build_graph_rejects_unported_layouts():
     x = torch.ones(3, 4)
     torch.testing.assert_close(tapi.segment_spmm(g, x), torch.tensor([[2.0] * 4, [2.0] * 4,
                                                                       [0.0] * 4]))
-    w = torch.ones(4)
+    w = torch.tensor([0.5, -1.0, 2.0, 3.0])
+    xr = torch.arange(12, dtype=torch.float32).reshape(3, 4)
     gd = tbuild_graph(src, dst, 3, layouts=("slot",), prefer="sr", prefer_dyn="sr",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
-        tapi.segment_spmm(gd, x, edge_weight=w)
-    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
-        tapi.gather_weight_scatter(gd.src, gd.dst, w, x, 3, graph=gd)
+    assert tapi.dispatch_path(gd, dynamic_w=True) == "slot_dyn"
+    want = tref.gather_weight_scatter_ref(gd.src, gd.dst, w, xr, 3)
+    ws = w.clone().requires_grad_()
+    xs = xr.clone().requires_grad_()
+    torch.testing.assert_close(tapi.segment_spmm(gd, xr, edge_weight=w), want)
+    out = tapi.gather_weight_scatter(gd.src, gd.dst, ws, xs, 3, graph=gd)
+    torch.testing.assert_close(out, want)
+    out.sum().backward()
+    wr = w.clone().requires_grad_()
+    xrr = xr.clone().requires_grad_()
+    tref.gather_weight_scatter_ref(gd.src, gd.dst, wr, xrr, 3).sum().backward()
+    torch.testing.assert_close(ws.grad, wr.grad)
+    torch.testing.assert_close(xs.grad, xrr.grad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild_graph(src, dst, 3, feature_hint=32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -62,8 +62,8 @@ def _np(params):
 @pytest.mark.parametrize("prefer,prefer_dyn", [("bat", "bat"), ("sr", "bat"), ("sr", "sr")])
 def test_dispatch_path_matches_jax(weighted, layouts, prefer, prefer_dyn):
     """The route for graph/no weights and for per-call weights, given the
-    same plans and layout preferences, is the reference's (slot_dyn, which
-    the port refuses, excepted)."""
+    same plans and layout preferences, is the reference's (slot_dyn
+    included)."""
     rng = np.random.default_rng(1)
     src, dst = _zipf_edges(rng, 100, 600)
     w = rng.random(len(src)).astype(np.float32) if weighted else None
@@ -75,12 +75,8 @@ def test_dispatch_path_matches_jax(weighted, layouts, prefer, prefer_dyn):
     for reduce in ("sum", "mean"):
         assert tapi.dispatch_path(tg, reduce=reduce) == japi.dispatch_path(
             jg, reduce=reduce, backend="pallas")
-    jd = japi.dispatch_path(jg, dynamic_w=True, backend="pallas")
-    if jd == "slot_dyn":
-        with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
-            tapi.dispatch_path(tg, dynamic_w=True)
-    else:
-        assert tapi.dispatch_path(tg, dynamic_w=True) == jd
+    assert tapi.dispatch_path(tg, dynamic_w=True) == japi.dispatch_path(
+        jg, dynamic_w=True, backend="pallas")
 
 
 def _sage_pair(rng, n=300, nnz=2400):
