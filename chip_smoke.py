@@ -1,10 +1,12 @@
 """Drive geot_tpu_torch on one CUDA card: build the kernels, hold each
 against its plain version, serve inference requests and train GCN,
-GraphSAGE and GAT, time it all.
+GraphSAGE, GAT, GIN and APPNP, time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width. Phases 1-9: a 3-layer GCN
+Runs the port's main paths at full width. Phases 25-29 serve and train
+GIN (hidden 64) on the arxiv graph and APPNP (K 10) on the flickr graph
+over packed narrow-feature BAT plans (`bat_segment_sum_packed`). Phases 1-9: a 3-layer GCN
 (hidden 128, 40 classes) over BAT plans of an ogbn-arxiv-shaped synthetic
 graph (169,343 nodes, 1,166,243 edges + self-loops, 128 features).
 Phases 10-14: a 3-layer GCN (100 features, hidden 128, 47 classes) over
@@ -95,16 +97,45 @@ Phases, each printed with its elapsed seconds:
      packed2 3 / sr2 3), each against the same model on the reference path
      in float64;
  23. 5 AdamW steps per model beside the reference path (launches per step:
-     GAT mh 3, its backward being gathers; GCN packed2 3 / sr2 3 and
+     GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, the
+     attention's gradient being gathers; GCN packed2 3 / sr2 3 and
      sr_packed 3 over plan_t), the step-0 gradients against the reference
      path in float32 and in float64 through the kernel path's ReLU
      pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
      at H*D 256 and 28, one forward and backward against the fused route;
  24. CUDA-event timings of each new kernel at its main-path shapes, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
-     CSR with the kernel's weights; mh: no single call, the sum of one per
-     head logged for information), each model's forward and training
-     step, and each one's busy share.
+     CSR with the kernel's weights; mh: one call over the head-expanded
+     CSR), each model's forward and training step, and each one's busy
+     share;
+ 25. the narrow BAT path's host builds: GIN's arxiv graph (phases 1-9's,
+     no self-loops, unweighted; feature_hint 64: km_pack 2) and APPNP's
+     flickr graph (phases 15-24's, self-loops, no baked norm; feature_hint
+     7: km_pack 16), 512 x 256 BAT tiles only, with km_pack, the dst_km
+     shapes and chunks of bat and bat_t, and dispatch_path "bat" (GIN) and
+     "bat_dyn" (APPNP's per-call norm);
+ 26. bat_segment_sum_packed against its plain version at each pack (16
+     and 2 on the two graphs' real plans, both directions; 8 and 4 on
+     plans of the flickr edges), unweighted, weighted and with every third
+     weight 0, three reruns bit-identical; and its route at ragged widths
+     (F 7 and 40, padded to 8 and 64) over the whole plan and a plan forced
+     into chunks that split the hub window;
+ 27. 5 requests of GIN (3 layers, 128 -> 64 -> 64 -> 40: bat_segment_sum 1
+     and bat_segment_sum_packed 2 per request) and of APPNP (MLP 500 -> 64
+     -> 7, K 10, alpha 0.1: bat_segment_sum_packed 10 with weights), each
+     against the same model on the reference path in float64;
+ 28. 5 AdamW steps of each, each beside the same step on the reference
+     path from the same state (launches per step:
+     GIN wide 1, packed 2 + 2 over bat_t; APPNP packed 10 + 10 over bat_t;
+     no sddmm_bat: the norm takes no gradient), step-0 gradients at phase
+     8's rule, every loss compared;
+ 29. CUDA-event timings of the packed kernel at each real shape (both
+     graphs, both directions), its plain version, its bound, the library
+     yardstick (torch.sparse.mm over the edge -> row CSR at the same width
+     and weights, never called by the port) and the wide bat_segment_sum
+     on the same values padded to 128 columns over an unpacked plan (what
+     a narrow layer cost before); each model's request and training step,
+     and each one's busy share.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -112,6 +143,7 @@ that stalls past its budget ends the process. Needs a CUDA card: it never
 falls back to the CPU.
 """
 
+import copy
 import dataclasses
 import faulthandler
 import json
@@ -131,7 +163,9 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "hyb_train": 360, "hyb_timing": 300, "slot_build": 120,
                   "slot_kernel": 180, "slot_serve": 120, "slot_train": 180,
                   "slot_timing": 240, "gat_build": 120, "gat_kernel": 240, "gat_serve": 180,
-                  "gat_train": 240, "gat_timing": 240}
+                  "gat_train": 240, "gat_timing": 240, "narrow_build": 180,
+                  "narrow_kernel": 240, "narrow_serve": 180, "narrow_train": 240,
+                  "narrow_timing": 240}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -1164,7 +1198,7 @@ def run_gat_dyn(dev, card):
     per_request = {"gat": {"plan_segment_sum_mh": 3},
                    "gcn_dyn64": {"plan_segment_sum_packed2": 3},
                    "gcn_dyn128": {"plan_segment_sum_sr2": 3}}
-    per_step = {"gat": {"plan_segment_sum_mh": 3},
+    per_step = {"gat": {"plan_segment_sum_mh": 6},
                 "gcn_dyn64": {"plan_segment_sum_packed2": 3, "plan_segment_sum_sr_packed": 3},
                 "gcn_dyn128": {"plan_segment_sum_sr2": 3, "plan_segment_sum_sr_packed": 3}}
     models, ref_models, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}
@@ -1278,9 +1312,9 @@ def run_gat_dyn(dev, card):
     del ref_models
     # the composed GAT route (edge-space softmax + mh_spmm) at both layer
     # widths: one forward and one backward of gat_attention_spmm against
-    # the fused route on the same inputs. It aggregates with the mh kernel
-    # (forward over plan, backward over plan_t) at H*D 256 and 28 alike.
-    for H, D, want in ((4, FLICKR_HIDDEN, (1, 2)), (4, c, (1, 2))):
+    # the fused route on the same inputs. Both aggregate with the mh kernel
+    # (forward over plan, the xh gradient over plan_t) at H*D 256 and 28.
+    for H, D, want in ((4, FLICKR_HIDDEN, (2, 2)), (4, c, (2, 2))):
         xh = torch.randn(n, H, D, generator=gen, device=dev)
         a_s = 0.3 * torch.randn(n, H, generator=gen, device=dev)
         a_d = 0.3 * torch.randn(n, H, generator=gen, device=dev)
@@ -1304,7 +1338,8 @@ def run_gat_dyn(dev, card):
         log(f"phase 23 composed GAT route (fused_max_edges 0), (H, D) = ({H}, {D}): output "
             f"max |composed - fused| {float((o_c - o_f).abs().max()):.3e}, gradients of xh, "
             f"alpha_src, alpha_dst within rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g|; mh "
-            f"launches forward + backward: fused {l_f} (backward by gathers), composed {l_c}")
+            f"launches forward + backward: fused {l_f} (the attention's gradient by gathers), "
+            f"composed {l_c}")
     del res, xh, a_s, a_d, co, o_f, o_c, g_f, g_c
 
     # 24. timings: each new kernel at its main-path shapes, forward and
@@ -1391,6 +1426,365 @@ def run_gat_dyn(dev, card):
     return {"serve": serve, "train": train, "errs": errs, "timing": timing,
             "forward_ms": fwd, "train_step_ms": stp, "busy": busy,
             "losses": losses}
+
+
+def bat_packed_bound(bp, nnz, F, weighted):
+    """The least time of one packed BAT launch: each edge's value row, dst
+    id (k-major, every value block and the sentinel) and weight read once,
+    out_block and vblock, and every output row written once (bytes); or
+    its f32 flops, 2 per value weighted, 1 unweighted."""
+    n_bytes = (nnz * F * 4 + bp.dst_km.numel() * 4 + (nnz * 4 if weighted else 0)
+               + bp.num_tiles * 8 + bp.n_blocks * bp.s_tile * F * 4)
+    bound, by = bound_ms(n_bytes, (2 if weighted else 1) * nnz * F)
+    return bound, by, n_bytes
+
+
+def edge_csr(dst, w, n_rows):
+    """The edge -> row matrix [n_rows, nnz] in CSR with weights w (ones
+    where None): sum_e w_e v_e into row dst_e. For the library yardstick
+    only."""
+    nnz = dst.shape[0]
+    vals = torch.ones(nnz, device=dst.device) if w is None else w
+    return torch.sparse_coo_tensor(
+        torch.stack([dst.long(), torch.arange(nnz, device=dst.device)]), vals,
+        (n_rows, nnz), check_invariants=False).coalesce().to_sparse_csr()
+
+
+def check_model(out, ref, what):
+    """A request of the kernel path against the float64 reference path,
+    element by element: |out - ref| <= rtol |ref| + atol * max(1, max|ref|
+    of its row) (MODEL_TOL's values). GIN's outputs are unnormalized sums
+    over up to ~90 k in-edges a layer, so an output near 0 is a
+    cancellation of terms its row's scale; APPNP's are O(1). Returns the
+    max abs error."""
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    err = (out - ref).abs()
+    lim = MODEL_TOL["rtol"] * ref.abs() + MODEL_TOL["atol"] * scale
+    bad = int((err > lim).sum())
+    if bad or not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: {bad} outputs over tolerance, max err "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def run_narrow(dev, card):
+    """Phases 25-29: GIN (hidden 64) on the arxiv graph and APPNP (K 10) on
+    the flickr graph over packed narrow-feature BAT plans, serving and
+    training. Returns the numbers for the kernels line."""
+    import torch.nn.functional as F_
+
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.graph.plan import build_bat_plan, compute_chunks, with_chunks
+    from geot_tpu_torch.models import APPNP, GIN, make_optimizer, make_train_step, prepare_graph
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops import reference as ref_ops
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
+    from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+    from geot_tpu_torch.profile_gcn import (
+        APPNP_KW,
+        ARXIV_GIN,
+        FLICKR_APPNP,
+        FLICKR_HIDDEN,
+        GIN_HIDDEN,
+        trace,
+    )
+
+    counters = {k: getattr(sk, k) for k in (
+        "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr",
+        "plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")}
+    counters.update({"bat_segment_sum": bat_segment_sum,
+                     "bat_segment_sum_packed": bat_segment_sum_packed, "sddmm_bat": sddmm_bat,
+                     "stream_segment_sum": stream_segment_sum,
+                     "stream_segment_acc": stream_segment_acc})
+    PK = "bat_segment_sum_packed"
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # 25. host build: GIN's arxiv graph (no self-loops, unweighted) and
+    # APPNP's flickr graph (self-loops, no baked norm), packed BAT only
+    arm("narrow_build")
+    datasets, graphs = {}, {}
+    for name, shape, kw, extra in (("gin", "ogbn-arxiv", ARXIV_GIN, {}),
+                                   ("appnp", "flickr", FLICKR_APPNP, {"power": 1.0})):
+        n, e, f, c = DATASET_SHAPES[shape]
+        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=SEED, **extra)
+        t0 = time.perf_counter()
+        g = prepare_graph(data.src, data.dst, n, device=dev, **kw)
+        torch.cuda.synchronize()
+        datasets[name], graphs[name] = (data, f, c), g
+        for d in ("bat", "bat_t"):
+            bp = getattr(g, d)
+            log(f"phase 25 {name} {d}: km_pack {bp.km_pack}, dst_km {tuple(bp.dst_km.shape)}, "
+                f"{bp.num_tiles} tiles of {bp.e_tile} x {bp.s_tile}, {bp.n_blocks} windows, "
+                f"chunks {max(len(bp.chunks), 1)}")
+        log(f"phase 25 {name} graph ({shape}, {g.num_edges} edges): prepare_graph "
+            f"{time.perf_counter() - t0:.2f}s")
+    gg, ga = graphs["gin"], graphs["appnp"]
+    routes = (api.dispatch_path(gg), api.dispatch_path(ga, dynamic_w=True))
+    packs = (gg.bat.km_pack, gg.bat_t.km_pack, ga.bat.km_pack, ga.bat_t.km_pack)
+    if routes != ("bat", "bat_dyn") or packs != (2, 2, 16, 16):
+        raise AssertionError(f"dispatch_path {routes}, km_pack {packs}: expected ('bat', "
+                             "'bat_dyn') and (2, 2, 16, 16)")
+    if ga.w_slots is not None or ga.edge_weight is not None:
+        raise AssertionError("the APPNP graph holds weights: its norm must be per call")
+    log("phase 25 dispatch_path: GIN 'bat' (pack 2: layers 2-3 at 64 columns packed, layer 1 "
+        "at 128 wide), APPNP per-call norm 'bat_dyn' (pack 16: 7 columns padded to 8)")
+
+    # 26. the packed kernel against its plain version
+    arm("narrow_kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err = 0.0
+    n_checks = 0
+
+    def held(k, p, a, what, rerun):
+        nonlocal err, n_checks
+        err = max(err, check_close_abs_sum(k, p, a, f"phase 26 {what}"))
+        for _ in range(3):
+            if not torch.equal(rerun(), k):
+                raise AssertionError(f"phase 26 {what}: not deterministic")
+        n_checks += 1
+
+    # each pack on a real plan: arxiv's 2, flickr's 16, and flickr's dst
+    # sorted into plans of pack 4 and 8; ragged value rows (nnz, short of
+    # whole blocks); unweighted, weighted, and every third weight 0
+    fa_dst = ga.dst.cpu().numpy()
+    plans = [("gin.bat", gg.bat, gg.num_edges), ("gin.bat_t", gg.bat_t, gg.num_edges),
+             ("appnp.bat", ga.bat, ga.num_edges), ("appnp.bat_t", ga.bat_t, ga.num_edges)]
+    for pack in (4, 8):
+        plans.append((f"appnp dst pack {pack}",
+                      build_bat_plan(fa_dst, ga.num_nodes, e_tile=512, s_tile=256,
+                                     km_pack=pack, device=dev), ga.num_edges))
+    for label, bp, nnz in plans:
+        Fw = 128 // bp.km_pack
+        vals = torch.randn(nnz, Fw, generator=gen, device=dev)
+        w = torch.rand(nnz, generator=gen, device=dev) + 0.1
+        w0 = torch.where(torch.arange(nnz, device=dev) % 3 == 1, 0.0, w)
+        for wl, ww in (("unweighted", None), ("weighted", w), ("every third weight 0", w0)):
+            k = bat_segment_sum_packed(bp, vals, ww)
+            torch.cuda.synchronize()
+            held(k, ref_ops.bat_segment_sum_packed_plain(bp, vals, ww),
+                 ref_ops.bat_segment_sum_packed_plain(bp, vals.abs(),
+                                                      None if ww is None else ww.abs()),
+                 f"{label} F={Fw} {wl}", lambda: bat_segment_sum_packed(bp, vals, ww))
+        del vals, k
+    # the routes with ragged widths (7 -> 8, 40 -> 64) and a plan forced
+    # into chunks that split the hub window, against the whole plan's
+    # plain sum
+    for name, Fn in (("appnp", 7), ("gin", 40)):
+        g = graphs[name]
+        bp = g.bat
+        cap = max(int(torch.bincount(bp.out_block.long()).max()) // 3, 2)
+        ch = compute_chunks(bp.out_block.cpu().numpy(), cap)
+        split = [b for a, b in zip(ch[:-1], ch[1:]) if b[2] < a[3]]
+        if len(ch) < 3 or not split:
+            raise AssertionError("forced chunking did not split a hub window")
+        bpc = with_chunks(bp, ch)
+        xf = torch.randn(g.num_nodes, Fn, generator=gen, device=dev)
+        w = torch.rand(g.num_edges, generator=gen, device=dev) + 0.1
+        vals = F_.pad(xf, (0, 128 // bp.km_pack - Fn)).index_select(0, g.src.long())
+        want = ref_ops.bat_segment_sum_packed_plain(bp, vals, w)[: g.num_nodes, :Fn]
+        a = ref_ops.bat_segment_sum_packed_plain(bp, vals.abs(), w)[: g.num_nodes, :Fn]
+        with torch.inference_mode():
+            for lbl, plan in (("whole", bp), (f"{len(ch)} chunks, hub window split", bpc)):
+                before = bat_segment_sum_packed.launches
+                got = api._spmm_fwd_bat(plan, xf, g.src, w)
+                torch.cuda.synchronize()
+                expect_launches(bat_segment_sum_packed.launches - before, max(len(plan.chunks), 1),
+                                f"phase 26 {name} route {lbl}")
+                held(got, want, a, f"{name} route F={Fn} ({lbl})",
+                     lambda: api._spmm_fwd_bat(plan, xf, g.src, w))
+        del xf, vals, want, a, got
+    log(f"phase 26 {n_checks} packed-kernel checks within the abs-sum rule, each rerun 3 times "
+        "bit-identical")
+
+    # 27. serve: 5 requests per model against the reference path in float64
+    arm("narrow_serve")
+    mk = {"gin": lambda f, c, **kw: GIN(f, GIN_HIDDEN, 3, c, **kw),
+          "appnp": lambda f, c, **kw: APPNP(f, FLICKR_HIDDEN, 2, c, **APPNP_KW, **kw)}
+    chunks = {name: (max(len(g.bat.chunks), 1), max(len(g.bat_t.chunks), 1))
+              for name, g in graphs.items()}
+    per_request = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 2 * chunks["gin"][0]},
+                   "appnp": {PK: 10 * chunks["appnp"][0]}}
+    per_step = {"gin": {"bat_segment_sum": chunks["gin"][0],
+                        PK: 2 * chunks["gin"][0] + 2 * chunks["gin"][1]},
+                "appnp": {PK: 10 * chunks["appnp"][0] + 10 * chunks["appnp"][1]}}
+    models, ref_models, xs, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}, {}
+    for name, g in graphs.items():
+        data, f, c = datasets[name]
+        x = torch.from_numpy(data.x).to(dev)
+        xs[name] = x
+        model = mk[name](f, c, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+        ref_model = mk[name](f, c, backend="reference", device=dev).eval()
+        ref_model.load_state_dict(model.state_dict())
+        models[name], ref_models[name] = model, ref_model
+        want = {k: per_request[name].get(k, 0) for k in counters}
+        outs, req_s[name] = [], []
+        reset()  # count this model's serving launches only
+        with torch.inference_mode():
+            for i in range(REQUESTS):
+                before = counts()
+                ts = time.perf_counter()
+                out = model(x, g)
+                torch.cuda.synchronize()
+                req_s[name].append(time.perf_counter() - ts)
+                expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                                f"{name} request {i}")
+                outs.append(out)
+            serve[name] = counts()
+            ref64 = mk[name](f, c, backend="reference", device=dev).double().eval()
+            ref64.load_state_dict(model.state_dict())
+            oracle = ref64(x.double(), g).float()
+            ref32 = ref_model(x, g)
+            del ref64
+        for i, out in enumerate(outs):
+            if out.shape != (g.num_nodes, c):
+                raise AssertionError(f"{name} request {i}: bad output {tuple(out.shape)}")
+            e_i = check_model(out, oracle, f"phase 27 {name} request {i}")
+        log(f"phase 27 {name}: {REQUESTS} requests, launches {serve[name]} (per request "
+            f"{per_request[name]}); outputs [{g.num_nodes}, {c}] finite, max |ref| "
+            f"{float(oracle.abs().max()):.3e}; against the reference path in float64 (rtol "
+            f"{MODEL_TOL['rtol']}, atol {MODEL_TOL['atol']} * max(1, row max |ref|)): kernel path "
+            f"max abs err {e_i:.3e}, float32 reference path "
+            f"{float((ref32 - oracle).abs().max()):.3e}; request s: "
+            + ", ".join(f"{t:.4f}" for t in req_s[name]))
+        del outs, out, oracle, ref32
+
+    # 28. train: 5 AdamW steps per model, each beside the same step on the
+    # reference path from the same state (parameters and AdamW moments
+    # copied over before every step): GIN's unnormalized sums make its
+    # trajectory chaotic, so two paths left to run apart diverge in a few
+    # steps from rounding alone (the float32 reference path from itself too,
+    # its index_add_ being atomics), while each step's arithmetic is what
+    # is held here
+    arm("narrow_train")
+    steps, ys, masks = {}, {}, {}
+    for name, g in graphs.items():
+        data = datasets[name][0]
+        x = xs[name]
+        y = torch.from_numpy(data.y.astype("int64")).to(dev)
+        mask = torch.from_numpy(data.train_mask).to(dev)
+        ys[name], masks[name] = y, mask
+        model, ref_model = models[name], ref_models[name]
+        opt = make_optimizer(model, LR, WEIGHT_DECAY)
+        ref_opt = make_optimizer(ref_model, LR, WEIGHT_DECAY)
+        step = make_train_step(model, opt, has_dropout=False)
+        ref_step = make_train_step(ref_model, ref_opt, has_dropout=False)
+        steps[name] = step
+        want = {k: per_step[name].get(k, 0) for k in counters}
+        losses[name], step_s[name] = [], []
+        reset()  # count this model's training launches only
+        for i in range(TRAIN_STEPS):
+            state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+            before = counts()
+            ts = time.perf_counter()
+            loss = step(x, g, y, mask)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - ts)
+            expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                            f"{name} step {i}")
+            ref_model.load_state_dict(state[0])
+            ref_opt.load_state_dict(state[1])
+            loss_r = ref_step(x, g, y, mask)
+            del state
+            if i == 0:
+                pr = dict(ref_model.named_parameters())
+                ratios = []
+                for pname, prm in model.named_parameters():
+                    gr = pr[pname].grad
+                    lim = GRAD_RTOL * gr.abs() + GRAD_RTOL * float(gr.abs().max())
+                    ratios.append((pname, float(((prm.grad - gr).abs() / lim).max())))
+                    torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
+                                               atol=GRAD_RTOL * float(gr.abs().max()))
+                log(f"phase 28 {name} step 0 gradients agree per tensor (rtol {GRAD_RTOL}, atol "
+                    f"{GRAD_RTOL} * max|g_ref|); max |err| / (rtol |g| + atol): "
+                    + ", ".join(f"{k} {r:.3f}" for k, r in ratios))
+            lk, lr_ = float(loss), float(loss_r)
+            if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
+                raise AssertionError(f"{name} step {i}: loss {lk} vs reference {lr_}")
+            losses[name].append((lk, lr_))
+        train[name] = counts()
+        log(f"phase 28 {name}: {TRAIN_STEPS} steps, losses (kernel, reference) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses[name])
+            + f"; launches {train[name]} (per step {per_step[name]}); step wall s: "
+            + ", ".join(f"{t:.4f}" for t in step_s[name]))
+    for name in graphs:
+        if not serve[name][PK] or not train[name][PK]:
+            raise AssertionError(f"{PK} was not launched on the {name} path")
+    del ref_models
+
+    # 29. timings: the packed kernel at each real shape, its plain version,
+    # its bound, torch.sparse.mm over the edge -> row CSR, and the wide
+    # kernel on the same values padded to 128 columns over an unpacked
+    # plan; a request and a step of each model with the busy share
+    arm("narrow_timing")
+    timing = {}
+    for name, d, weighted in (("gin", "bat", False), ("gin", "bat_t", False),
+                              ("appnp", "bat", True), ("appnp", "bat_t", True)):
+        g = graphs[name]
+        bp = getattr(g, d)
+        nnz = g.num_edges
+        Fw = 128 // bp.km_pack
+        dst_d = g.dst if d == "bat" else g.src.index_select(0, g.perm_t.long())
+        vals = torch.randn(nnz, Fw, generator=gen, device=dev)
+        w = (torch.rand(nnz, generator=gen, device=dev) + 0.1) if weighted else None
+        t_k = cuda_ms(lambda: bat_segment_sum_packed(bp, vals, w))
+        t_p = cuda_ms(lambda: ref_ops.bat_segment_sum_packed_plain(bp, vals, w), iters=3,
+                      warmup=1)
+        csr = edge_csr(dst_d, w, bp.n_blocks * bp.s_tile)
+        lib_out = torch.sparse.mm(csr, vals)
+        check_close_abs_sum(lib_out, ref_ops.bat_segment_sum_packed_plain(bp, vals, w),
+                            ref_ops.bat_segment_sum_packed_plain(
+                                bp, vals.abs(), None if w is None else w.abs()),
+                            f"phase 29 library yardstick {name}.{d} F={Fw}")
+        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, vals))
+        wide = build_bat_plan(dst_d.cpu().numpy(), g.num_nodes, e_tile=bp.e_tile,
+                              s_tile=bp.s_tile, device=dev)
+        v128 = F_.pad(vals, (0, 128 - Fw))
+        t_wide = cuda_ms(lambda: bat_segment_sum(wide, v128, w))
+        bound, by, nb = bat_packed_bound(bp, nnz, Fw, weighted)
+        timing[(name, d)] = {"F": Fw, "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                             "bound_by": by, "library_ms": t_lib, "wide_128_ms": t_wide}
+        log(f"{card} bat_segment_sum_packed {name}.{d} F={Fw} (pack {bp.km_pack}, "
+            f"{'weighted' if weighted else 'unweighted'}): kernel {t_k:.4f} ms (bound "
+            f"{bound:.4f} ms by {by}: {nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library "
+            f"torch.sparse.mm (the edge -> row CSR, [{nnz}, {Fw}] values) {t_lib:.4f} ms; "
+            f"wide bat_segment_sum on the values padded to 128 over an unpacked plan "
+            f"{t_wide:.4f} ms")
+        del vals, csr, lib_out, wide, v128
+    fwd, stp, busy = {}, {}, {}
+    for name, g in graphs.items():
+        model, x, y, mask = models[name], xs[name], ys[name], masks[name]
+        model.eval()
+        with torch.inference_mode():
+            fwd[name] = cuda_ms(lambda: model(x, g), iters=10)
+        stp[name] = cuda_ms(lambda: steps[name](x, g, y, mask), iters=5, warmup=2)
+
+        def serve_once():
+            model.eval()
+            with torch.inference_mode():
+                model(x, g)
+
+        for mode, run in (("serve", serve_once), ("train", lambda: steps[name](x, g, y, mask))):
+            prof, wall_us, busy_us, events = trace(run, 3)
+            top = sorted(prof.key_averages(), key=lambda ev: -ev.self_device_time_total)[:6]
+            busy[(name, mode)] = busy_us / max(wall_us, 1e-9)
+            log(f"{card} {name} {mode} x3: traced wall {wall_us / 1e3:.4f} ms, device "
+                f"{busy_us / 1e3:.4f} ms, busy share {busy[(name, mode)]:.4f}; top device "
+                "time: " + "; ".join(f"{ev.key[:48]} {ev.self_device_time_total / 1e3:.4f} ms "
+                                     f"x{ev.count}" for ev in top))
+        log(f"{card} {name}: forward {fwd[name]:.4f} ms (request wall "
+            f"{min(req_s[name]) * 1e3:.4f} ms min); training step {stp[name]:.4f} ms (step "
+            f"wall {min(step_s[name]) * 1e3:.4f} ms min)")
+    faulthandler.cancel_dump_traceback_later()
+    return {"serve": serve, "train": train, "err": err, "timing": timing,
+            "forward_ms": fwd, "train_step_ms": stp, "busy": busy, "losses": losses}
 
 
 def main():
@@ -1718,6 +2112,7 @@ def main():
     hy = run_hybrid(dev, card)
     sl = run_slot(dev, card)
     gd = run_gat_dyn(dev, card)
+    nr = run_narrow(dev, card)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -1781,7 +2176,9 @@ def main():
                                  "train_per_step": train_launches // TRAIN_STEPS,
                                  "weight_grad": grad_launches["bat_segment_sum"],
                                  "hybrid_serve_requests": hy["serve"]["bat_segment_sum"],
-                                 "hybrid_train_steps": hy["train"]["bat_segment_sum"]},
+                                 "hybrid_train_steps": hy["train"]["bat_segment_sum"],
+                                 "gin_serve_requests": nr["serve"]["gin"]["bat_segment_sum"],
+                                 "gin_train_steps": nr["train"]["gin"]["bat_segment_sum"]},
             "max_abs_err": max_err,
             "ms": t_k,
             "plain_ms": t_p,
@@ -1816,7 +2213,20 @@ def main():
            slot_entry("plan_segment_sum_pr", 1348, 8),
            new_entry("plan_segment_sum_mh", "slot_mh.cu", 1391, 4 * 64),
            new_entry("plan_segment_sum_sr2", "slot_aeb.cu", 384, 64),
-           new_entry("plan_segment_sum_packed2", "slot_aeb.cu", 581, 64)],
+           new_entry("plan_segment_sum_packed2", "slot_aeb.cu", 581, 64), {
+            "name": "bat_segment_sum_packed",
+            "route": "cuda",
+            "source": "geot_tpu_torch/ops/csrc/bat_segment_sum_packed.cu",
+            "replaces": "geot_tpu/ops/pallas_segment.py:906",
+            "launches": sum(nr["serve"][m]["bat_segment_sum_packed"]
+                            + nr["train"][m]["bat_segment_sum_packed"] for m in ("gin", "appnp")),
+            "launches_by_path": {f"{m}_{k}": nr[k][m]["bat_segment_sum_packed"]
+                                 for m in ("gin", "appnp") for k in ("serve", "train")},
+            "max_abs_err": nr["err"],
+            **nr["timing"][("gin", "bat")],
+            "appnp_F8": nr["timing"][("appnp", "bat")],
+            "backward": {m: nr["timing"][(m, "bat_t")] for m in ("gin", "appnp")},
+        }],
         "card": smi,
         "forward_ms": t_fwd,
         "spmm_ms": t_spmm,
@@ -1833,6 +2243,10 @@ def main():
             "losses": gd["losses"],
             "narrow": {f"{k}_F{F}": v for (k, F), v in gd["timing"].items() if F < 64},
             "busy_share": {f"{m}_{mode}": v for (m, mode), v in gd["busy"].items()}},
+        "gin_appnp": {
+            "forward_ms": nr["forward_ms"], "train_step_ms": nr["train_step_ms"],
+            "losses": nr["losses"],
+            "busy_share": {f"{m}_{mode}": v for (m, mode), v in nr["busy"].items()}},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

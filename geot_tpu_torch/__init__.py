@@ -2,8 +2,9 @@
 
 The JAX package `geot_tpu` stays the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs. It
-covers GCN, GraphSAGE and GAT inference and training over slot-layout
-plans, block-aligned-tile (BAT) plans and hybrid stream+gather plans:
+covers GCN, GIN, GraphSAGE, GAT, SGC and APPNP inference and training
+over slot-layout plans, block-aligned-tile (BAT) plans, packed BAT plans
+for narrow features and hybrid stream+gather plans:
 
     prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
       -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
@@ -13,6 +14,8 @@ plans, block-aligned-tile (BAT) plans and hybrid stream+gather plans:
     per-call weights, prefer_dyn="sr": GCN -> segment_spmm -> _spmm_fwd_slot_dyn
       -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a)
     GAT -> GATConv -> gat_attention_spmm -> plan_segment_sum_mh (CUDA, sm_90a)
+    feature_hint <= 64: GIN / APPNP / SGC -> segment_spmm -> _spmm_fwd_bat
+      -> _bat_sum -> bat_segment_sum_packed (CUDA, sm_90a) at 8-64 columns
     layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid
       -> stream_segment_sum / stream_segment_acc (CUDA, sm_90a) per stream
          family + the BAT path over the remainder
@@ -31,10 +34,14 @@ from geot_tpu_torch.utils.device import resolve_device
 from geot_tpu_torch.graph import Graph, build_graph
 from geot_tpu_torch.ops import segment_spmm, dispatch_path
 from geot_tpu_torch.models import (
+    APPNP,
     GAT,
     GCN,
+    GIN,
+    SGC,
     GATConv,
     GCNConv,
+    GINConv,
     GraphSAGE,
     SAGEConv,
     prepare_graph,
@@ -54,5 +61,9 @@ __all__ = [
     "SAGEConv",
     "GAT",
     "GATConv",
+    "GIN",
+    "GINConv",
+    "SGC",
+    "APPNP",
     "prepare_graph",
 ]

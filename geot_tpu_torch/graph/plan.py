@@ -7,7 +7,9 @@ Port of `geot_tpu/graph/plan.py`: `SegmentPlan` :56-141,
 branch; the native builder gives equal arrays, `tests/test_native.py`),
 `_k_major_host` :387, `plan_from_host` :397, `BatPlan` :419-463,
 `build_bat_plan_host` :466-557 (its numpy branch only),
-`_uniformize_bat_chunks` :560-598, `bat_plan_from_host`,
+`_uniformize_bat_chunks` :560-598, `bat_plan_from_host` (with the packed
+kernel's k-major `dst_km`; the reference's always-None `mask_km` is left
+out),
 `build_bat_plan`, `packed_width` and `build_segment_plan` :622. Given the
 same dst-sorted edges and knobs, the host arrays and meta equal the JAX
 package's exactly.
@@ -69,6 +71,11 @@ class BatPlan:
     vblock:    [T] int32 — value block of tile t (n_vblocks = the all--1
       sentinel block that uniformization pad tiles point at).
     dst3:      [n_vblocks + 1, 1, e_tile] int32 — dst ids, -1 padded.
+    dst_km:    [n_vblocks + 1, 1, e_tile] int32 or None — the same dst ids
+      k-major per value block (`_k_major_host` with `km_pack`): lane
+      k*rows + r holds edge r*km_pack + k of the block, rows = e_tile //
+      km_pack. Set with km_pack > 1, for the packed kernel
+      (`bat_segment_sum_packed`, features 128 // km_pack wide).
     chunks:    ((t0, t1, w0, w1), ...) tile ranges [t0, t1) covering windows
       [w0, w1); consecutive chunks may share one (hub) window.
     """
@@ -93,6 +100,7 @@ class BatPlan:
     # when handed the plan whole (pad tiles of uniformized chunks can break
     # it; such a plan runs chunk by chunk). Checked on the host when made.
     monotone: bool = False
+    dst_km: Optional[torch.Tensor] = None
 
     @property
     def num_tiles(self) -> int:
@@ -112,6 +120,7 @@ class BatPlan:
             out_block=self.out_block.to(device),
             vblock=self.vblock.to(device),
             dst3=self.dst3.to(device),
+            dst_km=None if self.dst_km is None else self.dst_km.to(device),
         )
 
 
@@ -330,12 +339,12 @@ def build_segment_plan_host(
 
 
 def _k_major_host(arr: np.ndarray, pack: int) -> np.ndarray:
-    """[T, E] slot array -> k-major [T, 1, E] (lane k*rows + r holds slot
-    r*pack + k), the layout of the reference's packed TPU kernels. Host
-    only: no kernel of the port reads a k-major copy yet, so `SegmentPlan`
-    carries none (the reference's slot plans carry `dst_km` / `mask_km`
-    for `feature_hint` <= 64, and only slice them); the packed BAT kernel
-    will (ROADMAP A.5 / B.3)."""
+    """[T, E] slot or edge array -> k-major [T, 1, E] (lane k*rows + r holds
+    slot r*pack + k), the layout of the reference's packed TPU kernels.
+    The packed BAT kernel reads it per value block (`BatPlan.dst_km`). No
+    slot kernel of the port reads one, so `SegmentPlan` carries none (the
+    reference's slot plans carry `dst_km` / `mask_km` for `feature_hint`
+    <= 64, and only slice them)."""
     T, E = arr.shape
     rows = E // pack
     return np.ascontiguousarray(arr.reshape(T, rows, pack).transpose(0, 2, 1).reshape(T, 1, E))
@@ -369,11 +378,10 @@ def build_bat_plan_host(
     km_pack: int = 0,
     max_chunk_tiles: int = MAX_PREFETCH_TILES,
 ):
-    """Host arrays + meta for a BatPlan over a dst-sorted edge list."""
-    if km_pack > 1:
-        raise NotImplementedError(
-            "packed BAT plans (km_pack > 1) are not ported yet: ROADMAP A.5 / B.3"
-        )
+    """Host arrays + meta for a BatPlan over a dst-sorted edge list. With
+    km_pack > 1 dividing e_tile the arrays add `dst_km`, the k-major dst
+    ids of every value block and of the sentinel block; another km_pack
+    is dropped (meta km_pack 0), as in the reference."""
     dst = np.asarray(dst, np.int64)
     nnz = int(dst.shape[0])
     if nnz > 1 and not bool(np.all(dst[1:] >= dst[:-1])):
@@ -417,6 +425,11 @@ def build_bat_plan_host(
     dst3 = dst_pad.reshape(n_vblocks + 1, 1, e_tile)
 
     arrays = dict(out_block=ob, vblock=vb, dst3=dst3)
+    packed = km_pack > 1 and e_tile % km_pack == 0
+    if packed:
+        # per value block, like dst3: the sentinel block stays all -1
+        arrays["dst_km"] = _k_major_host(
+            dst_pad.reshape(n_vblocks + 1, e_tile), km_pack).astype(np.int32)
     meta = dict(
         e_tile=int(e_tile),
         s_tile=int(s_tile),
@@ -424,7 +437,7 @@ def build_bat_plan_host(
         n_blocks=int(n_blocks),
         num_edges=nnz,
         n_vblocks=int(n_vblocks),
-        km_pack=0,
+        km_pack=int(km_pack) if packed else 0,
         chunks=compute_chunks(ob, max_chunk_tiles),
         chunk_blocks=0,
         chunk_vblocks=0,
@@ -435,7 +448,8 @@ def build_bat_plan_host(
 
 def _uniformize_bat_chunks(arrays: dict, meta: dict) -> None:
     """Pad every chunk to identical (tiles, windows). Pad tiles cover the
-    extra windows once each and read the sentinel value block. (On the TPU
+    extra windows once each and read the sentinel value block (whose dst3
+    and dst_km are all -1, so `dst_km` needs no change). (On the TPU
     this lets every chunk share one compiled kernel; the port keeps it so
     its plans equal the reference's.)"""
     chunks = meta["chunks"]
@@ -504,6 +518,8 @@ def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
         out_block=torch.from_numpy(np.ascontiguousarray(arrays["out_block"])).to(dev),
         vblock=torch.from_numpy(np.ascontiguousarray(arrays["vblock"])).to(dev),
         dst3=torch.from_numpy(np.ascontiguousarray(arrays["dst3"])).to(dev),
+        dst_km=(torch.from_numpy(np.ascontiguousarray(arrays["dst_km"])).to(dev)
+                if "dst_km" in arrays else None),
         chunk_vbase=vbase,
         monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
@@ -519,8 +535,9 @@ def with_chunks(bp: BatPlan, chunks: tuple) -> BatPlan:
     """`bp` with its chunk schedule replaced by ragged chunks over its own
     tiles (e.g. `compute_chunks` at a smaller cap, to force a split hub
     window), keeping `chunk_vbase` in step and dropping the uniform-chunk
-    sizes. Reads the plan back to the host once, to check the new chunks
-    as `bat_plan_from_host` checks its own."""
+    sizes (`dst_km`, per value block, comes along as it is). Reads the
+    plan back to the host once, to check the new chunks as
+    `bat_plan_from_host` checks its own."""
     vb = bp.vblock.cpu().numpy()
     _check_window_order(bp.out_block.cpu().numpy(), vb, bp.n_vblocks, tuple(chunks))
     vbase = tuple(min(int(vb[c[0]]), bp.n_vblocks) for c in chunks)

@@ -40,8 +40,9 @@ __all__ = ["Graph", "build_graph"]
 
 
 # layout preferences `build_graph` takes for the fused SpMM (the reference's
-# table also answers 'packed', which routes as 'sr'; 'bat_packed', ROADMAP
-# B.3; and 'xla', its TPU latency floor)
+# table also answers 'packed', which routes as 'sr'; 'bat_packed', which
+# routes as 'bat' (a narrow `feature_hint` packs the BAT plans); and 'xla',
+# its TPU latency floor)
 PREFERENCES = ("bat", "sr")
 LAYOUTS = (("bat",), ("bat", "stream"), ("stream",), ("slot",), ("bat", "slot"),
            ("bat", "slot", "stream"))
@@ -206,6 +207,19 @@ def build_graph(
     `max_chunk_bytes` caps one chunk's gathered [tiles*bat_e_tile,
     feature_hint] f32 block (the reference's GEOT_MAX_CHUNK_BYTES budget,
     `structures.py:257`), for the BAT plans and the stream remainder alike.
+
+    With `feature_hint` <= 64 the BAT plans are packed for the narrow
+    kernel (`bat_segment_sum_packed`): km_pack = 128 //
+    packed_width(feature_hint) (2 at 33-64 features, 16 at 1-8), kept where
+    it divides `bat_e_tile`, and `dst_km` in each plan (reference
+    `structures.py:198-209`). The reference then also takes `bat_e_tile`
+    = `e_tile` (512) unless a tile is given (`structures.py:252-254`), a
+    TPU pick not measured on the H100; here the tiles stay explicit. Its
+    tuning table may answer "bat" for a narrow graph, and then it builds
+    unpacked plans (`table_picked`, `structures.py:200-208`); the port has
+    no table, so a narrow `feature_hint` always packs. The stream
+    remainder's BAT plan stays unpacked: the hybrid path is built only
+    past 64 features, as in the reference.
     """
     layouts = tuple(layouts)
     if layouts not in LAYOUTS:
@@ -214,12 +228,7 @@ def build_graph(
         if p not in PREFERENCES:
             raise ValueError(f"{name}={p!r}: one of {PREFERENCES}")
     nw = packed_width(feature_hint) if feature_hint else 0
-    if nw and "bat" in layouts:
-        raise NotImplementedError(
-            f"feature_hint={feature_hint} asks for packed narrow-feature BAT plans, "
-            "not ported yet (ROADMAP A.5 / B.3); use feature_hint >= 65 or "
-            "layouts=('slot',)"
-        )
+    km_pack = 128 // nw if nw else 0
     dev = resolve_device(device)
     stats: dict = {"stream": {}, "seconds": {}}
     secs = stats["seconds"]
@@ -266,8 +275,8 @@ def build_graph(
     bat = bat_t = None
     if "bat" in layouts:
         t0 = time.perf_counter()
-        bat = build_bat_plan(dst, num_nodes, device=dev, **bat_kw)
-        bat_t = build_bat_plan(src_t, num_nodes, device=dev, **bat_kw)
+        bat = build_bat_plan(dst, num_nodes, device=dev, km_pack=km_pack, **bat_kw)
+        bat_t = build_bat_plan(src_t, num_nodes, device=dev, km_pack=km_pack, **bat_kw)
         secs["bat_plans"] = time.perf_counter() - t0
     hyb = hyb_t = None
     if "stream" in layouts and nw == 0 and len(src):

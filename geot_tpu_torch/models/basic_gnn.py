@@ -1,14 +1,14 @@
-"""Stacked-conv GNN.
+"""Stacked-conv GNNs, SGC and APPNP.
 
-Port of `geot_tpu/models/basic_gnn.py:32-127` (`BasicGNN`, `GCN`,
-`GraphSAGE`, `GAT`) and of `MODELS` for its three ported models, for
-`jk=None`, `norm=None`, ReLU and dropout: num_layers convs, each but the
-last followed by ReLU and dropout, the last mapping to `out_features`.
+Port of `geot_tpu/models/basic_gnn.py:32-184` (`BasicGNN`, `GCN`, `GIN`,
+`GraphSAGE`, `GAT`, `SGC`, `APPNP`) and of `MODELS`, for `jk=None`,
+`norm=None`, ReLU and dropout: num_layers convs, each but the last
+followed by ReLU and dropout, the last mapping to `out_features`.
 `conv_kwargs` and the compute `dtype` reach every conv, as in the
-reference's `_make_conv`. Other norm/jk options raise. Dropout is the
-identity in eval mode; in training mode its masks come from the
-`torch.Generator` the caller passes to `forward`, never from the global
-RNG.
+reference's `_make_conv`. Other norm/jk options raise (`act_first` is not
+ported either: ROADMAP A.7). Dropout is the identity in eval mode; in
+training mode its masks come from the `torch.Generator` the caller passes
+to `forward`, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -19,10 +19,37 @@ import torch
 from torch import nn
 
 from geot_tpu_torch.graph.structures import Graph
-from geot_tpu_torch.models.conv import GATConv, GCNConv, SAGEConv
+from geot_tpu_torch.models.conv import (
+    APPNPConv,
+    GATConv,
+    GCNConv,
+    GINConv,
+    SAGEConv,
+    SGConv,
+    _dense,
+)
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BasicGNN", "GCN", "GraphSAGE", "GAT", "MODELS"]
+__all__ = ["BasicGNN", "GCN", "GIN", "GraphSAGE", "GAT", "SGC", "APPNP", "MODELS"]
+
+
+def flax_dropout(x: torch.Tensor, rate: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep with probability 1 - rate, scale kept values
+    by 1 / (1 - rate); the identity out of training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    if generator.device != x.device:
+        raise ValueError(f"dropout generator is on {generator.device}, "
+                         f"activations on {x.device}: pass a generator on "
+                         f"the activations' device")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class BasicGNN(nn.Module):
@@ -48,9 +75,9 @@ class BasicGNN(nn.Module):
     ):
         super().__init__()
         if norm is not None:
-            raise NotImplementedError(f"norm={norm!r} is not ported (ROADMAP A.8)")
+            raise NotImplementedError(f"norm={norm!r} is not ported (ROADMAP A.7)")
         if jk is not None:
-            raise NotImplementedError(f"jk={jk!r} is not ported (ROADMAP A.8)")
+            raise NotImplementedError(f"jk={jk!r} is not ported (ROADMAP A.7)")
         dev = resolve_device(device)
         self.dropout_rate = float(dropout_rate)
         out_dim = out_features or hidden_features
@@ -67,22 +94,7 @@ class BasicGNN(nn.Module):
         self.convs = nn.ModuleList(convs)
 
     def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """flax `nn.Dropout`: keep with probability 1 - rate, scale kept
-        values by 1 / (1 - rate)."""
-        rate = self.dropout_rate
-        if not self.training or rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("dropout in training mode needs an explicit torch.Generator")
-        if generator.device != x.device:
-            raise ValueError(f"dropout generator is on {generator.device}, "
-                             f"activations on {x.device}: pass a generator on "
-                             f"the activations' device")
-        if rate >= 1.0:
-            return torch.zeros_like(x)
-        u = torch.rand(x.shape, generator=generator, device=x.device)
-        keep = u >= rate
-        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+        return flax_dropout(x, self.dropout_rate, self.training, generator)
 
     def forward(
         self, x: torch.Tensor, graph: Graph, generator: Optional[torch.Generator] = None
@@ -103,6 +115,13 @@ class GCN(BasicGNN):
     conv_cls = GCNConv
 
 
+class GIN(BasicGNN):
+    """GINConv stack (each conv's MLP [width, width]; `conv_kwargs` may
+    carry eps, train_eps and hidden); the graph holds no self-loops."""
+
+    conv_cls = GINConv
+
+
 class GraphSAGE(BasicGNN):
     """SAGEConv stack, mean aggregation; the graph holds no self-loops."""
 
@@ -117,10 +136,80 @@ class GAT(BasicGNN):
     conv_cls = GATConv
 
 
-# name -> (model class, needs_self_loops), the entries of the reference's
-# MODELS (`geot_tpu/models/basic_gnn.py`) for the ported models
+class SGC(nn.Module):
+    """One SGConv of k = num_layers propagations to `out_features` (or
+    `hidden_features`, otherwise unused: the reference keeps it for MODELS'
+    uniform signature). `convs[0]` is the flax `SGConv_0`. The graph must
+    include self-loops."""
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden_features: int,
+        num_layers: int = 2,
+        out_features: Optional[int] = None,
+        *,
+        backend: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.convs = nn.ModuleList([SGConv(in_features, out_features or hidden_features,
+                                           k=num_layers, backend=backend,
+                                           generator=generator, device=dev)])
+
+    def forward(self, x: torch.Tensor, graph: Graph,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.convs[0](x, graph)
+
+
+class APPNP(nn.Module):
+    """An MLP of num_layers Dense layers (ReLU and dropout between them;
+    `lins[i]` is the flax `Dense_{i}`), then `APPNPConv` (k propagations,
+    teleport alpha; the flax `APPNPConv_0`, no parameters). The graph must
+    include self-loops."""
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden_features: int,
+        num_layers: int = 2,
+        out_features: Optional[int] = None,
+        *,
+        k: int = 10,
+        alpha: float = 0.1,
+        dropout_rate: float = 0.0,
+        backend: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dropout_rate = float(dropout_rate)
+        out_dim = out_features or hidden_features
+        widths = [in_features] + [hidden_features] * (num_layers - 1) + [out_dim]
+        self.lins = nn.ModuleList(_dense(a, b, generator) for a, b in zip(widths[:-1],
+                                                                             widths[1:]))
+        self.prop = APPNPConv(k=k, alpha=alpha, backend=backend)
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor, graph: Graph,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i, lin in enumerate(self.lins):
+            x = lin(x)
+            if i + 1 < len(self.lins):
+                x = flax_dropout(torch.relu(x), self.dropout_rate, self.training, generator)
+        return self.prop(x, graph)
+
+
+# name -> (model class, needs_self_loops): the reference's MODELS
+# (`geot_tpu/models/basic_gnn.py:176-184`, its testmodels matrix)
 MODELS = {
     "gcn": (GCN, True),
+    "gin": (GIN, False),
     "graphsage": (GraphSAGE, False),
     "gat": (GAT, True),
+    "sgc": (SGC, True),
+    "appnp": (APPNP, True),
 }

@@ -1,15 +1,15 @@
-"""GCN, GraphSAGE and GAT layers over the fused SpMM.
+"""GCN, GraphSAGE, GIN, GAT, SGC and APPNP layers over the fused SpMM.
 
-Port of `geot_tpu/models/conv.py:47-317` (`prepare_graph`,
-`gcn_edge_weight`, `GCNConv`, `SAGEConv`, `GATConv`). The aggregation is a
-direct call into `segment_spmm` (GAT: `gat_attention_spmm`) over a
-prebuilt `Graph`.
+Port of `geot_tpu/models/conv.py:47-357` (`prepare_graph`,
+`gcn_edge_weight`, `GCNConv`, `SAGEConv`, `MLP`, `GINConv`, `GATConv`,
+`SGConv`, `APPNPConv`). The aggregation is a direct call into
+`segment_spmm` (GAT: `gat_attention_spmm`) over a prebuilt `Graph`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,8 +20,8 @@ from geot_tpu_torch.graph.structures import Graph, build_graph
 from geot_tpu_torch.ops.api import gat_attention_spmm, segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
 
-__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "GATConv",
-           "glorot_uniform_", "lecun_normal_"]
+__all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "GATConv", "MLP",
+           "GINConv", "SGConv", "APPNPConv", "glorot_uniform_", "lecun_normal_"]
 
 
 def prepare_graph(
@@ -157,6 +157,27 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) ->
                                     generator=generator)
 
 
+def _dense(in_features: int, features: int, generator: Optional[torch.Generator],
+           use_bias: bool = True) -> nn.Linear:
+    """flax `nn.Dense` as an `nn.Linear` (weight [out, in] = the kernel
+    transposed): lecun normal weight, zero bias, drawn from `generator` on
+    the CPU."""
+    lin = nn.Linear(in_features, features, bias=use_bias)
+    lecun_normal_(lin.weight, generator)
+    if use_bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`lin(x)`, or with `dtype` the product in that compute dtype (flax
+    `Dense(dtype=...)`: input and float32 parameters cast to it)."""
+    if dtype is None:
+        return lin(x)
+    b = None if lin.bias is None else lin.bias.to(dtype)
+    return torch.nn.functional.linear(x.to(dtype), lin.weight.to(dtype), b)
+
+
 class GCNConv(nn.Module):
     """Graph convolution out = A_hat @ (X W) + b, A_hat = D^-1/2 (A+I) D^-1/2.
 
@@ -242,29 +263,17 @@ class SAGEConv(nn.Module):
         self.normalize = normalize
         self.backend = backend
         self.dtype = dtype
-        self.lin_l = nn.Linear(in_features, features, bias=use_bias)
-        lecun_normal_(self.lin_l.weight, generator)
-        if use_bias:
-            nn.init.zeros_(self.lin_l.bias)
-        self.lin_r = None
-        if root_weight:
-            self.lin_r = nn.Linear(in_features, features, bias=False)
-            lecun_normal_(self.lin_r.weight, generator)
+        self.lin_l = _dense(in_features, features, generator, use_bias)
+        self.lin_r = _dense(in_features, features, generator, False) if root_weight else None
         self.to(dev)
-
-    def _linear(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            return lin(x)
-        b = None if lin.bias is None else lin.bias.to(self.dtype)
-        return torch.nn.functional.linear(x, lin.weight.to(self.dtype), b)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         agg = segment_spmm(graph, x, reduce=self.aggr, backend=self.backend)
-        out = self._linear(self.lin_l, agg)
+        out = _linear(self.lin_l, agg, self.dtype)
         if self.lin_r is not None:
-            out = out + self._linear(self.lin_r, x)
+            out = out + _linear(self.lin_r, x, self.dtype)
         if self.normalize:
             out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
                                     min=1e-12)
@@ -332,3 +341,128 @@ class GATConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+
+class MLP(nn.Module):
+    """The MLP inside GIN (reference `MLP`, conv.py:218-234): Dense layers
+    to the widths in `hidden`, ReLU between them. `lins[j]` is the flax
+    `Dense_{j}`; `dtype` is the compute dtype."""
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden: Sequence[int],
+        *,
+        dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dtype = dtype
+        widths = [in_features] + list(hidden)
+        self.lins = nn.ModuleList(_dense(a, b, generator) for a, b in zip(widths[:-1],
+                                                                             widths[1:]))
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j, lin in enumerate(self.lins):
+            x = _linear(lin, x, self.dtype)
+            if j + 1 < len(self.lins):
+                x = torch.relu(x)
+        return x
+
+
+class GINConv(nn.Module):
+    """GIN: out = MLP((1 + eps) * x_i + sum_{j->i} x_j) (reference
+    conv.py:237-263), the MLP [hidden, features] wide (`hidden` defaults to
+    `features`). The sum is the unweighted fused SpMM; the graph should
+    hold no self-loops. With `train_eps` eps is a parameter (the flax
+    `eps`, a scalar), else a constant. `dtype` is the compute dtype, as in
+    `GCNConv`; the MLP's weights are drawn as flax's `nn.Dense` does from
+    `generator` on the CPU and moved to `device` (default: the CUDA
+    card)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        hidden: Optional[int] = None,
+        eps: float = 0.0,
+        train_eps: bool = False,
+        backend: str = "auto",
+        dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.backend = backend
+        self.dtype = dtype
+        self.eps_value = float(eps)
+        self.eps = nn.Parameter(torch.tensor(float(eps))) if train_eps else None
+        self.mlp = MLP(in_features, [hidden or features, features], dtype=dtype,
+                       generator=generator, device=dev)
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        agg = segment_spmm(graph, x, reduce="sum", backend=self.backend)
+        eps = (self.eps.to(x.dtype) if self.eps is not None
+               else torch.tensor(self.eps_value, dtype=x.dtype, device=x.device))
+        return self.mlp((1.0 + eps) * x + agg)
+
+
+class SGConv(nn.Module):
+    """Simplified GCN: out = A_hat^k X W + b (reference conv.py:313-333).
+    The graph must hold self-loops. A graph with slot weights carries the
+    GCN norm and the SpMM takes it; otherwise the norm is computed per call
+    (`gcn_edge_weight`) and taken as per-call weights, also where the
+    graph's own weights already hold a baked norm (the reference's double
+    normalization, ROADMAP C.1, reproduced). `dense` is the flax
+    `Dense_0`, drawn as flax does from `generator`."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        k: int = 2,
+        use_bias: bool = True,
+        backend: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.k = int(k)
+        self.backend = backend
+        self.dense = _dense(in_features, features, generator, use_bias)
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
+        for _ in range(self.k):
+            x = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
+        return self.dense(x)
+
+
+class APPNPConv(nn.Module):
+    """APPNP propagation: z_{k+1} = (1 - alpha) A_hat z_k + alpha h, k times
+    from z_0 = h (reference conv.py:336-357), over already transformed
+    features; no parameters. The graph must hold self-loops; the norm is
+    taken as in `SGConv` (per call unless the graph has slot weights)."""
+
+    def __init__(self, k: int = 10, alpha: float = 0.1, backend: str = "auto"):
+        super().__init__()
+        self.k, self.alpha, self.backend = int(k), float(alpha), backend
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
+        h = x
+        for _ in range(self.k):
+            x = (1.0 - self.alpha) * segment_spmm(graph, x, edge_weight=w,
+                                                  backend=self.backend) + self.alpha * h
+        return x

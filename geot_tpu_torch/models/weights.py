@@ -1,114 +1,161 @@
-"""Carry GCN, GraphSAGE and GAT parameters between the reference's flax
-layout and the port.
+"""Carry the parameters of every model in `MODELS` between the reference's
+flax layout and the port.
 
-The flax tree of `geot_tpu.models.GCN` holds, for layer i,
-`GCNConv_{i}/Dense_0/kernel` [in, out] and `GCNConv_{i}/bias` [out]; the
-port's `GCN` keeps them as `convs.{i}.lin.weight` [out, in] (the kernel
-transposed) and `convs.{i}.bias`. The tree of `geot_tpu.models.GraphSAGE`
-holds `SAGEConv_{i}/Dense_0` {kernel, bias} (on the aggregate) and
-`SAGEConv_{i}/Dense_1` {kernel} (on the root); the port's `GraphSAGE`
-keeps them as `convs.{i}.lin_l.{weight, bias}` and `convs.{i}.lin_r.weight`.
-The tree of `geot_tpu.models.GAT` holds `GATConv_{i}/Dense_0/kernel` [in,
-heads*features], `att_src` and `att_dst` [1, heads, features] and `bias`;
-the port's `GAT` keeps them as `convs.{i}.lin.weight` (transposed),
-`convs.{i}.att_src`, `convs.{i}.att_dst` and `convs.{i}.bias`.
-`params_from_flax` and `params_to_flax` are inverses.
+A flax `Dense` kernel [in, out] is the port's `nn.Linear` weight [out, in]
+transposed; biases and the other leaves keep their shapes. Per flax
+module of the reference, the port's state-dict keys are:
+
+    GCNConv_{i}/Dense_0/kernel, bias         convs.{i}.lin.weight, convs.{i}.bias
+    SAGEConv_{i}/Dense_0/{kernel, bias}      convs.{i}.lin_l.{weight, bias}
+    SAGEConv_{i}/Dense_1/kernel              convs.{i}.lin_r.weight
+    GATConv_{i}/Dense_0/kernel               convs.{i}.lin.weight
+    GATConv_{i}/{att_src, att_dst, bias}     convs.{i}.{att_src, att_dst, bias}
+    GINConv_{i}/MLP_0/Dense_{j}/{kernel, bias}
+                                             convs.{i}.mlp.lins.{j}.{weight, bias}
+    GINConv_{i}/eps (train_eps)              convs.{i}.eps
+    SGConv_{i}/Dense_0/{kernel, bias}        convs.{i}.dense.{weight, bias}
+    Dense_{i}/{kernel, bias} (APPNP's MLP)   lins.{i}.{weight, bias}
+
+APPNP's `APPNPConv_0` has no parameters (flax leaves it out of the tree).
+A port layer with attention vectors is a GATConv, else a `lin` layer is a
+GCNConv. `params_from_flax` and `params_to_flax` are inverses.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_flax", "params_to_flax"]
 
-_LAYER = re.compile(r"^(GCNConv|SAGEConv|GATConv)_(\d+)$")
-_STATE = re.compile(r"^convs\.(\d+)\.(lin\.weight|bias|lin_l\.weight|lin_l\.bias|lin_r\.weight"
-                    r"|att_src|att_dst)$")
-# the flax params of a GATConv besides Dense_0, kept under the same names
-_GAT_PARAMS = ("att_src", "att_dst", "bias")
-# flax Dense module of each SAGEConv linear, and its torch name
-_SAGE_DENSE = {"Dense_0": "lin_l", "Dense_1": "lin_r"}
+_MODULE = re.compile(r"^(GCNConv|SAGEConv|GATConv|GINConv|SGConv|Dense|APPNPConv)_(\d+)$")
+_DENSE = re.compile(r"^Dense_(\d+)$")
+_KB = {"kernel", "bias"}
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
+def _dense_leaves(name: str, dense: Mapping, prefix: str, allowed=_KB,
+                  required=("kernel",)) -> Dict[str, torch.Tensor]:
+    """`prefix`.weight (the kernel transposed) and `prefix`.bias of one
+    flax Dense, after checking its leaves."""
+    if not set(required) <= set(dense) <= set(allowed):
+        raise ValueError(f"unexpected parameters in {name}: {sorted(dense)}")
+    out = {f"{prefix}.weight": _t(np.asarray(dense["kernel"]).T)}
+    if "bias" in dense:
+        out[f"{prefix}.bias"] = _t(dense["bias"])
+    return out
+
+
+def _check_keys(name: str, layer: Mapping, allowed, required=()) -> None:
+    if not set(required) <= set(layer) <= set(allowed):
+        raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
+
+
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the port's `GCN`, `GraphSAGE` or `GAT` from the flax
-    params, given as nested dicts of numpy arrays (with or without the
-    outer "params" key)."""
+    """State dict for the port's model from the flax params of the same
+    model in the reference, given as nested dicts of numpy arrays (with or
+    without the outer "params" key)."""
     tree = params.get("params", params)
     state: Dict[str, torch.Tensor] = {}
     for name, layer in tree.items():
-        m = _LAYER.match(name)
+        m = _MODULE.match(name)
         if m is None:
-            raise ValueError(f"unexpected flax module {name!r}: only GCNConv, "
-                             "SAGEConv and GATConv layers port")
-        i = int(m.group(2))
-        if m.group(1) == "GATConv":
-            if set(layer) - {"Dense_0", *_GAT_PARAMS} or set(layer.get("Dense_0", {})) != {
-                    "kernel"} or not {"att_src", "att_dst"} <= set(layer):
-                raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
-            state[f"convs.{i}.lin.weight"] = _t(np.asarray(layer["Dense_0"]["kernel"]).T)
-            for k in _GAT_PARAMS:
-                if k in layer:
-                    state[f"convs.{i}.{k}"] = _t(layer[k])
-            continue
-        if m.group(1) == "GCNConv":
-            extra = set(layer) - {"Dense_0", "bias"}
-            if extra or set(layer["Dense_0"]) != {"kernel"}:
-                raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
-            state[f"convs.{i}.lin.weight"] = _t(np.asarray(layer["Dense_0"]["kernel"]).T)
+            raise ValueError(f"unexpected flax module {name!r}: only the layers of the "
+                             "models in MODELS port")
+        kind, i = m.group(1), int(m.group(2))
+        c = f"convs.{i}"
+        if kind == "GCNConv":
+            _check_keys(name, layer, {"Dense_0", "bias"}, ("Dense_0",))
+            state.update(_dense_leaves(f"{name}/Dense_0", layer["Dense_0"], f"{c}.lin",
+                                       allowed={"kernel"}))
             if "bias" in layer:
-                state[f"convs.{i}.bias"] = _t(layer["bias"])
-            continue
-        if set(layer) - set(_SAGE_DENSE) or "Dense_0" not in layer:
-            raise ValueError(f"unexpected parameters in {name!r}: {sorted(layer)}")
-        for dense, lin in _SAGE_DENSE.items():
-            if dense not in layer:
-                continue
-            allowed = {"kernel", "bias"} if dense == "Dense_0" else {"kernel"}
-            if not {"kernel"} <= set(layer[dense]) <= allowed:
-                raise ValueError(f"unexpected parameters in {name}/{dense}: "
-                                 f"{sorted(layer[dense])}")
-            state[f"convs.{i}.{lin}.weight"] = _t(np.asarray(layer[dense]["kernel"]).T)
-            if "bias" in layer[dense]:
-                state[f"convs.{i}.{lin}.bias"] = _t(layer[dense]["bias"])
+                state[f"{c}.bias"] = _t(layer["bias"])
+        elif kind == "GATConv":
+            _check_keys(name, layer, {"Dense_0", "att_src", "att_dst", "bias"},
+                        ("Dense_0", "att_src", "att_dst"))
+            state.update(_dense_leaves(f"{name}/Dense_0", layer["Dense_0"], f"{c}.lin",
+                                       allowed={"kernel"}))
+            for k in ("att_src", "att_dst", "bias"):
+                if k in layer:
+                    state[f"{c}.{k}"] = _t(layer[k])
+        elif kind == "SAGEConv":
+            _check_keys(name, layer, {"Dense_0", "Dense_1"}, ("Dense_0",))
+            state.update(_dense_leaves(f"{name}/Dense_0", layer["Dense_0"], f"{c}.lin_l"))
+            if "Dense_1" in layer:
+                state.update(_dense_leaves(f"{name}/Dense_1", layer["Dense_1"],
+                                           f"{c}.lin_r", allowed={"kernel"}))
+        elif kind == "GINConv":
+            _check_keys(name, layer, {"MLP_0", "eps"}, ("MLP_0",))
+            for dname, dense in layer["MLP_0"].items():
+                d = _DENSE.match(dname)
+                if d is None:
+                    raise ValueError(f"unexpected module {name}/MLP_0/{dname}")
+                state.update(_dense_leaves(f"{name}/MLP_0/{dname}", dense,
+                                           f"{c}.mlp.lins.{int(d.group(1))}", required=_KB))
+            if "eps" in layer:
+                state[f"{c}.eps"] = _t(layer["eps"])
+        elif kind == "SGConv":
+            _check_keys(name, layer, {"Dense_0"}, ("Dense_0",))
+            state.update(_dense_leaves(f"{name}/Dense_0", layer["Dense_0"], f"{c}.dense"))
+        elif kind == "Dense":  # APPNP's MLP: every Dense has its bias
+            state.update(_dense_leaves(name, layer, f"lins.{i}", required=_KB))
+        elif layer:  # APPNPConv
+            raise ValueError(f"{name!r} has no parameters, got {sorted(layer)}")
     return state
 
 
+# the port's key -> (flax path, leaf is a transposed kernel); GCN or GAT
+# `lin` layers are told apart by their attention vectors
+_KEY = re.compile(r"^(?:convs\.(\d+)\.(lin\.weight|bias|att_src|att_dst|lin_l\.weight"
+                  r"|lin_l\.bias|lin_r\.weight|eps|dense\.weight|dense\.bias"
+                  r"|mlp\.lins\.(\d+)\.(?:weight|bias))|lins\.(\d+)\.(weight|bias))$")
+
+
+def _flax_path(key: str, m: re.Match, gat: set) -> Tuple[Tuple[str, ...], bool]:
+    if m.group(4) is not None:  # APPNP's lins.{i}
+        leaf = m.group(5)
+        return (f"Dense_{m.group(4)}", "kernel" if leaf == "weight" else "bias"), \
+            leaf == "weight"
+    i, what = int(m.group(1)), m.group(2)
+    kernel = what.endswith("weight")
+    leaf = "kernel" if kernel else "bias"
+    if what.startswith("mlp."):
+        return (f"GINConv_{i}", "MLP_0", f"Dense_{m.group(3)}", leaf), kernel
+    if what == "eps":
+        return (f"GINConv_{i}", "eps"), False
+    if what.startswith("dense."):
+        return (f"SGConv_{i}", "Dense_0", leaf), kernel
+    if what.startswith("lin_"):
+        return (f"SAGEConv_{i}", "Dense_0" if what.startswith("lin_l") else "Dense_1",
+                leaf), kernel
+    layer = f"{'GATConv' if i in gat else 'GCNConv'}_{i}"
+    return ((layer, "Dense_0", "kernel") if what == "lin.weight" else (layer, what)), kernel
+
+
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """The flax params tree {"params": {"GCNConv_i": ...}},
-    {"params": {"SAGEConv_i": ...}} or {"params": {"GATConv_i": ...}} of
-    float32 numpy arrays, from the port's `GCN`, `GraphSAGE` or `GAT` state
-    dict (a layer with attention vectors is a GATConv)."""
-    tree: Dict[str, Dict] = {}
+    """The flax params tree {"params": {...}} of float32 numpy arrays of
+    the reference's model, from the port's state dict of the same model."""
     matches = []
     for key in state:
-        m = _STATE.match(key)
+        m = _KEY.match(key)
         if m is None:
-            raise ValueError(f"unexpected parameter {key!r}: only GCNConv, SAGEConv and "
-                             "GATConv layers port")
+            raise ValueError(f"unexpected parameter {key!r}: only the layers of the models "
+                             "in MODELS port")
         matches.append(m)
-    gat = {int(m.group(1)) for m in matches if m.group(2).startswith("att_")}
-    for m, value in zip(matches, state.values()):
-        i, what = int(m.group(1)), m.group(2)
+    gat = {int(m.group(1)) for m in matches
+           if m.group(2) is not None and m.group(2).startswith("att_")}
+    tree: Dict[str, Dict] = {}
+    for (key, value), m in zip(state.items(), matches):
+        path, kernel = _flax_path(key, m, gat)
         arr = value.detach().cpu().numpy().astype(np.float32)
-        if what in ("lin.weight", "bias", "att_src", "att_dst"):
-            layer = tree.setdefault(f"{'GATConv' if i in gat else 'GCNConv'}_{i}", {})
-            if what != "lin.weight":
-                layer[what] = arr.copy()
-            else:
-                layer["Dense_0"] = {"kernel": np.ascontiguousarray(arr.T)}
-            continue
-        lin, kind = what.split(".")
-        dense = "Dense_0" if lin == "lin_l" else "Dense_1"
-        entry = tree.setdefault(f"SAGEConv_{i}", {}).setdefault(dense, {})
-        entry["kernel" if kind == "weight" else "bias"] = (
-            np.ascontiguousarray(arr.T) if kind == "weight" else arr.copy())
+        node = tree
+        for step in path[:-1]:
+            node = node.setdefault(step, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T) if kernel else arr.copy()
     return {"params": tree}

@@ -44,6 +44,7 @@ SOURCES: Dict[str, str] = {
     "slot_segment_sum": "slot_segment_sum.cu",
     "slot_aeb": "slot_aeb.cu",
     "slot_mh": "slot_mh.cu",
+    "bat_segment_sum_packed": "bat_segment_sum_packed.cu",
 }
 
 # loaded libraries of this process, by kernel name

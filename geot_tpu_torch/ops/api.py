@@ -4,7 +4,7 @@ hybrid stream+gather plans, with their gradients.
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 `_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155,
 `_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_aeb_packed_ok` :267,
-`_aeb_sum` :281, `_bat_sum` :335 (wide branch), `_slot_spmm` :654,
+`_aeb_sum` :281, `_bat_sum` :335 (wide and packed branches), `_slot_spmm` :654,
 `_make_gws_static` :675 and `_make_gs` :1008 (one Function), `_spmm_fwd`
 :698 (its AEB branches), `_spmm_fwd_bat` :750, `_stream_accum` :778,
 `_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
@@ -43,7 +43,7 @@ from geot_tpu_torch.graph.plan import BatPlan, SegmentPlan, packed_width
 from geot_tpu_torch.graph.stream_plan import HybridPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
-from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
 from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_mh,
@@ -291,27 +291,58 @@ def _edge_dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def _bat_width(bp: BatPlan, n: int) -> int:
+    """The columns the BAT kernels take for n features: the packed width
+    where the plan is packed for it (km_pack == 128 // packed_width(n) and
+    `dst_km` set: the reference's test, api.py:347-348), for
+    `bat_segment_sum_packed`; else n padded to the wide kernel's feature
+    tile, for `bat_segment_sum`."""
+    nw = packed_width(n)
+    if nw and bp.km_pack == 128 // nw and bp.dst_km is not None:
+        return nw
+    return _round_up(max(n, 1), _pick_f_tile(n))
+
+
 def _bat_sum(
     bp: BatPlan,
     vals_fn: Callable,
     n: int,
     w_edge: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Tiled segment sum over EDGE-ordered values through the BAT kernel.
+    """Tiled segment sum over EDGE-ordered values through the BAT kernels.
     `vals_fn(e_begin, size)` returns value rows for edges
-    [e_begin, e_begin + size) ([<= size, n], n a multiple of the feature
-    tile), or the whole edge list for e_begin None.
+    [e_begin, e_begin + size) ([<= size, n]), or the whole edge list for
+    e_begin None; n is `_bat_width(bp, n)`: a packed width on a plan
+    packed for it (`bat_segment_sum_packed`, the reference's packed
+    branch), else a multiple of the wide kernel's feature tile
+    (`bat_segment_sum`).
 
-    The reference runs more than 2 chunks under `lax.scan` (`_bat_sum_scan`,
-    api.py:415) to compile one chunk body. PyTorch runs eagerly, so every
-    chunk count goes through this one Python loop; the sums are the same.
-    Each chunk gathers min(chunk_vblocks, tiles + 1) value blocks, as the
-    scan does (every real block of a chunk lies in that span).
+    The reference runs more than 2 chunks of a wide sum under `lax.scan`
+    (`_bat_sum_scan`, api.py:415) to compile one chunk body. PyTorch runs
+    eagerly, so every chunk count goes through this one Python loop; the
+    sums are the same. Each chunk gathers min(chunk_vblocks, tiles + 1)
+    value blocks, as the scan does (every real block of a chunk lies in
+    that span), and its dst ids, k-major ones too, are rebased to the
+    chunk's blocks and windows (reference :383-393).
     """
     E, s = bp.e_tile, bp.s_tile
+    if _bat_width(bp, n) != n:
+        raise ValueError(f"_bat_sum: width {n} is not the plan's kernel width "
+                         f"{_bat_width(bp, n)}")
+    packed = n < 128  # a packed width (8-64) on a plan packed for it
     f_tile = _pick_f_tile(n)
     if bp.chunks and len(bp.chunk_vbase) != len(bp.chunks):
         raise ValueError("chunk_vbase out of step with chunks; use plan.with_chunks")
+
+    def rebase(ids: torch.Tensor, vbase: int, nblk: int, w0: int) -> torch.Tensor:
+        # a chunk's dst ids: its blocks, then one forced -1 block for the
+        # pad (sentinel) tiles; ids shift into the chunk's window-local
+        # range (-1 entries shift too but stay below any window)
+        real = ids[vbase : min(vbase + nblk, bp.n_vblocks)]
+        out = torch.full((nblk + 1, 1, E), -1, dtype=ids.dtype, device=ids.device)
+        out[: real.shape[0]] = real
+        out[: real.shape[0]] -= w0 * s
+        return out
 
     def run_one(cp: BatPlan, i, c):
         t0, t1, w0, _ = c
@@ -321,26 +352,22 @@ def _bat_sum(
             vbase = bp.chunk_vbase[i]
             nblk = min(bp.chunk_vblocks or (t1 - t0 + 1), t1 - t0 + 1)
             size = nblk * E
-            # rebase: pad (sentinel) tiles point one past the chunk's blocks
-            # at a forced -1 block; dst ids shift into the chunk's window-
-            # local range (-1 entries shift too but stay below any window)
             vb_rel = torch.where(
                 cp.vblock >= bp.n_vblocks,
                 torch.full_like(cp.vblock, nblk),
                 cp.vblock - vbase,
             )
-            real = bp.dst3[vbase : min(vbase + nblk, bp.n_vblocks)]
-            dst3 = torch.full(
-                (nblk + 1, 1, E), -1, dtype=bp.dst3.dtype, device=bp.dst3.device
-            )
-            dst3[: real.shape[0]] = real
-            dst3[: real.shape[0]] -= w0 * s
-            cpp = dataclasses.replace(cp, vblock=vb_rel, dst3=dst3, n_vblocks=nblk)
+            cpp = dataclasses.replace(
+                cp, vblock=vb_rel, dst3=rebase(bp.dst3, vbase, nblk, w0), n_vblocks=nblk,
+                dst_km=rebase(bp.dst_km, vbase, nblk, w0) if packed else None)
             v = vals_fn(vbase * E, size)
             we = None
             if w_edge is not None:
                 we = w_edge[vbase * E : vbase * E + size]
-        out = bat_segment_sum(cpp, v, we, f_tile=f_tile)
+        if packed:
+            out = bat_segment_sum_packed(cpp, v, we)
+        else:
+            out = bat_segment_sum(cpp, v, we, f_tile=f_tile)
         return out[: cpp.num_segments]
 
     return _plan_sum_chunked(bp, run_one)
@@ -349,20 +376,21 @@ def _bat_sum(
 def _spmm_fwd_bat(
     bp: BatPlan, x: torch.Tensor, src: torch.Tensor, w_edge: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """sum_e w_e * x[src_e] by dst window via the BAT kernel: the gather
+    """sum_e w_e * x[src_e] by dst window via the BAT kernels: the gather
     emits rows in raw EDGE order and weights stream in edge order. Returns
-    [num_segments, n] float32 whatever x's dtype (the kernel sums float32;
+    [num_segments, n] float32 whatever x's dtype (the kernels sum float32;
     callers cast back).
 
-    x's columns are padded to the kernel's feature tile BEFORE the gather
-    (so no chunk pays a pad copy of its gathered block). The reference does
-    this only for n > 64 and pads narrow rows after the gather; the sums
-    are the same."""
+    x's columns are padded to the kernels' width (`_bat_width`: the packed
+    width on a plan packed for n, else the wide kernel's feature tile)
+    BEFORE the gather, so no chunk pays a pad copy of its gathered block.
+    The reference does this only for n > 64 and pads narrow rows after the
+    gather; the sums are the same."""
     x = x.float()
     if w_edge is not None:
         w_edge = w_edge.float()
     n = x.shape[1]
-    f_pad = _round_up(max(n, 1), _pick_f_tile(n))
+    f_pad = _bat_width(bp, n)
     if f_pad != n:
         x = F.pad(x, (0, f_pad - n))
     E = bp.e_tile
@@ -559,14 +587,15 @@ class _GatherWeightScatterBat(torch.autograd.Function):
 
 
 class _IndexScatterBat(torch.autograd.Function):
-    """Sorted segment sum of edge-ordered rows through the BAT kernel (the
-    `BatPlan` branch of `_make_iscat`); backward dvals = g[index]."""
+    """Sorted segment sum of edge-ordered rows through the BAT kernels (the
+    `BatPlan` branch of `_make_iscat`: packed for narrow rows on a plan
+    packed for them, else wide); backward dvals = g[index]."""
 
     @staticmethod
     def forward(ctx, vals, index, plan):
         ctx.save_for_backward(index)
         n = vals.shape[1]
-        f_pad = _round_up(max(n, 1), _pick_f_tile(n))
+        f_pad = _bat_width(plan, n)
         v = vals.float()
         v = F.pad(v, (0, f_pad - n)) if f_pad != n else v.contiguous()
 
@@ -1144,6 +1173,31 @@ class _MhSlot(torch.autograd.Function):
         return dvals, dw, None, None
 
 
+class _XhGradT(torch.autograd.Function):
+    """The identity on the fused GAT route's output [n, H, D], which adds
+    the xh gradient in backward: the multi-head SpMM of the output gradient
+    over `plan_t` with the attention in transposed order (att[perm_t]),
+    through `plan_segment_sum_mh`, as the composed route takes it (`_MhSpmm`):
+    a fixed order with no atomics. The slot gather of xh is detached, so
+    this is xh's only gradient; the attention's comes through `_MhSlot`."""
+
+    @staticmethod
+    def forward(ctx, out, xh, att, plan_t, perm_t):
+        ctx.save_for_backward(att, perm_t)
+        ctx.plan_t, ctx.xh_dtype = plan_t, xh.dtype
+        return out.view_as(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        att, perm_t = ctx.saved_tensors
+        dxh = None
+        if ctx.needs_input_grad[1]:
+            dxh = _mh_fwd(ctx.plan_t, g.contiguous(),
+                          att.index_select(0, perm_t.long())).to(ctx.xh_dtype)
+        return g, dxh, None, None, None
+
+
 def gat_attention_spmm(
     graph: Graph,
     xh: torch.Tensor,
@@ -1163,9 +1217,10 @@ def gat_attention_spmm(
     over the dst-sorted runs (`segment_softmax`'s statistics). Then, on
     graphs of at most `fused_max_edges` edges, it is placed into the slot
     layout by each slot's edge (pad slots weigh exactly 0), chunk by chunk,
-    and summed by `plan_segment_sum_mh` (`_MhSlot`, whose backward is pure
-    gathers). Past it, it feeds `mh_spmm` (the same kernel over `plan`,
-    and over `plan_t` for the xh gradient). The switch defaults to the
+    and summed by `plan_segment_sum_mh` (`_MhSlot`, whose attention
+    gradient is pure gathers); the xh gradient is the mh kernel over
+    `plan_t` (`_XhGradT`). Past it, it feeds `mh_spmm` (the same kernel
+    over `plan`, and over `plan_t` for the xh gradient). The switch defaults to the
     reference's `GEOT_GAT_FUSED_MAX_EDGES`, a TPU figure, not measured on
     the H100; the reference's other switch, the plain aggregation below
     H*D 64 on its composed route, is a TPU measurement and is not carried
@@ -1175,10 +1230,10 @@ def gat_attention_spmm(
     Each gather of per-node terms into edge order has a fixed-order
     backward (`_gather_rows` with run boundaries; the src-indexed one
     through `perm_t`, the src-sorted order), and so has the placement into
-    slots (one slot per edge). On the fused route the xh gradient adds
-    each slot's term at its source row with `index_add_` (atomics on the
-    card), so it alone varies in float32 summation order between reruns
-    (ROADMAP C.12)."""
+    slots (one slot per edge). The xh gradient is a kernel sum over
+    `plan_t` on both routes (it was an `index_add_` over the fused route's
+    slot gather, with atomics on the card: ROADMAP C.12), so every
+    gradient is bit-identical across reruns."""
     _check_backend(backend)
     n = graph.num_nodes
     H = alpha_src.shape[1]
@@ -1201,7 +1256,8 @@ def gat_attention_spmm(
     if plan is None:
         raise NotImplementedError("the fused GAT route runs on the graph's slot plans: build "
                                   "it with 'slot' in layouts")
-    xflat = xh.reshape(-1, H * D)
+    # detached: xh's gradient is _XhGradT's, over plan_t
+    xflat = xh.detach().reshape(-1, H * D)
 
     def run_one(cp, i, c):
         w = _gather_rows(att, cp.edge_pos.reshape(-1).long())
@@ -1211,4 +1267,5 @@ def gat_attention_spmm(
         vals = xflat.index_select(0, cp.src_slots.reshape(-1))
         return _MhSlot.apply(vals, w.to(vals.dtype), cp, D)[: cp.num_segments]
 
-    return _plan_sum_chunked(plan, run_one)[:n].reshape(n, H, D)
+    out = _plan_sum_chunked(plan, run_one)[:n].reshape(n, H, D)
+    return _XhGradT.apply(out, xh, att.detach().to(xh.dtype), graph.plan_t, graph.perm_t)

@@ -1,6 +1,6 @@
-// Slot-layout segment sums for Hopper (sm_90a): the kernels of slot_aeb.cu
-// and slot_mh.cu, each of which binds them to a plain C interface for
-// ctypes. They extend the design of slot_segment_sum.cu (sr, sr_packed,
+// Slot-layout segment sums for Hopper (sm_90a): the kernels of slot_aeb.cu,
+// slot_mh.cu and bat_segment_sum_packed.cu, each of which binds them to a
+// plain C interface for ctypes. They extend the design of slot_segment_sum.cu (sr, sr_packed,
 // pr), which keeps its own copy: built from this template, its 128-column
 // sr tile kernel took 71 registers instead of 64 and 10% more time at
 // F 500 (1.11 vs 1.01 ms on the flickr plan, NVIDIA H100 80GB HBM3, 700 W,
@@ -24,6 +24,17 @@
 //            column c's head, 0 past H heads
 //
 // Each kind (`kAeb`, `kHeads`) is its own template instance.
+//
+// A third kind, `kBat`, reads a block-aligned-tile (BAT) plan instead: tile
+// t's E slots are the E edges of value block b = vblock[t] (edges b*E ..
+// b*E + E - 1 of the dst-sorted list), its dst ids come from the block's
+// k-major copy (edge j at dst[b*E + (j % P)*(E / P) + j / P], P = 128 / F
+// edges per TPU lane row), its values from vals[b*E + j] (a row past the
+// end reads as zero) and its weight from w_edge[b*E + j] (1 without
+// weights). A slot is live when its dst lies in window out_block[t]: the
+// other edges of the block, the -1 pads and the sentinel block add nothing.
+// A live edge of weight 0 adds 0 * v, as the TPU kernel does. A block's
+// dst ids are sorted, so its in-window edges are one contiguous run.
 //
 // A slot is live when its weight is not 0 (kHeads: when any of its H heads'
 // weights is not 0); a slot that is not live is not read. A plan's pad slots
@@ -90,6 +101,7 @@ constexpr int kRowScalar = 1;  // row-major [*, F], any F
 // that each kind compiles only its own loads
 constexpr int kAeb = 1;    // values and/or per-call weights in edge order (sr2, packed2)
 constexpr int kHeads = 2;  // slot-order values, per-(slot, head) weights (mh)
+constexpr int kBat = 3;    // a BAT plan's value blocks, k-major dst ids (bat packed)
 
 // Where a tile kernel's values and weights come from (see the top). The
 // kernel takes `vals` and `w` as __restrict__ parameters of their own; the
@@ -97,11 +109,12 @@ constexpr int kHeads = 2;  // slot-order values, per-(slot, head) weights (mh)
 struct SlotSrc {
   const float* vals;
   const float* w;       // [T*E] slot weights, or [T*E, H] head weights (kHeads)
-  const int* e0;        // kAeb: [T] edge of slot 0 of each tile
-  int edge_vals;        // kAeb: 1 if the values are in edge order
-  int64_t e_base;       // kAeb: edge of vals' row 0 (edge order)
-  int64_t n_rows;       // kAeb: rows of vals (edge order)
-  const float* w_edge;  // kAeb: [n_w] per-call weights in edge order, or nullptr
+  const int* e0;        // kAeb: [T] edge of slot 0 of each tile; kBat: [T] vblock
+                        // (edge of slot 0 = e0[t] * E)
+  int edge_vals;        // kAeb: 1 if the values are in edge order (kBat: always)
+  int64_t e_base;       // kAeb, kBat: edge of vals' row 0 (edge order)
+  int64_t n_rows;       // kAeb, kBat: rows of vals (edge order)
+  const float* w_edge;  // kAeb, kBat: [n_w] weights in edge order, or nullptr
   int64_t n_w;
   int H, head_dim;      // kHeads
 };
@@ -201,7 +214,7 @@ __device__ __forceinline__ float4 slot_value(const float* __restrict__ vals,
                                              const SlotSrc& s, int F, int col, int64_t slot,
                                              int64_t edge, float w, const int (&hc)[4]) {
   int64_t row = slot;
-  if constexpr (KIND == kAeb) {
+  if constexpr (KIND == kAeb || KIND == kBat) {
     if (s.edge_vals) {
       row = edge - s.e_base;
       if (row < 0 || row >= s.n_rows) return zero4();
@@ -262,6 +275,7 @@ slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, Sl
   const int64_t slot0 = (int64_t)t * E;
   int64_t edge0 = 0;
   if constexpr (KIND == kAeb) edge0 = __ldg(src.e0 + t);
+  if constexpr (KIND == kBat) edge0 = (int64_t)__ldg(src.e0 + t) * E;
   int hc[4] = {-1, -1, -1, -1};
   if constexpr (KIND == kHeads) {
 #pragma unroll
@@ -289,8 +303,23 @@ slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, Sl
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       const int j = j0 + k * P + g;
-      wk[k] = slot_weight<KIND>(w, src, slot0 + j, edge0 + j, j < j_end);
-      rk[k] = wk[k] != 0.f ? __ldg(dst + slot0 + j) - base : -1;
+      if constexpr (KIND == kBat) {
+        // j0 is a multiple of P, so j % P == g: the group reads its own
+        // k-major lane of the block
+        int r = -1;
+        if (j < j_end) {
+          r = __ldg(dst + edge0 + (int64_t)g * (E / P) + j / P) - base;
+          if (r >= s_tile) r = -1;
+        }
+        rk[k] = r < 0 ? -1 : r;
+        const int64_t e = edge0 + j;
+        wk[k] = rk[k] < 0 ? 0.f
+                : src.w_edge == nullptr ? 1.f
+                : (e < src.n_w ? __ldg(src.w_edge + e) : 0.f);
+      } else {
+        wk[k] = slot_weight<KIND>(w, src, slot0 + j, edge0 + j, j < j_end);
+        rk[k] = wk[k] != 0.f ? __ldg(dst + slot0 + j) - base : -1;
+      }
     }
     float4 vk[kBatch];
 #pragma unroll

@@ -10,8 +10,10 @@ share no code with the tiled path, so tests hold that path against them.
 `plan_segment_sum_pr_plain`, `plan_segment_sum_sr2_plain`,
 `plan_segment_sum_packed2_plain` and `plan_segment_sum_mh_plain` compute
 what the CUDA kernels of `ops/slot_kernels.py` compute, with the same
-arguments: the CPU path runs them, and the tests and `chip_smoke.py` hold
-the kernels against them.
+arguments, and `bat_segment_sum_packed_plain` what the packed BAT kernel
+of `ops/bat_kernels.py` computes (`bat_tiles_plain` is the tile schedule
+it shares with the wide BAT kernel's plain version): the CPU path runs
+them, and the tests and `chip_smoke.py` hold the kernels against them.
 
 The fused gathers run over edge chunks of at most REF_CHUNK_BYTES of
 gathered rows, in edge order, so the plain path stays within memory at
@@ -38,6 +40,8 @@ __all__ = [
     "plan_segment_sum_sr2_plain",
     "plan_segment_sum_packed2_plain",
     "plan_segment_sum_mh_plain",
+    "bat_tiles_plain",
+    "bat_segment_sum_packed_plain",
 ]
 
 VALID_REDUCE = ("sum", "mean")
@@ -310,3 +314,50 @@ def plan_segment_sum_mh_plain(plan, vals_slots: torch.Tensor, w_heads: torch.Ten
     v = vals_slots[:n].index_select(0, keep).float() * lane_w
     out = torch.zeros(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
     return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)
+
+
+def bat_tiles_plain(bp, dst_blocks: torch.Tensor, vals: torch.Tensor,
+                    w_edge=None) -> torch.Tensor:
+    """The BAT kernels' function over a plan's tiles, in float32 with
+    `index_add_`: for each tile t, sum w[e] * vals[e] over the edges e =
+    vblock[t]*E + j of its value block whose dst `dst_blocks[vblock[t],
+    j]` lies in window out_block[t], into that row. dst_blocks [n_vblocks
+    + 1, E] holds each block's dst ids in edge order (-1 pads add
+    nothing). Rows e >= vals.shape[0] read as zero, weights e >=
+    len(w_edge) as zero. Returns [n_blocks*s_tile, F] float32, every row
+    written (empty rows 0)."""
+    E, s = bp.e_tile, bp.s_tile
+    dev = vals.device
+    ob = bp.out_block.to(dev).long()
+    vb = bp.vblock.to(dev).long()
+    edges = vb[:, None] * E + torch.arange(E, device=dev)
+    local = dst_blocks.to(dev)[vb].long() - ob[:, None] * s
+    keep = (local >= 0) & (local < s)
+    e_idx = edges[keep]
+    rows = (ob[:, None] * s + local)[keep]
+    ok = e_idx < vals.shape[0]
+    v = torch.zeros(e_idx.shape[0], vals.shape[1], dtype=torch.float32, device=dev)
+    v[ok] = vals[e_idx[ok]].float()
+    if w_edge is not None:
+        we = torch.zeros(e_idx.shape[0], dtype=torch.float32, device=dev)
+        okw = e_idx < w_edge.shape[0]
+        we[okw] = w_edge.to(dev).float()[e_idx[okw]]
+        v = v * we[:, None]
+    out = torch.zeros(bp.n_blocks * s, vals.shape[1], dtype=torch.float32, device=dev)
+    return out.index_add_(0, rows, v)
+
+
+def bat_segment_sum_packed_plain(bp, vals: torch.Tensor, w_edge=None) -> torch.Tensor:
+    """The packed BAT kernel's function (`bat_segment_sum_packed`): the BAT
+    tile sum of `bat_tiles_plain` with each block's dst ids read from the
+    k-major `bp.dst_km`, edge r*P + k of a block at lane k*(E // P) + r (P
+    = bp.km_pack). vals [rows, F] edge order, F = 128 // P (8, 16, 32 or
+    64); w_edge [n_w] or None. Returns [n_blocks*s_tile, F] float32."""
+    P, E = bp.km_pack, bp.e_tile
+    if bp.dst_km is None or P < 2:
+        raise ValueError("bat_segment_sum_packed needs a packed plan (km_pack > 1, dst_km)")
+    if vals.shape[1] * P != 128:
+        raise ValueError(f"packed width {vals.shape[1]} does not match km_pack {P}")
+    nb = bp.dst_km.shape[0]
+    dst_blocks = bp.dst_km.reshape(nb, P, E // P).transpose(1, 2).reshape(nb, E)
+    return bat_tiles_plain(bp, dst_blocks, vals, w_edge)

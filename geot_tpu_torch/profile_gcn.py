@@ -2,7 +2,7 @@
 the card.
 
     python -m geot_tpu_torch.profile_gcn [--graph arxiv|products-clustered|flickr]
-        [--model gcn|graphsage|gat|gcn-dyn] [--feature-hint 64|128]
+        [--model gcn|graphsage|gat|gcn-dyn|gin|appnp] [--feature-hint 64|128]
         [--mode serve|train|both] [--iters 3]
 
 Builds a configuration `chip_smoke.py` drives, seed 0: `arxiv` is the
@@ -22,8 +22,15 @@ and no baked norm, so each layer's norm is a per-call weight (`slot_dyn`,
 `FLICKR_DYN`: an edge-order gather and the aligned-edge-block kernel):
 `--feature-hint 64` gives pack-aligned plans, where the kernel launches as
 `plan_segment_sum_packed2` (the reference's pick), 128 (the default)
-unaligned ones, where it launches as `plan_segment_sum_sr2`. Models other than
-gcn need `--graph flickr`. Warms up, then traces `--iters` forward passes (`serve`) and/or
+unaligned ones, where it launches as `plan_segment_sum_sr2`. The narrow
+BAT path: `--graph arxiv --model gin` is the 3-layer GIN (128 -> 64 -> 64
+-> 40) over packed BAT plans of the arxiv graph without self-loops
+(`ARXIV_GIN`: layers 2-3 aggregate 64 columns through
+`bat_segment_sum_packed` at pack 2), `--graph flickr --model appnp` APPNP
+(MLP 500 -> 64 -> 7, 10 propagations, alpha 0.1) over packed BAT plans of
+the flickr graph with self-loops and no baked norm (`FLICKR_APPNP`: the
+norm per call, pack 16). Models other than gcn and gin need `--graph
+flickr`; gin needs `--graph arxiv`. Warms up, then traces `--iters` forward passes (`serve`) and/or
 `make_train_step` steps (`train`: forward, backward over the transpose
 plans, AdamW with lr 0.01 and weight decay 5e-4) with `torch.profiler`,
 and prints the device time by kernel and the device's busy share of the
@@ -51,6 +58,17 @@ FLICKR_GAT = dict(heads=4, concat=False)
 # preferred for per-call weights (the reference's slot_dyn route)
 FLICKR_DYN = dict(e_tile=512, s_tile=256, mode_hint="sr", prefer="sr", prefer_dyn="sr",
                   layouts=("slot",))
+# the narrow BAT path: packed BAT plans only (km_pack 128 // packed width
+# of feature_hint), 512 x 256 tiles (the reference's packed pick, a TPU
+# pick not measured on the H100). GIN aggregates its 64-wide hidden layers
+# (no self-loops, unweighted: the `bat` route); APPNP propagates at the
+# class width with the GCN norm per call (`bat_dyn`).
+ARXIV_GIN = dict(add_self_loops=False, layouts=("bat",), feature_hint=64, bat_e_tile=512,
+                 bat_s_tile=256)
+GIN_HIDDEN = 64
+FLICKR_APPNP = dict(add_self_loops=True, layouts=("bat",), feature_hint=7, bat_e_tile=512,
+                    bat_s_tile=256)
+APPNP_KW = dict(k=10, alpha=0.1)
 
 
 def flickr_graph(data, model_name: str, dev: torch.device, feature_hint: int = 128):
@@ -77,16 +95,22 @@ def build(graph: str, model_name: str, seed: int, dev: torch.device,
         synthetic_clustered_graph,
         synthetic_graph,
     )
-    from geot_tpu_torch.models import GAT, GCN, MODELS, prepare_graph
+    from geot_tpu_torch.models import APPNP, GAT, GCN, GIN, MODELS, prepare_graph
 
-    if model_name != "gcn" and graph != "flickr":
+    if model_name == "gin" and graph != "arxiv":
+        raise SystemExit("profile_gcn: --model gin runs on --graph arxiv only")
+    if model_name not in ("gcn", "gin") and graph != "flickr":
         raise SystemExit(f"profile_gcn: --model {model_name} runs on --graph flickr only")
     gen = torch.Generator().manual_seed(seed)
     if graph == "arxiv":
         n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
         data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=seed)
-        g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
-        model = GCN(f, 128, 3, c, generator=gen, device=dev)
+        if model_name == "gin":
+            g = prepare_graph(data.src, data.dst, n, device=dev, **ARXIV_GIN)
+            model = GIN(f, GIN_HIDDEN, 3, c, generator=gen, device=dev)
+        else:
+            g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
+            model = GCN(f, 128, 3, c, generator=gen, device=dev)
     elif graph == "products-clustered":
         n, e, f, c = DATASET_SHAPES["ogbn-products"]
         data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
@@ -98,8 +122,13 @@ def build(graph: str, model_name: str, seed: int, dev: torch.device,
     else:
         n, e, f, c = DATASET_SHAPES["flickr"]
         data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=seed)
-        g = flickr_graph(data, model_name, dev, feature_hint)
-        if model_name == "gat":
+        if model_name == "appnp":
+            g = prepare_graph(data.src, data.dst, n, device=dev, **FLICKR_APPNP)
+        else:
+            g = flickr_graph(data, model_name, dev, feature_hint)
+        if model_name == "appnp":
+            model = APPNP(f, FLICKR_HIDDEN, 2, c, generator=gen, device=dev, **APPNP_KW)
+        elif model_name == "gat":
             model = GAT(f, FLICKR_HIDDEN, 3, c, conv_kwargs=FLICKR_GAT, generator=gen,
                         device=dev)
         else:
@@ -134,7 +163,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--graph", choices=("arxiv", "products-clustered", "flickr"),
                     default="arxiv")
-    ap.add_argument("--model", choices=("gcn", "graphsage", "gat", "gcn-dyn"), default="gcn")
+    ap.add_argument("--model", choices=("gcn", "graphsage", "gat", "gcn-dyn", "gin", "appnp"),
+                    default="gcn")
     ap.add_argument("--feature-hint", type=int, choices=(64, 128), default=128,
                     help="gcn-dyn's plans: 64 pack-aligned (named packed2), 128 not (sr2)")
     ap.add_argument("--mode", choices=("serve", "train", "both"), default="serve")

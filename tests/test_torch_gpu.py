@@ -18,7 +18,8 @@ stream kernel sums each row in slot order, the plain version with
 `index_add_`: the same rule. With bfloat16 x both read the same bf16
 values and sum in f32, so the rule holds there too. The slot kernels sum
 each row in slot order, the plain versions with `index_add_`: the same
-rule.
+rule, and so does the packed BAT kernel (edge order within a tile, tiles
+in order).
 """
 
 import dataclasses
@@ -32,7 +33,11 @@ from geot_tpu_torch.graph import stream_plan as tsp
 from geot_tpu_torch.graph.structures import build_graph
 from geot_tpu_torch.models import GCN
 from geot_tpu_torch.ops import api
-from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+from geot_tpu_torch.ops.bat_kernels import (
+    bat_segment_sum,
+    bat_segment_sum_packed,
+    bat_segment_sum_plain,
+)
 from geot_tpu_torch.ops import reference as tref
 from geot_tpu_torch.ops import slot_kernels as tslot
 from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
@@ -774,9 +779,9 @@ def test_gat_and_slot_dyn_models_on_card_match_cpu(cuda, model, chunked):
 def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
     """The gradients of alpha_src and alpha_dst sum in a fixed order (the
     gathers' backward runs over the dst- or src-sorted runs), so reruns
-    give the same bits; so does the xh gradient on the composed route
-    (the mh kernel over plan_t). The fused route's xh gradient adds slot
-    terms with index_add_ and may differ in its last bits (ROADMAP C.12)."""
+    give the same bits; so does the xh gradient on both routes (the mh
+    kernel over plan_t; the fused route added slot terms with index_add_
+    before, ROADMAP C.12)."""
     from geot_tpu_torch.models import prepare_graph
 
     rng = np.random.default_rng(21)
@@ -797,5 +802,141 @@ def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
         grads.append([t.grad for t in args])
     for later in grads[1:]:
         assert torch.equal(later[1], grads[0][1]) and torch.equal(later[2], grads[0][2])
-        if route:
-            assert torch.equal(later[0], grads[0][0])
+        assert torch.equal(later[0], grads[0][0])
+
+
+def _packed_inputs(rng, cuda, F, n=700, nnz=5000, hub_edges=1500, e_tile=512, s_tile=256,
+                   weights="none", rows=None):
+    """A packed BAT plan (km_pack 128 // F, dst sorted, a hub row of
+    `hub_edges` in-edges, windows of s_tile over n + 300 rows so the last
+    are empty) with edge-order values [rows (default nnz), F] and weights:
+    none, random, or random with every third edge exactly 0 (inside the
+    hub row's run too)."""
+    _, dst = _hubby(rng, n, nnz, hub_edges)
+    dst = np.sort(dst)
+    pack = 128 // F
+    bp = tplan.build_bat_plan(dst, n + 300, e_tile=e_tile, s_tile=s_tile, km_pack=pack,
+                              device=cuda)
+    assert bp.km_pack == pack and bp.dst_km is not None
+    m = len(dst)
+    vals = torch.from_numpy(rng.standard_normal((rows or m, F)).astype(np.float32)).to(cuda)
+    w = None
+    if weights != "none":
+        w = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda)
+        if weights == "zeros":
+            w[torch.arange(m, device=cuda) % 3 == 1] = 0.0
+    return bp, dst, vals, w
+
+
+@pytest.mark.parametrize("F", [8, 16, 32, 64])
+@pytest.mark.parametrize("weights", ["none", "random", "zeros"])
+@pytest.mark.parametrize("e_tile,s_tile", [(512, 256), (64, 32), (32, 4), (96, 8)])
+def test_packed_kernel_matches_plain(cuda, F, weights, e_tile, s_tile):
+    """bat_segment_sum_packed against its plain version at packs 16 to 2,
+    with -1 pads (the last value block and the sentinel), out-of-window
+    edges (blocks that span windows), empty windows, a ragged tail (rows
+    short of whole blocks) and zero-weight edges inside the hub run; reruns
+    bit-identical."""
+    rng = np.random.default_rng(F + e_tile + len(weights))
+    bp, _, vals, w = _packed_inputs(rng, cuda, F, e_tile=e_tile, s_tile=s_tile,
+                                    weights=weights)
+    assert vals.shape[0] % e_tile, "meant to leave a ragged tail"
+    torch.full((bp.n_blocks * s_tile + 4 * bp.num_tiles, F), float("nan"), device=cuda)
+    before = bat_segment_sum_packed.launches
+    k = bat_segment_sum_packed(bp, vals, w)
+    torch.cuda.synchronize()
+    assert bat_segment_sum_packed.launches == before + 1
+    p = tref.bat_segment_sum_packed_plain(bp, vals, w)
+    a = tref.bat_segment_sum_packed_plain(bp, vals.abs(), None if w is None else w.abs())
+    assert k.shape == p.shape == (bp.n_blocks * s_tile, F)
+    _assert_abs_sum(k, p, a)
+    for _ in range(2):
+        assert torch.equal(bat_segment_sum_packed(bp, vals, w), k)
+
+
+def test_packed_kernel_reads_rows_past_the_end_as_zero(cuda):
+    """vals and weights shorter than the plan's edges: the missing rows and
+    weights read as zero, as in the plain version."""
+    rng = np.random.default_rng(4)
+    bp, dst, vals, w = _packed_inputs(rng, cuda, 16, rows=3000, weights="random")
+    k = bat_segment_sum_packed(bp, vals, w[:2500])
+    torch.cuda.synchronize()
+    p = tref.bat_segment_sum_packed_plain(bp, vals, w[:2500])
+    _assert_abs_sum(k, p, tref.bat_segment_sum_packed_plain(bp, vals.abs(), w[:2500].abs()))
+
+
+@pytest.mark.parametrize("F", [8, 64])
+def test_packed_spmm_chunked_split_hub_on_card(cuda, F):
+    """The packed route of segment_spmm over a plan forced into chunks that
+    split the hub window (`with_chunks`) against the unchunked plain sum:
+    one launch per chunk."""
+    rng = np.random.default_rng(70 + F)
+    n = 600
+    src, dst = _hubby(rng, n, 4000, 3000, hub=3)
+    w = rng.standard_normal(len(dst)).astype(np.float32)
+    g = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32,
+                    feature_hint=F, device=cuda)
+    ch = tplan.compute_chunks(g.bat.out_block.cpu().numpy(), 8)
+    assert len(ch) > 2 and any(b[2] < a[3] for a, b in zip(ch[:-1], ch[1:]))
+    gc = dataclasses.replace(g, bat=tplan.with_chunks(g.bat, ch))
+    x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda)
+    before = bat_segment_sum_packed.launches
+    with torch.inference_mode():
+        out = api.segment_spmm(gc, x)
+        whole = api.segment_spmm(g, x)
+    assert bat_segment_sum_packed.launches == before + len(ch) + 1
+    exp = tref.gather_weight_scatter_ref(g.src, g.dst, g.edge_weight, x, n)
+    a = tref.gather_weight_scatter_ref(g.src, g.dst, g.edge_weight.abs(), x.abs(), n)
+    _assert_abs_sum(out, exp, a)
+    _assert_abs_sum(whole, exp, a)
+
+
+def test_packed_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(9)
+    bp, _, vals, _ = _packed_inputs(rng, cuda, 32)
+    before = bat_segment_sum_packed.launches
+    for bad in (vals[:, :16].contiguous(), vals.double(), vals[:, :7].contiguous()):
+        with pytest.raises(ValueError):
+            bat_segment_sum_packed(bp, bad)
+    with pytest.raises(ValueError):
+        bat_segment_sum_packed(dataclasses.replace(bp, dst_km=None), vals)
+    assert bat_segment_sum_packed.launches == before
+
+
+@pytest.mark.parametrize("model", ["gin", "appnp", "sgc"])
+def test_narrow_models_on_card_match_cpu(cuda, model):
+    """GIN (hidden 64: packed layers 2-3 at pack 2, over bat and bat_t),
+    APPNP (7 classes: 10 packed propagations with per-call weights at pack
+    16) and SGC on the card against the same model on the CPU path, forward
+    and input gradient."""
+    from geot_tpu_torch.models import MODELS, prepare_graph
+
+    rng = np.random.default_rng(33)
+    n, f = 2000, 48
+    src, dst = _hubby(rng, n, 16000, 2500, hub=11)
+    cls, loops = MODELS[model]
+    hidden, out_dim = (64, 40) if model == "gin" else (32, 7)
+    # the width each model aggregates at: GIN's hidden, APPNP's classes,
+    # SGC's input features (48, packed at 64)
+    fh = {"gin": hidden, "appnp": out_dim, "sgc": f}[model]
+    kw = dict(add_self_loops=loops, layouts=("bat",), bat_e_tile=512, bat_s_tile=256,
+              feature_hint=fh)
+    gc = prepare_graph(src, dst, n, device=cuda, **kw)
+    gh = prepare_graph(src, dst, n, device="cpu", **kw)
+    assert gc.bat.km_pack == (16 if model == "appnp" else 2)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    co = torch.from_numpy(rng.standard_normal((n, out_dim)).astype(np.float32))
+    outs = []
+    for dev, g in ((cuda, gc), ("cpu", gh)):
+        m = cls(f, hidden, 3, out_dim, generator=torch.Generator().manual_seed(0),
+                device=dev).eval()
+        xx = x.to(dev).requires_grad_()
+        before = bat_segment_sum_packed.launches
+        out = m(xx, g)
+        torch.vdot(out.reshape(-1), co.to(dev).reshape(-1)).backward()
+        if dev == cuda:
+            assert bat_segment_sum_packed.launches > before
+        outs.append((out.detach().cpu(), xx.grad.cpu()))
+    (oc, dc), (oh, dh) = outs
+    torch.testing.assert_close(oc, oh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dc, dh, rtol=1e-4, atol=1e-4 * float(dh.abs().max()))

@@ -92,8 +92,18 @@ def test_plan_rejects_unsorted_and_out_of_range():
         tplan.build_bat_plan_host(np.array([3, 1, 2]), 10)
     with pytest.raises(ValueError):
         tplan.build_bat_plan_host(np.array([1, 2, 12]), 10)
-    with pytest.raises(NotImplementedError):
-        tplan.build_bat_plan_host(np.array([1, 2]), 10, km_pack=4)
+    # packed plans build (they were refused before the packed kernel was
+    # ported): k-major dst ids equal to the JAX package's; a km_pack that
+    # does not divide e_tile is dropped, as there
+    for km_pack, e_tile in ((4, 512), (3, 512)):
+        ta, tm = tplan.build_bat_plan_host(np.array([1, 2]), 10, km_pack=km_pack,
+                                           e_tile=e_tile)
+        ja, jm = jplan.build_bat_plan_host(np.array([1, 2]), 10, km_pack=km_pack,
+                                           e_tile=e_tile)
+        assert sorted(ta) == sorted(ja) and tm["km_pack"] == jm["km_pack"]
+        for k in ja:
+            np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+    assert tm["km_pack"] == 0 and "dst_km" not in ta
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -133,7 +143,8 @@ def test_build_graph_rejects_unported_layouts():
     weights are ported: ("bat", "slot") builds; per-call weights over a
     slot graph that prefers the slot layout for them (slot_dyn) now run
     and equal the plain path, with their gradients; narrow-feature BAT
-    plans raise (ROADMAP A.5 / B.3); layouts outside LAYOUTS raise."""
+    plans now build packed and equal the plain path; layouts outside
+    LAYOUTS raise."""
     from geot_tpu_torch.ops import api as tapi
     from geot_tpu_torch.ops import reference as tref
 
@@ -161,10 +172,13 @@ def test_build_graph_rejects_unported_layouts():
     tref.gather_weight_scatter_ref(gd.src, gd.dst, wr, xrr, 3).sum().backward()
     torch.testing.assert_close(ws.grad, wr.grad)
     torch.testing.assert_close(xs.grad, xrr.grad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild_graph(src, dst, 3, feature_hint=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild_graph(src, dst, 3, feature_hint=32, layouts=("bat", "slot"), device="cpu")
+    # narrow-feature BAT plans build (refused before the packed kernel was
+    # ported) and take the packed kernel: km_pack 128 // 32
+    for layouts in (("bat",), ("bat", "slot")):
+        gn = tbuild_graph(src, dst, 3, feature_hint=32, layouts=layouts, device="cpu")
+        assert gn.bat.km_pack == gn.bat_t.km_pack == 4 and gn.bat.dst_km is not None
+        torch.testing.assert_close(tapi.segment_spmm(gn, xr),
+                                   tref.gather_scatter_ref(gn.src, gn.dst, xr, 3))
     with pytest.raises(NotImplementedError):
         tbuild_graph(src, dst, 3, layouts=("slot", "bat"), device="cpu")
     with pytest.raises(ValueError):
