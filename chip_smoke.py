@@ -50,8 +50,8 @@ Phases, each printed with its elapsed seconds:
      transpose plan, sddmm_bat, its plain version and the library
      yardstick (torch.sparse.sampled_addmm, never called by the port);
  10. the products-clustered graph's host build, with the seconds of each
-     step, each direction's split (stream share, families, remainder),
-     and dispatch_path == "hybrid";
+     step, each direction's split (stream share, families, remainder, each
+     family's kernel schedule), and dispatch_path == "hybrid";
  11. stream_segment_sum and stream_segment_acc against their plain
      versions on every stream family of both directions (the forward's and
      the backward's), weighted, at F 128 and at the last layer's F 47, with
@@ -61,10 +61,12 @@ Phases, each printed with its elapsed seconds:
      asserted;
  13. 5 AdamW training steps over the hybrid path, each beside the same step
      on the reference path, launches per step asserted;
- 14. CUDA-event timings of each stream kernel per family, its plain
-     version, the library yardstick (torch.sparse.mm over the family's own
-     CSR adjacency), one hybrid SpMM, one forward pass, one training step
-     and torch.sparse.mm over the whole weighted adjacency;
+ 14. CUDA-event timings of each stream kernel per family at F 128 and 47,
+     the device time of its main pass and of its fix-up pass (torch.profiler),
+     its plain version, its bound (with the bytes of its schedule beside
+     it), the library yardstick (torch.sparse.mm over the family's own CSR
+     adjacency), one hybrid SpMM, one forward pass, one training step and
+     torch.sparse.mm over the whole weighted adjacency;
  15. the flickr graph's host build for each model, and dispatch_path ==
      "slot" (GraphSAGE, mean) and "slot_static" (GCN);
  16. plan_segment_sum_sr (F 500, 128), plan_segment_sum_sr_packed (F 64,
@@ -244,7 +246,6 @@ def stream_bound(sp, F, n_x_rows, accumulate):
     bytes."""
     T, E, s = sp.num_tiles, sp.e_tile, sp.s_tile
     meta = T * E * (8 + (4 if sp.w3 is not None else 0)) + T * 8
-    meta += sp.items.numel() * 4 + sp.merges.numel() * 4
     blocks = torch.unique(sp.sblock.long())
     x_rows = (torch.clamp(n_x_rows - blocks * sp.x_rows, max=sp.x_rows, min=0)).sum()
     x_bytes = int(x_rows) * F * 4
@@ -254,6 +255,31 @@ def stream_bound(sp, F, n_x_rows, accumulate):
     n_bytes = meta + x_bytes + out_bytes
     bound, by = bound_ms(n_bytes, 2 * sp.num_edges * F)
     return bound, by, n_bytes
+
+
+def schedule_bytes(sp):
+    """The bytes of the kernel's own schedule (`kernel_schedule`'s arrays),
+    logged beside the bound and not folded into it."""
+    ts = (sp.cols, sp.vals, sp.unit_dest, sp.tasks, sp.zero_runs, sp.fix)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def schedule_note(sp):
+    cut = int((sp.fix[:, 0] >= 0).sum()) if sp.fix.shape[0] else 0
+    return (f"{sp.cols.shape[0]} live slots, {sp.unit_dest.shape[0]} units, {cut} rows cut "
+            f"into {int((sp.unit_dest < 0).sum())} slices, {len(sp.fix_levels) - 1} fix-up "
+            f"levels, {sp.tasks.shape[0] - 1} tasks")
+
+
+def pass_ms(fn, iters=5):
+    """Device ms per call of the stream kernel's main pass and of its
+    fix-up pass (torch.profiler)."""
+    from geot_tpu_torch.profile_gcn import trace
+
+    _, _, _, events = trace(fn, iters, warmup=1)
+    main = sum(ev.time_range.elapsed_us() for ev in events if "stream_row_kernel" in ev.name)
+    fix = sum(ev.time_range.elapsed_us() for ev in events if "stream_fix_kernel" in ev.name)
+    return main / 1e3 / iters, fix / 1e3 / iters
 
 
 def pad_tiles(sp):
@@ -325,7 +351,7 @@ def run_hybrid(dev, card):
             continue
         fams = ", ".join(f"E={sp.e_tile}: {sp.num_tiles} tiles ({pad_tiles(sp)} chunk pad "
                          f"tiles of the reference left out), {max(len(sp.chunks), 1)} "
-                         f"chunks, {sp.num_edges} edges, {sp.merges.shape[0]} split windows"
+                         f"chunks, {sp.num_edges} edges; kernel schedule: {schedule_note(sp)}"
                          for sp in (hyb.stream if hyb is not None else ()))
         log(f"  {direction} split: stream_frac={st['stream_frac']:.4f}, "
             f"est hybrid {st['est_hybrid_ms']:.1f} vs margin {st['margin']} x all-BAT "
@@ -475,20 +501,34 @@ def run_hybrid(dev, card):
     # 14. timings
     arm("hyb_timing")
     fams = []
+    x47 = torch.randn(n, c, generator=gen, device=dev)
     for i, sp in enumerate(hyb.stream):
         carry = torch.zeros(sp.n_blocks * sp.s_tile, 128, device=dev)
-        fam = {"e_tile": sp.e_tile, "tiles": sp.num_tiles, "edges": sp.num_edges}
+        carry47 = torch.zeros(sp.n_blocks * sp.s_tile, c, device=dev)
+        fam = {"e_tile": sp.e_tile, "tiles": sp.num_tiles, "edges": sp.num_edges,
+               "schedule_bytes": schedule_bytes(sp)}
         fam["sum_ms"] = cuda_ms(lambda: stream_segment_sum(sp, x128), iters=10)
         fam["acc_ms"] = cuda_ms(lambda: stream_segment_acc(sp, x128, carry), iters=10)
+        fam["sum_f47_ms"] = cuda_ms(lambda: stream_segment_sum(sp, x47), iters=10)
+        fam["acc_f47_ms"] = cuda_ms(lambda: stream_segment_acc(sp, x47, carry47), iters=10)
+        # device time of the main pass and of the fix-up pass, per mode and F
+        for key, fn in (("sum", lambda: stream_segment_sum(sp, x128)),
+                        ("acc", lambda: stream_segment_acc(sp, x128, carry)),
+                        ("sum_f47", lambda: stream_segment_sum(sp, x47)),
+                        ("acc_f47", lambda: stream_segment_acc(sp, x47, carry47))):
+            fam[key + "_main_ms"], fam[key + "_fix_ms"] = pass_ms(fn)
         fam["sum_plain_ms"] = cuda_ms(lambda: stream_segment_sum_plain(sp, x128),
                                       iters=3, warmup=1)
         fam["acc_plain_ms"] = cuda_ms(lambda: stream_segment_acc_plain(sp, x128, carry),
                                       iters=3, warmup=1)
         fam["sum_bound_ms"], fam["sum_bound_by"], nb_s = stream_bound(sp, 128, n, False)
         fam["acc_bound_ms"], fam["acc_bound_by"], nb_a = stream_bound(sp, 128, n, True)
+        fam["sum_f47_bound_ms"] = stream_bound(sp, c, n, False)[0]
+        fam["acc_f47_bound_ms"] = stream_bound(sp, c, n, True)[0]
         csr = family_csr(sp, n)
         fam["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x128), iters=10)
-        del csr, carry
+        fam["library_f47_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x47), iters=10)
+        del csr, carry, carry47
         fams.append(fam)
         log(f"{card} family E={sp.e_tile} ({sp.num_tiles} tiles, {sp.num_edges} edges): "
             f"stream_segment_sum {fam['sum_ms']:.4f} ms (bound {fam['sum_bound_ms']:.4f} ms "
@@ -496,7 +536,15 @@ def run_hybrid(dev, card):
             f"{fam['acc_ms']:.4f} ms (bound {fam['acc_bound_ms']:.4f} ms: "
             f"{nb_a / 1e9:.3f} GB); plain {fam['sum_plain_ms']:.4f} / "
             f"{fam['acc_plain_ms']:.4f} ms; library torch.sparse.mm (the family's CSR) "
-            f"{fam['library_ms']:.4f} ms")
+            f"{fam['library_ms']:.4f} ms; the kernel's schedule "
+            f"{fam['schedule_bytes'] / 1e9:.3f} GB beside the bound")
+        log(f"{card}   F {c}: stream_segment_sum {fam['sum_f47_ms']:.4f} ms (bound "
+            f"{fam['sum_f47_bound_ms']:.4f}), stream_segment_acc {fam['acc_f47_ms']:.4f} ms "
+            f"(bound {fam['acc_f47_bound_ms']:.4f}); library {fam['library_f47_ms']:.4f} ms")
+        log(f"{card}   device ms, main pass + fix-up pass: " + "; ".join(
+            f"{key.replace('_f47', f' F {c}')} {fam[key + '_main_ms']:.4f} + "
+            f"{fam[key + '_fix_ms']:.4f}" for key in ("sum", "acc", "sum_f47", "acc_f47")))
+    del x47
     adj = torch.sparse_coo_tensor(
         torch.stack([g.dst.long(), g.src.long()]), g.edge_weight, (n, n),
         check_invariants=False).coalesce().to_sparse_csr()

@@ -39,8 +39,8 @@ __all__ = [
     "cell_census",
     "build_stream_split_host",
     "stream_plan_from_host",
-    "ITEM_SLOTS",
-    "KERNEL_WARPS",
+    "SLICE_SLOTS",
+    "FIX_FANIN",
     "kernel_schedule",
 ]
 
@@ -91,12 +91,32 @@ class StreamKnobs:
         return dict(self.tile_ns).get(e_tile, self.fixed_ns + e_tile * self.marg_ns)
 
 
-# Slots one CUDA block of the stream kernel takes at most (whole tiles,
-# at least one): a window with more streamed slots is split over several
-# blocks, whose partial windows a second pass adds in a fixed order.
-ITEM_SLOTS = 8192
-# Warps of one such block; each owns 1/KERNEL_WARPS of the window's rows.
-KERNEL_WARPS = 16
+# The CUDA kernel's schedule (`kernel_schedule`), made on the host with the
+# plan. A group of lanes sums one output row's live slots in registers;
+# a row with more than SLICE_SLOTS live slots (a hub) is cut into near-equal
+# slices of at most that many, each summed as a unit of its own into a
+# partial, and a fix-up pass adds a row's partials in slice order, at most
+# FIX_FANIN at a time (a row with more slices than that is reduced in a
+# fixed tree, one launch per level).
+# A task is a run of consecutive elements (units, each a row or a slice,
+# and the empty rows between them, in row order) that one group takes.
+# Tasks are cut at TASK_COST of work: a live slot costs 1, a unit
+# UNIT_COST more (its index, its flush, its store), and an empty row
+# ZERO_COST (the zeros the sum mode writes there).
+# SLICE_SLOTS and TASK_COST were measured on an H100 over the
+# products-clustered graph (`python -m geot_tpu_torch.probe_stream`): small
+# tasks keep the rows that the resident groups work on, and so the x
+# blocks they read, few enough to stay in L2, and short slices spread a
+# hub row's reads over many groups. The first values, 512 and 1024, took
+# up to 1.4x as long on the forward families (`PERF.md` §6).
+SLICE_SLOTS = 128
+FIX_FANIN = 32
+TASK_COST = 128
+UNIT_COST = 8
+ZERO_COST = 2
+
+# bit 31 of a `cols` entry marks the last live slot of its unit
+LAST_SLOT = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,18 +134,25 @@ class StreamPlan:
     w3:        [T, 1, E] float32 or None — static per-slot weights (0 pad).
     edge_pos:  [T, 1, E] int32 or None — slot -> dst-sorted edge index.
 
-    The CUDA kernel's schedule, made on the host with the plan (the
-    reference's TPU grid needs none):
-    items:  [I, 4] int32 — (t0, t1, window, part): one block sums tiles
-      [t0, t1) of one window; part is -1 when that block is the window's
-      only one, else the block's row in the partial-window scratch.
-    heavy:  [I] int32 — the item's heavy row (window-local): one that holds
-      more than 1/KERNEL_WARPS of the item's slots, which all the block's
-      warps share; -1 if none.
-    merges: [M, 3] int32 — (window, p0, p1): a window split over several
-      blocks, whose partials p0..p1-1 are added in that order.
-    empty_windows: [Z] int32 — windows no tile visits (written as zeros by
-      `stream_segment_sum`, left alone by `stream_segment_acc`).
+    The CUDA kernel's schedule, made on the host with the plan by
+    `kernel_schedule` (the reference's TPU grid needs none). S live slots
+    (those with 0 <= srcl < x_rows and dst inside the tile's window), in
+    (output row, slot) order; U units (a row's live slots, or a slice of
+    them); P partial sums:
+    cols:      [S] int32 — global x row of each live slot
+      (sblock * x_rows + srcl), bit 31 set on the last slot of its unit.
+    vals:      [S] float32 or None — its weight (w3's).
+    unit_dest: [U] int32 — the output row of a whole row's unit, or
+      -(p + 1) for a slice that writes partial p.
+    tasks:     [n_tasks + 1, 3] int32 — (first slot, first unit, first
+      zero run) of each group's task; the last row holds the totals.
+    zero_runs: [Z, 2] int32 — (first row, rows): the rows no slot adds
+      to, cut at task bounds (zeros in `stream_segment_sum`, left alone by
+      `stream_segment_acc`).
+    fix:       [M, 3] int32 — (dest, p0, p1): partials p0..p1-1 added in
+      that order into dest (an output row, or -(p + 1) for partial p of a
+      later level); `fix_levels` bounds the levels, launched in order.
+    n_parts: P.
     """
 
     out_block: torch.Tensor
@@ -134,10 +161,12 @@ class StreamPlan:
     srcl3: torch.Tensor
     w3: Optional[torch.Tensor]
     edge_pos: Optional[torch.Tensor]
-    items: torch.Tensor
-    heavy: torch.Tensor
-    merges: torch.Tensor
-    empty_windows: torch.Tensor
+    cols: torch.Tensor
+    vals: Optional[torch.Tensor]
+    unit_dest: torch.Tensor
+    tasks: torch.Tensor
+    zero_runs: torch.Tensor
+    fix: torch.Tensor
     e_tile: int
     s_tile: int
     x_rows: int
@@ -146,6 +175,7 @@ class StreamPlan:
     n_xblocks: int
     num_edges: int
     n_parts: int = 0
+    fix_levels: tuple = (0,)
     chunks: tuple = ()
     chunk_blocks: int = 0
 
@@ -160,8 +190,9 @@ class StreamPlan:
         return dataclasses.replace(
             self, out_block=mv(self.out_block), sblock=mv(self.sblock),
             dst3=mv(self.dst3), srcl3=mv(self.srcl3), w3=mv(self.w3),
-            edge_pos=mv(self.edge_pos), items=mv(self.items), heavy=mv(self.heavy),
-            merges=mv(self.merges), empty_windows=mv(self.empty_windows),
+            edge_pos=mv(self.edge_pos), cols=mv(self.cols), vals=mv(self.vals),
+            unit_dest=mv(self.unit_dest), tasks=mv(self.tasks),
+            zero_runs=mv(self.zero_runs), fix=mv(self.fix),
         )
 
 
@@ -440,15 +471,46 @@ def _uniformize_stream_chunks(arrays: dict, meta: dict) -> None:
     meta["chunk_blocks"] = int(W_max)
 
 
-def kernel_schedule(out_block: np.ndarray, dst3: np.ndarray, srcl3: np.ndarray,
-                    s_tile: int, x_rows: int, n_blocks: int,
-                    item_slots: int = ITEM_SLOTS) -> dict:
-    """The CUDA kernel's blocks for one family, as `StreamPlan` describes
-    them: {"items" [I, 4], "heavy" [I], "merges" [M, 3], "empty_windows"
-    [Z], "n_parts"}. Each window's run of tiles is cut into items of at
-    most max(1, item_slots // e_tile) tiles. Raises ValueError unless
-    out_block is non-decreasing and inside [0, n_blocks): the kernel sums a
-    window's tiles as one contiguous run."""
+def _fix_tree(split_rows: np.ndarray, n_slices: np.ndarray, fanin: int):
+    """The fix-up entries that add each split row's slice partials (row i
+    owns the next n_slices[i] partials, numbered from 0 in row order) into
+    the row, at most `fanin` at a time: a row with more partials than that
+    is added in groups of `fanin` into partials of the next level, until
+    one entry finishes it. Returns (fix [M, 3], level bounds, P)."""
+    first = np.cumsum(n_slices) - n_slices
+    rows, a, m = split_rows.astype(np.int64), first.astype(np.int64), n_slices.astype(np.int64)
+    n_parts = int(n_slices.sum())
+    levels, out = [0], []
+    while len(rows):
+        done = m <= fanin
+        fin = np.stack([rows[done], a[done], a[done] + m[done]], axis=1)
+        g = _cdiv(m[~done], fanin)  # the open rows' groups at this level
+        k = np.arange(int(g.sum())) - np.repeat(np.cumsum(g) - g, g)
+        p0 = np.repeat(a[~done], g) + k * fanin
+        p1 = np.minimum(p0 + fanin, np.repeat(a[~done] + m[~done], g))
+        new = n_parts + np.arange(len(p0))
+        out += [fin, np.stack([-(new + 1), p0, p1], axis=1)]
+        levels.append(levels[-1] + len(fin) + len(p0))
+        rows, a, m = rows[~done], n_parts + np.cumsum(g) - g, g
+        n_parts += len(p0)
+    fix = np.concatenate(out) if out else np.zeros((0, 3), np.int64)
+    return fix.astype(np.int32).reshape(-1, 3), tuple(levels), n_parts
+
+
+def kernel_schedule(out_block: np.ndarray, sblock: np.ndarray, dst3: np.ndarray,
+                    srcl3: np.ndarray, w3: Optional[np.ndarray], s_tile: int, x_rows: int,
+                    n_blocks: int, *, slice_slots: int = SLICE_SLOTS,
+                    fix_fanin: int = FIX_FANIN, task_cost: int = TASK_COST) -> dict:
+    """The CUDA kernel's work for one family, as `StreamPlan` describes it:
+    {"cols", "vals", "unit_dest", "tasks", "zero_runs", "fix", "fix_levels",
+    "n_parts"}.
+
+    The live slots are put in (output row, slot) order by a stable sort, so
+    each row's terms keep the slot order; pads, out-of-window slots and
+    srcl >= x_rows are dropped here and never read on the card. A row of
+    n > slice_slots live slots is cut into ceil(n / slice_slots) slices of
+    near-equal length. Raises ValueError unless out_block is
+    non-decreasing and inside [0, n_blocks), the family's contract."""
     ob = np.asarray(out_block, np.int64)
     T = len(ob)
     E = int(dst3.shape[-1]) if T else 1
@@ -456,65 +518,103 @@ def kernel_schedule(out_block: np.ndarray, dst3: np.ndarray, srcl3: np.ndarray,
         raise ValueError("StreamPlan out_block must be non-decreasing over the whole family")
     if T and (int(ob[0]) < 0 or int(ob[-1]) >= n_blocks):
         raise ValueError(f"StreamPlan out_block outside [0, {n_blocks})")
-    per = max(1, item_slots // E)
-    if T:
-        starts = np.concatenate([[0], np.nonzero(np.diff(ob))[0] + 1])
-        ends = np.concatenate([starts[1:], [T]])
-    else:
-        starts = ends = np.zeros(0, np.int64)
-    n_items = _cdiv(ends - starts, per)
-    win = ob[starts]
-    item_win = np.repeat(win, n_items)
-    first = np.repeat(starts, n_items)
-    k = np.arange(int(n_items.sum())) - np.repeat(np.cumsum(n_items) - n_items, n_items)
-    t0 = first + k * per
-    t1 = np.minimum(t0 + per, np.repeat(ends, n_items))
-    multi = np.repeat(n_items > 1, n_items)
-    part = np.full(len(t0), -1, np.int64)
-    part[multi] = np.arange(int(multi.sum()))
-    items = np.stack([t0, t1, item_win, part], axis=1).astype(np.int32).reshape(-1, 4)
-    # each item's slot count per window row; the top row is heavy when it
-    # holds more than one warp's even share
-    I = len(t0)
-    d = np.asarray(dst3, np.int64).reshape(T, E) - ob[:, None] * s_tile
-    sl = np.asarray(srcl3).reshape(T, E)
-    ok = (sl >= 0) & (sl < x_rows) & (d >= 0) & (d < s_tile)
-    item_of_tile = np.repeat(np.arange(I, dtype=np.int64), t1 - t0)
-    key = (item_of_tile[:, None] * s_tile + d)[ok]
-    cnt = np.bincount(key, minlength=I * s_tile).reshape(I, s_tile)
-    top = cnt.argmax(axis=1) if I else np.zeros(0, np.int64)
-    heavy = np.where(cnt.max(axis=1, initial=0) * KERNEL_WARPS > cnt.sum(axis=1), top, -1)
-    m_win = win[n_items > 1]
-    p_end = np.cumsum(n_items[n_items > 1])
-    merges = np.stack([m_win, p_end - n_items[n_items > 1], p_end], axis=1)
+    n_out = n_blocks * s_tile
+
+    # live slots in (row, slot) order
+    sl = np.asarray(srcl3, np.int64).reshape(-1)
+    d = np.asarray(dst3, np.int64).reshape(-1) - np.repeat(ob * s_tile, E)
+    q = np.flatnonzero((sl >= 0) & (sl < x_rows) & (d >= 0) & (d < s_tile))
+    t_of = q // E
+    row = ob[t_of] * s_tile + d[q]
+    order = np.argsort(row, kind="stable")
+    q, t_of, row = q[order], t_of[order], row[order]
+    cols = np.asarray(sblock, np.int64)[t_of] * x_rows + sl[q]
+    vals = None if w3 is None else np.asarray(w3, np.float32).reshape(-1)[q]
+    S = len(q)
+    if S and (int(cols.max()) >= LAST_SLOT or n_out > LAST_SLOT):
+        raise ValueError("x rows and output rows must stay below 2**31")
+
+    # each live row's units: the whole row, or near-equal slices
+    head = np.flatnonzero(np.diff(row)) + 1 if S else np.zeros(0, np.int64)
+    r_start = np.concatenate([[0], head]).astype(np.int64) if S else np.zeros(0, np.int64)
+    live = row[r_start]
+    cnt = np.diff(np.append(r_start, S))
+    k = _cdiv(cnt, slice_slots)
+    U = int(k.sum())
+    i_in = np.arange(U) - np.repeat(np.cumsum(k) - k, k)
+    size = np.repeat(cnt // k, k) + (i_in < np.repeat(cnt % k, k))
+    u_end = np.cumsum(size)
+    cols[u_end - 1] |= LAST_SLOT
+    split = np.repeat(k > 1, k)
+    unit_dest = np.repeat(live, k)
+    unit_dest[split] = -(np.arange(int(split.sum())) + 1)
+    fix, fix_levels, n_parts = _fix_tree(live[k > 1], k[k > 1], fix_fanin)
+
+    # tasks: the elements (units and empty rows) in row order, cut by cost
+    is_live = np.zeros(n_out, bool)
+    is_live[live] = True
+    n_el = np.ones(n_out, np.int64)
+    n_el[live] = k
+    el_first = np.cumsum(n_el) - n_el  # each row's first element
+    is_unit = np.zeros(int(n_el.sum()), bool)
+    unit_el = np.repeat(el_first[live], k) + i_in
+    is_unit[unit_el] = True
+    cost = np.full(len(is_unit), ZERO_COST, np.int64)
+    cost[unit_el] = size + UNIT_COST
+    task_of = (np.cumsum(cost) - cost) // task_cost
+    starts = np.flatnonzero(np.diff(task_of, prepend=-1)) if len(cost) else np.zeros(0, np.int64)
+    units_before = np.cumsum(is_unit) - is_unit
+    t_unit = units_before[starts]
+    t_slot = np.append(0, u_end)[t_unit]
+    # runs of empty rows, cut where a task starts
+    empty_el = np.flatnonzero(~is_unit)
+    empty_rows = np.flatnonzero(~is_live)
+    et = np.searchsorted(starts, empty_el, side="right") - 1
+    brk = np.ones(len(empty_el), bool)
+    brk[1:] = (np.diff(empty_rows) != 1) | (np.diff(et) != 0)
+    run_first = np.flatnonzero(brk)
+    zero_runs = np.stack([empty_rows[run_first],
+                          np.diff(np.append(run_first, len(empty_el)))], axis=1)
+    t_zero = np.searchsorted(et[run_first], np.arange(len(starts)), side="left")
+    tasks = np.stack([np.append(t_slot, S), np.append(t_unit, U),
+                      np.append(t_zero, len(run_first))], axis=1)
     return dict(
-        items=items,
-        heavy=heavy.astype(np.int32),
-        merges=merges.astype(np.int32).reshape(-1, 3),
-        empty_windows=np.setdiff1d(np.arange(n_blocks, dtype=np.int64), win).astype(np.int32),
-        n_parts=int(multi.sum()),
+        cols=cols.astype(np.uint32).view(np.int32),
+        vals=vals,
+        unit_dest=unit_dest.astype(np.int32),
+        tasks=tasks.astype(np.int32).reshape(-1, 3),
+        zero_runs=zero_runs.astype(np.int32).reshape(-1, 2),
+        fix=fix,
+        fix_levels=fix_levels,
+        n_parts=n_parts,
     )
 
 
-def stream_plan_from_host(arrays: dict, meta: dict, device=None) -> StreamPlan:
+def stream_plan_from_host(arrays: dict, meta: dict, device=None, **schedule) -> StreamPlan:
+    """A StreamPlan of one family's host arrays, on `device`, with the
+    kernel's schedule (`schedule`: `kernel_schedule`'s knobs)."""
     dev = torch.device("cpu") if device is None else torch.device(device)
-    sched = kernel_schedule(arrays["out_block"], arrays["dst3"], arrays["srcl3"],
-                            meta["s_tile"], meta["x_rows"], meta["n_blocks"])
+    sched = kernel_schedule(arrays["out_block"], arrays["sblock"], arrays["dst3"],
+                            arrays["srcl3"], arrays.get("w3"), meta["s_tile"],
+                            meta["x_rows"], meta["n_blocks"], **schedule)
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return StreamPlan(
         out_block=t(arrays["out_block"]),
         sblock=t(arrays["sblock"]),
         dst3=t(arrays["dst3"]),
         srcl3=t(arrays["srcl3"]),
-        w3=t(arrays["w3"]) if "w3" in arrays else None,
-        edge_pos=t(arrays["edge_pos"]) if "edge_pos" in arrays else None,
-        items=t(sched["items"]),
-        heavy=t(sched["heavy"]),
-        merges=t(sched["merges"]),
-        empty_windows=t(sched["empty_windows"]),
+        w3=t(arrays.get("w3")),
+        edge_pos=t(arrays.get("edge_pos")),
+        cols=t(sched["cols"]),
+        vals=t(sched["vals"]),
+        unit_dest=t(sched["unit_dest"]),
+        tasks=t(sched["tasks"]),
+        zero_runs=t(sched["zero_runs"]),
+        fix=t(sched["fix"]),
         n_parts=sched["n_parts"],
+        fix_levels=sched["fix_levels"],
         **meta,
     )

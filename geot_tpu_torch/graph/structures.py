@@ -149,7 +149,9 @@ def _build_hybrid(
     build_stats["seconds"][f"stream_split_{direction}"] = time.perf_counter() - t0
     if families is None:
         return None
+    t0 = time.perf_counter()  # the families' kernel schedules, and the copy to dev
     sp = tuple(stream_plan_from_host(a, m, device=dev) for a, m in families)
+    build_stats["seconds"][f"stream_plans_{direction}"] = time.perf_counter() - t0
     rest = rest_src = rest_w = None
     t0 = time.perf_counter()
     if rest_mask.any():

@@ -5,50 +5,61 @@
 // which share one body, `_stream_kernel`
 // (geot_tpu/ops/pallas_segment.py:1103-1299). One stream family holds T
 // tiles of E slots; tile t reads x block sblock[t] and adds into output
-// window out_block[t] (non-decreasing over t). For each slot e of tile t,
-// with win = out_block[t], d = dst3[t][e] - win*s_tile, s = srcl3[t][e]:
+// window out_block[t]. For each slot e of tile t, with win = out_block[t],
+// d = dst3[t][e] - win*s_tile, s = srcl3[t][e]:
 //
 //   if 0 <= s < x_rows and 0 <= d < s_tile:
 //     out[win*s_tile + d, :] += w3[t][e] * x[sblock[t]*x_rows + s, :]
 //
-// (w3 = 1 when absent). x rows past the end of x read as zero, so x needs
-// no padding to whole blocks, and the columns past F are never read or
-// written, so x needs no padding to 128 columns either. With
+// (w3 = 1 when absent). x rows past the end of x read as zero, and the
+// columns past F are never read or written, so x needs no padding. With
 // accumulate = 1 (`stream_segment_acc`) the sums add into `out` and the
-// windows no tile visits keep their contents; with accumulate = 0
-// (`stream_segment_sum`) every window of `out` is written, zeros where no
-// tile visits. x is float32 or bfloat16; the sums are float32 either way.
+// rows no slot adds to keep their contents; with accumulate = 0
+// (`stream_segment_sum`) every row of `out` is written, zeros where no slot
+// adds. x is float32 or bfloat16; the sums are float32 either way.
 //
-// Bound on the H100: bytes. The kernel must read the slot metadata (12
-// bytes a slot, 8 unweighted), each x block its tiles name, and read and
-// write the visited windows of `out` (accumulate) or write all of `out`
-// (sum). Each slot also re-reads a row of its tile's x block (256 rows):
-// those re-reads hit L1/L2, which is what the cell layout buys over a
-// gather from all of x.
+// Bound on the H100: bytes. Each live slot reads one x row (512 bytes at
+// F 128). The TPU kernel selects those rows with one-hot products into a
+// window accumulator in VMEM, carried from tile to tile by its ordered
+// grid. Here blocks run in no order, and a window-sized accumulator in
+// shared memory (128 KB at F 128) leaves one block per SM with every warp
+// scanning every slot, so the work is cut by output row instead, on the
+// host (`stream_plan.kernel_schedule`):
 //
-// The TPU grid runs in order and carries the window's sum in VMEM from
-// tile to tile; Hopper blocks run in no order. So:
+//  - the live slots only (no pads, no out-of-window slots), in (row, slot)
+//    order, one int32 each (the global x row, bit 31 marking the last slot
+//    of its unit) and the weight beside it;
+//  - a unit is one row's slots, or, for a row with more than SLICE_SLOTS
+//    of them (a hub), one near-equal slice; a task is a run of units and
+//    of the empty rows between them, cut at an even, small cost.
 //
-//  1. stream_item_kernel: one block per (item, 128-column slab). An item
-//     is a run of at most ITEM_SLOTS slots of one window's tiles (made on
-//     the host, `stream_plan.kernel_schedule`). The block keeps the
-//     window's [s_tile, 128] f32 sum in shared memory. Each of its 16
-//     warps owns s_tile/16 rows and walks all of the item's slots in
-//     order, taking only those whose row it owns: every element of the
-//     sum is updated by one lane, in slot order. No atomics. A power-law
-//     hub makes one row hold most of an item's slots, which would leave
-//     one warp doing all the work: the host marks such an item's heavy
-//     row (one with more than 1/16 of the item's slots), all 16 warps sum
-//     its slots in 16 consecutive slices in registers, and the row's
-//     owner adds the 16 slice sums in warp order. A window with one item
-//     is written (or added) straight to `out`; otherwise the item writes
-//     its partial window to scratch.
-//  2. stream_merge_kernel: one block per (split window, slab, 32 rows)
-//     adds the window's partials in item order into `out`; in sum mode it
-//     also writes the zeros of the windows no tile visits.
+// What the card then waits on is the x rows' reads. A family whose cells
+// share x blocks across neighbouring windows (a community's intra edges)
+// re-reads them from L2 if the rows in flight are few: tasks are small
+// (TASK_COST) and handed out in row order, so the resident groups work on
+// a narrow band of rows. A family without such reuse runs at the DRAM
+// rate of its row reads.
 //
-// Reruns are bit-identical. The one-hot MXU select of the TPU kernel is
-// not carried over: a lane reads its x row directly.
+//  1. stream_row_kernel: a group of G lanes takes one task (G = 32 per
+//     128-column slab; 16, 8 or 4 for F <= 64, 32, 16, so that narrow rows
+//     leave no lane idle). It reads the task's slot entries G at a time,
+//     coalesced, the next G in flight, broadcasts them by shuffle and keeps
+//     kBatch x rows in flight per lane, adding them into registers in slot
+//     order across unit bounds. At a unit's last slot it writes the row
+//     once (accumulate: adds the row's old value, read when the unit
+//     began), or the slice's sum to a partial. In sum mode it first writes
+//     its task's empty rows as zeros. No shared memory; ~60 registers, so
+//     an SM holds 32 warps. (Measured on the H100: 8 rows in flight at ~80
+//     registers, or forced occupancy, were slower.)
+//  2. stream_fix_kernel, one launch per level: one group per entry adds a
+//     hub row's partials in slice order (at most FIX_FANIN of them; a row
+//     with more is reduced in a fixed tree) into the row or into a partial
+//     of the next level.
+//
+// No atomics: each output element has one fixed summation order (its
+// slots in slot order, slices in order), and reruns are bit-identical.
+// The one-hot MXU select of the TPU kernel is not carried over: a lane
+// reads its x row directly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,12 +67,11 @@
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 128;    // columns per slab: 32 lanes x 4
-constexpr int kBatch = 8;     // x rows in flight per warp
-constexpr int kMergeThreads = 256;
-constexpr int kMergeRows = 32;  // window rows per merge block
+constexpr int kThreads = 128;  // 4 warps a block
+constexpr int kBatch = 4;      // x rows in flight per lane
+constexpr int kCols = 128;     // columns per slab at G = 32
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowMask = 0x7fffffff;  // cols entry -> x row (bit 31: last of unit)
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
@@ -69,288 +79,284 @@ __device__ __forceinline__ void fma4(float4& a, float s, const float4& b) {
   a.x += s * b.x; a.y += s * b.y; a.z += s * b.z; a.w += s * b.w;
 }
 
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+__device__ __forceinline__ float4 sum4(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Columns col..col+3 of row `row` of x [rows, F]; zero past the end.
-template <typename T, bool VEC>
-__device__ __forceinline__ float4 load4(const T* __restrict__ x, int64_t row, int F, int col);
-
-template <>
-__device__ __forceinline__ float4 load4<float, true>(const float* __restrict__ x,
-                                                     int64_t row, int F, int col) {
-  if (col >= F) return zero4();
-  return __ldg(reinterpret_cast<const float4*>(x + row * F + col));
+__device__ __forceinline__ float4 load_vec(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16, true>(
-    const __nv_bfloat16* __restrict__ x, int64_t row, int F, int col) {
-  if (col >= F) return zero4();
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(x + row * F + col));
+__device__ __forceinline__ float4 load_vec(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-template <typename T>
-__device__ __forceinline__ float4 load4_scalar(const T* __restrict__ x, int64_t row,
-                                               int F, int col) {
+// Lane gl of a group of G lanes holds 4 columns of a row: with VEC the 4
+// consecutive columns c0 + 4*gl (one 8- or 16-byte load), without it
+// c0 + gl + G*m for m < 4 (each load coalesced over the group). Columns
+// at or past F read as zero and are not written.
+template <typename T, bool VEC, int G>
+__device__ __forceinline__ float4 load_row(const T* __restrict__ x, int64_t row, int F,
+                                           int c0, int gl) {
   const T* p = x + row * F;
+  if (VEC) {
+    const int c = c0 + 4 * gl;
+    return c < F ? load_vec(p + c) : zero4();
+  }
+  const int c = c0 + gl;
   float4 v;
-  v.x = col + 0 < F ? to_f(p[col + 0]) : 0.f;
-  v.y = col + 1 < F ? to_f(p[col + 1]) : 0.f;
-  v.z = col + 2 < F ? to_f(p[col + 2]) : 0.f;
-  v.w = col + 3 < F ? to_f(p[col + 3]) : 0.f;
+  v.x = c < F ? to_f(p[c]) : 0.f;
+  v.y = c + G < F ? to_f(p[c + G]) : 0.f;
+  v.z = c + 2 * G < F ? to_f(p[c + 2 * G]) : 0.f;
+  v.w = c + 3 * G < F ? to_f(p[c + 3 * G]) : 0.f;
   return v;
 }
 
-template <>
-__device__ __forceinline__ float4 load4<float, false>(const float* __restrict__ x,
-                                                      int64_t row, int F, int col) {
-  return load4_scalar(x, row, F, col);
-}
-
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16, false>(
-    const __nv_bfloat16* __restrict__ x, int64_t row, int F, int col) {
-  return load4_scalar(x, row, F, col);
-}
-
-// out[row, col..col+3] = v (accumulate = 0) or += v (accumulate = 1).
-template <bool VEC>
-__device__ __forceinline__ void store4(float* __restrict__ out, int64_t row, int F,
-                                       int col, const float4& v, int accumulate) {
-  if (col >= F) return;
-  float* p = out + row * F + col;
+template <bool VEC, int G>
+__device__ __forceinline__ float4 load_out(const float* out, int64_t row, int F, int c0,
+                                           int gl) {
+  const float* p = out + row * F;
   if (VEC) {
-    float4* q = reinterpret_cast<float4*>(p);
-    if (accumulate) { float4 o = *q; add4(o, v); *q = o; } else { *q = v; }
+    const int c = c0 + 4 * gl;
+    return c < F ? *reinterpret_cast<const float4*>(p + c) : zero4();
+  }
+  const int c = c0 + gl;
+  float4 v;
+  v.x = c < F ? p[c] : 0.f;
+  v.y = c + G < F ? p[c + G] : 0.f;
+  v.z = c + 2 * G < F ? p[c + 2 * G] : 0.f;
+  v.w = c + 3 * G < F ? p[c + 3 * G] : 0.f;
+  return v;
+}
+
+template <bool VEC, int G>
+__device__ __forceinline__ void store_out(float* out, int64_t row, int F, int c0, int gl,
+                                          const float4& v) {
+  float* p = out + row * F;
+  if (VEC) {
+    const int c = c0 + 4 * gl;
+    if (c < F) *reinterpret_cast<float4*>(p + c) = v;
     return;
   }
-  const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (col + c < F) p[c] = accumulate ? p[c] + vv[c] : vv[c];
-  }
+  const int c = c0 + gl;
+  if (c < F) p[c] = v.x;
+  if (c + G < F) p[c + G] = v.y;
+  if (c + 2 * G < F) p[c + 2 * G] = v.z;
+  if (c + 3 * G < F) p[c + 3 * G] = v.w;
 }
 
-// Adds w * x[row] of the lanes in `mask` (each lane's own d, row and w)
-// to `sink(d, w, x_row_cols)`, in lane order, kBatch rows in flight.
-template <typename T, bool VEC, typename Sink>
-__device__ __forceinline__ void consume(unsigned mask, int d, int64_t row, float wv,
-                                        const T* __restrict__ x, int64_t n_rows, int F,
-                                        int col, Sink sink) {
-  while (mask) {
-    int src_lane[kBatch];
-    int n = 0;
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      src_lane[k] = mask ? __ffs(mask) - 1 : 0;
-      if (mask) { mask &= mask - 1; ++n; }
-    }
-    float4 v[kBatch];
-    float wk[kBatch];
-    int rk[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int sl = src_lane[k];
-      rk[k] = __shfl_sync(0xffffffffu, d, sl);
-      wk[k] = __shfl_sync(0xffffffffu, wv, sl);
-      const int64_t r = __shfl_sync(0xffffffffu, row, sl);
-      v[k] = (k < n && r < n_rows) ? load4<T, VEC>(x, r, F, col) : zero4();
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      if (k < n) sink(rk[k], wk[k], v[k]);
-    }
-  }
-}
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-stream_item_kernel(const T* __restrict__ x, int64_t n_rows, int F,
-                   const int* __restrict__ dst3, const int* __restrict__ srcl3,
-                   const float* __restrict__ w3, const int* __restrict__ sblock,
-                   int E, int s_tile, int x_rows, const int4* __restrict__ items,
-                   const int* __restrict__ heavy_rows, float* __restrict__ out,
-                   float* __restrict__ part, int Fp, int accumulate) {
-  extern __shared__ float4 acc[];  // [s_tile][32 lanes]
-  __shared__ float4 hpart[kWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.y * kCols + 4 * lane;
-  const int4 it = items[blockIdx.x];  // (t0, t1, window, part)
-  const int heavy = heavy_rows[blockIdx.x];
-  const int win = it.z;
-  const int rpw = (s_tile + kWarps - 1) / kWarps;
-  const int r0 = min(warp * rpw, s_tile);
-  const int r1 = min(r0 + rpw, s_tile);
-  const int win_base = win * s_tile;
-  for (int r = r0; r < r1; ++r) acc[r * 32 + lane] = zero4();
-
-  // the heavy row's slots: the warps split the item's slots into 16
-  // consecutive slices and each sums its slice's in registers
-  float4 hacc = zero4();
-  if (heavy >= 0) {
-    const int64_t q0 = (int64_t)it.x * E, q1 = (int64_t)it.y * E;
-    const int64_t per = ((q1 - q0 + kWarps - 1) / kWarps + 31) / 32 * 32;
-    const int64_t a = q0 + warp * per, b = min(q1, a + per);
-    for (int64_t q = a; q < b; q += 32) {
-      const int64_t ql = q + lane;
-      int d = -1, s = -1;
-      float wv = 0.f;
-      int64_t row = 0;
-      if (ql < b) {
-        d = __ldg(dst3 + ql) - win_base;
-        s = __ldg(srcl3 + ql);
-        wv = w3 == nullptr ? 1.f : __ldg(w3 + ql);
-        row = (int64_t)__ldg(sblock + ql / E) * x_rows + s;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, s >= 0 && s < x_rows && d == heavy);
-      consume<T, VEC>(mask, d, row, wv, x, n_rows, F, col,
-                      [&](int, float wk, const float4& v) { fma4(hacc, wk, v); });
-    }
-  }
-
-  // every other slot: the owner warp of its row, in slot order
-  for (int t = it.x; t < it.y; ++t) {
-    const int64_t xbase = (int64_t)__ldg(sblock + t) * x_rows;
-    const int* dt = dst3 + (int64_t)t * E;
-    const int* st = srcl3 + (int64_t)t * E;
-    const float* wt = w3 == nullptr ? nullptr : w3 + (int64_t)t * E;
-    for (int j = 0; j < E; j += 32) {
-      const int e = j + lane;
-      int d = -1, s = -1;
-      float wv = 0.f;
-      if (e < E) {
-        d = __ldg(dt + e) - win_base;
-        s = __ldg(st + e);
-        wv = wt == nullptr ? 1.f : __ldg(wt + e);
-      }
-      const unsigned mask = __ballot_sync(
-          0xffffffffu, s >= 0 && s < x_rows && d >= r0 && d < r1 && d != heavy);
-      consume<T, VEC>(mask, d, xbase + s, wv, x, n_rows, F, col,
-                      [&](int r, float wk, const float4& v) { fma4(acc[r * 32 + lane], wk, v); });
-    }
-  }
-
-  if (heavy >= 0) {  // the heavy row's slices, added in warp order by its owner
-    hpart[warp][lane] = hacc;
-    __syncthreads();
-    if (heavy >= r0 && heavy < r1) {
-      float4 sum = zero4();
-      for (int w = 0; w < kWarps; ++w) add4(sum, hpart[w][lane]);
-      acc[heavy * 32 + lane] = sum;
-    }
-  }
-
-  if (it.w >= 0) {  // one of several items of this window: a partial
-    float4* pv = reinterpret_cast<float4*>(part);
-    for (int r = r0; r < r1; ++r)
-      pv[(((int64_t)it.w * s_tile + r) * Fp + col) >> 2] = acc[r * 32 + lane];
-    return;
-  }
-  for (int r = r0; r < r1; ++r)
-    store4<VEC>(out, (int64_t)win_base + r, F, col, acc[r * 32 + lane], accumulate);
-}
-
-// Blocks x in [0, n_merges): a split window, its partials added in item
-// order; x in [n_merges, n_merges + n_empty): a window no tile visits,
-// zeros. Block z covers rows [z*kMergeRows, (z+1)*kMergeRows) of the window.
-template <bool VEC>
-__global__ void __launch_bounds__(kMergeThreads)
-stream_merge_kernel(const int* __restrict__ merges, int n_merges,
-                    const int* __restrict__ empties, const float* __restrict__ part,
-                    int Fp, int F, int s_tile, float* __restrict__ out,
-                    int accumulate) {
-  int win, p0 = 0, p1 = 0;
-  if ((int)blockIdx.x < n_merges) {
-    win = merges[3 * blockIdx.x];
-    p0 = merges[3 * blockIdx.x + 1];
-    p1 = merges[3 * blockIdx.x + 2];
+// A finished unit or fix-up entry: dest >= 0 is an output row (its old
+// value `carry` added first in accumulate mode), dest < 0 partial -dest-1.
+template <bool VEC, int G>
+__device__ __forceinline__ void finish(float* out, float4* part, int dest, int F, int c0,
+                                       int gl, int pofs, int pstride, const float4& acc,
+                                       const float4& carry, int accumulate) {
+  if (dest >= 0) {
+    store_out<VEC, G>(out, dest, F, c0, gl, accumulate ? sum4(carry, acc) : acc);
   } else {
-    win = empties[blockIdx.x - n_merges];
-  }
-  const float4* pv = reinterpret_cast<const float4*>(part);
-  const int r_begin = blockIdx.z * kMergeRows;
-  const int r_end = min(s_tile, r_begin + kMergeRows);
-  for (int idx = r_begin * 32 + threadIdx.x; idx < r_end * 32; idx += kMergeThreads) {
-    const int r = idx >> 5;
-    const int col = blockIdx.y * kCols + 4 * (idx & 31);
-    float4 sum = zero4();
-    for (int p = p0; p < p1; ++p)
-      add4(sum, __ldg(pv + ((((int64_t)p * s_tile + r) * Fp + col) >> 2)));
-    store4<VEC>(out, (int64_t)win * s_tile + r, F, col, sum, accumulate);
+    part[(int64_t)(-dest - 1) * pstride + pofs] = acc;
   }
 }
 
+template <typename T, bool VEC, int G>
+__global__ void __launch_bounds__(kThreads)
+stream_row_kernel(const T* __restrict__ x, int64_t n_rows, int F,
+                  const int* __restrict__ cols, const float* __restrict__ vals,
+                  const int* __restrict__ unit_dest, int n_units,
+                  const int* __restrict__ tasks, int n_tasks,
+                  const int* __restrict__ zero_runs, float* out, float4* part,
+                  int accumulate) {
+  constexpr int kB = G < kBatch ? G : kBatch;
+  const int gl = threadIdx.x % G;
+  const int task = (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x) / G);
+  const int c0 = blockIdx.y * kCols;
+  const int pofs = blockIdx.y * G + gl, pstride = gridDim.y * G;  // in float4s
+  int s = 0, s_end = 0, u = 0;
+  if (task < n_tasks) {
+    s = __ldg(tasks + 3 * task);
+    u = __ldg(tasks + 3 * task + 1);
+    s_end = __ldg(tasks + 3 * task + 3);
+    if (!accumulate) {  // the task's rows no slot adds to: zeros
+      const int z1 = __ldg(tasks + 3 * task + 5);
+      for (int z = __ldg(tasks + 3 * task + 2); z < z1; ++z) {
+        const int r0 = __ldg(zero_runs + 2 * z), r1 = r0 + __ldg(zero_runs + 2 * z + 1);
+        for (int r = r0; r < r1; ++r) store_out<VEC, G>(out, r, F, c0, gl, zero4());
+      }
+    }
+  }
+  // the current unit's destination and old value; the next one's destination
+  int dest = 0, dest_next = 0;
+  float4 carry = zero4();
+  if (s < s_end) {
+    dest = __ldg(unit_dest + u);
+    if (u + 1 < n_units) dest_next = __ldg(unit_dest + u + 1);
+    if (accumulate && dest >= 0) carry = load_out<VEC, G>(out, dest, F, c0, gl);
+  }
+  float4 acc = zero4();
+  // slot entries G at a time, one per lane, the next G in flight; every
+  // group of the warp runs the warp's largest trip count, the shuffles
+  // being warp-wide
+  const int max_it = (int)__reduce_max_sync(kFull, (unsigned)((s_end - s + G - 1) / G));
+  int cc = 0;
+  float wc = 1.f;
+  if (s + gl < s_end) {
+    cc = __ldg(cols + s + gl);
+    if (vals != nullptr) wc = __ldg(vals + s + gl);
+  }
+  for (int it = 0; it < max_it; ++it) {
+    const int base = s + it * G;
+    const int jn = base + G + gl;
+    int cn = 0;
+    float wn = 1.f;
+    if (jn < s_end) {
+      cn = __ldg(cols + jn);
+      if (vals != nullptr) wn = __ldg(vals + jn);
+    }
+    const int n_valid = s_end - base;
+#pragma unroll
+    for (int kb = 0; kb < G; kb += kB) {
+      float4 v[kB];
+      float w[kB];
+      int ck[kB];
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        ck[b] = __shfl_sync(kFull, cc, kb + b, G);
+        w[b] = __shfl_sync(kFull, wc, kb + b, G);
+        const int r = ck[b] & kRowMask;
+        v[b] = (kb + b < n_valid && r < n_rows) ? load_row<T, VEC, G>(x, r, F, c0, gl)
+                                                : zero4();
+      }
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (kb + b < n_valid) {
+          fma4(acc, w[b], v[b]);
+          if (ck[b] < 0) {  // the unit's last slot
+            finish<VEC, G>(out, part, dest, F, c0, gl, pofs, pstride, acc, carry,
+                           accumulate);
+            acc = zero4();
+            ++u;
+            dest = dest_next;
+            const bool more = kb + b + 1 < n_valid;
+            if (more && u + 1 < n_units) dest_next = __ldg(unit_dest + u + 1);
+            carry = (accumulate && more && dest >= 0) ? load_out<VEC, G>(out, dest, F, c0, gl)
+                                                      : zero4();
+          }
+        }
+      }
+    }
+    cc = cn;
+    wc = wn;
+  }
+}
+
+// One group per entry (dest, p0, p1) of one fix-up level.
+template <bool VEC, int G>
+__global__ void __launch_bounds__(kThreads)
+stream_fix_kernel(const int* __restrict__ fix, int n_fix, float4* part, float* out, int F,
+                  int accumulate) {
+  const int e = (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x) / G);
+  if (e >= n_fix) return;
+  const int gl = threadIdx.x % G;
+  const int c0 = blockIdx.y * kCols;
+  const int pofs = blockIdx.y * G + gl, pstride = gridDim.y * G;
+  const int dest = __ldg(fix + 3 * e), p0 = __ldg(fix + 3 * e + 1), p1 = __ldg(fix + 3 * e + 2);
+  const float4 carry =
+      (accumulate && dest >= 0) ? load_out<VEC, G>(out, dest, F, c0, gl) : zero4();
+  float4 acc = zero4();
+  for (int p = p0; p < p1; p += kBatch) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      v[b] = p + b < p1 ? part[(int64_t)(p + b) * pstride + pofs] : zero4();
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (p + b < p1) acc = sum4(acc, v[b]);
+  }
+  finish<VEC, G>(out, part, dest, F, c0, gl, pofs, pstride, acc, carry, accumulate);
+}
+
+struct Args {
+  const void* x;
+  int64_t n_rows;
+  int F;
+  const int* cols;
+  const float* vals;
+  const int* unit_dest;
+  const int* tasks;
+  int n_tasks;
+  const int* zero_runs;
+  int n_units;
+  const int* fix;
+  const int* fix_levels;
+  int n_levels;
+  float4* part;
+  float* out;
+  int accumulate;
+  cudaStream_t stream;
+};
+
+template <typename T, bool VEC, int G>
+int launch(const Args& a) {
+  const int n_slabs = G == 32 ? (a.F + kCols - 1) / kCols : 1;
+  if (a.n_tasks > 0) {
+    const dim3 grid((unsigned)(((int64_t)a.n_tasks * G + kThreads - 1) / kThreads), n_slabs);
+    stream_row_kernel<T, VEC, G><<<grid, kThreads, 0, a.stream>>>(
+        (const T*)a.x, a.n_rows, a.F, a.cols, a.vals, a.unit_dest, a.n_units, a.tasks,
+        a.n_tasks, a.zero_runs, a.out, a.part, a.accumulate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int l = 0; l < a.n_levels; ++l) {
+    const int n = a.fix_levels[l + 1] - a.fix_levels[l];
+    if (n <= 0) continue;
+    const dim3 grid((unsigned)(((int64_t)n * G + kThreads - 1) / kThreads), n_slabs);
+    stream_fix_kernel<VEC, G><<<grid, kThreads, 0, a.stream>>>(
+        a.fix + 3 * (int64_t)a.fix_levels[l], n, a.part, a.out, a.F, a.accumulate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 template <typename T, bool VEC>
-int launch(const void* x, int64_t n_rows, int F, const void* dst3,
-           const void* srcl3, const void* w3, const void* sblock, int E,
-           int s_tile, int x_rows, const void* items, const void* heavy,
-           int n_items, const void* merges, int n_merges, const void* empties,
-           int n_empty, void* out, void* part, int accumulate, cudaStream_t stream) {
-  const int n_slabs = (F + kCols - 1) / kCols;
-  const int Fp = n_slabs * kCols;
-  if (n_items > 0) {
-    const size_t smem = (size_t)s_tile * 32 * sizeof(float4);
-    cudaError_t err = cudaFuncSetAttribute(
-        stream_item_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    stream_item_kernel<T, VEC><<<dim3(n_items, n_slabs), kThreads, smem, stream>>>(
-        (const T*)x, n_rows, F, (const int*)dst3, (const int*)srcl3,
-        (const float*)w3, (const int*)sblock, E, s_tile, x_rows,
-        (const int4*)items, (const int*)heavy, (float*)out, (float*)part, Fp,
-        accumulate);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n_merges + n_empty > 0) {
-    const dim3 grid(n_merges + n_empty, n_slabs, (s_tile + kMergeRows - 1) / kMergeRows);
-    stream_merge_kernel<VEC><<<grid, kMergeThreads, 0, stream>>>(
-        (const int*)merges, n_merges, (const int*)empties, (const float*)part, Fp,
-        F, s_tile, (float*)out, accumulate);
-  }
-  return (int)cudaGetLastError();
+int launch_lanes(const Args& a) {
+  if (a.F > 64) return launch<T, VEC, 32>(a);
+  if (a.F > 32) return launch<T, VEC, 16>(a);
+  if (a.F > 16) return launch<T, VEC, 8>(a);
+  return launch<T, VEC, 4>(a);
 }
 
 }  // namespace
 
-// x [n_rows, F] row-major, float32 (x_is_bf16 = 0) or bfloat16 (1); dst3,
-// srcl3 int32 [T*E]; w3 f32 [T*E] or null; sblock int32 [T]; items int32
-// [n_items, 4] (16-byte aligned); heavy int32 [n_items] (each item's
-// heavy row, window-local, or -1); merges int32 [n_merges, 3]; empties int32
-// [n_empty] (0 in accumulate mode); out f32 [n_windows*s_tile, F];
-// part f32 [n_parts, s_tile, ceil(F/128)*128] scratch (16-byte aligned).
-// Needs s_tile * 512 bytes of shared memory. Launches on `stream` and
+// x [n_rows, F] row-major, float32 (x_is_bf16 = 0) or bfloat16 (1); cols
+// int32 [S] and vals f32 [S] or null; unit_dest int32 [n_units]; tasks
+// int32 [n_tasks + 1, 3]; zero_runs int32 [Z, 2]; fix int32 [M, 3] with
+// its level bounds fix_levels (host memory, n_levels + 1 ints); part f32
+// scratch [n_parts, ceil(F/128)*128 at F > 64, else 4*G] (16-byte
+// aligned); out f32 [n_windows*s_tile, F]. Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
-extern "C" int geot_stream_segment(const void* x, int x_is_bf16, int64_t n_rows,
-                                   int F, const void* dst3, const void* srcl3,
-                                   const void* w3, const void* sblock, int E,
-                                   int s_tile, int x_rows, const void* items,
-                                   const void* heavy, int n_items,
-                                   const void* merges, int n_merges,
-                                   const void* empties, int n_empty, void* out,
-                                   void* part, int accumulate, void* stream) {
+extern "C" int geot_stream_segment(const void* x, int x_is_bf16, int64_t n_rows, int F,
+                                   const void* cols, const void* vals,
+                                   const void* unit_dest, const void* tasks, int n_tasks,
+                                   const void* zero_runs, int n_units, const void* fix,
+                                   const int* fix_levels, int n_levels, void* part,
+                                   void* out, int accumulate, void* stream) {
   if (F <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
+  const Args a{x, n_rows, F, (const int*)cols, (const float*)vals,
+               (const int*)unit_dest, (const int*)tasks, n_tasks, (const int*)zero_runs,
+               n_units, (const int*)fix, fix_levels, n_levels, (float4*)part,
+               (float*)out, accumulate, (cudaStream_t)stream};
   const uintptr_t xa = (uintptr_t)x, oa = (uintptr_t)out;
   const bool vec = (F % 4 == 0) && (oa % 16 == 0) && (xa % (x_is_bf16 ? 8 : 16) == 0);
-#define GEOT_STREAM_ARGS                                                        \
-  x, n_rows, F, dst3, srcl3, w3, sblock, E, s_tile, x_rows, items, heavy,     \
-      n_items, merges, n_merges, empties, n_empty, out, part, accumulate, s
   if (x_is_bf16) {
-    return vec ? launch<__nv_bfloat16, true>(GEOT_STREAM_ARGS)
-               : launch<__nv_bfloat16, false>(GEOT_STREAM_ARGS);
+    return vec ? launch_lanes<__nv_bfloat16, true>(a) : launch_lanes<__nv_bfloat16, false>(a);
   }
-  return vec ? launch<float, true>(GEOT_STREAM_ARGS)
-             : launch<float, false>(GEOT_STREAM_ARGS);
-#undef GEOT_STREAM_ARGS
+  return vec ? launch_lanes<float, true>(a) : launch_lanes<float, false>(a);
 }

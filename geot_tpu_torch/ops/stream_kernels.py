@@ -27,8 +27,6 @@ __all__ = [
     "stream_segment_sum_plain",
 ]
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may take (H100)
-_SMEM_STATIC = 16 * 32 * 16  # the kernel's own: the heavy row's 16 slice sums
 _PLAIN_SLOTS = 1 << 21  # slots the plain version gathers at a time
 
 
@@ -36,8 +34,9 @@ def _bound_fn():
     fn = load_kernel("stream_segment").geot_stream_segment
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, i32, i64, i32, p, p, p, p, i32, i32, i32, p, p, i32, p, i32,
-                       p, i32, p, p, i32, p]
+        host_ints = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [p, i32, i64, i32, p, p, p, p, i32, p, i32, p, host_ints, i32, p, p,
+                       i32, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -97,49 +96,48 @@ def _launch(sp: StreamPlan, x: torch.Tensor, out: torch.Tensor, accumulate: bool
     i32 = (torch.int32,)
     _check(x, "x", (torch.float32, torch.bfloat16), 2, dev)
     _check(out, "out", (torch.float32,), 2, dev)
-    for name in ("out_block", "sblock", "items", "heavy", "merges", "empty_windows"):
-        _check(getattr(sp, name), name, i32, {"items": 2, "merges": 2}.get(name, 1), dev)
-    for name in ("dst3", "srcl3"):
-        _check(getattr(sp, name), name, i32, 3, dev)
-    if sp.w3 is not None:
-        _check(sp.w3, "w3", (torch.float32,), 3, dev)
-    T, E, s_tile = sp.num_tiles, sp.e_tile, sp.s_tile
-    for name in ("dst3", "srcl3") + (("w3",) if sp.w3 is not None else ()):
-        if tuple(getattr(sp, name).shape) != (T, 1, E):
-            raise ValueError(f"{name} shape {tuple(getattr(sp, name).shape)} "
-                             f"does not match the plan ({T}, 1, {E})")
-    if sp.sblock.shape[0] != T:
-        raise ValueError("sblock and out_block differ in length")
-    if sp.heavy.shape[0] != sp.items.shape[0]:
-        raise ValueError("heavy and items differ in length")
-    if tuple(out.shape) != (sp.n_blocks * s_tile, x.shape[1]):
+    for name, dim in (("cols", 1), ("unit_dest", 1), ("tasks", 2), ("zero_runs", 2),
+                      ("fix", 2)):
+        _check(getattr(sp, name), name, i32, dim, dev)
+    if sp.vals is not None:
+        _check(sp.vals, "vals", (torch.float32,), 1, dev)
+        if sp.vals.shape != sp.cols.shape:
+            raise ValueError("vals and cols differ in length")
+    n_tasks = sp.tasks.shape[0] - 1
+    if n_tasks < 0 or sp.tasks.shape[1] != 3 or sp.zero_runs.shape[1] != 2 \
+            or sp.fix.shape[1] != 3:
+        raise ValueError("tasks, zero_runs or fix has the wrong shape")
+    if sp.fix_levels[-1] != sp.fix.shape[0]:
+        raise ValueError("fix_levels does not cover fix")
+    if tuple(out.shape) != (sp.n_blocks * sp.s_tile, x.shape[1]):
         raise ValueError(f"out shape {tuple(out.shape)}, expected "
-                         f"({sp.n_blocks * s_tile}, {x.shape[1]})")
-    if sp.items.data_ptr() % 16:
-        raise ValueError("items must be 16-byte aligned")
-    if s_tile < 1 or E < 1 or sp.x_rows < 1:
-        raise ValueError("s_tile, e_tile and x_rows must be positive")
-    if s_tile * 512 + _SMEM_STATIC > _SMEM_LIMIT:
-        raise ValueError(f"s_tile={s_tile}: the window's sum needs {s_tile * 512} bytes "
-                         f"of shared memory, more than {_SMEM_LIMIT - _SMEM_STATIC}")
-    n_items, n_merges = sp.items.shape[0], sp.merges.shape[0]
-    n_empty = 0 if accumulate else sp.empty_windows.shape[0]
-    f_pad = -(-x.shape[1] // 128) * 128
-    part = torch.empty(max(sp.n_parts, 1) * s_tile * f_pad if n_merges else 4,
-                       dtype=torch.float32, device=dev)
+                         f"({sp.n_blocks * sp.s_tile}, {x.shape[1]})")
+    F = x.shape[1]
+    part = torch.empty(max(sp.n_parts, 1) * _part_stride(F), dtype=torch.float32,
+                       device=dev)
+    levels = (ctypes.c_int * len(sp.fix_levels))(*sp.fix_levels)
     fn = _bound_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1],
-            sp.dst3.data_ptr(), sp.srcl3.data_ptr(),
-            None if sp.w3 is None else sp.w3.data_ptr(), sp.sblock.data_ptr(),
-            E, s_tile, sp.x_rows, sp.items.data_ptr(), sp.heavy.data_ptr(), n_items,
-            sp.merges.data_ptr(), n_merges, sp.empty_windows.data_ptr(), n_empty,
-            out.data_ptr(), part.data_ptr(), int(accumulate), stream,
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], F,
+            sp.cols.data_ptr(), None if sp.vals is None else sp.vals.data_ptr(),
+            sp.unit_dest.data_ptr(), sp.tasks.data_ptr(), n_tasks,
+            sp.zero_runs.data_ptr(), sp.unit_dest.shape[0], sp.fix.data_ptr(), levels,
+            len(sp.fix_levels) - 1, part.data_ptr(), out.data_ptr(), int(accumulate),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"stream_segment kernel launch failed: cudaError {rc}")
+
+
+def _part_stride(F: int) -> int:
+    """Floats of one partial sum's row: the kernel's lane groups hold 4
+    columns a lane, 32 lanes per 128-column slab at F > 64, else 16, 8 or
+    4 lanes (F <= 64, 32, 16)."""
+    if F > 64:
+        return -(-F // 128) * 128
+    return 64 if F > 32 else 32 if F > 16 else 16
 
 
 def stream_segment_acc(sp: StreamPlan, x: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:

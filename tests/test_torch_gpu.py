@@ -282,9 +282,12 @@ def _stream_edges(rng, n, hub_window_cells=12, cells=30, epc=1500, s_tile=256,
     return src[order].astype(np.int32), dst[order].astype(np.int32)
 
 
-def _families(rng, cuda, weighted, e_tile=0, s_tile=256, x_rows=256, n=3000):
+def _families(rng, cuda, weighted, e_tile=0, s_tile=256, x_rows=256, n=3000, schedule=None):
     src, dst = _stream_edges(rng, n, s_tile=s_tile, x_rows=x_rows)
-    w = rng.standard_normal(len(src)).astype(np.float32) if weighted else None
+    w = None
+    if weighted:  # every fifth weight exactly 0: zero terms inside the rows' runs
+        w = rng.standard_normal(len(src)).astype(np.float32)
+        w[::5] = 0.0
     # a forced tile size gets a cost model under which every dense cell streams
     knobs = (tsp.StreamKnobs(min_stream_frac=0.05, tile_ns=(), fixed_ns=1.0, marg_ns=1.0)
              if e_tile else tsp.StreamKnobs(min_stream_frac=0.05))
@@ -292,7 +295,7 @@ def _families(rng, cuda, weighted, e_tile=0, s_tile=256, x_rows=256, n=3000):
         dst, src, n, n, s_tile=s_tile, x_rows=x_rows, e_tile=e_tile, edge_weight=w,
         max_chunk_tiles=16, knobs=knobs, uniformize=True)
     assert fams is not None
-    return [tsp.stream_plan_from_host(a, m, device=cuda) for a, m in fams]
+    return [tsp.stream_plan_from_host(a, m, device=cuda, **(schedule or {})) for a, m in fams]
 
 
 def _check_abs_sum(k, p, a):
@@ -305,14 +308,25 @@ def _check_abs_sum(k, p, a):
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("F,dtype", [(128, torch.float32), (47, torch.float32),
                                      (256, torch.float32), (128, torch.bfloat16),
-                                     (47, torch.bfloat16)])
-@pytest.mark.parametrize("tiles", ["auto", "e100_s64_x128"])
+                                     (47, torch.bfloat16), (64, torch.float32),
+                                     (32, torch.float32), (16, torch.float32),
+                                     (16, torch.bfloat16), (8, torch.float32)])
+@pytest.mark.parametrize("tiles", ["auto", "e100_s64_x128", "short_slices"])
 def test_stream_kernels_match_plain(cuda, mode, weighted, F, dtype, tiles):
+    """F 64, 32, 16 and 8 take the narrow lane groups (16, 8, 4 and 4 lanes);
+    `short_slices` cuts every row past 16 live slots and adds the slices
+    4 at a time, so the hub node's row goes through a tree of fix-up
+    levels."""
     rng = np.random.default_rng(F + weighted + (mode == "acc"))
-    kw = {} if tiles == "auto" else dict(e_tile=100, s_tile=64, x_rows=128)
-    sps = _families(rng, cuda, weighted, **kw)
-    assert any(sp.merges.shape[0] for sp in sps), "no window split over blocks"
-    assert any(bool((sp.heavy >= 0).any()) for sp in sps), "no item with a heavy row"
+    kw = {"auto": {}, "e100_s64_x128": dict(e_tile=100, s_tile=64, x_rows=128),
+          "short_slices": dict(schedule=dict(slice_slots=16, fix_fanin=4, task_cost=128))}
+    sps = _families(rng, cuda, weighted, **kw[tiles])
+    # the hub node's row (3,000 edges in window 0) is cut into slices
+    assert any(sp.n_parts > 0 for sp in sps), "no row cut into slices"
+    if tiles == "short_slices":
+        assert max(len(sp.fix_levels) - 1 for sp in sps) >= 3, "no tree of fix-up levels"
+    # window 0's 18,000 edges are spread over several groups' tasks
+    assert any(sp.tasks.shape[0] - 1 > sp.out_block.unique().numel() for sp in sps)
     n = 3000
     # x rows end mid-block: the kernel reads the missing rows as zero
     x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda).to(dtype)

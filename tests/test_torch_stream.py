@@ -267,32 +267,218 @@ def test_stream_kernels_plain_vs_pallas(mode, weighted):
                                        rtol=0, atol=0)
 
 
+def _schedule_brute(ob, sb, dst3, srcl3, w3, s_tile, x_rows, slice_slots):
+    """The kernel's live slots and units, built slot by slot: each row's
+    live slots in slot order, cut into ceil(n / slice_slots) near-equal
+    slices when longer than slice_slots."""
+    T, E = dst3.shape[0], dst3.shape[-1]
+    by_row = {}
+    for t in range(T):
+        for e in range(E):
+            d = int(dst3.reshape(T, E)[t, e]) - int(ob[t]) * s_tile
+            s = int(srcl3.reshape(T, E)[t, e])
+            if 0 <= s < x_rows and 0 <= d < s_tile:
+                w = 1.0 if w3 is None else float(w3.reshape(T, E)[t, e])
+                by_row.setdefault(int(ob[t]) * s_tile + d, []).append(
+                    (int(sb[t]) * x_rows + s, w))
+    cols, vals, dest, n_parts = [], [], [], 0
+    for r in sorted(by_row):
+        terms = by_row[r]
+        k = -(-len(terms) // slice_slots)
+        sizes = [len(terms) // k + (i < len(terms) % k) for i in range(k)]
+        i = 0
+        for size in sizes:
+            unit = terms[i:i + size]
+            i += size
+            cols += [c for c, _ in unit[:-1]] + [unit[-1][0] | (1 << 31)]
+            vals += [v for _, v in unit]
+            dest.append(r if k == 1 else -(n_parts + 1))
+            n_parts += k > 1
+    return (np.array(cols, np.int64).astype(np.uint32).view(np.int32),
+            np.array(vals, np.float32), np.array(dest, np.int32), by_row)
+
+
+def _walk(sched, x, n_out, carry=None):
+    """The kernel's sums in its order, in float32: each unit's slots in
+    order from 0, the fix-up levels in order, each entry's partials in
+    order; in accumulate mode the row's old value plus that sum. Returns
+    the output and how often each row was written."""
+    cols = sched["cols"].view(np.uint32).astype(np.int64)
+    rows = cols & 0x7FFFFFFF
+    v = np.zeros((len(rows), x.shape[1]), np.float32)
+    ok = rows < x.shape[0]  # x rows past the end read as zero
+    v[ok] = x[rows[ok]]
+    if sched["vals"] is not None:
+        v *= sched["vals"][:, None]
+    part = np.zeros((sched["n_parts"], x.shape[1]), np.float32)
+    out = np.zeros((n_out, x.shape[1]), np.float32) if carry is None else carry.copy()
+    written = np.zeros(n_out, np.int64)
+
+    def ordered_sum(vecs, first, count):
+        acc = np.zeros((len(first), vecs.shape[1]), np.float32)
+        for i in range(int(count.max(initial=0))):
+            m = count > i
+            acc[m] = acc[m] + vecs[first[m] + i]
+        return acc
+
+    def put(dest, acc):
+        fin = dest >= 0
+        out[dest[fin]] = acc[fin] if carry is None else carry[dest[fin]] + acc[fin]
+        np.add.at(written, dest[fin], 1)
+        part[-dest[~fin] - 1] = acc[~fin]
+
+    ends = np.flatnonzero(cols >> 31) + 1
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    put(sched["unit_dest"], ordered_sum(v, starts, ends - starts))
+    lv = sched["fix_levels"]
+    for lo, hi in zip(lv[:-1], lv[1:]):
+        e = sched["fix"][lo:hi].astype(np.int64)
+        put(e[:, 0], ordered_sum(part, e[:, 1], e[:, 2] - e[:, 1]))
+    for r0, cnt in sched["zero_runs"]:
+        written[r0:r0 + cnt] += 1
+    return out, written
+
+
+def _check_schedule(ob, sb, dst3, srcl3, w3, s_tile, x_rows, n_blocks, **knobs):
+    """kernel_schedule's arrays against the slot-by-slot build, and its
+    tasks and fix-up tree against their rules. Returns the schedule."""
+    sched = tsp.kernel_schedule(ob, sb, dst3, srcl3, w3, s_tile, x_rows, n_blocks, **knobs)
+    L = knobs.get("slice_slots", tsp.SLICE_SLOTS)
+    cols, vals, dest, by_row = _schedule_brute(ob, sb, dst3, srcl3, w3, s_tile, x_rows, L)
+    np.testing.assert_array_equal(sched["cols"], cols)
+    np.testing.assert_array_equal(sched["unit_dest"], dest)
+    if w3 is None:
+        assert sched["vals"] is None
+    else:
+        np.testing.assert_array_equal(sched["vals"], vals)
+    # tasks: contiguous, covering every slot, unit and zero run once
+    tasks = sched["tasks"].astype(np.int64)
+    assert (np.diff(tasks, axis=0) >= 0).all()
+    assert tasks[0].tolist() == [0, 0, 0]
+    assert tasks[-1].tolist() == [len(cols), len(dest), len(sched["zero_runs"])]
+    ends = np.flatnonzero(cols.view(np.uint32) >> 31) + 1
+    u_first_slot = np.concatenate([[0], ends[:-1]])
+    np.testing.assert_array_equal(u_first_slot[tasks[:-1, 1][tasks[:-1, 1] < len(dest)]],
+                                  tasks[:-1, 0][tasks[:-1, 1] < len(dest)])
+    # a task's cost stays under task_cost plus one element's
+    cost_cap = knobs.get("task_cost", tsp.TASK_COST) + L + tsp.UNIT_COST
+    z = sched["zero_runs"].astype(np.int64)
+    zr = np.concatenate([[0], np.cumsum(z[:, 1])])
+    for t in range(len(tasks) - 1):
+        slots = tasks[t + 1, 0] - tasks[t, 0]
+        units = tasks[t + 1, 1] - tasks[t, 1]
+        zeros = zr[tasks[t + 1, 2]] - zr[tasks[t, 2]]
+        assert slots + units * tsp.UNIT_COST + zeros * tsp.ZERO_COST <= cost_cap
+    # the fix-up: each level reads only partials written before it, at most
+    # fix_fanin at a time
+    fix, lv = sched["fix"].astype(np.int64), sched["fix_levels"]
+    assert lv[0] == 0 and lv[-1] == len(fix)
+    assert ((fix[:, 2] - fix[:, 1] >= 1)
+            & (fix[:, 2] - fix[:, 1] <= knobs.get("fix_fanin", tsp.FIX_FANIN))).all()
+    ready = int((dest < 0).sum())
+    for lo, hi in zip(lv[:-1], lv[1:]):
+        assert (fix[lo:hi, 2] <= ready).all()
+        ready += int((fix[lo:hi, 0] < 0).sum())
+    assert ready == sched["n_parts"]
+    # every output row is written exactly once in the sum mode
+    _, written = _walk(sched, np.zeros((1, 1), np.float32), n_blocks * s_tile)
+    assert (written == 1).all()
+    return sched
+
+
 def test_kernel_schedule_splits_windows_and_refuses_disorder():
     # windows 0 (5 tiles), 2 (1 tile) and 3 (2 tiles); 1 and 4 unvisited;
     # E = 256, s_tile = 8, x_rows = 16
     ob = np.array([0, 0, 0, 0, 0, 2, 3, 3], np.int32)
+    sb = np.array([0, 2, 1, 1, 0, 2, 1, 0], np.int32)
     rng = np.random.default_rng(0)
     dst = ob[:, None] * 8 + rng.integers(0, 8, (8, 256))
-    dst[0:3] = 5  # row 5 of window 0 takes 3 of its 5 tiles: heavy there
+    dst[0:3] = 5  # row 5 of window 0: a hub of 768 + ~64 slots
     dst[6, :200] = 3 * 8 + 1  # row 1 of window 3: 200 of 512 slots
+    dst[1, 7] = 8  # a slot of window 1 in a tile of window 0: not added
     srcl = rng.integers(0, 16, (8, 256))
     srcl[7, 100:] = -1  # padding
-    sched = tsp.kernel_schedule(ob, dst[:, None].astype(np.int32),
-                                srcl[:, None].astype(np.int32), 8, 16, 5, item_slots=512)
-    assert sched["items"].tolist() == [[0, 2, 0, 0], [2, 4, 0, 1], [4, 5, 0, 2],
-                                       [5, 6, 2, -1], [6, 8, 3, -1]]
-    # an item's heavy row holds more than 1/16 of its slots; with 8 rows
-    # a window every item has one
-    assert sched["heavy"].tolist()[:2] == [5, 5] and sched["heavy"][4] == 1
-    assert sched["merges"].tolist() == [[0, 0, 3]] and sched["n_parts"] == 3
-    assert sched["empty_windows"].tolist() == [1, 4]
-    wide = tsp.kernel_schedule(ob, (ob[:, None] * 256 + np.arange(256))[:, None].astype(
-        np.int32), srcl[:, None].astype(np.int32), 256, 16, 5)
-    assert (wide["heavy"] == -1).all()  # one slot per row: no heavy row
+    srcl[2, 3] = 16  # past the block: not added
+    w = rng.standard_normal((8, 256)).astype(np.float32)
+    w[0, 10] = w[0, 200] = 0.0  # real edges of weight 0 inside the hub's run
+    args = (ob, sb, dst[:, None].astype(np.int32), srcl[:, None].astype(np.int32))
+    sched = _check_schedule(*args, w[:, None], 8, 16, 5, slice_slots=256, task_cost=512)
+    # the hub row alone is cut, into four near-equal slices, then summed in
+    # one fix-up entry; window 0's rows fall in several tasks
+    assert sched["n_parts"] == 4 and sched["fix"].tolist() == [[5, 0, 4]]
+    assert len(sched["tasks"]) - 1 > 2
+    # weights of 0 are kept: the kernel adds 0 * x as the TPU kernel does
+    assert (sched["vals"] == 0).sum() == 2
+    # zeros: windows 1 and 4 and the other empty rows, in runs
+    z = sched["zero_runs"]
+    empty = np.concatenate([np.arange(r, r + c) for r, c in z])
+    assert {8, 9, 15, 32, 39} <= set(empty.tolist())
+    assert not set(empty.tolist()) & set(np.unique(dst[srcl >= 0]).tolist()) - {8}
+    # a tree of fix-up levels: 832 slots in slices of 4, added 2 at a time
+    deep = _check_schedule(*args, None, 8, 16, 5, slice_slots=4, fix_fanin=2, task_cost=16)
+    assert len(deep["fix_levels"]) - 1 >= 8
     with pytest.raises(ValueError, match="non-decreasing"):
-        tsp.kernel_schedule(ob[::-1].copy(), dst[:, None], srcl[:, None], 8, 16, 5)
+        tsp.kernel_schedule(ob[::-1].copy(), sb, *args[2:], None, 8, 16, 5)
     with pytest.raises(ValueError, match="outside"):
-        tsp.kernel_schedule(ob, dst[:, None], srcl[:, None], 8, 16, 3)
+        tsp.kernel_schedule(*args, None, 8, 16, 3)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(slice_slots=8, fix_fanin=3, task_cost=64)])
+def test_kernel_schedule_matches_brute_force(knobs):
+    """On the test graphs' real families: the mixed-family graph (one
+    4000-edge cell) and the clustered one, weighted, with every fifth
+    weight 0."""
+    n, src, dst = _mixed_edges()
+    graphs = [(n, src, dst)]
+    s2, d2 = _clustered_edges(1500, 30_000, 3_000)
+    graphs.append((1500, s2, d2))
+    for n, src, dst in graphs:
+        w = np.random.default_rng(5).standard_normal(len(src)).astype(np.float32)
+        w[::5] = 0.0
+        families, _, _ = tsp.build_stream_split_host(dst, src, n, n, edge_weight=w,
+                                                     knobs=LOW_FRAC)
+        for arrays, meta in families:
+            _check_schedule(arrays["out_block"], arrays["sblock"], arrays["dst3"],
+                            arrays["srcl3"], arrays["w3"], meta["s_tile"], meta["x_rows"],
+                            meta["n_blocks"], **knobs)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(slice_slots=8, fix_fanin=3, task_cost=64)])
+@pytest.mark.parametrize("mode", ["acc", "sum"])
+def test_schedule_order_vs_pallas(mode, knobs):
+    """The kernel's order of summation, walked in numpy, against JAX's
+    stream kernels in interpret mode."""
+    n, src, dst = _mixed_edges()
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal(len(src)).astype(np.float32)
+    w[::7] = 0.0
+    families, _, _ = tsp.build_stream_split_host(dst, src, n, n, edge_weight=w,
+                                                 knobs=LOW_FRAC)
+    for arrays, meta in families:
+        s, xr, nb = meta["s_tile"], meta["x_rows"], meta["n_blocks"]
+        sched = tsp.kernel_schedule(arrays["out_block"], arrays["sblock"], arrays["dst3"],
+                                    arrays["srcl3"], arrays["w3"], s, xr, nb, **knobs)
+        x = rng.standard_normal((n - 100, 40)).astype(np.float32)  # ends mid-block
+        xj = np.zeros((meta["n_xblocks"] * xr, 128), np.float32)
+        xj[:n - 100, :40] = x
+        args = (jnp.asarray(arrays["out_block"]), jnp.asarray(arrays["sblock"]),
+                jnp.asarray(arrays["dst3"]), jnp.asarray(arrays["srcl3"]), jnp.asarray(xj))
+        w3 = jnp.asarray(arrays["w3"])
+        if mode == "acc":
+            carry = rng.standard_normal((nb * s, 40)).astype(np.float32)
+            carry_j = np.zeros((nb * s, 128), np.float32)
+            carry_j[:, :40] = carry
+            j = np.asarray(jstream_acc(*args, jnp.asarray(carry_j), w3, s_tile=s, x_rows=xr,
+                                       interpret=True))[:, :40]
+            got, _ = _walk(sched, x, nb * s, carry)
+        else:
+            j = np.asarray(jstream_sum(*args, w3, s_tile=s, x_rows=xr, n_blocks=nb,
+                                       interpret=True))[:, :40]
+            got, _ = _walk(sched, x, nb * s)
+            visited = np.repeat(np.isin(np.arange(nb), arrays["out_block"]), s)
+            assert not got[~visited].any()
+            got, j = got[visited], j[visited]
+        np.testing.assert_allclose(got, j, **TOL)
 
 
 def _graph_pair(weighted, seed=6, n=1200, layouts=("bat", "stream")):
@@ -421,10 +607,12 @@ def test_stream_plan_to_device_and_knobs():
     families, _, _ = tsp.build_stream_split_host(dst, src, n, n, knobs=LOW_FRAC)
     sp = tsp.stream_plan_from_host(*families[0])
     moved = sp.to(torch.device("cpu"))
-    for k in ("out_block", "sblock", "dst3", "srcl3", "items", "heavy", "merges",
-              "empty_windows"):
+    for k in ("out_block", "sblock", "dst3", "srcl3", "cols", "unit_dest", "tasks",
+              "zero_runs", "fix"):
         torch.testing.assert_close(getattr(moved, k), getattr(sp, k), rtol=0, atol=0)
-    assert (moved.e_tile, moved.n_parts, moved.chunks) == (sp.e_tile, sp.n_parts, sp.chunks)
+    assert moved.vals is None and sp.vals is None
+    assert (moved.e_tile, moved.n_parts, moved.fix_levels, moved.chunks) == (
+        sp.e_tile, sp.n_parts, sp.fix_levels, sp.chunks)
     # the default knobs are the reference's constants
     knobs = tsp.StreamKnobs()
     assert dict(knobs.tile_ns) == jsp.TILE_NS
