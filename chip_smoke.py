@@ -64,7 +64,7 @@ Phases, each printed with its elapsed seconds:
  14. CUDA-event timings of each stream kernel per family at F 128 and 47,
      the device time of its main pass and of its fix-up pass (torch.profiler),
      its plain version, its bound (with the bytes of its schedule beside
-     it), the library yardstick (torch.sparse.mm over the family's own CSR
+     it; and beside it the bound with each live slot's x row counted once), the library yardstick (torch.sparse.mm over the family's own CSR
      adjacency), one hybrid SpMM, one forward pass, one training step and
      torch.sparse.mm over the whole weighted adjacency;
  15. the flickr graph's host build for each model, and dispatch_path ==
@@ -85,16 +85,19 @@ Phases, each printed with its elapsed seconds:
      plain version, the library yardstick (torch.sparse.mm over the plan's
      slot -> row CSR), the slot SpMM per layer width, each model's forward
      and training step, and each one's busy share (profile_gcn.trace);
- 20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128),
-     dispatch_path == "slot_dyn" for the per-call weights, the AEB kernel
-     each width takes, and GAT's fused route;
+ 20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128)
+     with their edge-row schedules, dispatch_path == "slot_dyn" for the
+     per-call weights, the AEB name each width launches under, GAT's fused
+     route, and build_graph with its default layouts (the reference's);
  21. plan_segment_sum_mh ((H, D) = (4, 64), (4, 7), (3, 96), (8, 32), with
      weights exactly 0 on chosen heads), plan_segment_sum_sr2 (slot values
      with per-call weights, edge values with static and/or per-call
      weights; F 500, 128, 64) and plan_segment_sum_packed2 (F 64, 32, 16,
-     8) against their plain versions on both directions' real plans, with
-     every third per-call weight exactly 0 too and bit-identical reruns;
-     each one's route over a plan chunked so that its hub window splits;
+     8), and both in the gathered form (x[src[e]] read in the edge-row
+     kernel; F 128, 64, 7 and 64-7) against their plain versions on both
+     directions' real plans, with every third per-call weight exactly 0 too
+     and bit-identical reruns; each one's route over a plan chunked so that
+     its hub window splits (sr2 / packed2: the whole plan in one launch);
  22. 5 requests per model, launches per request asserted (GAT: mh 3; GCN:
      packed2 3 / sr2 3), each against the same model on the reference path
      in float64;
@@ -105,11 +108,12 @@ Phases, each printed with its elapsed seconds:
      path in float32 and in float64 through the kernel path's ReLU
      pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
      at H*D 256 and 28, one forward and backward against the fused route;
- 24. CUDA-event timings of each new kernel at its main-path shapes, its
+ 24. CUDA-event timings of each kernel at its main-path shapes, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
      CSR with the kernel's weights; mh: one call over the head-expanded
-     CSR), each model's forward and training step, and each one's busy
-     share;
+     CSR); sr2 / packed2 in both forms (edge-order values against the edge
+     -> row CSR; gathered against the node [n, n] CSR, the whole SpMM);
+     each model's forward and training step, and each one's busy share;
  25. the narrow BAT path's host builds: GIN's arxiv graph (phases 1-9's,
      no self-loops, unweighted; feature_hint 64: km_pack 2) and APPNP's
      flickr graph (phases 15-24's, self-loops, no baked norm; feature_hint
@@ -118,13 +122,15 @@ Phases, each printed with its elapsed seconds:
      "bat_dyn" (APPNP's per-call norm);
  26. bat_segment_sum_packed against its plain version at each pack (16
      and 2 on the two graphs' real plans, both directions; 8 and 4 on
-     plans of the flickr edges), unweighted, weighted and with every third
-     weight 0, three reruns bit-identical; and its route at ragged widths
-     (F 7 and 40, padded to 8 and 64) over the whole plan and a plan forced
-     into chunks that split the hub window;
+     plans of the flickr edges), in both forms (edge-order values; x[src[e]]
+     read in the kernel), unweighted, weighted and with every third weight
+     0, three reruns bit-identical; and its route at ragged widths (F 7 and
+     40, padded to 8 and 64) over the whole plan and a plan forced into
+     chunks that split the hub window, one launch a plan;
  27. 5 requests of GIN (3 layers, 128 -> 64 -> 64 -> 40: bat_segment_sum 1
      and bat_segment_sum_packed 2 per request) and of APPNP (MLP 500 -> 64
-     -> 7, K 10, alpha 0.1: bat_segment_sum_packed 10 with weights), each
+     -> 7, K 10, alpha 0.1: bat_segment_sum_packed 10 with weights; the
+     packed routes read x[src[e]] in the kernel, no edge-order gather), each
      against the same model on the reference path in float64;
  28. 5 AdamW steps of each, each beside the same step on the reference
      path from the same state (launches per step:
@@ -132,12 +138,13 @@ Phases, each printed with its elapsed seconds:
      no sddmm_bat: the norm takes no gradient), step-0 gradients at phase
      8's rule, every loss compared;
  29. CUDA-event timings of the packed kernel at each real shape (both
-     graphs, both directions), its plain version, its bound, the library
-     yardstick (torch.sparse.mm over the edge -> row CSR at the same width
-     and weights, never called by the port) and the wide bat_segment_sum
-     on the same values padded to 128 columns over an unpacked plan (what
-     a narrow layer cost before); each model's request and training step,
-     and each one's busy share.
+     graphs, both directions) in both forms, its plain version, its bound,
+     the library yardstick (torch.sparse.mm, never called by the port:
+     over the edge -> row CSR for the values form, over the node [n, n]
+     CSR for the gathered one, at the same width and weights) and the wide
+     bat_segment_sum on the same values padded to 128 columns over an
+     unpacked plan (what a narrow layer cost before); each model's request
+     and training step, and each one's busy share.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -243,7 +250,9 @@ def stream_bound(sp, F, n_x_rows, accumulate):
     written once: the slot metadata, the x blocks its tiles name, the read
     and write of the visited windows (accumulate) or the write of every
     window (sum); or its f32 flops, 2 per real edge and column), and its
-    bytes."""
+    bytes; and beside it the bound with each live slot's x row counted
+    once (`rows_ms`, `rows_bytes`): the row reads the kernel issues, which
+    the bound above counts once per x block (most of them hit L2)."""
     T, E, s = sp.num_tiles, sp.e_tile, sp.s_tile
     meta = T * E * (8 + (4 if sp.w3 is not None else 0)) + T * 8
     blocks = torch.unique(sp.sblock.long())
@@ -254,7 +263,9 @@ def stream_bound(sp, F, n_x_rows, accumulate):
     out_bytes = 2 * visited * win_bytes if accumulate else sp.n_blocks * win_bytes
     n_bytes = meta + x_bytes + out_bytes
     bound, by = bound_ms(n_bytes, 2 * sp.num_edges * F)
-    return bound, by, n_bytes
+    rows_bytes = meta + int(sp.cols.shape[0]) * F * 4 + out_bytes
+    rows_ms, _ = bound_ms(rows_bytes, 2 * sp.num_edges * F)
+    return bound, by, n_bytes, rows_ms, rows_bytes
 
 
 def schedule_bytes(sp):
@@ -521,8 +532,10 @@ def run_hybrid(dev, card):
                                       iters=3, warmup=1)
         fam["acc_plain_ms"] = cuda_ms(lambda: stream_segment_acc_plain(sp, x128, carry),
                                       iters=3, warmup=1)
-        fam["sum_bound_ms"], fam["sum_bound_by"], nb_s = stream_bound(sp, 128, n, False)
-        fam["acc_bound_ms"], fam["acc_bound_by"], nb_a = stream_bound(sp, 128, n, True)
+        (fam["sum_bound_ms"], fam["sum_bound_by"], nb_s, fam["sum_bound_rows_ms"],
+         nr_s) = stream_bound(sp, 128, n, False)
+        (fam["acc_bound_ms"], fam["acc_bound_by"], nb_a, fam["acc_bound_rows_ms"],
+         nr_a) = stream_bound(sp, 128, n, True)
         fam["sum_f47_bound_ms"] = stream_bound(sp, c, n, False)[0]
         fam["acc_f47_bound_ms"] = stream_bound(sp, c, n, True)[0]
         csr = family_csr(sp, n)
@@ -538,6 +551,11 @@ def run_hybrid(dev, card):
             f"{fam['acc_plain_ms']:.4f} ms; library torch.sparse.mm (the family's CSR) "
             f"{fam['library_ms']:.4f} ms; the kernel's schedule "
             f"{fam['schedule_bytes'] / 1e9:.3f} GB beside the bound")
+        log(f"{card}   bounds side by side: each input once (x blocks once) sum "
+            f"{fam['sum_bound_ms']:.4f} ms ({nb_s / 1e9:.3f} GB) / acc {fam['acc_bound_ms']:.4f} "
+            f"ms ({nb_a / 1e9:.3f} GB); each live slot's x row once sum "
+            f"{fam['sum_bound_rows_ms']:.4f} ms ({nr_s / 1e9:.3f} GB) / acc "
+            f"{fam['acc_bound_rows_ms']:.4f} ms ({nr_a / 1e9:.3f} GB)")
         log(f"{card}   F {c}: stream_segment_sum {fam['sum_f47_ms']:.4f} ms (bound "
             f"{fam['sum_f47_bound_ms']:.4f}), stream_segment_acc {fam['acc_f47_ms']:.4f} ms "
             f"(bound {fam['acc_f47_bound_ms']:.4f}); library {fam['library_f47_ms']:.4f} ms")
@@ -565,11 +583,13 @@ def run_hybrid(dev, card):
         "serve": serve, "train": train, "errs": errs, "families": fams,
         "sum": {"ms": fams[0]["sum_ms"], "plain_ms": fams[0]["sum_plain_ms"],
                 "bound_ms": fams[0]["sum_bound_ms"], "bound_by": fams[0]["sum_bound_by"],
+                "bound_rows_ms": fams[0]["sum_bound_rows_ms"],
                 "library_ms": fams[0]["library_ms"]},
         "acc": {"ms": sum(fm["acc_ms"] for fm in rest),
                 "plain_ms": sum(fm["acc_plain_ms"] for fm in rest),
                 "bound_ms": sum(fm["acc_bound_ms"] for fm in rest),
                 "bound_by": rest[0]["acc_bound_by"] if rest else "bytes",
+                "bound_rows_ms": sum(fm["acc_bound_rows_ms"] for fm in rest),
                 "library_ms": sum(fm["library_ms"] for fm in rest)},
         "spmm_ms": t_spmm, "forward_ms": t_fwd, "train_step_ms": t_step,
         "library_whole_ms": t_lib, "losses": losses,
@@ -1021,6 +1041,25 @@ def aeb_bound(plan, w_slots, w_edge, F):
     return bound, by, n_bytes
 
 
+def node_csr(dst, src, w, n):
+    """The node adjacency [n, n] in CSR with weights w (ones where None):
+    the whole SpMM out = A @ x, sum_e w_e x[src_e] into row dst_e. For the
+    library yardstick of the gathered form only."""
+    vals = torch.ones(dst.shape[0], device=dst.device) if w is None else w
+    return torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]), vals, (n, n),
+                                   check_invariants=False).coalesce().to_sparse_csr()
+
+
+def gathered_bound(n_rows, F, nnz, weighted, n_out):
+    """The least time of the gathered form (edge e reads x[src[e]] in the
+    kernel): x's rows once, src and the weights in edge order, and every
+    output row written once (bytes); or its f32 flops, 2 per edge and
+    column weighted, 1 unweighted."""
+    n_bytes = n_rows * F * 4 + nnz * 4 + (nnz * 4 if weighted else 0) + n_out * F * 4
+    bound, by = bound_ms(n_bytes, (2 if weighted else 1) * nnz * F)
+    return bound, by, n_bytes
+
+
 def mh_csr(plan, w_heads):
     """The mh sum as one sparse matrix: over vals [S, H*D] viewed as
     [S*H, D], the CSR [rows*H, S*H] with entry (dst(s)*H + h, s*H + h) =
@@ -1054,6 +1093,7 @@ def run_gat_dyn(dev, card):
     numbers for the kernels line."""
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
     from geot_tpu_torch.graph.plan import build_segment_plan
+    from geot_tpu_torch.graph.structures import build_graph
     from geot_tpu_torch.models import (
         GAT,
         GCN,
@@ -1124,9 +1164,31 @@ def run_gat_dyn(dev, card):
     if not fused:
         raise AssertionError("the GAT graph does not take the fused slot-space route")
     log(f"phase 20 dispatch_path: per-call weights 'slot_dyn' on both GCN graphs (one route, "
-        f"the edge-order gather and the AEB kernel, launched as the reference names it: "
-        f"packed2 at F 64 and {c} with pack_align 16, sr2 with pack_align 1); GAT fused "
-        f"({gg.num_edges} edges <= fused_max_edges {api.GAT_FUSED_MAX_EDGES})")
+        f"the AEB function reading x[src[e]] in the edge-row kernel, launched as the reference "
+        f"names it: packed2 at F 64 and {c} with pack_align 16, sr2 with pack_align 1); GAT "
+        f"fused ({gg.num_edges} edges <= fused_max_edges {api.GAT_FUSED_MAX_EDGES})")
+    for name in ("gcn_dyn64", "gcn_dyn128"):
+        st = graphs[name].build_stats["row_schedule"]
+        log(f"phase 20 {name} edge-row schedules (host build, bytes on the card): "
+            + ", ".join(f"{d} {v['seconds']:.3f}s {v['bytes'] / 1e6:.2f} MB"
+                        for d, v in st.items()))
+    # build_graph with its default layouts, the reference's ("bat", "slot",
+    # "stream"; ROADMAP C.13), on the same edges
+    t0 = time.perf_counter()
+    gdef = build_graph(data.src, data.dst, n, device=dev)
+    torch.cuda.synchronize()
+    fams = {k: getattr(gdef, k) is not None for k in ("bat", "plan", "hyb")}
+    if not (fams["bat"] and fams["plan"]):
+        raise AssertionError(f"build_graph's defaults built {fams}: expected BAT and slot plans")
+    log(f"phase 20 build_graph defaults (layouts {('bat', 'slot', 'stream')}, the reference's): "
+        f"{time.perf_counter() - t0:.2f}s, {gdef.num_edges} edges; families {fams} (the "
+        f"stream census, forward: stream share "
+        f"{gdef.build_stats['stream'].get('forward', {}).get('stream_frac', 0.0):.3f}); "
+        f"dispatch_path no weights {api.dispatch_path(gdef)!r}, per-call weights "
+        f"{api.dispatch_path(gdef, dynamic_w=True)!r}; edge-row schedules "
+        + ", ".join(f"{d} {v['bytes'] / 1e6:.2f} MB" for d, v in
+                    gdef.build_stats["row_schedule"].items()))
+    del gdef
 
     # 21. each new kernel against its plain version on both directions'
     # real plans, with exact-zero weights, and on a chunked plan
@@ -1168,15 +1230,21 @@ def run_gat_dyn(dev, card):
             we_zero = torch.where(torch.arange(nnz, device=dev) % 3 == 1, 0.0, we)
             ws = plan.mask * torch.randn(plan.mask.shape, generator=gen, device=dev)
             cases = []
+            # the gathered form: edge e reads x[src[e]] (plan: the graph's
+            # src; plan_t: its dst in src-sorted order)
+            src_d = g.src if d == "plan" else g.dst_t
             if gname == "gcn_dyn128":
                 for F in (f, 128, 64):
                     cases += [("slot", F, None, we), ("slot", F, None, we_zero),
                               ("edge", F, ws, None), ("edge", F, None, we), ("edge", F, ws, we)]
-            else:
-                cases += [("packed2", F, None, w_) for F in (64, 32, 16, 8)
+                cases += [("gathered", F, None, w_) for F in (128, 64, c)
                           for w_ in (we, we_zero)]
+            else:
+                cases += [(lay, F, None, w_) for lay in ("packed2", "packed2 gathered")
+                          for F in (64, 32, 16, 8, c) for w_ in (we, we_zero)]
             for layout, F, w_s, w_e in cases:
-                rows = S if layout == "slot" else nnz
+                gathered = layout.endswith("gathered")
+                rows = n if gathered else S if layout == "slot" else nnz
                 vals = torch.randn(rows, F, generator=gen, device=dev)
                 abs_kw = dict(w_slots=None if w_s is None else w_s.abs(),
                               w_edge=None if w_e is None else w_e.abs())
@@ -1184,15 +1252,18 @@ def run_gat_dyn(dev, card):
                         + ("static" if w_s is not None else "mask")
                         + (" x per-call" if w_e is not None else "") + " weights"
                         + (" (every third 0)" if w_e is we_zero else ""))
-                if layout == "packed2":
+                extra = {"src": src_d} if gathered else {}
+                if layout.startswith("packed2"):
                     name, fn = "plan_segment_sum_packed2", sk.plan_segment_sum_packed2
                     pl = ref_ops.plan_segment_sum_packed2_plain
-                    kw = dict(w_slots=w_s, w_edge=w_e)
+                    kw = dict(w_slots=w_s, w_edge=w_e, **extra)
                 else:
                     name, fn = "plan_segment_sum_sr2", sk.plan_segment_sum_sr2
                     pl = ref_ops.plan_segment_sum_sr2_plain
-                    kw = dict(vals_layout=layout, w_slots=w_s, w_edge=w_e)
-                    abs_kw["vals_layout"] = layout
+                    lay = "edge" if gathered else layout
+                    kw = dict(vals_layout=lay, w_slots=w_s, w_edge=w_e, **extra)
+                    abs_kw["vals_layout"] = lay
+                abs_kw.update(extra)
                 k = fn(plan, vals, **kw)
                 torch.cuda.synchronize()
                 held(name, k, pl(plan, vals, **kw), pl(plan, vals.abs(), **abs_kw), what,
@@ -1200,7 +1271,8 @@ def run_gat_dyn(dev, card):
                 n_checks += 1
                 del vals, k
     # a plan chunked so that its hub window splits: the slot_dyn sums (both
-    # AEB routes) and mh, chunk by chunk, against the unchunked plain sums
+    # AEB routes: the whole plan in one launch) and mh (chunk by chunk),
+    # against the unchunked plain sums
     dst_s, src_s = g64.dst.cpu().numpy(), g64.src.cpu().numpy()
     hub_tiles = int(torch.bincount(g64.plan.out_block.long()).max())
     for name, fh, F in (("plan_segment_sum_packed2", 64, 64),
@@ -1223,7 +1295,10 @@ def run_gat_dyn(dev, card):
                 a = ref_ops.plan_segment_sum_mh_plain(whole, vals.abs(), wsl, 64)[:n]
             else:
                 we = torch.rand(g64.num_edges, generator=gen, device=dev)
+                before = getattr(sk, name).launches
                 got = api._spmm_fwd_slot_dyn(pc, xf, we, g64.src)
+                expect_launches(getattr(sk, name).launches - before, 1,
+                                f"phase 21 {name} route on a chunked plan (summed whole)")
                 vals = xf.index_select(0, g64.src.long())
                 want = ref_ops.plan_segment_sum_sr2_plain(whole, vals, vals_layout="edge",
                                                           w_edge=we)[:n]
@@ -1424,28 +1499,40 @@ def run_gat_dyn(dev, card):
                        ("plan_segment_sum_packed2", g64, c)):
         plan = g.plan
         we = torch.rand(g.num_edges, generator=gen, device=dev) + 0.1
-        # edge-order values, as the slot_dyn forward gives both
+        fn = getattr(sk, name)
+        pl = getattr(ref_ops, name + "_plain")
+        lay = {"vals_layout": "edge"} if name == "plan_segment_sum_sr2" else {}
+        # the values form: edge-order values (the TPU kernels' contract)
         vals = torch.randn(g.num_edges, F, generator=gen, device=dev)
-        if name == "plan_segment_sum_sr2":
-            fn = lambda: sk.plan_segment_sum_sr2(plan, vals, vals_layout="edge",  # noqa: E731
-                                                 w_edge=we)
-            pl = lambda: ref_ops.plan_segment_sum_sr2_plain(  # noqa: E731
-                plan, vals, vals_layout="edge", w_edge=we)
-        else:
-            fn = lambda: sk.plan_segment_sum_packed2(plan, vals, w_edge=we)  # noqa: E731
-            pl = lambda: ref_ops.plan_segment_sum_packed2_plain(plan, vals, w_edge=we)  # noqa: E731
-        t_k = cuda_ms(fn)
-        t_p = cuda_ms(pl, iters=3, warmup=1)
+        t_k = cuda_ms(lambda: fn(plan, vals, w_edge=we, **lay))
+        t_p = cuda_ms(lambda: pl(plan, vals, w_edge=we, **lay), iters=3, warmup=1)
         csr = aeb_csr(plan, plan.mask, we)
         t_lib = cuda_ms(lambda: torch.sparse.mm(csr, vals))
         bound, by, nb = aeb_bound(plan, plan.mask, we, F)
-        timing[(name, F)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
-                             "library_ms": t_lib}
-        log(f"{card} {name} F={F} (edge-order values, per-call weights, pack_align "
-            f"{plan.pack_align}): kernel {t_k:.4f} ms (bound {bound:.4f} ms by {by}: "
-            f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
-            f"edge -> row CSR with these weights) {t_lib:.4f} ms")
+        values = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                  "library_ms": t_lib}
         del vals, csr
+        # the gathered form, as slot_dyn runs it: edge e reads x[src[e]]
+        xg = torch.randn(n, F, generator=gen, device=dev)
+        t_kg = cuda_ms(lambda: fn(plan, xg, w_edge=we, src=g.src, **lay))
+        t_pg = cuda_ms(lambda: pl(plan, xg, w_edge=we, src=g.src, **lay), iters=3, warmup=1)
+        ncsr = node_csr(g.dst, g.src, we, n)
+        lib_out = torch.sparse.mm(ncsr, xg)
+        check_close_abs_sum(lib_out, pl(plan, xg, w_edge=we, src=g.src, **lay)[:n],
+                            pl(plan, xg.abs(), w_edge=we, src=g.src, **lay)[:n],
+                            f"phase 24 library yardstick of {name} F={F} (gathered)")
+        t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
+        bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True, plan.n_blocks * plan.s_tile)
+        timing[(name, F)] = {"ms": t_kg, "plain_ms": t_pg, "bound_ms": bound_g,
+                             "bound_by": by_g, "library_ms": t_libg, "values_form": values}
+        log(f"{card} {name} F={F} (per-call weights, pack_align {plan.pack_align}): gathered "
+            f"form (x[src[e]] in the kernel) {t_kg:.4f} ms (bound {bound_g:.4f} ms by {by_g}: "
+            f"{nb_g / 1e9:.4f} GB, x's rows once); plain {t_pg:.4f} ms; library torch.sparse.mm "
+            f"(the node [n, n] CSR with these weights) {t_libg:.4f} ms || values form "
+            f"(edge-order values) {t_k:.4f} ms (bound {bound:.4f} ms by {by}: {nb / 1e9:.4f} GB); "
+            f"plain {t_p:.4f} ms; library torch.sparse.mm (the plan's edge -> row CSR) "
+            f"{t_lib:.4f} ms")
+        del xg, ncsr, lib_out
     fwd, stp, busy = {}, {}, {}
     for name, g in graphs.items():
         model = models[name]
@@ -1573,7 +1660,9 @@ def run_narrow(dev, card):
                 f"{bp.num_tiles} tiles of {bp.e_tile} x {bp.s_tile}, {bp.n_blocks} windows, "
                 f"chunks {max(len(bp.chunks), 1)}")
         log(f"phase 25 {name} graph ({shape}, {g.num_edges} edges): prepare_graph "
-            f"{time.perf_counter() - t0:.2f}s")
+            f"{time.perf_counter() - t0:.2f}s; edge-row schedules (host build, bytes on the "
+            f"card): " + ", ".join(f"{d} {v['seconds']:.3f}s {v['bytes'] / 1e6:.2f} MB"
+                                   for d, v in g.build_stats["row_schedule"].items()))
     gg, ga = graphs["gin"], graphs["appnp"]
     routes = (api.dispatch_path(gg), api.dispatch_path(ga, dynamic_w=True))
     packs = (gg.bat.km_pack, gg.bat_t.km_pack, ga.bat.km_pack, ga.bat_t.km_pack)
@@ -1603,25 +1692,34 @@ def run_narrow(dev, card):
     # sorted into plans of pack 4 and 8; ragged value rows (nnz, short of
     # whole blocks); unweighted, weighted, and every third weight 0
     fa_dst = ga.dst.cpu().numpy()
-    plans = [("gin.bat", gg.bat, gg.num_edges), ("gin.bat_t", gg.bat_t, gg.num_edges),
-             ("appnp.bat", ga.bat, ga.num_edges), ("appnp.bat_t", ga.bat_t, ga.num_edges)]
+    plans = [("gin.bat", gg.bat, gg.src, gg.num_nodes),
+             ("gin.bat_t", gg.bat_t, gg.dst_t, gg.num_nodes),
+             ("appnp.bat", ga.bat, ga.src, ga.num_nodes),
+             ("appnp.bat_t", ga.bat_t, ga.dst_t, ga.num_nodes)]
     for pack in (4, 8):
         plans.append((f"appnp dst pack {pack}",
                       build_bat_plan(fa_dst, ga.num_nodes, e_tile=512, s_tile=256,
-                                     km_pack=pack, device=dev), ga.num_edges))
-    for label, bp, nnz in plans:
+                                     km_pack=pack, device=dev), ga.src, ga.num_nodes))
+    for label, bp, src_d, n_nodes in plans:
         Fw = 128 // bp.km_pack
-        vals = torch.randn(nnz, Fw, generator=gen, device=dev)
+        nnz = src_d.shape[0]
         w = torch.rand(nnz, generator=gen, device=dev) + 0.1
         w0 = torch.where(torch.arange(nnz, device=dev) % 3 == 1, 0.0, w)
-        for wl, ww in (("unweighted", None), ("weighted", w), ("every third weight 0", w0)):
-            k = bat_segment_sum_packed(bp, vals, ww)
-            torch.cuda.synchronize()
-            held(k, ref_ops.bat_segment_sum_packed_plain(bp, vals, ww),
-                 ref_ops.bat_segment_sum_packed_plain(bp, vals.abs(),
-                                                      None if ww is None else ww.abs()),
-                 f"{label} F={Fw} {wl}", lambda: bat_segment_sum_packed(bp, vals, ww))
-        del vals, k
+        # the values form (edge-order rows) and the gathered form (x[src[e]]
+        # read in the kernel, as the routes run it)
+        for form, vals, kw in (("values", torch.randn(nnz, Fw, generator=gen, device=dev), {}),
+                               ("gathered", torch.randn(n_nodes, Fw, generator=gen,
+                                                        device=dev), {"src": src_d})):
+            for wl, ww in (("unweighted", None), ("weighted", w), ("every third weight 0", w0)):
+                k = bat_segment_sum_packed(bp, vals, ww, **kw)
+                torch.cuda.synchronize()
+                held(k, ref_ops.bat_segment_sum_packed_plain(bp, vals, ww, **kw),
+                     ref_ops.bat_segment_sum_packed_plain(bp, vals.abs(),
+                                                          None if ww is None else ww.abs(),
+                                                          **kw),
+                     f"{label} F={Fw} {form} {wl}",
+                     lambda: bat_segment_sum_packed(bp, vals, ww, **kw))
+            del vals, k
     # the routes with ragged widths (7 -> 8, 40 -> 64) and a plan forced
     # into chunks that split the hub window, against the whole plan's
     # plain sum
@@ -1644,8 +1742,8 @@ def run_narrow(dev, card):
                 before = bat_segment_sum_packed.launches
                 got = api._spmm_fwd_bat(plan, xf, g.src, w)
                 torch.cuda.synchronize()
-                expect_launches(bat_segment_sum_packed.launches - before, max(len(plan.chunks), 1),
-                                f"phase 26 {name} route {lbl}")
+                expect_launches(bat_segment_sum_packed.launches - before, 1,
+                                f"phase 26 {name} route {lbl} (one launch a plan)")
                 held(got, want, a, f"{name} route F={Fn} ({lbl})",
                      lambda: api._spmm_fwd_bat(plan, xf, g.src, w))
         del xf, vals, want, a, got
@@ -1658,11 +1756,10 @@ def run_narrow(dev, card):
           "appnp": lambda f, c, **kw: APPNP(f, FLICKR_HIDDEN, 2, c, **APPNP_KW, **kw)}
     chunks = {name: (max(len(g.bat.chunks), 1), max(len(g.bat_t.chunks), 1))
               for name, g in graphs.items()}
-    per_request = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 2 * chunks["gin"][0]},
-                   "appnp": {PK: 10 * chunks["appnp"][0]}}
-    per_step = {"gin": {"bat_segment_sum": chunks["gin"][0],
-                        PK: 2 * chunks["gin"][0] + 2 * chunks["gin"][1]},
-                "appnp": {PK: 10 * chunks["appnp"][0] + 10 * chunks["appnp"][1]}}
+    # the packed kernel: one launch a plan, chunked or not; the wide one a
+    # launch a chunk
+    per_request = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 2}, "appnp": {PK: 10}}
+    per_step = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 4}, "appnp": {PK: 20}}
     models, ref_models, xs, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}, {}
     for name, g in graphs.items():
         data, f, c = datasets[name]
@@ -1777,11 +1874,13 @@ def run_narrow(dev, card):
                               ("appnp", "bat", True), ("appnp", "bat_t", True)):
         g = graphs[name]
         bp = getattr(g, d)
-        nnz = g.num_edges
+        nnz, nn = g.num_edges, g.num_nodes
         Fw = 128 // bp.km_pack
         dst_d = g.dst if d == "bat" else g.src.index_select(0, g.perm_t.long())
-        vals = torch.randn(nnz, Fw, generator=gen, device=dev)
+        src_d = g.src if d == "bat" else g.dst_t
         w = (torch.rand(nnz, generator=gen, device=dev) + 0.1) if weighted else None
+        # the values form: edge-order rows
+        vals = torch.randn(nnz, Fw, generator=gen, device=dev)
         t_k = cuda_ms(lambda: bat_segment_sum_packed(bp, vals, w))
         t_p = cuda_ms(lambda: ref_ops.bat_segment_sum_packed_plain(bp, vals, w), iters=3,
                       warmup=1)
@@ -1797,15 +1896,33 @@ def run_narrow(dev, card):
         v128 = F_.pad(vals, (0, 128 - Fw))
         t_wide = cuda_ms(lambda: bat_segment_sum(wide, v128, w))
         bound, by, nb = bat_packed_bound(bp, nnz, Fw, weighted)
-        timing[(name, d)] = {"F": Fw, "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-                             "bound_by": by, "library_ms": t_lib, "wide_128_ms": t_wide}
-        log(f"{card} bat_segment_sum_packed {name}.{d} F={Fw} (pack {bp.km_pack}, "
-            f"{'weighted' if weighted else 'unweighted'}): kernel {t_k:.4f} ms (bound "
-            f"{bound:.4f} ms by {by}: {nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library "
-            f"torch.sparse.mm (the edge -> row CSR, [{nnz}, {Fw}] values) {t_lib:.4f} ms; "
-            f"wide bat_segment_sum on the values padded to 128 over an unpacked plan "
-            f"{t_wide:.4f} ms")
+        values = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                  "library_ms": t_lib, "wide_128_ms": t_wide}
         del vals, csr, lib_out, wide, v128
+        # the gathered form, as the routes run it: x[src[e]] in the kernel
+        xg = torch.randn(nn, Fw, generator=gen, device=dev)
+        t_kg = cuda_ms(lambda: bat_segment_sum_packed(bp, xg, w, src=src_d))
+        t_pg = cuda_ms(lambda: ref_ops.bat_segment_sum_packed_plain(bp, xg, w, src=src_d),
+                       iters=3, warmup=1)
+        ncsr = node_csr(dst_d, src_d, w, nn)
+        lib_out = torch.sparse.mm(ncsr, xg)
+        check_close_abs_sum(lib_out, ref_ops.bat_segment_sum_packed_plain(
+            bp, xg, w, src=src_d)[:nn], ref_ops.bat_segment_sum_packed_plain(
+            bp, xg.abs(), None if w is None else w.abs(), src=src_d)[:nn],
+            f"phase 29 library yardstick {name}.{d} F={Fw} (gathered)")
+        t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
+        bound_g, by_g, nb_g = gathered_bound(nn, Fw, nnz, weighted, bp.n_blocks * bp.s_tile)
+        timing[(name, d)] = {"F": Fw, "ms": t_kg, "plain_ms": t_pg, "bound_ms": bound_g,
+                             "bound_by": by_g, "library_ms": t_libg, "values_form": values}
+        log(f"{card} bat_segment_sum_packed {name}.{d} F={Fw} (pack {bp.km_pack}, "
+            f"{'weighted' if weighted else 'unweighted'}): gathered form (x[src[e]] in the "
+            f"kernel) {t_kg:.4f} ms (bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's "
+            f"rows once); plain {t_pg:.4f} ms; library torch.sparse.mm (the node [n, n] CSR) "
+            f"{t_libg:.4f} ms || values form {t_k:.4f} ms (bound {bound:.4f} ms by {by}: "
+            f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the edge -> row "
+            f"CSR, [{nnz}, {Fw}] values) {t_lib:.4f} ms; wide bat_segment_sum on the values "
+            f"padded to 128 over an unpacked plan {t_wide:.4f} ms")
+        del xg, ncsr, lib_out
     fwd, stp, busy = {}, {}, {}
     for name, g in graphs.items():
         model, x, y, mask = models[name], xs[name], ys[name], masks[name]
@@ -2260,11 +2377,11 @@ def main():
            slot_entry("plan_segment_sum_sr_packed", 233, 64),
            slot_entry("plan_segment_sum_pr", 1348, 8),
            new_entry("plan_segment_sum_mh", "slot_mh.cu", 1391, 4 * 64),
-           new_entry("plan_segment_sum_sr2", "slot_aeb.cu", 384, 64),
-           new_entry("plan_segment_sum_packed2", "slot_aeb.cu", 581, 64), {
+           new_entry("plan_segment_sum_sr2", "edge_row_sum.cu", 384, 64),
+           new_entry("plan_segment_sum_packed2", "edge_row_sum.cu", 581, 64), {
             "name": "bat_segment_sum_packed",
             "route": "cuda",
-            "source": "geot_tpu_torch/ops/csrc/bat_segment_sum_packed.cu",
+            "source": "geot_tpu_torch/ops/csrc/edge_row_sum.cu",
             "replaces": "geot_tpu/ops/pallas_segment.py:906",
             "launches": sum(nr["serve"][m]["bat_segment_sum_packed"]
                             + nr["train"][m]["bat_segment_sum_packed"] for m in ("gin", "appnp")),

@@ -25,15 +25,28 @@ the tile reduces the ones whose dst lies in window `out_block[t]` (rows
 
 In both, tiles are ordered by window and every window has at least one
 tile (coverage), so a kernel can write every output row.
+
+Port-only: a slot plan (with e0) and a packed BAT plan carry the edge-row
+kernel's schedule (`row_sched`, `graph.row_schedule.RowSchedule`), made
+from the plan's host arrays when the plan is made; `row_schedule_of`
+makes one for a plan that lacks it (a chunk cut out of a plan).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
+
+from geot_tpu_torch.graph.row_schedule import (
+    RowSchedule,
+    bat_plan_entries,
+    build_row_schedule,
+    slot_plan_entries,
+)
 
 __all__ = [
     "SegmentPlan",
@@ -49,6 +62,8 @@ __all__ = [
     "build_bat_plan",
     "packed_width",
     "with_chunks",
+    "row_schedule_of",
+    "with_row_schedule",
 ]
 
 
@@ -101,6 +116,10 @@ class BatPlan:
     # it; such a plan runs chunk by chunk). Checked on the host when made.
     monotone: bool = False
     dst_km: Optional[torch.Tensor] = None
+    # the edge-row kernel's schedule (`bat_segment_sum_packed`), made with
+    # a packed plan (`bat_plan_from_host`)
+    row_sched: Optional[RowSchedule] = dataclasses.field(default=None, compare=False,
+                                                         repr=False)
 
     @property
     def num_tiles(self) -> int:
@@ -115,13 +134,18 @@ class BatPlan:
         return self.out_block.device
 
     def to(self, device) -> "BatPlan":
-        return dataclasses.replace(
+        moved = dataclasses.replace(
             self,
             out_block=self.out_block.to(device),
             vblock=self.vblock.to(device),
             dst3=self.dst3.to(device),
             dst_km=None if self.dst_km is None else self.dst_km.to(device),
+            row_sched=None,
         )
+        if self.row_sched is None or not self.row_sched.matches(_sched_key(self)):
+            return moved
+        return dataclasses.replace(moved, row_sched=self.row_sched.to(device,
+                                                                    _sched_key(moved)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +187,10 @@ class SegmentPlan:
     n_value_blocks: int = 0
     pack_align: int = 1
     monotone: bool = True
+    # the edge-row kernel's schedule (`plan_segment_sum_sr2` / `_packed2`),
+    # made with the plan (`plan_from_host`)
+    row_sched: Optional[RowSchedule] = dataclasses.field(default=None, compare=False,
+                                                         repr=False)
 
     @property
     def num_tiles(self) -> int:
@@ -357,7 +385,7 @@ def plan_from_host(arrays: dict, meta: dict, device=None) -> SegmentPlan:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     ob = arrays["out_block"]
-    return SegmentPlan(
+    plan = SegmentPlan(
         src_slots=t(arrays["src_slots"]),
         dst_slots=t(arrays["dst_slots"]),
         edge_pos=t(arrays["edge_pos"]),
@@ -367,6 +395,10 @@ def plan_from_host(arrays: dict, meta: dict, device=None) -> SegmentPlan:
         monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
     )
+    if plan.e0 is None:
+        return plan
+    return dataclasses.replace(plan, row_sched=_slot_schedule(
+        plan, arrays["dst_slots"], arrays["mask"], arrays["e0"], dev))
 
 
 def build_bat_plan_host(
@@ -514,7 +546,7 @@ def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
     ob, vb = arrays["out_block"], arrays["vblock"]
     _check_window_order(ob, vb, meta["n_vblocks"], meta["chunks"])
     vbase = tuple(min(int(vb[c[0]]), meta["n_vblocks"]) for c in meta["chunks"])
-    return BatPlan(
+    bp = BatPlan(
         out_block=torch.from_numpy(np.ascontiguousarray(arrays["out_block"])).to(dev),
         vblock=torch.from_numpy(np.ascontiguousarray(arrays["vblock"])).to(dev),
         dst3=torch.from_numpy(np.ascontiguousarray(arrays["dst3"])).to(dev),
@@ -524,6 +556,73 @@ def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
         monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
     )
+    if bp.dst_km is None:
+        return bp
+    return dataclasses.replace(bp, row_sched=_bat_schedule(
+        bp, ob, vb, arrays["dst_km"].reshape(-1), dev))
+
+
+def _sched_key(plan) -> tuple:
+    """The tensors a plan's RowSchedule is made from: a plan holding
+    others (a chunk cut out of a plan, rebased ids) needs its own."""
+    if isinstance(plan, SegmentPlan):
+        return (plan.out_block, plan.dst_slots, plan.mask, plan.e0)
+    return (plan.out_block, plan.vblock, plan.dst_km)
+
+
+def _slot_schedule(plan: SegmentPlan, dst_slots, mask, e0, device, **knobs) -> RowSchedule:
+    t0 = time.perf_counter()
+    row, edge, slot = slot_plan_entries(dst_slots, mask, e0, plan.n_blocks * plan.s_tile)
+    return build_row_schedule(row, edge, slot, plan.n_blocks * plan.s_tile, device,
+                              _sched_key(plan), seconds=time.perf_counter() - t0, **knobs)
+
+
+def _bat_schedule(bp: BatPlan, out_block, vblock, dst_km_flat, device,
+                  **knobs) -> RowSchedule:
+    """A packed BAT plan's schedule, its dst ids read from the k-major
+    `dst_km` (edge r*P + k of a block at lane k*(E // P) + r), as the
+    packed kernel's plain version reads them."""
+    t0 = time.perf_counter()
+    P, E = bp.km_pack, bp.e_tile
+    nb = dst_km_flat.shape[0] // E
+    dst_blocks = dst_km_flat.reshape(nb, P, E // P).transpose(0, 2, 1).reshape(nb, E)
+    row, edge = bat_plan_entries(out_block, vblock, dst_blocks, bp.s_tile,
+                                 bp.n_blocks * bp.s_tile)
+    return build_row_schedule(row, edge, None, bp.n_blocks * bp.s_tile, device,
+                              _sched_key(bp), seconds=time.perf_counter() - t0, **knobs)
+
+
+def _new_schedule(plan, **knobs) -> RowSchedule:
+    """A schedule of `plan` from its own tensors, read back to the host."""
+    dev = plan.out_block.device
+    if isinstance(plan, SegmentPlan):
+        if plan.e0 is None:
+            raise ValueError("the slot plan carries no e0")
+        return _slot_schedule(plan, plan.dst_slots.cpu().numpy(), plan.mask.cpu().numpy(),
+                              plan.e0.cpu().numpy(), dev, **knobs)
+    if plan.dst_km is None or plan.km_pack < 2:
+        raise ValueError("the BAT plan is not packed (no dst_km)")
+    return _bat_schedule(plan, plan.out_block.cpu().numpy(), plan.vblock.cpu().numpy(),
+                         plan.dst_km.reshape(-1).cpu().numpy(), dev, **knobs)
+
+
+def row_schedule_of(plan) -> RowSchedule:
+    """The edge-row kernel's schedule of a slot plan (with e0) or a packed
+    BAT plan: the one made with the plan, or, for a plan without one or
+    whose tensors are not those it was made from (a chunk cut out of a
+    plan), one made now from the plan's tensors and kept on the plan."""
+    s = plan.row_sched
+    if s is not None and s.matches(_sched_key(plan)) and s.n_out == plan.n_blocks * plan.s_tile:
+        return s
+    s = _new_schedule(plan)
+    object.__setattr__(plan, "row_sched", s)  # a cache on the frozen plan
+    return s
+
+
+def with_row_schedule(plan, **knobs):
+    """`plan` with its edge-row schedule made anew with other knobs
+    (`build_row_schedule`'s slice_slots, fix_fanin, task_cost)."""
+    return dataclasses.replace(plan, row_sched=_new_schedule(plan, **knobs))
 
 
 def build_bat_plan(dst, num_segments: int, *, device=None, **kwargs) -> BatPlan:

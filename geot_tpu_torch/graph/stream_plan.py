@@ -31,6 +31,13 @@ import numpy as np
 import torch
 
 from geot_tpu_torch.graph.plan import MAX_PREFETCH_TILES, BatPlan, compute_chunks
+from geot_tpu_torch.graph.row_schedule import (  # noqa: F401 (re-exported)
+    LAST_SLOT,
+    UNIT_COST,
+    ZERO_COST,
+    _fix_tree,
+    row_schedule,
+)
 
 __all__ = [
     "StreamKnobs",
@@ -100,9 +107,10 @@ class StreamKnobs:
 # fixed tree, one launch per level).
 # A task is a run of consecutive elements (units, each a row or a slice,
 # and the empty rows between them, in row order) that one group takes.
-# Tasks are cut at TASK_COST of work: a live slot costs 1, a unit
-# UNIT_COST more (its index, its flush, its store), and an empty row
-# ZERO_COST (the zeros the sum mode writes there).
+# Tasks are cut at TASK_COST of work (`row_schedule`'s costs: a live slot
+# costs 1, a unit UNIT_COST more, an empty row ZERO_COST). The row lists,
+# slices, tasks and fix-up tree are `graph.row_schedule.row_schedule`'s,
+# which the edge-row kernel's schedule shares.
 # SLICE_SLOTS and TASK_COST were measured on an H100 over the
 # products-clustered graph (`python -m geot_tpu_torch.probe_stream`): small
 # tasks keep the rows that the resident groups work on, and so the x
@@ -112,11 +120,6 @@ class StreamKnobs:
 SLICE_SLOTS = 128
 FIX_FANIN = 32
 TASK_COST = 128
-UNIT_COST = 8
-ZERO_COST = 2
-
-# bit 31 of a `cols` entry marks the last live slot of its unit
-LAST_SLOT = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -471,32 +474,6 @@ def _uniformize_stream_chunks(arrays: dict, meta: dict) -> None:
     meta["chunk_blocks"] = int(W_max)
 
 
-def _fix_tree(split_rows: np.ndarray, n_slices: np.ndarray, fanin: int):
-    """The fix-up entries that add each split row's slice partials (row i
-    owns the next n_slices[i] partials, numbered from 0 in row order) into
-    the row, at most `fanin` at a time: a row with more partials than that
-    is added in groups of `fanin` into partials of the next level, until
-    one entry finishes it. Returns (fix [M, 3], level bounds, P)."""
-    first = np.cumsum(n_slices) - n_slices
-    rows, a, m = split_rows.astype(np.int64), first.astype(np.int64), n_slices.astype(np.int64)
-    n_parts = int(n_slices.sum())
-    levels, out = [0], []
-    while len(rows):
-        done = m <= fanin
-        fin = np.stack([rows[done], a[done], a[done] + m[done]], axis=1)
-        g = _cdiv(m[~done], fanin)  # the open rows' groups at this level
-        k = np.arange(int(g.sum())) - np.repeat(np.cumsum(g) - g, g)
-        p0 = np.repeat(a[~done], g) + k * fanin
-        p1 = np.minimum(p0 + fanin, np.repeat(a[~done] + m[~done], g))
-        new = n_parts + np.arange(len(p0))
-        out += [fin, np.stack([-(new + 1), p0, p1], axis=1)]
-        levels.append(levels[-1] + len(fin) + len(p0))
-        rows, a, m = rows[~done], n_parts + np.cumsum(g) - g, g
-        n_parts += len(p0)
-    fix = np.concatenate(out) if out else np.zeros((0, 3), np.int64)
-    return fix.astype(np.int32).reshape(-1, 3), tuple(levels), n_parts
-
-
 def kernel_schedule(out_block: np.ndarray, sblock: np.ndarray, dst3: np.ndarray,
                     srcl3: np.ndarray, w3: Optional[np.ndarray], s_tile: int, x_rows: int,
                     n_blocks: int, *, slice_slots: int = SLICE_SLOTS,
@@ -530,64 +507,10 @@ def kernel_schedule(out_block: np.ndarray, sblock: np.ndarray, dst3: np.ndarray,
     q, t_of, row = q[order], t_of[order], row[order]
     cols = np.asarray(sblock, np.int64)[t_of] * x_rows + sl[q]
     vals = None if w3 is None else np.asarray(w3, np.float32).reshape(-1)[q]
-    S = len(q)
-    if S and (int(cols.max()) >= LAST_SLOT or n_out > LAST_SLOT):
-        raise ValueError("x rows and output rows must stay below 2**31")
-
-    # each live row's units: the whole row, or near-equal slices
-    head = np.flatnonzero(np.diff(row)) + 1 if S else np.zeros(0, np.int64)
-    r_start = np.concatenate([[0], head]).astype(np.int64) if S else np.zeros(0, np.int64)
-    live = row[r_start]
-    cnt = np.diff(np.append(r_start, S))
-    k = _cdiv(cnt, slice_slots)
-    U = int(k.sum())
-    i_in = np.arange(U) - np.repeat(np.cumsum(k) - k, k)
-    size = np.repeat(cnt // k, k) + (i_in < np.repeat(cnt % k, k))
-    u_end = np.cumsum(size)
-    cols[u_end - 1] |= LAST_SLOT
-    split = np.repeat(k > 1, k)
-    unit_dest = np.repeat(live, k)
-    unit_dest[split] = -(np.arange(int(split.sum())) + 1)
-    fix, fix_levels, n_parts = _fix_tree(live[k > 1], k[k > 1], fix_fanin)
-
-    # tasks: the elements (units and empty rows) in row order, cut by cost
-    is_live = np.zeros(n_out, bool)
-    is_live[live] = True
-    n_el = np.ones(n_out, np.int64)
-    n_el[live] = k
-    el_first = np.cumsum(n_el) - n_el  # each row's first element
-    is_unit = np.zeros(int(n_el.sum()), bool)
-    unit_el = np.repeat(el_first[live], k) + i_in
-    is_unit[unit_el] = True
-    cost = np.full(len(is_unit), ZERO_COST, np.int64)
-    cost[unit_el] = size + UNIT_COST
-    task_of = (np.cumsum(cost) - cost) // task_cost
-    starts = np.flatnonzero(np.diff(task_of, prepend=-1)) if len(cost) else np.zeros(0, np.int64)
-    units_before = np.cumsum(is_unit) - is_unit
-    t_unit = units_before[starts]
-    t_slot = np.append(0, u_end)[t_unit]
-    # runs of empty rows, cut where a task starts
-    empty_el = np.flatnonzero(~is_unit)
-    empty_rows = np.flatnonzero(~is_live)
-    et = np.searchsorted(starts, empty_el, side="right") - 1
-    brk = np.ones(len(empty_el), bool)
-    brk[1:] = (np.diff(empty_rows) != 1) | (np.diff(et) != 0)
-    run_first = np.flatnonzero(brk)
-    zero_runs = np.stack([empty_rows[run_first],
-                          np.diff(np.append(run_first, len(empty_el)))], axis=1)
-    t_zero = np.searchsorted(et[run_first], np.arange(len(starts)), side="left")
-    tasks = np.stack([np.append(t_slot, S), np.append(t_unit, U),
-                      np.append(t_zero, len(run_first))], axis=1)
-    return dict(
-        cols=cols.astype(np.uint32).view(np.int32),
-        vals=vals,
-        unit_dest=unit_dest.astype(np.int32),
-        tasks=tasks.astype(np.int32).reshape(-1, 3),
-        zero_runs=zero_runs.astype(np.int32).reshape(-1, 2),
-        fix=fix,
-        fix_levels=fix_levels,
-        n_parts=n_parts,
-    )
+    sched = row_schedule(row, cols, n_out, slice_slots=slice_slots, fix_fanin=fix_fanin,
+                         task_cost=task_cost)
+    sched["vals"] = vals
+    return sched
 
 
 def stream_plan_from_host(arrays: dict, meta: dict, device=None, **schedule) -> StreamPlan:

@@ -75,8 +75,9 @@ class Graph:
     build_stats: what `build_graph` decided and how long its host steps
       took (the reference keeps this in its module's LAST_BUILD_STATS):
       "stream" ({"forward", "transpose"}: each direction's census
-      statistics and remainder edges) and "seconds" (per step). For
-      logging only.
+      statistics and remainder edges), "seconds" (per step) and
+      "row_schedule" (per plan with an edge-row schedule: its host
+      seconds, inside the plan's step, and its bytes). For logging only.
     """
 
     src: torch.Tensor
@@ -175,7 +176,7 @@ def build_graph(
     bat_s_tile: int = 256,
     feature_hint: int = 128,
     assume_sorted: bool = False,
-    layouts: Tuple[str, ...] = ("bat",),
+    layouts: Tuple[str, ...] = ("bat", "slot", "stream"),
     max_chunk_bytes: int = 1 << 30,
     stream_knobs: StreamKnobs = StreamKnobs(),
     prefer: str = "bat",
@@ -188,7 +189,8 @@ def build_graph(
     plans of `layouts`, move everything to `device` (default: the CUDA
     card).
 
-    layouts: one of LAYOUTS. "slot" builds the slot-layout plans `plan`
+    layouts: one of LAYOUTS (default the reference's, all three). "slot"
+    builds the slot-layout plans `plan`
     and `plan_t` (e_tile x s_tile; pack-aligned to 16 edges when
     `feature_hint` <= 64), with the static weights in slot order; "bat"
     builds the BAT plans (bat_e_tile x bat_s_tile); "stream" builds the
@@ -222,6 +224,11 @@ def build_graph(
     no table, so a narrow `feature_hint` always packs. The stream
     remainder's BAT plan stays unpacked: the hybrid path is built only
     past 64 features, as in the reference.
+
+    Every slot plan and every packed BAT plan carries the edge-row
+    kernel's schedule (`plan.row_sched`, made from the plan's own host
+    arrays); `build_stats["row_schedule"]` holds each one's host seconds
+    and bytes on the device.
     """
     layouts = tuple(layouts)
     if layouts not in LAYOUTS:
@@ -292,6 +299,10 @@ def build_graph(
                 # needs the pair, so both stay on the gather path
                 hyb = None
 
+    stats["row_schedule"] = {
+        name: {"seconds": p.row_sched.seconds, "bytes": p.row_sched.nbytes}
+        for name, p in (("plan", plan), ("plan_t", plan_t), ("bat", bat), ("bat_t", bat_t))
+        if p is not None and p.row_sched is not None}
     return Graph(
         src=t(src),
         dst=t(dst),

@@ -42,9 +42,8 @@ SOURCES: Dict[str, str] = {
     "sddmm_bat": "sddmm_bat.cu",
     "stream_segment": "stream_segment.cu",
     "slot_segment_sum": "slot_segment_sum.cu",
-    "slot_aeb": "slot_aeb.cu",
     "slot_mh": "slot_mh.cu",
-    "bat_segment_sum_packed": "bat_segment_sum_packed.cu",
+    "edge_row_sum": "edge_row_sum.cu",
 }
 
 # loaded libraries of this process, by kernel name

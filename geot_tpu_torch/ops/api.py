@@ -4,7 +4,8 @@ hybrid stream+gather plans, with their gradients.
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 `_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155,
 `_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_aeb_packed_ok` :267,
-`_aeb_sum` :281, `_bat_sum` :335 (wide and packed branches), `_slot_spmm` :654,
+`_aeb_sum` :281, `_bat_sum` :335 (its wide branch; the packed one is in
+`_spmm_fwd_bat`), `_slot_spmm` :654,
 `_make_gws_static` :675 and `_make_gs` :1008 (one Function), `_spmm_fwd`
 :698 (its AEB branches), `_spmm_fwd_bat` :750, `_stream_accum` :778,
 `_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
@@ -18,7 +19,10 @@ Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 :1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The slot
 layout gathers exactly `x[src_slots]`: the reference's gather pad
 (`_fast_gather_fn`, odd multiples of 512 rows) answers a TPU emitter and
-is not carried over.
+is not carried over. The slot_dyn route and the packed BAT routes hand
+their sums x and src (`_aeb_sum`, `_spmm_fwd_bat`): the edge-row kernel reads
+x[src[e]] itself, with no edge-order gather, one launch a plan where the
+reference gathers and runs chunk by chunk.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
 fused SpMM runs the same kernels over the transpose plan (`plan_t`,
@@ -215,62 +219,40 @@ def _aeb_packed_ok(plan: SegmentPlan, n: int) -> int:
     return nw
 
 
-def _aeb_sum(plan: SegmentPlan, vals_fn: Callable, n: int,
-             w_edge: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Tiled segment sum over EDGE-ordered values through the aligned-edge-
-    block kernel, under the name the reference would launch
+def _aeb_sum(plan: SegmentPlan, vals: torch.Tensor, n: int,
+             w_edge: Optional[torch.Tensor] = None,
+             src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Segment sum over the slot plan's edges through the aligned-edge-
+    block function, under the name the reference would launch
     (`plan_segment_sum_packed2` where `_aeb_packed_ok`, else
-    `plan_segment_sum_sr2` with edge values). No slot gather and no weight
-    permutation: slot j of tile t reads edge e0[t] + j. `vals_fn(e_begin,
-    size)` returns the value rows of edges [e_begin, e_begin + size) ([<=
-    size, n], float32, contiguous; missing rows read as zero), or of every
-    edge for size None. Weights: the plan's mask, times `w_edge` (per call,
-    edge order, float32) if given. Returns [num_segments, n] float32.
+    `plan_segment_sum_sr2` with edge values): values in EDGE order (vals
+    [nnz, n] float32, contiguous), or, with `src`, node rows that edge e
+    reads as vals[src[e]], in the kernel: no [nnz, n] gather. No slot
+    gather and no weight permutation. Weights: the plan's mask, times
+    `w_edge` (per call, edge order, float32) if given. Returns
+    [num_segments, n] float32.
 
-    A chunk of a chunked plan reads its own slice of values, edges
-    [e_begin, e_begin + (t1 - t0 + 2) * e_tile) with e_begin its first
-    tile's e0 rounded down to e_tile, as the reference does; the kernel
-    indexes `w_edge` with the plan's global e0, so neither is rebased. The
-    chunks' first e0 come to the host once per call."""
-    E = plan.e_tile
-    nw = _aeb_packed_ok(plan, n)
-    starts = None
-    if plan.chunks:
-        first = torch.tensor([c[0] for c in plan.chunks], device=plan.e0.device)
-        starts = plan.e0.index_select(0, first).tolist()
-
-    def run_one(cp, i, c):
-        if i is None:
-            e_base, v = 0, vals_fn(0, None)
-        else:
-            e_base = starts[i] // E * E
-            v = vals_fn(e_base, (c[1] - c[0] + 2) * E)
-        if nw:
-            out = plan_segment_sum_packed2(cp, v, w_edge=w_edge, e_base=e_base)
-        else:
-            out = plan_segment_sum_sr2(cp, v, vals_layout="edge", w_edge=w_edge,
-                                       e_base=e_base)
-        return out[: cp.num_segments]
-
-    return _plan_sum_chunked(plan, run_one)
+    A chunked plan is summed whole, in one call: on the card the kernel's
+    schedule lists the plan's rows, and its chunks (the TPU's scalar-
+    prefetch and VMEM limits) do not apply; the reference runs it chunk
+    by chunk and adds the split hub window's halves."""
+    if _aeb_packed_ok(plan, n):
+        out = plan_segment_sum_packed2(plan, vals, w_edge=w_edge, src=src)
+    else:
+        out = plan_segment_sum_sr2(plan, vals, vals_layout="edge", w_edge=w_edge, src=src)
+    return out[: plan.num_segments]
 
 
 def _spmm_fwd_slot_dyn(plan: SegmentPlan, x: torch.Tensor, w_edge: torch.Tensor,
                        src: torch.Tensor) -> torch.Tensor:
     """sum_e w_e * x[src_e] by dst over the slot plan with per-call
-    edge-order weights: x gathered in EDGE order, one chunk at a time,
-    through the AEB kernel (`_aeb_sum`). The reference gathers x in slot
-    order for sr2 where its packed lane rows do not fit the plan's
-    pack_align, a TPU layout rule that is not carried over. Returns
-    [num_segments, n] float32."""
+    edge-order weights, through the AEB function (`_aeb_sum`), which reads
+    x[src[e]] itself. The reference gathers x (in slot order for sr2 where
+    its packed lane rows do not fit the plan's pack_align, a TPU layout
+    rule that is not carried over). Returns [num_segments, n] float32."""
     x = x.float().contiguous()
-    src_l = src.long()
-
-    def vals_fn(e_begin, size):
-        idx = src_l if size is None else src_l[e_begin : e_begin + size]
-        return x.index_select(0, idx)
-
-    return _aeb_sum(plan, vals_fn, x.shape[1], w_edge=w_edge.float().contiguous())
+    return _aeb_sum(plan, x, x.shape[1], w_edge=w_edge.float().contiguous(),
+                    src=src.int().contiguous())
 
 
 def _edge_dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
@@ -309,27 +291,25 @@ def _bat_sum(
     n: int,
     w_edge: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Tiled segment sum over EDGE-ordered values through the BAT kernels.
-    `vals_fn(e_begin, size)` returns value rows for edges
-    [e_begin, e_begin + size) ([<= size, n]), or the whole edge list for
-    e_begin None; n is `_bat_width(bp, n)`: a packed width on a plan
-    packed for it (`bat_segment_sum_packed`, the reference's packed
-    branch), else a multiple of the wide kernel's feature tile
-    (`bat_segment_sum`).
+    """Tiled segment sum over EDGE-ordered values through the wide BAT
+    kernel (`bat_segment_sum`). `vals_fn(e_begin, size)` returns value rows
+    for edges [e_begin, e_begin + size) ([<= size, n]), or the whole edge
+    list for e_begin None; n is a multiple of the kernel's feature tile
+    (`_bat_width`).
 
     The reference runs more than 2 chunks of a wide sum under `lax.scan`
     (`_bat_sum_scan`, api.py:415) to compile one chunk body. PyTorch runs
     eagerly, so every chunk count goes through this one Python loop; the
     sums are the same. Each chunk gathers min(chunk_vblocks, tiles + 1)
     value blocks, as the scan does (every real block of a chunk lies in
-    that span), and its dst ids, k-major ones too, are rebased to the
-    chunk's blocks and windows (reference :383-393).
+    that span), and its dst ids are rebased to the chunk's blocks and
+    windows (reference :383-393). The packed branch takes the plan whole
+    (`_spmm_fwd_bat`, `_IndexScatterBat`).
     """
     E, s = bp.e_tile, bp.s_tile
-    if _bat_width(bp, n) != n:
-        raise ValueError(f"_bat_sum: width {n} is not the plan's kernel width "
+    if _bat_width(bp, n) != n or n < 128:
+        raise ValueError(f"_bat_sum: width {n} is not the plan's wide kernel width "
                          f"{_bat_width(bp, n)}")
-    packed = n < 128  # a packed width (8-64) on a plan packed for it
     f_tile = _pick_f_tile(n)
     if bp.chunks and len(bp.chunk_vbase) != len(bp.chunks):
         raise ValueError("chunk_vbase out of step with chunks; use plan.with_chunks")
@@ -359,16 +339,12 @@ def _bat_sum(
             )
             cpp = dataclasses.replace(
                 cp, vblock=vb_rel, dst3=rebase(bp.dst3, vbase, nblk, w0), n_vblocks=nblk,
-                dst_km=rebase(bp.dst_km, vbase, nblk, w0) if packed else None)
+                dst_km=None)
             v = vals_fn(vbase * E, size)
             we = None
             if w_edge is not None:
                 we = w_edge[vbase * E : vbase * E + size]
-        if packed:
-            out = bat_segment_sum_packed(cpp, v, we)
-        else:
-            out = bat_segment_sum(cpp, v, we, f_tile=f_tile)
-        return out[: cpp.num_segments]
+        return bat_segment_sum(cpp, v, we, f_tile=f_tile)[: cpp.num_segments]
 
     return _plan_sum_chunked(bp, run_one)
 
@@ -376,16 +352,17 @@ def _bat_sum(
 def _spmm_fwd_bat(
     bp: BatPlan, x: torch.Tensor, src: torch.Tensor, w_edge: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """sum_e w_e * x[src_e] by dst window via the BAT kernels: the gather
-    emits rows in raw EDGE order and weights stream in edge order. Returns
+    """sum_e w_e * x[src_e] by dst window via the BAT kernels. Returns
     [num_segments, n] float32 whatever x's dtype (the kernels sum float32;
     callers cast back).
 
-    x's columns are padded to the kernels' width (`_bat_width`: the packed
-    width on a plan packed for n, else the wide kernel's feature tile)
-    BEFORE the gather, so no chunk pays a pad copy of its gathered block.
-    The reference does this only for n > 64 and pads narrow rows after the
-    gather; the sums are the same."""
+    x's columns are padded to the kernels' width first (`_bat_width`: the
+    packed width on a plan packed for n, else the wide kernel's feature
+    tile), so the pad touches x's rows only. On a plan packed for n the
+    packed kernel reads x[src[e]] itself, with no edge-order gather, over
+    the whole plan in one launch. Otherwise the wide kernel's gather emits rows in raw EDGE order
+    and weights stream in edge order. The reference pads narrow rows after
+    its gather; the sums are the same."""
     x = x.float()
     if w_edge is not None:
         w_edge = w_edge.float()
@@ -393,6 +370,10 @@ def _spmm_fwd_bat(
     f_pad = _bat_width(bp, n)
     if f_pad != n:
         x = F.pad(x, (0, f_pad - n))
+    if f_pad < 128:  # the reference's packed branch: the whole plan, one launch
+        out = bat_segment_sum_packed(bp, x.contiguous(), w_edge, src=src.int().contiguous())
+        out = out[: bp.num_segments]
+        return out[:, :n] if f_pad != n else out
     E = bp.e_tile
     nnz = src.shape[0]
     # src padded to whole value blocks; the pad rows gather node 0 and meet
@@ -598,13 +579,15 @@ class _IndexScatterBat(torch.autograd.Function):
         f_pad = _bat_width(plan, n)
         v = vals.float()
         v = F.pad(v, (0, f_pad - n)) if f_pad != n else v.contiguous()
+        if f_pad < 128:  # the whole plan, one launch
+            out = bat_segment_sum_packed(plan, v)[: plan.num_segments]
+        else:
+            def vals_fn(e_begin, size):
+                # a chunk's slice may run past the end: the kernel reads
+                # the missing rows as zero
+                return v if e_begin is None else v[e_begin : e_begin + size]
 
-        def vals_fn(e_begin, size):
-            # a chunk's slice may run past the end: the kernel reads the
-            # missing rows as zero
-            return v if e_begin is None else v[e_begin : e_begin + size]
-
-        out = _bat_sum(plan, vals_fn, f_pad)
+            out = _bat_sum(plan, vals_fn, f_pad)
         return (out[:, :n] if f_pad != n else out).to(vals.dtype)
 
     @staticmethod
@@ -676,11 +659,7 @@ class _IndexScatterSlot(torch.autograd.Function):
     def forward(ctx, vals, index, plan):
         ctx.save_for_backward(index)
         v = vals.float().contiguous()
-
-        def vals_fn(e_begin, size):
-            return v if size is None else v[e_begin : e_begin + size]
-
-        return _aeb_sum(plan, vals_fn, v.shape[1]).to(vals.dtype)
+        return _aeb_sum(plan, v, v.shape[1]).to(vals.dtype)
 
     @staticmethod
     @once_differentiable
@@ -738,8 +717,10 @@ def dispatch_path(
     slot order), 'bat' / 'slot' (unweighted), 'bat_dyn' (per-call
     weights) or 'xla' (the plain reference; the name is the reference's).
     The graph's `prefer` (graph or no weights) and `prefer_dyn` (per-call
-    weights) choose between BAT and slot where both exist. 'slot_dyn' and
-    the reference's bucketed route raise NotImplementedError."""
+    weights) choose between BAT and slot where both exist. 'slot_dyn'
+    (per-call weights over the slot plans, `gather_weight_scatter`'s route
+    there) is taken as the reference takes it; the reference's bucketed
+    route is not ported (ROADMAP A.6)."""
     _check_backend(backend)
     in_sum = reduce in ("sum", "mean")
     if backend == "reference" or not in_sum:

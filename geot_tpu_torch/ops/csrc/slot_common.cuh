@@ -1,7 +1,7 @@
-// Slot-layout segment sums for Hopper (sm_90a): the kernels of slot_aeb.cu,
-// slot_mh.cu and bat_segment_sum_packed.cu, each of which binds them to a
-// plain C interface for ctypes. They extend the design of slot_segment_sum.cu (sr, sr_packed,
-// pr), which keeps its own copy: built from this template, its 128-column
+// The multi-head slot-layout segment sum for Hopper (sm_90a): the kernels
+// of slot_mh.cu, which binds them to a plain C interface for ctypes. They
+// extend the design of slot_segment_sum.cu (sr, sr_packed, pr), which keeps
+// its own copy: built from this template, its 128-column
 // sr tile kernel took 71 registers instead of 64 and 10% more time at
 // F 500 (1.11 vs 1.01 ms on the flickr plan, NVIDIA H100 80GB HBM3, 700 W,
 // `python -m geot_tpu_torch.probe_slot ab`), and no change of launch
@@ -12,32 +12,13 @@
 //
 //   out[dst[t*E + j], c] += w(t, j, c) * v(t, j, c)    for each live slot
 //
-// with dst[t*E + j] in window out_block[t]. What varies is where v and w
-// come from (`SlotSrc`):
+// with dst[t*E + j] in window out_block[t]: values in slot order, row
+// t*E + j of vals [>= T*E, F], and multi-head weights (`SlotSrc`),
+// w[(t*E + j)*H + c / head_dim], the weight of column c's head, 0 past H
+// heads.
 //
-//   values   slot order, row t*E + j of vals [>= T*E, F]; or edge order
-//            (the aligned-edge-block, AEB, kernels), row e0[t] + j - e_base
-//            of vals [n_rows, F], a row past n_rows read as zero
-//   weights  w[t*E + j], the slot weight (static, or the plan's mask); times
-//            w_edge[e0[t] + j], a per-call weight in edge order (AEB); or,
-//            multi-head, w[(t*E + j)*H + c / head_dim], the weight of
-//            column c's head, 0 past H heads
-//
-// Each kind (`kAeb`, `kHeads`) is its own template instance.
-//
-// A third kind, `kBat`, reads a block-aligned-tile (BAT) plan instead: tile
-// t's E slots are the E edges of value block b = vblock[t] (edges b*E ..
-// b*E + E - 1 of the dst-sorted list), its dst ids come from the block's
-// k-major copy (edge j at dst[b*E + (j % P)*(E / P) + j / P], P = 128 / F
-// edges per TPU lane row), its values from vals[b*E + j] (a row past the
-// end reads as zero) and its weight from w_edge[b*E + j] (1 without
-// weights). A slot is live when its dst lies in window out_block[t]: the
-// other edges of the block, the -1 pads and the sentinel block add nothing.
-// A live edge of weight 0 adds 0 * v, as the TPU kernel does. A block's
-// dst ids are sorted, so its in-window edges are one contiguous run.
-//
-// A slot is live when its weight is not 0 (kHeads: when any of its H heads'
-// weights is not 0); a slot that is not live is not read. A plan's pad slots
+// A slot is live when any of its H heads' weights is not 0; a slot that is
+// not live is not read. A plan's pad slots
 // have weight 0 and hold their window's base row, out of dst order (after a
 // tile's real slots, and before them when the plan is pack-aligned);
 // skipping them leaves every tile's live slots in dst order. A real edge of
@@ -78,7 +59,7 @@
 //
 // Bound on the H100: bytes (each live slot's value row read once, the
 // weights, dst ids and output once); the flops (2 per value) are
-// negligible. The figures at the flickr shapes are in each source's header.
+// negligible. The figures at the flickr shapes are in slot_mh.cu's header.
 
 #pragma once
 
@@ -97,36 +78,19 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowVec = 0;     // row-major [*, F], F % 4 == 0, 16-byte aligned
 constexpr int kRowScalar = 1;  // row-major [*, F], any F
 
-// where a kernel's values and weights come from, a template parameter so
-// that each kind compiles only its own loads
-constexpr int kAeb = 1;    // values and/or per-call weights in edge order (sr2, packed2)
-constexpr int kHeads = 2;  // slot-order values, per-(slot, head) weights (mh)
-constexpr int kBat = 3;    // a BAT plan's value blocks, k-major dst ids (bat packed)
-
 // Where a tile kernel's values and weights come from (see the top). The
 // kernel takes `vals` and `w` as __restrict__ parameters of their own; the
 // struct carries the rest.
 struct SlotSrc {
   const float* vals;
-  const float* w;       // [T*E] slot weights, or [T*E, H] head weights (kHeads)
-  const int* e0;        // kAeb: [T] edge of slot 0 of each tile; kBat: [T] vblock
-                        // (edge of slot 0 = e0[t] * E)
-  int edge_vals;        // kAeb: 1 if the values are in edge order (kBat: always)
-  int64_t e_base;       // kAeb, kBat: edge of vals' row 0 (edge order)
-  int64_t n_rows;       // kAeb, kBat: rows of vals (edge order)
-  const float* w_edge;  // kAeb, kBat: [n_w] weights in edge order, or nullptr
-  int64_t n_w;
-  int H, head_dim;      // kHeads
+  const float* w;  // [T*E, H] head weights
+  int H, head_dim;
 };
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
 __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-}
-
-__device__ __forceinline__ float4 scale4(float s, const float4& v) {
-  return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
 }
 
 __device__ __forceinline__ float4 shfl4(const float4& v, int src) {
@@ -183,53 +147,29 @@ __device__ __forceinline__ void store4(float* __restrict__ o, int64_t row, int F
   }
 }
 
-// The weight of slot `slot` (edge `edge`), 0 when the slot is not live or
-// `in` is false; kHeads: 1 when any head's weight is not 0, else 0. A
-// per-call weight is read only for a slot whose own weight is not 0: pads
-// and the slots past the last edge are never dereferenced.
-template <int KIND>
+// 1 when slot `slot` is live (any head's weight not 0) and `in`, else 0.
 __device__ __forceinline__ float slot_weight(const float* __restrict__ w_slots,
-                                             const SlotSrc& s, int64_t slot, int64_t edge,
-                                             bool in) {
+                                             const SlotSrc& s, int64_t slot, bool in) {
   if (!in) return 0.f;
-  if constexpr (KIND == kHeads) {
-    const float* wr = w_slots + slot * s.H;
-    for (int h = 0; h < s.H; ++h)
-      if (__ldg(wr + h) != 0.f) return 1.f;
-    return 0.f;
-  } else {
-    float w = __ldg(w_slots + slot);
-    if constexpr (KIND == kAeb) {
-      if (w != 0.f && s.w_edge != nullptr) w = edge < s.n_w ? w * __ldg(s.w_edge + edge) : 0.f;
-    }
-    return w;
-  }
+  const float* wr = w_slots + slot * s.H;
+  for (int h = 0; h < s.H; ++h)
+    if (__ldg(wr + h) != 0.f) return 1.f;
+  return 0.f;
 }
 
 // The weighted columns col..col+3 of a live slot. `hc` holds the head of
-// each of the lane's four columns (-1: inert), kHeads only.
-template <int MODE, int KIND>
+// each of the lane's four columns (-1: inert).
+template <int MODE>
 __device__ __forceinline__ float4 slot_value(const float* __restrict__ vals,
                                              const float* __restrict__ w_slots,
                                              const SlotSrc& s, int F, int col, int64_t slot,
-                                             int64_t edge, float w, const int (&hc)[4]) {
-  int64_t row = slot;
-  if constexpr (KIND == kAeb || KIND == kBat) {
-    if (s.edge_vals) {
-      row = edge - s.e_base;
-      if (row < 0 || row >= s.n_rows) return zero4();
-    }
-  }
-  const float4 v = load4<MODE>(vals, row, F, col);
-  if constexpr (KIND == kHeads) {
-    const float* wr = w_slots + slot * s.H;
-    float c[4];
+                                             const int (&hc)[4]) {
+  const float4 v = load4<MODE>(vals, slot, F, col);
+  const float* wr = w_slots + slot * s.H;
+  float c[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) c[k] = hc[k] >= 0 ? __ldg(wr + hc[k]) : 0.f;
-    return make_float4(c[0] * v.x, c[1] * v.y, c[2] * v.z, c[3] * v.w);
-  } else {
-    return scale4(w, v);
-  }
+  for (int k = 0; k < 4; ++k) c[k] = hc[k] >= 0 ? __ldg(wr + hc[k]) : 0.f;
+  return make_float4(c[0] * v.x, c[1] * v.y, c[2] * v.z, c[3] * v.w);
 }
 
 // The rows of window `win` as one warp sees them: group g of P = 32/G
@@ -256,7 +196,7 @@ struct Rows {
 // `python -m geot_tpu_torch.probe_slot ab`).
 constexpr int kTileBlocksPerSm = 3;
 
-template <int G, int MODE, int KIND>
+template <int G, int MODE>
 __global__ void __launch_bounds__(kThreads, kTileBlocksPerSm)
 slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, SlotSrc src,
                  int F, const int* __restrict__ dst, const int* __restrict__ out_block, int E,
@@ -273,16 +213,11 @@ slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, Sl
   const int base = win * s_tile;
   const Rows<G, MODE> o{out, (int64_t)base, F, col, g};
   const int64_t slot0 = (int64_t)t * E;
-  int64_t edge0 = 0;
-  if constexpr (KIND == kAeb) edge0 = __ldg(src.e0 + t);
-  if constexpr (KIND == kBat) edge0 = (int64_t)__ldg(src.e0 + t) * E;
-  int hc[4] = {-1, -1, -1, -1};
-  if constexpr (KIND == kHeads) {
+  int hc[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int h = (col + k) / src.head_dim;
-      hc[k] = (col + k < F && h < src.H) ? h : -1;
-    }
+  for (int k = 0; k < 4; ++k) {
+    const int h = (col + k) / src.head_dim;
+    hc[k] = (col + k < F && h < src.H) ? h : -1;
   }
   // this warp's slots: a contiguous run, a multiple of P long
   const int seg = ((E + kWarps - 1) / kWarps + P - 1) / P * P;
@@ -303,30 +238,15 @@ slot_tile_kernel(const float* __restrict__ vals, const float* __restrict__ w, Sl
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       const int j = j0 + k * P + g;
-      if constexpr (KIND == kBat) {
-        // j0 is a multiple of P, so j % P == g: the group reads its own
-        // k-major lane of the block
-        int r = -1;
-        if (j < j_end) {
-          r = __ldg(dst + edge0 + (int64_t)g * (E / P) + j / P) - base;
-          if (r >= s_tile) r = -1;
-        }
-        rk[k] = r < 0 ? -1 : r;
-        const int64_t e = edge0 + j;
-        wk[k] = rk[k] < 0 ? 0.f
-                : src.w_edge == nullptr ? 1.f
-                : (e < src.n_w ? __ldg(src.w_edge + e) : 0.f);
-      } else {
-        wk[k] = slot_weight<KIND>(w, src, slot0 + j, edge0 + j, j < j_end);
-        rk[k] = wk[k] != 0.f ? __ldg(dst + slot0 + j) - base : -1;
-      }
+      wk[k] = slot_weight(w, src, slot0 + j, j < j_end);
+      rk[k] = wk[k] != 0.f ? __ldg(dst + slot0 + j) - base : -1;
     }
     float4 vk[kBatch];
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       const int j = j0 + k * P + g;
       vk[k] = rk[k] >= 0
-                  ? slot_value<MODE, KIND>(vals, w, src, F, col, slot0 + j, edge0 + j, wk[k], hc)
+                  ? slot_value<MODE>(vals, w, src, F, col, slot0 + j, hc)
                   : zero4();
     }
 #pragma unroll
@@ -549,12 +469,12 @@ struct SlotLaunch {
   cudaStream_t stream;
 };
 
-template <int G, int MODE, int KIND>
+template <int G, int MODE>
 int launch(const SlotSrc& src, const SlotLaunch& a) {
   const int n_slabs = (a.F + 4 * G - 1) / (4 * G);
   const int Fp = n_slabs * 4 * G;
   if (a.T > 0) {
-    slot_tile_kernel<G, MODE, KIND><<<dim3(a.T, n_slabs), kThreads, 0, a.stream>>>(
+    slot_tile_kernel<G, MODE><<<dim3(a.T, n_slabs), kThreads, 0, a.stream>>>(
         src.vals, src.w, src, a.F, a.dst, a.out_block, a.E, a.s_tile, a.out,
         a.part_rows, a.part_vals, Fp);
     cudaError_t err = cudaGetLastError();
@@ -565,14 +485,14 @@ int launch(const SlotSrc& src, const SlotLaunch& a) {
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int KIND>
+template <int MODE>
 int launch_g(int G, const SlotSrc& src, const SlotLaunch& a) {
   switch (G) {
-    case 2: return launch<2, MODE, KIND>(src, a);
-    case 4: return launch<4, MODE, KIND>(src, a);
-    case 8: return launch<8, MODE, KIND>(src, a);
-    case 16: return launch<16, MODE, KIND>(src, a);
-    case 32: return launch<32, MODE, KIND>(src, a);
+    case 2: return launch<2, MODE>(src, a);
+    case 4: return launch<4, MODE>(src, a);
+    case 8: return launch<8, MODE>(src, a);
+    case 16: return launch<16, MODE>(src, a);
+    case 32: return launch<32, MODE>(src, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -588,12 +508,11 @@ inline int slot_scratch_width(int F, int G) { return (F + 4 * G - 1) / (4 * G) *
 
 // A row-major launch (values [*, F], output [n_windows*s_tile, F]): 16-byte
 // loads and stores where F % 4 == 0 and both arrays are 16-byte aligned.
-template <int KIND>
-int row_major(int G, const SlotSrc& src, const SlotLaunch& a) {
+inline int row_major(int G, const SlotSrc& src, const SlotLaunch& a) {
   if (a.n_windows <= 0 || a.F <= 0) return (int)cudaSuccess;
   const bool vec = a.F % 4 == 0 && ((uintptr_t)src.vals % 16 == 0) &&
                    ((uintptr_t)a.out % 16 == 0);
-  return vec ? launch_g<kRowVec, KIND>(G, src, a) : launch_g<kRowScalar, KIND>(G, src, a);
+  return vec ? launch_g<kRowVec>(G, src, a) : launch_g<kRowScalar>(G, src, a);
 }
 
 inline SlotSrc slot_order_src(const void* vals, const void* w) {

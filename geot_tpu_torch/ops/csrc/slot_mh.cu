@@ -39,7 +39,7 @@ extern "C" int geot_plan_segment_sum_mh(const void* vals, int F, const void* dst
   SlotSrc src = slot_order_src(vals, w_heads);
   src.H = H;
   src.head_dim = head_dim;
-  return row_major<kHeads>(lanes_for(F), src,
+  return row_major(lanes_for(F), src,
                          row_major_launch(F, dst, out_block, T, n_windows, E, s_tile, out,
                                           part_rows, part_vals, stream));
 }

@@ -247,17 +247,38 @@ def _edge_of_slots(plan, dev) -> torch.Tensor:
     return (e0[:, None] + torch.arange(plan.e_tile, device=dev)).reshape(-1)
 
 
+def _rows_or_zero(vals: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """vals[row] in float32, zeros where row lies outside vals."""
+    inside = (row >= 0) & (row < vals.shape[0])
+    v = torch.zeros(row.shape[0], vals.shape[1], dtype=torch.float32, device=vals.device)
+    v[inside] = vals.index_select(0, row[inside]).float()
+    return v
+
+
+def _gathered_rows(src: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
+    """src[edge] (int64), -1 for an edge past src's end."""
+    src = src.to(edge.device).long()
+    inside = edge < src.shape[0]
+    return torch.where(inside, src[torch.clamp(edge, max=max(src.shape[0] - 1, 0))],
+                       torch.full_like(edge, -1))
+
+
 def plan_segment_sum_sr2_plain(plan, vals: torch.Tensor, *, vals_layout: str = "slot",
-                               w_slots=None, w_edge=None, e_base: int = 0) -> torch.Tensor:
+                               w_slots=None, w_edge=None, e_base: int = 0,
+                               src=None) -> torch.Tensor:
     """out[dst_slots[s]] += w(s) * v(s) over the slots s of a slot plan
     with w(s) != 0, in float32 with `index_add_`. v(s) = vals[s] (slot
     order, vals [>= T*E, F]) or vals[e0[t] + j - e_base] for slot j of
-    tile t (edge order; rows past the end of vals read as zero). w(s) =
-    w_slots[s] (default the plan's mask; 0 on pads), times w_edge[e0[t] + j]
-    where per-call edge-order weights are given (read only where w_slots
-    is not 0). Returns [n_blocks*s_tile, F] float32, every row written."""
+    tile t (edge order; rows past the end of vals read as zero), or, with
+    `src` (edge order), vals[src[e0[t] + j]] (rows past the end of vals,
+    and edges past the end of src, read as zero). w(s) = w_slots[s]
+    (default the plan's mask; 0 on pads), times w_edge[e0[t] + j] where
+    per-call edge-order weights are given (read only where w_slots is not
+    0). Returns [n_blocks*s_tile, F] float32, every row written."""
     if vals_layout not in ("slot", "edge"):
         raise ValueError(f"vals_layout={vals_layout!r}: 'slot' or 'edge'")
+    if src is not None and vals_layout != "edge":
+        raise ValueError("gathered values (src) are read in edge order: vals_layout='edge'")
     dev = vals.device
     ws = plan.mask if w_slots is None else w_slots
     w = ws.reshape(-1).to(dev).float()
@@ -277,22 +298,21 @@ def plan_segment_sum_sr2_plain(plan, vals: torch.Tensor, *, vals_layout: str = "
     out = torch.zeros(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
     if vals_layout == "slot":
         v = vals[: plan.num_tiles * plan.e_tile].index_select(0, keep).float()
+    elif src is not None:
+        v = _rows_or_zero(vals, _gathered_rows(src, edge))
     else:
-        row = edge - int(e_base)
-        inside = (row >= 0) & (row < vals.shape[0])
-        v = torch.zeros(row.shape[0], F, dtype=torch.float32, device=dev)
-        v[inside] = vals.index_select(0, row[inside]).float()
+        v = _rows_or_zero(vals, edge - int(e_base))
     return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v * wk[:, None])
 
 
 def plan_segment_sum_packed2_plain(plan, vals_edges: torch.Tensor, *, w_slots=None,
-                                   w_edge=None, e_base: int = 0) -> torch.Tensor:
-    """`plan_segment_sum_sr2_plain` over edge-order values for narrow rows
-    (F <= 64)."""
+                                   w_edge=None, e_base: int = 0, src=None) -> torch.Tensor:
+    """`plan_segment_sum_sr2_plain` over edge-order (or, with `src`,
+    gathered) values for narrow rows (F <= 64)."""
     if vals_edges.shape[1] > 64:
         raise ValueError(f"packed2 takes F <= 64, got {vals_edges.shape[1]}")
     return plan_segment_sum_sr2_plain(plan, vals_edges, vals_layout="edge", w_slots=w_slots,
-                                      w_edge=w_edge, e_base=e_base)
+                                      w_edge=w_edge, e_base=e_base, src=src)
 
 
 def plan_segment_sum_mh_plain(plan, vals_slots: torch.Tensor, w_heads: torch.Tensor,
@@ -317,15 +337,16 @@ def plan_segment_sum_mh_plain(plan, vals_slots: torch.Tensor, w_heads: torch.Ten
 
 
 def bat_tiles_plain(bp, dst_blocks: torch.Tensor, vals: torch.Tensor,
-                    w_edge=None) -> torch.Tensor:
+                    w_edge=None, src=None) -> torch.Tensor:
     """The BAT kernels' function over a plan's tiles, in float32 with
-    `index_add_`: for each tile t, sum w[e] * vals[e] over the edges e =
+    `index_add_`: for each tile t, sum w[e] * v(e) over the edges e =
     vblock[t]*E + j of its value block whose dst `dst_blocks[vblock[t],
     j]` lies in window out_block[t], into that row. dst_blocks [n_vblocks
     + 1, E] holds each block's dst ids in edge order (-1 pads add
-    nothing). Rows e >= vals.shape[0] read as zero, weights e >=
-    len(w_edge) as zero. Returns [n_blocks*s_tile, F] float32, every row
-    written (empty rows 0)."""
+    nothing). v(e) = vals[e], or vals[src[e]] given `src` (gathered); a
+    row past the end of vals, or an edge past src's, reads as zero, and
+    weights e >= len(w_edge) as zero. Returns [n_blocks*s_tile, F]
+    float32, every row written (empty rows 0)."""
     E, s = bp.e_tile, bp.s_tile
     dev = vals.device
     ob = bp.out_block.to(dev).long()
@@ -335,9 +356,7 @@ def bat_tiles_plain(bp, dst_blocks: torch.Tensor, vals: torch.Tensor,
     keep = (local >= 0) & (local < s)
     e_idx = edges[keep]
     rows = (ob[:, None] * s + local)[keep]
-    ok = e_idx < vals.shape[0]
-    v = torch.zeros(e_idx.shape[0], vals.shape[1], dtype=torch.float32, device=dev)
-    v[ok] = vals[e_idx[ok]].float()
+    v = _rows_or_zero(vals, e_idx if src is None else _gathered_rows(src, e_idx))
     if w_edge is not None:
         we = torch.zeros(e_idx.shape[0], dtype=torch.float32, device=dev)
         okw = e_idx < w_edge.shape[0]
@@ -347,12 +366,13 @@ def bat_tiles_plain(bp, dst_blocks: torch.Tensor, vals: torch.Tensor,
     return out.index_add_(0, rows, v)
 
 
-def bat_segment_sum_packed_plain(bp, vals: torch.Tensor, w_edge=None) -> torch.Tensor:
+def bat_segment_sum_packed_plain(bp, vals: torch.Tensor, w_edge=None, src=None) -> torch.Tensor:
     """The packed BAT kernel's function (`bat_segment_sum_packed`): the BAT
     tile sum of `bat_tiles_plain` with each block's dst ids read from the
     k-major `bp.dst_km`, edge r*P + k of a block at lane k*(E // P) + r (P
-    = bp.km_pack). vals [rows, F] edge order, F = 128 // P (8, 16, 32 or
-    64); w_edge [n_w] or None. Returns [n_blocks*s_tile, F] float32."""
+    = bp.km_pack). vals [rows, F] edge order (or node rows gathered through
+    `src`), F = 128 // P (8, 16, 32 or 64); w_edge [n_w] or None. Returns
+    [n_blocks*s_tile, F] float32."""
     P, E = bp.km_pack, bp.e_tile
     if bp.dst_km is None or P < 2:
         raise ValueError("bat_segment_sum_packed needs a packed plan (km_pack > 1, dst_km)")
@@ -360,4 +380,4 @@ def bat_segment_sum_packed_plain(bp, vals: torch.Tensor, w_edge=None) -> torch.T
         raise ValueError(f"packed width {vals.shape[1]} does not match km_pack {P}")
     nb = bp.dst_km.shape[0]
     dst_blocks = bp.dst_km.reshape(nb, P, E // P).transpose(1, 2).reshape(nb, E)
-    return bat_tiles_plain(bp, dst_blocks, vals, w_edge)
+    return bat_tiles_plain(bp, dst_blocks, vals, w_edge, src=src)

@@ -5,10 +5,12 @@ Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed`,
 and `plan_segment_sum_mh` of the JAX package
 (`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`, `:384`, `:581`,
 `:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (sr, sr_packed,
-pr), `slot_aeb.cu` (sr2, packed2: edge-order values and per-call weights)
-and `slot_mh.cu` (mh), one template in `slot_common.cuh`, built by nvcc for
-sm_90a and called through ctypes (see those files for their design and
-bound); their plain versions are in `ops/reference.py`. For tensors on the
+pr), `slot_mh.cu` (mh, the template in `slot_common.cuh`) and
+`edge_row_sum.cu` (sr2 and packed2: one row-ordered edge sum over the
+plan's `RowSchedule`, values in edge or slot order or gathered in the
+kernel as x[src[e]]), built by nvcc for sm_90a and called through ctypes
+(see those files for their design and bound); their plain versions are in
+`ops/reference.py`. For tensors on the
 CPU a wrapper runs its plain version; for CUDA tensors it launches its
 kernel or raises. Each returns float32 and reads F columns as they are
 (no lane padding).
@@ -20,8 +22,9 @@ import ctypes
 
 import torch
 
-from geot_tpu_torch.graph.plan import SegmentPlan
+from geot_tpu_torch.graph.plan import SegmentPlan, row_schedule_of
 from geot_tpu_torch.ops._build import load_kernel
+from geot_tpu_torch.ops.edge_row_kernels import edge_row_sum
 from geot_tpu_torch.ops.reference import (
     plan_segment_sum_mh_plain,
     plan_segment_sum_packed2_plain,
@@ -48,12 +51,11 @@ _ARGTYPES = {
     "geot_plan_segment_sum_sr": [_P, _I32, _P, _P] + _TAIL,
     "geot_plan_segment_sum_sr_packed": [_P, _I32, _P, _P] + _TAIL,
     "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P] + _TAIL,
-    "geot_plan_segment_sum_aeb": [_P, _I32, _I64, _I32, _I64, _P, _P, _P, _P, _I64] + _TAIL,
     "geot_plan_segment_sum_mh": [_P, _I32, _P, _P, _I32, _I32] + _TAIL,
     "geot_slot_scratch_width": [_I32, _I32],
 }
 # the library of each kernel
-_LIB = {"geot_plan_segment_sum_aeb": "slot_aeb", "geot_plan_segment_sum_mh": "slot_mh"}
+_LIB = {"geot_plan_segment_sum_mh": "slot_mh"}
 
 
 def _bound(name: str, lib: str = ""):
@@ -181,72 +183,73 @@ def plan_segment_sum_pr(plan: SegmentPlan, vals_slots_t: torch.Tensor,
     return out
 
 
-def _aeb_launch(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
-                w_edge, e_base: int) -> torch.Tensor:
-    """Checks the AEB kernel's arguments (values, their rows and layout,
-    the slot weights, e0 and the per-call weights) and launches it: sr2
-    and packed2 are one kernel on the card."""
-    dev = vals.device
+def _aeb_sum(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
+             w_edge, e_base: int, src) -> torch.Tensor:
+    """Checks the AEB function's arguments and launches the edge-row kernel
+    over the plan's schedule (`row_schedule_of`): sr2 and packed2 are one
+    kernel on the card, and a chunked plan is one launch."""
     T, E = plan.num_tiles, plan.e_tile
     if vals_layout not in ("slot", "edge"):
         raise ValueError(f"{name}: vals_layout={vals_layout!r}, 'slot' or 'edge'")
+    if src is not None and vals_layout != "edge":
+        raise ValueError(f"{name}: gathered values (src) are read in edge order: "
+                         "vals_layout='edge'")
     if vals_layout == "slot" and vals.shape[0] < T * E:
         raise ValueError(f"{name}: vals has {vals.shape[0]} rows, the plan {T * E} slots")
     if plan.e0 is None:
         raise ValueError(f"{name}: the plan carries no e0")
-    _check(plan.e0, "e0", torch.int32, (T,), dev)
-    ws = plan.mask if w_slots is None else w_slots
-    _check(ws, "w_slots", torch.float32, (T, E), dev)
-    n_w = 0
-    if w_edge is not None:
-        _check(w_edge, "w_edge", torch.float32, (w_edge.shape[0],), dev)
-        n_w = int(w_edge.shape[0])
-    F = vals.shape[1]
-    head = [vals, F, vals.shape[0], int(vals_layout == "edge"), int(e_base), plan.dst_slots, ws,
-            plan.e0, w_edge if w_edge is not None else None, n_w]
-    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
-    _launch("geot_plan_segment_sum_aeb", plan, vals, head, F, out, True)
-    return out
+    if w_slots is not None:
+        _check(w_slots, "w_slots", torch.float32, (T, E), vals.device)
+        w_slots = w_slots.reshape(-1)
+    return edge_row_sum(row_schedule_of(plan), vals, what=name, src=src, e_base=e_base,
+                        by_slot=vals_layout == "slot", w_slots=w_slots, w_edge=w_edge,
+                        skip_zero=True)
 
 
 def plan_segment_sum_sr2(plan: SegmentPlan, vals: torch.Tensor, *, vals_layout: str = "slot",
-                         w_slots=None, w_edge=None, e_base: int = 0) -> torch.Tensor:
+                         w_slots=None, w_edge=None, e_base: int = 0,
+                         src=None) -> torch.Tensor:
     """Aligned-edge-block slot sum: values in slot order (vals [>= T*E,
     F], `vals_layout="slot"`) or in edge order (slot j of tile t reads row
-    e0[t] + j - e_base of vals; rows past its end read as zero); weights
-    `w_slots` [T, E] (default the plan's mask, 0 on pads) times the
+    e0[t] + j - e_base of vals; rows past its end read as zero), or, with
+    `src` [nnz] int32 and `vals_layout="edge"`, gathered: edge e reads row
+    src[e] of vals (node rows x; rows past x's end read as zero); weights
+    `w_slots` [T, E] (default the plan's mask; 0 on pads) times the
     per-call edge-order `w_edge` [nnz] if given, indexed by the plan's own
-    (global) e0. -> [n_blocks*s_tile, F] float32.
+    (global) e0. A slot of weight 0 adds nothing. -> [n_blocks*s_tile, F]
+    float32.
 
     CPU tensors run `plan_segment_sum_sr2_plain`; CUDA tensors launch the
-    kernel and add one to `plan_segment_sum_sr2.launches`."""
+    edge-row kernel (`ops/csrc/edge_row_sum.cu`, over the plan's
+    `row_sched`: its real slots, pads left out) and add one to
+    `plan_segment_sum_sr2.launches`."""
     if _device_of(vals, "plan_segment_sum_sr2") == "cpu":
         return plan_segment_sum_sr2_plain(plan, vals, vals_layout=vals_layout, w_slots=w_slots,
-                                          w_edge=w_edge, e_base=e_base)
-    out = _aeb_launch("plan_segment_sum_sr2", plan, vals, vals_layout, w_slots, w_edge, e_base)
+                                          w_edge=w_edge, e_base=e_base, src=src)
+    out = _aeb_sum("plan_segment_sum_sr2", plan, vals, vals_layout, w_slots, w_edge, e_base,
+                   src)
     plan_segment_sum_sr2.launches += 1
     return out
 
 
 def plan_segment_sum_packed2(plan: SegmentPlan, vals_edges: torch.Tensor, *, w_slots=None,
-                             w_edge=None, e_base: int = 0) -> torch.Tensor:
-    """`plan_segment_sum_sr2` over edge-order values for narrow rows,
-    1 <= F <= 64, and on the card the same kernel: a warp reads
-    32 / (F_pad / 4) slots at once. The reference's precondition
-    `plan.pack_align % (128 // F) == 0` (whole packed lane rows) is a TPU
-    layout rule; this kernel reads each slot's row on its own and does not
-    need it.
+                             w_edge=None, e_base: int = 0, src=None) -> torch.Tensor:
+    """`plan_segment_sum_sr2` over edge-order (or, with `src`, gathered)
+    values for narrow rows, 1 <= F <= 64, and on the card the same kernel.
+    The reference's precondition `plan.pack_align % (128 // F) == 0` (whole
+    packed lane rows) is a TPU layout rule; this kernel reads each edge's
+    row on its own and does not need it.
 
     CPU tensors run `plan_segment_sum_packed2_plain`; CUDA tensors launch
-    the kernel and add one to `plan_segment_sum_packed2.launches`."""
+    the edge-row kernel and add one to `plan_segment_sum_packed2.launches`."""
     if _device_of(vals_edges, "plan_segment_sum_packed2") == "cpu":
         return plan_segment_sum_packed2_plain(plan, vals_edges, w_slots=w_slots,
-                                              w_edge=w_edge, e_base=e_base)
+                                              w_edge=w_edge, e_base=e_base, src=src)
     F = vals_edges.shape[1]
     if not 1 <= F <= 64:
         raise ValueError(f"plan_segment_sum_packed2 takes 1 <= F <= 64, got {F}")
-    out = _aeb_launch("plan_segment_sum_packed2", plan, vals_edges, "edge", w_slots, w_edge,
-                      e_base)
+    out = _aeb_sum("plan_segment_sum_packed2", plan, vals_edges, "edge", w_slots, w_edge,
+                   e_base, src)
     plan_segment_sum_packed2.launches += 1
     return out
 

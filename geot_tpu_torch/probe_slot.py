@@ -1,7 +1,10 @@
-"""Two measurements on the card behind design choices of the slot path.
+"""Measurements on the card behind design choices of the slot and narrow
+BAT paths.
 
     python -m geot_tpu_torch.probe_slot gathers
-    python -m geot_tpu_torch.probe_slot ab --other <slot_segment_sum.cu> [--other ...]
+    python -m geot_tpu_torch.probe_slot ab --other <file.cu> [--other ...]
+    python -m geot_tpu_torch.probe_slot rowsum --config SPEC [--config ...]
+    python -m geot_tpu_torch.probe_slot paths --parent <dir> [--model ...]
 
 `gathers`: a gather of 1.09 M rows (Zipf-distributed indices, the flickr
 slot plan's size) from [89,250, H] float32, H 4 and 256, as a row gather
@@ -10,15 +13,40 @@ slot plan's size) from [89,250, H] float32, H 4 and 256, as a row gather
 along axis 0 and along the transpose's axis 1, and `index_put_` with
 accumulation (advanced indexing's backward).
 
-`ab`: the slot kernels sr (F 500), sr_packed (F 64, 7) and pr (8 rows) at
-the flickr plans of `chip_smoke.py` phase 19, built from this checkout
-and from each given source (same nvcc flags, same C interface; a source
-includes its own directory's headers), timed in turns (the others, this,
-this, the others in reverse) with CUDA events in one process, with their
-outputs compared for equality, and the registers ptxas gave each build's
-128-column sr tile kernel. `git show <commit>:geot_tpu_torch/ops/csrc/
-slot_segment_sum.cu > parent.cu` gives a parent's source (with its
-headers beside it, if it has any).
+`ab`: this checkout's kernels against other versions' sources, built with
+the same nvcc flags (a source includes its own directory's headers: put
+a version's `slot_common.cuh` beside its files), timed in turns (the
+others, this, this, the others in reverse) with CUDA events in one
+process, at the shapes of `chip_smoke.py`. Each `--other` names a file
+by its kind:
+  - `slot_segment_sum.cu`: sr (F 500), sr_packed (F 64, 7) and pr (8 rows)
+    at the flickr plans of phase 19, outputs compared for equality, and
+    the registers ptxas gave each build's 128-column sr tile kernel;
+  - `slot_aeb.cu` (the AEB tile and window kernels behind sr2 / packed2
+    before the edge-row kernel): at phase 24's shapes (flickr GCN with
+    self-loops, per-call weights; F 64 and 7, the plans of feature_hint
+    128 and 64), the other's kernel on an edge-order gathered block
+    against this checkout's edge-row kernel on the same block and reading
+    x[src[e]] itself, and the gather's own time;
+  - `bat_segment_sum_packed.cu` (the packed BAT tile and window kernels
+    before it): at phase 29's shapes (GIN on arxiv, F 64, bat and bat_t;
+    APPNP on flickr, F 8, weighted), the same three;
+  - `slot_mh.cu`: plan_segment_sum_mh at phase 24's H*D 256 and 28.
+  `git show <commit>:geot_tpu_torch/ops/csrc/<file> > DIR/<file>` gives a
+  parent's source, DIR git-ignored and in the chip copy (e.g. `_archive/`).
+
+`rowsum`: the edge-row kernel (`ops/csrc/edge_row_sum.cu`) built from
+this checkout with extra nvcc flags and run over schedules with other
+knobs, `--config "LABEL|NVCC FLAGS|slice_slots=N,task_cost=N,fix_fanin=N"`
+(e.g. `"t64||task_cost=64,slice_slots=64"`), timed in turns at the shapes
+of `ab`'s AEB and packed BAT comparisons, in both forms.
+
+`paths`: each model's request (forward) and training step with CUDA
+events, `--model` among `appnp` (flickr), `gin` (arxiv) and `gcn-dyn`
+(flickr, feature_hint 64 and 128), in a process of its own per run, with
+`--parent`'s tree (an unpacked archive of another commit, e.g.
+`git archive <commit> geot_tpu_torch | tar -x -C DIR`) and this one's in
+turns (parent, this, this, parent): its kernels and its routes.
 
 Prints the card's name and power limit first. Needs a CUDA card.
 """
@@ -27,8 +55,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
+import os
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -86,26 +117,52 @@ def _sr_registers(ptxas_report: str) -> str:
     return "/".join(regs) or "?"
 
 
-def ab(dev: torch.device, sources: list) -> None:
+def _build_all(files: list, tag: str):
+    """nvcc each file (the same flags as `ops._build`), in parallel, into
+    the build directory; returns [(library, ptxas report)]."""
+    from geot_tpu_torch.ops import _build
+
+    out_dir = Path(_build._BUILD_DIR) / "probe_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(out_dir / f"lib{tag}{i}.so"), str(f)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i, f in enumerate(files)]
+    out = []
+    for i, (f, p) in enumerate(zip(files, procs)):
+        report = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {f}:\n{report}")
+        out.append((ctypes.CDLL(str(out_dir / f"lib{tag}{i}.so")), report))
+    return out
+
+
+def _in_turns(labels: list, run) -> dict:
+    """{label: [ms, ms]}: run(label) timed in turns, the others, this,
+    this, the others in reverse."""
+    others = [x for x in labels if x != "this"]
+    times = {x: [] for x in labels}
+    for turn in others + ["this", "this"] + others[::-1]:
+        times[turn].append(run(turn))
+    return times
+
+
+def _fmt(times: dict) -> str:
+    return "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+                     for k, v in times.items())
+
+
+def _ab_slot(dev: torch.device, sources: list) -> None:
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
     from geot_tpu_torch.ops import _build
     from geot_tpu_torch.ops import slot_kernels as sk
     from geot_tpu_torch.profile_gcn import flickr_graph
 
-    out_dir = Path(_build._BUILD_DIR) / "probe_ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
     labels = ["this"] + [str(s) for s in sources]
-    files = [str(_build._CSRC / _build.SOURCES["slot_segment_sum"])] + [str(s) for s in sources]
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(out_dir / f"lib{i}.so"), f], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for i, f in enumerate(files)]
+    files = [_build._CSRC / _build.SOURCES["slot_segment_sum"]] + list(sources)
     libs = {}
-    for i, (label, p) in enumerate(zip(labels, procs)):
-        report = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{report}")
-        libs[label] = ctypes.CDLL(str(out_dir / f"lib{i}.so"))
+    for label, (lib, report) in zip(labels, _build_all(files, "sr")):
+        libs[label] = lib
         print(f"{label}: sr tile kernel (128 columns) registers {_sr_registers(report)}",
               flush=True)
 
@@ -144,13 +201,373 @@ def ab(dev: torch.device, sources: list) -> None:
         sk._bound = own
 
 
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the C interfaces of the kernels before the edge-row kernel
+_OLD_AEB = [_P, _I32, _I64, _I32, _I64, _P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _P,
+            _P, _P, _P]
+_OLD_BAT = [_P, _I32, _I64, _P, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+
+
+def _old_aeb(lib, plan, vals, w_edge):
+    """The AEB tile + window kernels of `slot_aeb.cu` before this design,
+    over edge-order values with the plan's mask and per-call weights."""
+    fn = lib.geot_plan_segment_sum_aeb
+    fn.argtypes, fn.restype = _OLD_AEB, ctypes.c_int
+    lib.geot_slot_scratch_width.argtypes = [_I32, _I32]
+    T, E, F = plan.num_tiles, plan.e_tile, vals.shape[1]
+    width = lib.geot_slot_scratch_width(F, 1)
+    out = torch.empty(plan.n_blocks * plan.s_tile, F, device=vals.device)
+    pr = torch.empty(2 * T, dtype=torch.int32, device=vals.device)
+    pv = torch.empty(2 * T, width, device=vals.device)
+    rc = fn(vals.data_ptr(), F, vals.shape[0], 1, 0, plan.dst_slots.data_ptr(),
+            plan.mask.data_ptr(), plan.e0.data_ptr(), w_edge.data_ptr(), w_edge.shape[0],
+            plan.out_block.data_ptr(), T, plan.n_blocks, E, plan.s_tile, out.data_ptr(),
+            pr.data_ptr(), pv.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"old AEB kernel: cudaError {rc}")
+    return out
+
+
+def _old_bat(lib, bp, vals, w):
+    """The packed BAT tile + window kernels of `bat_segment_sum_packed.cu`
+    before this design, over edge-order values."""
+    fn = lib.geot_bat_segment_sum_packed
+    fn.argtypes, fn.restype = _OLD_BAT, ctypes.c_int
+    T, F = bp.num_tiles, vals.shape[1]
+    out = torch.empty(bp.n_blocks * bp.s_tile, F, device=vals.device)
+    pr = torch.empty(2 * T, dtype=torch.int32, device=vals.device)
+    pv = torch.empty(2 * T, F, device=vals.device)
+    rc = fn(vals.data_ptr(), F, vals.shape[0], bp.dst_km.data_ptr(),
+            None if w is None else w.data_ptr(), 0 if w is None else w.shape[0],
+            bp.out_block.data_ptr(), bp.vblock.data_ptr(), T, bp.n_blocks, bp.e_tile,
+            bp.s_tile, out.data_ptr(), pr.data_ptr(), pv.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"old packed BAT kernel: cudaError {rc}")
+    return out
+
+
+def _report_forms(what, times, gathered_ms, gather_ms, lib_ms, same):
+    print(f"{what}: values form {_fmt(times)}; this kernel gathered (x[src[e]]) "
+          f"{gathered_ms:.4f} ms; the [E, F] gather {gather_ms:.4f} ms; torch.sparse.mm (edge "
+          f"-> row CSR) {lib_ms:.4f} ms; outputs within the abs-sum rule: {same}", flush=True)
+
+
+def _close(a, b, a_abs) -> bool:
+    return bool(((a - b).abs() <= 1e-4 * a_abs + 1e-5).all())
+
+
+def _ab_aeb(dev, sources: list) -> None:
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, flickr_graph
+
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "aeb"))}
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for fh, name in ((128, "sr2"), (64, "packed2")):
+        g = flickr_graph(data, "gcn-dyn", dev, fh)
+        plan = g.plan
+        we = torch.rand(g.num_edges, generator=gen, device=dev) + 0.1
+        csr = torch.sparse_coo_tensor(
+            torch.stack([g.dst.long(), torch.arange(g.num_edges, device=dev)]), we,
+            (plan.n_blocks * plan.s_tile, g.num_edges)).coalesce().to_sparse_csr()
+        fn = sk.plan_segment_sum_sr2 if name == "sr2" else sk.plan_segment_sum_packed2
+        kw = {"vals_layout": "edge"} if name == "sr2" else {}
+        for F in (FLICKR_HIDDEN, c):
+            x = torch.randn(n, F, generator=gen, device=dev)
+            vals = x.index_select(0, g.src.long())
+
+            def run(label):
+                if label == "this":
+                    return _ms(lambda: fn(plan, vals, w_edge=we, **kw))
+                return _ms(lambda: _old_aeb(libs[label], plan, vals, we))
+
+            times = _in_turns(["this"] + list(libs), run)
+            mine = fn(plan, vals, w_edge=we, **kw)
+            a_abs = fn(plan, vals.abs(), w_edge=we, **kw)
+            same = all(_close(_old_aeb(lib, plan, vals, we), mine, a_abs)
+                       for lib in libs.values())
+            _report_forms(f"{name} F={F} (flickr, per-call weights)", times,
+                          _ms(lambda: fn(plan, x, w_edge=we, src=g.src, **kw)),
+                          _ms(lambda: x.index_select(0, g.src.long())),
+                          _ms(lambda: torch.sparse.mm(csr, vals)), same)
+
+
+def _ab_bat(dev, sources: list) -> None:
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum_packed
+    from geot_tpu_torch.profile_gcn import ARXIV_GIN, FLICKR_APPNP
+
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "bat"))}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, shape, kw, extra, weighted in (("gin", "ogbn-arxiv", ARXIV_GIN, {}, False),
+                                             ("appnp", "flickr", FLICKR_APPNP,
+                                              {"power": 1.0}, True)):
+        n, e, f, c = DATASET_SHAPES[shape]
+        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=0, **extra)
+        g = prepare_graph(data.src, data.dst, n, device=dev, **kw)
+        for d in ("bat", "bat_t"):
+            bp = getattr(g, d)
+            F = 128 // bp.km_pack
+            src_d = g.src if d == "bat" else g.dst_t
+            dst_d = g.dst if d == "bat" else g.src.index_select(0, g.perm_t.long())
+            w = (torch.rand(g.num_edges, generator=gen, device=dev) + 0.1) if weighted else None
+            x = torch.randn(n, F, generator=gen, device=dev)
+            vals = x.index_select(0, src_d.long())
+            csr = torch.sparse_coo_tensor(
+                torch.stack([dst_d.long(), torch.arange(g.num_edges, device=dev)]),
+                torch.ones(g.num_edges, device=dev) if w is None else w,
+                (bp.n_blocks * bp.s_tile, g.num_edges)).coalesce().to_sparse_csr()
+
+            def run(label):
+                if label == "this":
+                    return _ms(lambda: bat_segment_sum_packed(bp, vals, w))
+                return _ms(lambda: _old_bat(libs[label], bp, vals, w))
+
+            times = _in_turns(["this"] + list(libs), run)
+            mine = bat_segment_sum_packed(bp, vals, w)
+            a_abs = bat_segment_sum_packed(bp, vals.abs(), w)
+            same = all(_close(_old_bat(lib, bp, vals, w), mine, a_abs) for lib in libs.values())
+            _report_forms(f"bat_segment_sum_packed {name}.{d} F={F}", times,
+                          _ms(lambda: bat_segment_sum_packed(bp, x, w, src=src_d)),
+                          _ms(lambda: x.index_select(0, src_d.long())),
+                          _ms(lambda: torch.sparse.mm(csr, vals)), same)
+
+
+def _ab_mh(dev, sources: list) -> None:
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, flickr_graph
+
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "mh"))}
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    g = flickr_graph(data, "gat", dev)
+    plan = g.plan
+    S = plan.num_tiles * plan.e_tile
+    gen = torch.Generator(device=dev).manual_seed(0)
+    own = sk._bound
+
+    def bound_in(lib):
+        def bound(name, lib_name=""):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = sk._ARGTYPES[name], ctypes.c_int
+            return fn
+        return bound
+
+    try:
+        for H, D in ((4, FLICKR_HIDDEN), (4, c)):
+            vals = torch.randn(S, H * D, generator=gen, device=dev)
+            wh = (torch.rand(S, H, generator=gen, device=dev) + 0.1) * plan.mask.reshape(-1, 1)
+
+            def run(label):
+                sk._bound = own if label == "this" else bound_in(libs[label])
+                return _ms(lambda: sk.plan_segment_sum_mh(plan, vals, wh, D))
+
+            times = _in_turns(["this"] + list(libs), run)
+            sk._bound = own
+            mine = sk.plan_segment_sum_mh(plan, vals, wh, D)
+            same = True
+            for lib in libs.values():
+                sk._bound = bound_in(lib)
+                same &= torch.equal(sk.plan_segment_sum_mh(plan, vals, wh, D), mine)
+            sk._bound = own
+            print(f"plan_segment_sum_mh H*D={H * D}: {_fmt(times)}; outputs equal: {same}",
+                  flush=True)
+    finally:
+        sk._bound = own
+
+
+def ab(dev: torch.device, sources: list) -> None:
+    kinds = {"slot_segment_sum.cu": _ab_slot, "slot_aeb.cu": _ab_aeb,
+             "bat_segment_sum_packed.cu": _ab_bat, "slot_mh.cu": _ab_mh}
+    for name, run in kinds.items():
+        files = [Path(s) for s in sources if Path(s).name == name]
+        if files:
+            run(dev, files)
+    unknown = [s for s in sources if Path(s).name not in kinds]
+    if unknown:
+        raise SystemExit(f"probe_slot ab: no comparison for {unknown}")
+
+
+def _variant(flags: list, tag: str):
+    """This checkout's edge_row_sum.cu built with extra nvcc flags; its
+    bound entry point and the ptxas report."""
+    from geot_tpu_torch.ops import _build
+
+    out_dir = Path(_build._BUILD_DIR) / "probe_rowsum"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"lib{tag}.so"
+    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib_path),
+                        str(_build._CSRC / _build.SOURCES["edge_row_sum"])],
+                       capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {flags}:\n{p.stdout}{p.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).geot_edge_row_sum
+    return fn, p.stdout + p.stderr
+
+
+def rowsum(dev: torch.device, configs: list) -> None:
+    """The edge-row kernel built with each configuration ("LABEL|NVCC
+    FLAGS|slice_slots=N,task_cost=N,fix_fanin=N": extra nvcc flags and the
+    schedule's knobs, each part may be empty), timed
+    in turns (in order, then in reverse) at phase 24's and phase 29's
+    shapes, in both forms: the flickr AEB sums (per-call weights, F 64 and
+    7) and the packed BAT sums of GIN (arxiv, F 64) and APPNP (flickr, F 8),
+    over `bat` and `bat_t`."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.graph.plan import with_row_schedule
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops import edge_row_kernels as erk
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum_packed
+    from geot_tpu_torch.profile_gcn import ARXIV_GIN, FLICKR_APPNP, FLICKR_HIDDEN, flickr_graph
+
+    cfgs = []
+    for i, spec in enumerate(configs):
+        label, flags, knobs = (spec.split("|") + ["", ""])[:3]
+        kn = {k: int(v) for k, v in (kv.split("=") for kv in knobs.split(",") if kv)}
+        fn, report = _variant(flags.split(), f"v{i}")
+        regs, g = [], None
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '\S*edge_row_kernelILb1ELi(\d+)E", line)
+            g = m.group(1) if m else g if "Compiling entry" not in line else None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and g:
+                regs.append((int(g), int(m.group(1))))
+                g = None
+        print(f"config {label}: flags {flags!r} knobs {kn}; registers (G, regs) {regs}",
+              flush=True)
+        cfgs.append((label, fn, kn))
+    fn0 = erk._bound_fn()  # sets the C signature once; each variant takes the same
+    for _, fn, _ in cfgs:
+        fn.argtypes, fn.restype = fn0.argtypes, fn0.restype
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    for fh, name in ((128, "sr2"), (64, "packed2")):
+        g = flickr_graph(data, "gcn-dyn", dev, fh)
+        we = torch.rand(g.num_edges, generator=gen, device=dev) + 0.1
+        fn = sk.plan_segment_sum_sr2 if name == "sr2" else sk.plan_segment_sum_packed2
+        kw = {"vals_layout": "edge"} if name == "sr2" else {}
+        for F in (FLICKR_HIDDEN, c):
+            x = torch.randn(n, F, generator=gen, device=dev)
+            vals = x.index_select(0, g.src.long())
+            cases.append((f"{name} F={F} values", g.plan,
+                          lambda p, fn=fn, v=vals, w=we, kw=kw: fn(p, v, w_edge=w, **kw)))
+            cases.append((f"{name} F={F} gathered", g.plan,
+                          lambda p, fn=fn, x=x, w=we, s=g.src, kw=kw: fn(p, x, w_edge=w, src=s,
+                                                                          **kw)))
+    for name, shape, kw, extra, weighted in (("gin", "ogbn-arxiv", ARXIV_GIN, {}, False),
+                                             ("appnp", "flickr", FLICKR_APPNP,
+                                              {"power": 1.0}, True)):
+        n, e, f, c = DATASET_SHAPES[shape]
+        data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=0, **extra)
+        g = prepare_graph(data.src, data.dst, n, device=dev, **kw)
+        for d in ("bat", "bat_t"):
+            bp = getattr(g, d)
+            F = 128 // bp.km_pack
+            src_d = g.src if d == "bat" else g.dst_t
+            w = (torch.rand(g.num_edges, generator=gen, device=dev) + 0.1) if weighted else None
+            x = torch.randn(n, F, generator=gen, device=dev)
+            vals = x.index_select(0, src_d.long())
+            cases.append((f"{name}.{d} F={F} values", bp,
+                          lambda p, v=vals, w=w: bat_segment_sum_packed(p, v, w)))
+            cases.append((f"{name}.{d} F={F} gathered", bp,
+                          lambda p, x=x, w=w, s=src_d: bat_segment_sum_packed(p, x, w, src=s)))
+    own = erk._bound_fn
+    sums = {label: 0.0 for label, _, _ in cfgs}
+    try:
+        for what, plan, call in cases:
+            plans = {label: with_row_schedule(plan, **kn) if kn else plan
+                     for label, _, kn in cfgs}
+            times = {label: [] for label, _, _ in cfgs}
+            outs = {}
+            for label, fn, _ in cfgs + cfgs[::-1]:
+                erk._bound_fn = lambda fn=fn: fn
+                times[label].append(_ms(lambda: call(plans[label])))
+                outs[label] = call(plans[label])
+            ref = outs[cfgs[0][0]]
+            scale = ref.abs().max().clamp(min=1.0)
+            close = all(bool(((o - ref).abs() <= 1e-4 * scale).all()) for o in outs.values())
+            for label in sums:
+                sums[label] += min(times[label])
+            print(f"{what}: {_fmt(times)}; outputs agree: {close}", flush=True)
+    finally:
+        erk._bound_fn = own
+    print("sum of the lower times: " + "; ".join(f"{k} {v:.4f} ms" for k, v in sums.items()),
+          flush=True)
+
+
+# one model's request and training step, run in the tree named by the
+# process's working directory (its own package on the path)
+_PATH_TIMING = r"""
+import json, sys, torch
+from geot_tpu_torch.models import make_optimizer, make_train_step
+from geot_tpu_torch.profile_gcn import build
+graph, name, fh = sys.argv[1], sys.argv[2], int(sys.argv[3])
+dev = torch.device("cuda")
+model, g, x, y, mask = build(graph, name, 0, dev, fh)
+step = make_train_step(model, make_optimizer(model, 0.01, 5e-4), has_dropout=False)
+def ms(fn, iters):
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(); a.record()
+    for _ in range(iters):
+        fn()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+model.eval()
+with torch.inference_mode():
+    fwd = ms(lambda: model(x, g), 20)
+stp = ms(lambda: step(x, g, y, mask), 10)
+print("PATH " + json.dumps({"forward_ms": fwd, "train_step_ms": stp}))
+"""
+
+_PATHS = {"appnp": ("flickr", "appnp", 128), "gin": ("arxiv", "gin", 128),
+          "gcn-dyn64": ("flickr", "gcn-dyn", 64), "gcn-dyn128": ("flickr", "gcn-dyn", 128)}
+
+
+def paths(parent: str, models: list) -> None:
+    here = str(Path(__file__).resolve().parents[1])
+    trees = {"parent": str(Path(parent).resolve()), "this": here}
+    for m in models:
+        graph, name, fh = _PATHS[m]
+        res = {"parent": [], "this": []}
+        for turn in ("parent", "this", "this", "parent"):
+            env = dict(os.environ, PYTHONPATH=trees[turn])
+            run = subprocess.run([sys.executable, "-c", _PATH_TIMING, graph, name, str(fh)],
+                                 cwd=trees[turn], env=env, capture_output=True, text=True)
+            if run.returncode != 0:
+                raise RuntimeError(f"paths {m} in {trees[turn]}:\n{run.stderr[-4000:]}")
+            line = [ln for ln in run.stdout.splitlines() if ln.startswith("PATH ")][-1]
+            res[turn].append(json.loads(line[5:]))
+        print(f"{m}: " + "; ".join(
+            f"{k} forward " + " / ".join(f"{r['forward_ms']:.4f}" for r in v) + " ms, step "
+            + " / ".join(f"{r['train_step_ms']:.4f}" for r in v) + " ms"
+            for k, v in res.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="what", required=True)
     sub.add_parser("gathers")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--other", action="append", required=True,
-                      help="a slot_segment_sum.cu to compare with (repeatable)")
+                      help="a slot_segment_sum.cu, slot_aeb.cu, bat_segment_sum_packed.cu or "
+                           "slot_mh.cu to compare with (repeatable)")
+    p_rs = sub.add_parser("rowsum")
+    p_rs.add_argument("--config", action="append", required=True,
+                      help='"LABEL|NVCC FLAGS|slice_slots=N,task_cost=N,fix_fanin=N"')
+    p_paths = sub.add_parser("paths")
+    p_paths.add_argument("--parent", required=True, help="another commit's unpacked tree")
+    p_paths.add_argument("--model", action="append", choices=tuple(_PATHS),
+                         help="default: all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_slot: needs a CUDA card")
@@ -159,8 +576,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.what == "gathers":
         gathers(dev)
-    else:
+    elif args.what == "ab":
         ab(dev, args.other)
+    elif args.what == "rowsum":
+        rowsum(dev, args.config)
+    else:
+        paths(args.parent, args.model or list(_PATHS))
     return 0
 
 

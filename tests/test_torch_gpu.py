@@ -98,7 +98,7 @@ def test_segment_spmm_chunked_hub_on_card(cuda):
     n, F = 100, 40
     src, dst = _hubby(rng, n, 400, 1500, hub=3)
     w = rng.standard_normal(len(dst)).astype(np.float32)
-    kw = dict(bat_e_tile=32, bat_s_tile=32, max_chunk_bytes=8 * 32 * 128 * 4)
+    kw = dict(bat_e_tile=32, bat_s_tile=32, max_chunk_bytes=8 * 32 * 128 * 4, layouts=("bat",))
     gc = build_graph(src, dst, n, edge_weight=w, device=cuda, **kw)
     gh = build_graph(src, dst, n, edge_weight=w, device="cpu", **kw)
     assert len(gc.bat.chunks) > 2
@@ -231,7 +231,7 @@ def test_gws_grad_kernel_vs_reference(cuda, needs):
     n, F = 300, 48
     src, dst = _hubby(rng, n, 3000, 1500, hub=3)
     g = build_graph(src, dst, n, bat_e_tile=64, bat_s_tile=32,
-                    max_chunk_bytes=8 * 64 * 128 * 4, device=cuda)
+                    max_chunk_bytes=8 * 64 * 128 * 4, layouts=("bat",), device=cuda)
     assert len(g.bat.chunks) > 2
     x0 = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda)
     w0 = torch.from_numpy(rng.standard_normal(g.num_edges).astype(np.float32)).to(cuda)
@@ -415,7 +415,7 @@ def test_gcn_edge_weight_deterministic_on_card(cuda):
     dst = np.concatenate([np.full(20000, 17), rng.integers(0, n, 60000)]).astype(np.int32)
     src = rng.integers(0, n, len(dst)).astype(np.int32)
     w = (rng.random(len(dst)) + 0.01).astype(np.float32)
-    g = build_graph(src, dst, n, edge_weight=w, device=cuda)
+    g = build_graph(src, dst, n, edge_weight=w, layouts=("bat",), device=cuda)
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
@@ -424,7 +424,7 @@ def test_gcn_edge_weight_deterministic_on_card(cuda):
             torch.testing.assert_close(gcn_edge_weight(g), first, rtol=0, atol=0)
     finally:
         torch.use_deterministic_algorithms(prev)
-    gh = build_graph(src, dst, n, edge_weight=w, device="cpu")
+    gh = build_graph(src, dst, n, edge_weight=w, layouts=("bat",), device="cpu")
     torch.testing.assert_close(first.cpu(), gcn_edge_weight(gh), rtol=1e-6, atol=1e-7)
 
 
@@ -435,8 +435,9 @@ def test_bf16_fused_ops_over_bat_on_card(cuda):
     n, F = 700, 96
     src, dst = _hubby(rng, n, 5000, 1500)
     w = (rng.random(len(dst)) + 0.1).astype(np.float32)
-    gc = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32, device=cuda)
-    gh = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32, device="cpu")
+    kw = dict(bat_e_tile=64, bat_s_tile=32, layouts=("bat",))
+    gc = build_graph(src, dst, n, edge_weight=w, device=cuda, **kw)
+    gh = build_graph(src, dst, n, edge_weight=w, device="cpu", **kw)
     x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).bfloat16()
     tol = dict(rtol=2 ** -7, atol=2 ** -7)
     for op in (
@@ -635,7 +636,11 @@ def test_slot_models_on_card_match_cpu(cuda, model, chunked):
 @pytest.mark.parametrize("kernel,F", [("sr2", 500), ("sr2", 128), ("sr2", 64), ("sr2", 7),
                                       ("sr2_edge", 128), ("sr2_edge", 100), ("sr2_edge", 7),
                                       ("packed2", 64), ("packed2", 32), ("packed2", 16),
-                                      ("packed2", 8), ("packed2", 1)])
+                                      ("packed2", 8), ("packed2", 7), ("packed2", 1),
+                                      ("sr2_src", 128), ("sr2_src", 64), ("sr2_src", 7),
+                                      ("packed2_src", 64), ("packed2_src", 16),
+                                      ("packed2_src", 8), ("packed2_src", 7),
+                                      ("packed2_src", 1)])
 @pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (96, 128, 1), (32, 1, 1)])
 @pytest.mark.parametrize("weights", ["static", "dynamic", "both"])
 def test_aeb_kernels_match_plain(cuda, kernel, F, tiles, weights):
@@ -643,8 +648,10 @@ def test_aeb_kernels_match_plain(cuda, kernel, F, tiles, weights):
     their plain versions on plans with a hub row over many tiles, pad slots
     before and after a tile's real ones, and empty windows; static and/or
     per-call weights; values read from a slice of the edge order (e_base);
-    every row written (the memory NaN-filled first), reruns bit-identical,
-    one launch."""
+    and the gathered form (`_src`: edge e reads x[src[e]] in the kernel,
+    x short of the largest src so its last rows read as zero, per-call
+    weights short of the edges so the last weigh 0); every row written (the
+    memory NaN-filled first), reruns bit-identical, one launch."""
     e_tile, s_tile, pack_align = tiles
     rng = np.random.default_rng(F + e_tile + len(weights))
     n = 1500
@@ -654,16 +661,21 @@ def test_aeb_kernels_match_plain(cuda, kernel, F, tiles, weights):
     plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
                                     pack_align=pack_align, device=cuda)
     T, E, nnz = plan.num_tiles, plan.e_tile, len(dst)
+    gathered = kernel.endswith("_src")
     ws = we = None
     if weights in ("static", "both"):
         ws = plan.mask * torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
     if weights in ("dynamic", "both"):
         we = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32)).to(cuda)
+        if gathered:
+            we = we[: nnz - 300]
     edge = kernel != "sr2"
-    rows = nnz if edge else T * E
+    rows = n - 200 if gathered else nnz if edge else T * E
     vals = torch.from_numpy(rng.standard_normal((rows, F)).astype(np.float32)).to(cuda)
     kw = dict(w_slots=ws, w_edge=we)
-    if edge:
+    if gathered:
+        kw["src"] = torch.from_numpy(src).to(cuda)
+    elif edge:
         kw["e_base"] = 40
         vals = vals[40:]
     if kernel.startswith("sr2"):
@@ -680,6 +692,58 @@ def test_aeb_kernels_match_plain(cuda, kernel, F, tiles, weights):
     assert fn.launches == before + 1
     _assert_abs_sum(k, plain(plan, vals, **kw), plain(plan, vals.abs(), **abs_kw))
     assert torch.equal(fn(plan, vals, **kw), k)
+
+
+@pytest.mark.parametrize("F", [1, 7, 8, 16, 33, 64, 128])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_edge_row_kernel_deep_fix_tree(cuda, F, form):
+    """The edge-row kernel over schedules of tiny slices (4 edges) and
+    fan-in 2, so the hub row (3,000 edges) is added through 3 or more
+    fix-up levels, on a slot plan (sr2, every fifth per-call weight exactly
+    0) and a packed BAT plan (bat_segment_sum_packed, every fifth weight 0
+    adds 0 * v): both forms against the plain versions, reruns
+    bit-identical."""
+    rng = np.random.default_rng(F + len(form))
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    nnz = len(dst)
+    knobs = dict(slice_slots=4, fix_fanin=2, task_cost=16)
+    plan = tplan.with_row_schedule(
+        tplan.build_segment_plan(dst, src, n + 400, e_tile=64, s_tile=32, pack_align=16,
+                                 device=cuda), **knobs)
+    assert len(plan.row_sched.fix_levels) - 1 >= 3
+    we = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32)).to(cuda)
+    we[::5] = 0.0
+    src_t = torch.from_numpy(src).to(cuda)
+    if form == "gathered":
+        vals = torch.from_numpy(rng.standard_normal((n - 100, F)).astype(np.float32)).to(cuda)
+        kw = dict(src=src_t)
+    else:
+        vals = torch.from_numpy(rng.standard_normal((nnz, F)).astype(np.float32)).to(cuda)
+        kw = {}
+    k = tslot.plan_segment_sum_sr2(plan, vals, vals_layout="edge", w_edge=we, **kw)
+    torch.cuda.synchronize()
+    p = tref.plan_segment_sum_sr2_plain(plan, vals, vals_layout="edge", w_edge=we, **kw)
+    a = tref.plan_segment_sum_sr2_plain(plan, vals.abs(), vals_layout="edge", w_edge=we.abs(),
+                                        **kw)
+    _assert_abs_sum(k, p, a)
+    assert torch.equal(tslot.plan_segment_sum_sr2(plan, vals, vals_layout="edge", w_edge=we,
+                                                  **kw), k)
+    Fp = tplan.packed_width(F)
+    if not Fp:
+        return
+    bp = tplan.with_row_schedule(
+        tplan.build_bat_plan(dst, n + 400, e_tile=64, s_tile=32, km_pack=128 // Fp,
+                             device=cuda), **knobs)
+    assert len(bp.row_sched.fix_levels) - 1 >= 3
+    vp = torch.nn.functional.pad(vals, (0, Fp - F)).contiguous()
+    k = bat_segment_sum_packed(bp, vp, we, **kw)
+    torch.cuda.synchronize()
+    p = tref.bat_segment_sum_packed_plain(bp, vp, we, **kw)
+    _assert_abs_sum(k, p, tref.bat_segment_sum_packed_plain(bp, vp.abs(), we.abs(), **kw))
+    assert torch.equal(bat_segment_sum_packed(bp, vp, we, **kw), k)
 
 
 @pytest.mark.parametrize("H,D", [(4, 64), (4, 7), (3, 96), (8, 32), (2, 100), (4, 16),
@@ -713,9 +777,10 @@ def test_mh_kernel_matches_plain(cuda, H, D, tiles):
 
 
 def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
-    """Width, layout, dtype, shape and e0 are checked before a launch; a
-    plan whose out_block is not non-decreasing as a whole (uniformized
-    chunks) is refused, to be run chunk by chunk."""
+    """Width, layout, dtype, shape, e0 and the gathered form's src are
+    checked before a launch; a plan whose out_block is not non-decreasing
+    as a whole (uniformized chunks) is refused by mh, to be run chunk by
+    chunk, and summed whole by sr2 (the edge-row kernel)."""
     rng = np.random.default_rng(4)
     dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
     plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
@@ -735,11 +800,22 @@ def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="w_heads"):
         tslot.plan_segment_sum_mh(plan, torch.ones(S, 8, device=cuda),
                                   torch.ones(S - 1, 2, device=cuda), 4)
+    src = torch.from_numpy(dst).to(cuda)
+    with pytest.raises(ValueError, match="vals_layout"):
+        tslot.plan_segment_sum_sr2(plan, ve, src=src)  # gathered values are edge order
+    with pytest.raises(ValueError, match="src"):
+        tslot.plan_segment_sum_sr2(plan, ve, vals_layout="edge", src=src.long())
+    with pytest.raises(ValueError, match="e_base"):
+        tslot.plan_segment_sum_packed2(plan, ve[:, :8].contiguous(), src=src, e_base=64)
+    # a plan cut into uniformized chunks: the edge-row kernel sums it whole,
+    # in one launch; mh still needs the chunks one by one
     chunked = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32,
                                        max_chunk_slots=64 * 5, device=cuda)
+    v8 = ve[:, :8].contiguous()
+    k = tslot.plan_segment_sum_sr2(chunked, v8, vals_layout="edge")
+    _assert_abs_sum(k, tref.plan_segment_sum_sr2_plain(chunked, v8, vals_layout="edge"),
+                    tref.plan_segment_sum_sr2_plain(chunked, v8, vals_layout="edge"))
     if not chunked.monotone:
-        with pytest.raises(ValueError, match="non-decreasing"):
-            tslot.plan_segment_sum_sr2(chunked, ve[:, :8], vals_layout="edge")
         with pytest.raises(ValueError, match="non-decreasing"):
             tslot.plan_segment_sum_mh(chunked, torch.ones(chunked.num_tiles * 64, 8,
                                                           device=cuda),
@@ -845,27 +921,34 @@ def _packed_inputs(rng, cuda, F, n=700, nnz=5000, hub_edges=1500, e_tile=512, s_
 @pytest.mark.parametrize("F", [8, 16, 32, 64])
 @pytest.mark.parametrize("weights", ["none", "random", "zeros"])
 @pytest.mark.parametrize("e_tile,s_tile", [(512, 256), (64, 32), (32, 4), (96, 8)])
-def test_packed_kernel_matches_plain(cuda, F, weights, e_tile, s_tile):
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_packed_kernel_matches_plain(cuda, F, weights, e_tile, s_tile, form):
     """bat_segment_sum_packed against its plain version at packs 16 to 2,
     with -1 pads (the last value block and the sentinel), out-of-window
     edges (blocks that span windows), empty windows, a ragged tail (rows
-    short of whole blocks) and zero-weight edges inside the hub run; reruns
-    bit-identical."""
+    short of whole blocks) and zero-weight edges inside the hub run; in the
+    gathered form edge e reads x[src[e]] in the kernel (src past x's rows
+    reads zeros); reruns bit-identical."""
     rng = np.random.default_rng(F + e_tile + len(weights))
     bp, _, vals, w = _packed_inputs(rng, cuda, F, e_tile=e_tile, s_tile=s_tile,
                                     weights=weights)
     assert vals.shape[0] % e_tile, "meant to leave a ragged tail"
+    kw = {}
+    if form == "gathered":
+        kw["src"] = torch.from_numpy(rng.integers(0, 700, vals.shape[0]).astype(np.int32)).to(
+            cuda)
+        vals = vals[:600].contiguous()
     torch.full((bp.n_blocks * s_tile + 4 * bp.num_tiles, F), float("nan"), device=cuda)
     before = bat_segment_sum_packed.launches
-    k = bat_segment_sum_packed(bp, vals, w)
+    k = bat_segment_sum_packed(bp, vals, w, **kw)
     torch.cuda.synchronize()
     assert bat_segment_sum_packed.launches == before + 1
-    p = tref.bat_segment_sum_packed_plain(bp, vals, w)
-    a = tref.bat_segment_sum_packed_plain(bp, vals.abs(), None if w is None else w.abs())
+    p = tref.bat_segment_sum_packed_plain(bp, vals, w, **kw)
+    a = tref.bat_segment_sum_packed_plain(bp, vals.abs(), None if w is None else w.abs(), **kw)
     assert k.shape == p.shape == (bp.n_blocks * s_tile, F)
     _assert_abs_sum(k, p, a)
     for _ in range(2):
-        assert torch.equal(bat_segment_sum_packed(bp, vals, w), k)
+        assert torch.equal(bat_segment_sum_packed(bp, vals, w, **kw), k)
 
 
 def test_packed_kernel_reads_rows_past_the_end_as_zero(cuda):
@@ -883,13 +966,13 @@ def test_packed_kernel_reads_rows_past_the_end_as_zero(cuda):
 def test_packed_spmm_chunked_split_hub_on_card(cuda, F):
     """The packed route of segment_spmm over a plan forced into chunks that
     split the hub window (`with_chunks`) against the unchunked plain sum:
-    one launch per chunk."""
+    one launch per plan, the chunks summed whole."""
     rng = np.random.default_rng(70 + F)
     n = 600
     src, dst = _hubby(rng, n, 4000, 3000, hub=3)
     w = rng.standard_normal(len(dst)).astype(np.float32)
     g = build_graph(src, dst, n, edge_weight=w, bat_e_tile=64, bat_s_tile=32,
-                    feature_hint=F, device=cuda)
+                    feature_hint=F, layouts=("bat",), device=cuda)
     ch = tplan.compute_chunks(g.bat.out_block.cpu().numpy(), 8)
     assert len(ch) > 2 and any(b[2] < a[3] for a, b in zip(ch[:-1], ch[1:]))
     gc = dataclasses.replace(g, bat=tplan.with_chunks(g.bat, ch))
@@ -898,7 +981,7 @@ def test_packed_spmm_chunked_split_hub_on_card(cuda, F):
     with torch.inference_mode():
         out = api.segment_spmm(gc, x)
         whole = api.segment_spmm(g, x)
-    assert bat_segment_sum_packed.launches == before + len(ch) + 1
+    assert bat_segment_sum_packed.launches == before + 2
     exp = tref.gather_weight_scatter_ref(g.src, g.dst, g.edge_weight, x, n)
     a = tref.gather_weight_scatter_ref(g.src, g.dst, g.edge_weight.abs(), x.abs(), n)
     _assert_abs_sum(out, exp, a)
@@ -914,6 +997,8 @@ def test_packed_kernel_refuses_what_it_does_not_take(cuda):
             bat_segment_sum_packed(bp, bad)
     with pytest.raises(ValueError):
         bat_segment_sum_packed(dataclasses.replace(bp, dst_km=None), vals)
+    with pytest.raises(ValueError, match="src"):
+        bat_segment_sum_packed(bp, vals, src=torch.zeros(10, dtype=torch.int64, device=cuda))
     assert bat_segment_sum_packed.launches == before
 
 

@@ -55,7 +55,8 @@ def _graphs(n, src, dst, w, chunked, monkeypatch):
     monkeypatch.setenv("GEOT_MAX_CHUNK_BYTES", str(budget))
     kw = dict(e_tile=TILE, s_tile=TILE, bat_e_tile=TILE, bat_s_tile=TILE, feature_hint=128)
     jg = jbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), **kw)
-    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, device="cpu", **kw)
+    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, layouts=("bat",),
+                      device="cpu", **kw)
     assert jg.bat.chunks == tg.bat.chunks and jg.bat_t.chunks == tg.bat_t.chunks
     if chunked:
         ch = tg.bat.chunks

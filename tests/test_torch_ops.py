@@ -78,7 +78,7 @@ def _graphs(n, src, dst, w, budget, monkeypatch, e_tile=32, s_tile=32):
     kw = dict(e_tile=e_tile, s_tile=s_tile, bat_e_tile=e_tile, bat_s_tile=s_tile,
               feature_hint=128)
     jg = jbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), **kw)
-    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget,
+    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, layouts=("bat",),
                       device="cpu", **kw)
     return jg, tg
 
@@ -132,7 +132,7 @@ def test_chunked_hub_window_overlap_add():
     src = rng.integers(0, n, len(dst)).astype(np.int32)
     w = rng.standard_normal(len(dst)).astype(np.float32)
     g = tbuild_graph(src, dst, n, edge_weight=w, bat_e_tile=32, bat_s_tile=32,
-                     device="cpu")
+                     layouts=("bat",), device="cpu")
     ch = tplan.compute_chunks(g.bat.out_block.numpy(), 8)
     assert any(w1 - w0 == 1 and (t1 - t0) <= 8 for t0, t1, w0, w1 in ch)
     assert any(b[2] < a[3] for a, b in zip(ch[:-1], ch[1:]))
@@ -218,7 +218,7 @@ def test_wrapper_device_rules():
     # segment_spmm takes gradients (transpose-plan backward): d sum(out)/dx
     # is each node's out-degree, in every column
     x = torch.zeros(4, 8, requires_grad=True)
-    g = tbuild_graph(np.array([0, 1, 2], np.int32), dst, 4, device="cpu")
+    g = tbuild_graph(np.array([0, 1, 2], np.int32), dst, 4, layouts=("bat",), device="cpu")
     tapi.segment_spmm(g, x).sum().backward()
     torch.testing.assert_close(x.grad, torch.tensor([1.0, 1, 1, 0])[:, None].expand(4, 8),
                                rtol=0, atol=0)

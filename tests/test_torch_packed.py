@@ -97,7 +97,7 @@ def test_build_graph_packed_equal(feature_hint, weighted):
     w = rng.standard_normal(len(src)).astype(np.float32) if weighted else None
     kw = dict(e_tile=64, s_tile=32, bat_e_tile=64, bat_s_tile=32, feature_hint=feature_hint)
     jg = jbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), **kw)
-    tg = tbuild_graph(src, dst, n, edge_weight=w, device="cpu", **kw)
+    tg = tbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), device="cpu", **kw)
     pack = 128 // tplan.packed_width(feature_hint)
     for name in ("bat", "bat_t"):
         jb, tb = getattr(jg, name), getattr(tg, name)
@@ -172,7 +172,8 @@ def _graphs(n, src, dst, w, feature_hint, chunked):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("GEOT_MAX_CHUNK_BYTES", str(budget))
         jg = jbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), **kw)
-    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, device="cpu", **kw)
+    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, layouts=("bat",),
+                      device="cpu", **kw)
     assert jg.bat.chunks == tg.bat.chunks and tg.bat.km_pack > 1
     if chunked:
         ch = tg.bat.chunks

@@ -116,7 +116,7 @@ def test_build_graph_equal(weighted, budget, monkeypatch):
     w = rng.standard_normal(len(src)).astype(np.float32) if weighted else None
     kw = dict(e_tile=64, s_tile=32, bat_e_tile=64, bat_s_tile=32, feature_hint=128)
     jg = jbuild_graph(src, dst, n, edge_weight=w, layouts=("bat",), **kw)
-    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget,
+    tg = tbuild_graph(src, dst, n, edge_weight=w, max_chunk_bytes=budget, layouts=("bat",),
                       device="cpu", **kw)
     for k in ("src", "dst", "perm_t", "dst_t"):
         np.testing.assert_array_equal(np.asarray(getattr(jg, k)),

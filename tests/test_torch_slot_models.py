@@ -171,6 +171,66 @@ def test_gcn_default_layouts_match_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
+def _cells(n, nnz_dense, nnz_uniform, seed=0, s_tile=256, epc=1500):
+    """Dense (window, block) cells of `epc` edges plus uniform noise,
+    dst-sorted: a graph the stream census takes."""
+    rng = np.random.default_rng(seed)
+    n_w = max(n // s_tile, 1)
+    cells = max(nnz_dense // epc, 1)
+    cw, cb = rng.integers(0, n_w, cells), rng.integers(0, n_w, cells)
+    dst = (cw[:, None] * s_tile + rng.integers(0, s_tile, (cells, epc))).reshape(-1)
+    src = (cb[:, None] * s_tile + rng.integers(0, s_tile, (cells, epc))).reshape(-1)
+    dst = np.minimum(np.concatenate([dst, rng.integers(0, n, nnz_uniform)]), n - 1)
+    src = np.minimum(np.concatenate([src, rng.integers(0, n, nnz_uniform)]), n - 1)
+    order = np.argsort(dst, kind="stable")
+    return src[order].astype(np.int32), dst[order].astype(np.int32)
+
+
+def test_build_graph_default_layouts_match_jax():
+    """build_graph's default layouts are the reference's ("bat", "slot",
+    "stream"; ROADMAP C.13): the same graph built with both packages'
+    defaults (tiles given, so the reference reads no tuning table) has the
+    same plan families, dispatch_path agrees for graph weights, no weights
+    and per-call weights, and mh_spmm(graph=...) and gat_attention_spmm run
+    on the default graph and match JAX (tests/test_torch_mh.py's
+    tolerances). Where the stream census refuses both directions the
+    hybrid family is absent from both, and the other two are checked."""
+    from geot_tpu.ops import reference as jref
+
+    n = 1200
+    src, dst = _cells(n, 20_000, 2_000)
+    rng = np.random.default_rng(3)
+    w = (rng.random(len(src)) + 0.1).astype(np.float32)
+    kw = dict(e_tile=512, s_tile=256, bat_e_tile=1024, bat_s_tile=256)
+    for weight in (None, w):
+        jg = jbuild_graph(src, dst, n, edge_weight=weight, **kw)
+        tg = tbuild_graph(src, dst, n, edge_weight=weight, device="cpu", **kw)
+        for fam in ("bat", "bat_t", "plan", "plan_t", "hyb", "hyb_t"):
+            assert (getattr(tg, fam) is None) == (getattr(jg, fam) is None), fam
+        assert tg.plan is not None and tg.bat is not None
+        for dyn in (False, True):
+            assert tapi.dispatch_path(tg, dynamic_w=dyn) == japi.dispatch_path(
+                jg, dynamic_w=dyn, backend="pallas"), (weight is None, dyn)
+    assert tg.hyb is not None, "the census took this graph in both packages"
+    H, D = 2, 8
+    wh = rng.standard_normal((len(src), H)).astype(np.float32)
+    x = rng.standard_normal((n, H, D)).astype(np.float32)
+    jo = japi.mh_spmm(jg.src, jg.dst, jnp.asarray(wh), jnp.asarray(x), n, graph=jg,
+                      backend="pallas")
+    to = tapi.mh_spmm(tg.src, tg.dst, torch.from_numpy(wh), torch.from_numpy(x), n, graph=tg)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        to.numpy(), np.asarray(jref.mh_spmm_ref(jg.src, jg.dst, jnp.asarray(wh),
+                                                jnp.asarray(x), n)), rtol=2e-4, atol=2e-4)
+    a_s = (0.3 * rng.standard_normal((n, H))).astype(np.float32)
+    a_d = (0.3 * rng.standard_normal((n, H))).astype(np.float32)
+    jgat = japi.gat_attention_spmm(jg, jnp.asarray(x), jnp.asarray(a_s), jnp.asarray(a_d),
+                                   backend="pallas")
+    tgat = tapi.gat_attention_spmm(tg, torch.from_numpy(x), torch.from_numpy(a_s),
+                                   torch.from_numpy(a_d))
+    np.testing.assert_allclose(tgat.numpy(), np.asarray(jgat), rtol=1e-4, atol=1e-4)
+
+
 def test_graphsage_train_lockstep_with_jax(tmp_path):
     """3 AdamW steps of GraphSAGE over a slot graph beside optax's adamw on
     the JAX model (its f32 reference backend); then a checkpoint round
