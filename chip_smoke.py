@@ -28,34 +28,43 @@ Phases, each printed with its elapsed seconds:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
      with the ptxas report;
-  3. bat_segment_sum against bat_segment_sum_plain on the card at the real
-     plan (F_pad 128), weighted and unweighted, and through a plan forced
-     into chunks with a split hub window;
+  3. bat_segment_sum (the row-ordered edge sum of edge_row_sum.cu) against
+     bat_segment_sum_plain on the card over bat and bat_t at F 128, 100, 47
+     and 40, weighted and unweighted, in both forms (x[src[e]] read in the
+     kernel; edge-order values), reruns bit-identical; and its route over a
+     plan forced into chunks with a split hub window and over a uniformized
+     chunked plan whose pad tiles point past the next chunk, one launch a
+     plan, bit-identical to the whole plan;
   4. 5 inference requests (GCN forward passes), counting kernel launches,
      each held against the same model on the plain reference path;
-  5. CUDA-event timings of bat_segment_sum, its plain version, the library
-     yardstick (torch.sparse.mm, never called by the port), one SpMM and
-     one forward pass;
+  5. CUDA-event timings of bat_segment_sum in both forms at F 128 and 40,
+     the [E, F] gather alone, its plain version, both bounds, the library
+     yardsticks (torch.sparse.mm, never called by the port: the node CSR
+     for the gathered form, the edge -> row CSR for the values form), one
+     SpMM and one forward pass;
   6. sddmm_bat against sddmm_bat_plain at the real plan and at a
      uniformized chunked plan whose pad tiles point past n_blocks, with
      bit-identical reruns;
   7. the weight gradient through the entry point gather_weight_scatter:
      dx and dw against the reference backend, and the backward's launches
-     (one sddmm_bat, one bat_segment_sum per chunk of the transpose plan);
+     (one sddmm_bat, one bat_segment_sum over each of bat and bat_t);
   8. 5 AdamW training steps of the GCN (lr 0.01, weight decay 5e-4), each
      beside the same step on the reference path from the same state:
      first-step gradients and every loss compared, launches per step
      asserted;
   9. CUDA-event timings of a training step, a backward SpMM over the
-     transpose plan, sddmm_bat, its plain version and the library
-     yardstick (torch.sparse.sampled_addmm, never called by the port);
+     transpose plan, bat_segment_sum over bat_t in both forms, sddmm_bat,
+     its plain version and the library yardstick
+     (torch.sparse.sampled_addmm, never called by the port);
  10. the products-clustered graph's host build, with the seconds of each
      step, each direction's split (stream share, families, remainder, each
-     family's kernel schedule), and dispatch_path == "hybrid";
+     family's kernel schedule, the remainder's edge-row schedule), and
+     dispatch_path == "hybrid";
  11. stream_segment_sum and stream_segment_acc against their plain
      versions on every stream family of both directions (the forward's and
-     the backward's), weighted, at F 128 and at the last layer's F 47, with
-     bit-identical reruns;
+     the backward's), weighted, at F 128 and at the last layer's F 47, and
+     the remainder's bat_segment_sum on both directions' plans (gathered at
+     F 128 and 47, values at 47), with bit-identical reruns;
  12. 5 GCN requests over the hybrid path, each against the reference path
      (plain, over edge chunks) run in float64, launches per request
      asserted;
@@ -65,14 +74,18 @@ Phases, each printed with its elapsed seconds:
      the device time of its main pass and of its fix-up pass (torch.profiler),
      its plain version, its bound (with the bytes of its schedule beside
      it; and beside it the bound with each live slot's x row counted once), the library yardstick (torch.sparse.mm over the family's own CSR
-     adjacency), one hybrid SpMM, one forward pass, one training step and
-     torch.sparse.mm over the whole weighted adjacency;
+     adjacency), the remainder's bat_segment_sum in both forms per
+     direction at F 128 and 47 (phase 5's yardsticks), one hybrid SpMM, one
+     forward pass, one training step and torch.sparse.mm over the whole
+     weighted adjacency;
  15. the flickr graph's host build for each model, and dispatch_path ==
      "slot" (GraphSAGE, mean) and "slot_static" (GCN);
  16. plan_segment_sum_sr (F 500, 128), plan_segment_sum_sr_packed (F 64,
-     32, 16, 8, 7) and plan_segment_sum_pr (8 rows) against their plain
-     versions on both directions' real plans, with bit-identical reruns,
-     and the slot SpMM over a plan chunked so that its hub window splits;
+     32, 16, 8, 7, in both forms: slot-order values and x[src[e]] read in
+     the edge-row kernel) and plan_segment_sum_pr (8 rows) against their
+     plain versions on both directions' real plans, with bit-identical
+     reruns, and the slot SpMM over a plan chunked so that its hub window
+     splits (sr_packed once, the plan whole);
  17. 5 requests per model, launches per request asserted (GraphSAGE: sr
      1, sr_packed 2, pr 3; GCN: sr_packed 3), each against the same model
      on the plain reference path;
@@ -83,8 +96,10 @@ Phases, each printed with its elapsed seconds:
      pattern;
  19. CUDA-event timings of each slot kernel at its main-path shape, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
-     slot -> row CSR), the slot SpMM per layer width, each model's forward
-     and training step, and each one's busy share (profile_gcn.trace);
+     slot -> row CSR; sr_packed's gathered form too, over the node CSR,
+     with the [slots, F] gather alone), the slot SpMM per layer width, each
+     model's forward and training step, and each one's busy share
+     (profile_gcn.trace);
  20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128)
      with their edge-row schedules, dispatch_path == "slot_dyn" for the
      per-call weights, the AEB name each width launches under, GAT's fused
@@ -312,6 +327,48 @@ def family_csr(sp, n):
                                    check_invariants=False).coalesce().to_sparse_csr()
 
 
+def bat_timing(plan, xf, src_d, dst_d, w, card, what, plain=True):
+    """Both forms of bat_segment_sum over `plan` at x's width (x[src[e]]
+    read in the kernel, as the routes run it; edge-order values), with the
+    [E, F] gather alone, the bounds, the plain version (unless `plain` is
+    False) and the library yardsticks (torch.sparse.mm, never called by the
+    port: the node CSR for the gathered form, the edge -> row CSR for the
+    values form) beside them."""
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+
+    Fx, rows, nnz = xf.shape[1], plan.n_blocks * plan.s_tile, int(src_d.shape[0])
+    vals_d = xf.index_select(0, src_d.long())
+    r = {"F": Fx}
+    r["ms"] = cuda_ms(lambda: bat_segment_sum(plan, xf, w, src=src_d))
+    r["values_ms"] = cuda_ms(lambda: bat_segment_sum(plan, vals_d, w))
+    r["gather_ms"] = cuda_ms(lambda: xf.index_select(0, src_d.long()))
+    if plain:
+        r["plain_ms"] = cuda_ms(lambda: bat_segment_sum_plain(plan, xf, w, src=src_d),
+                                iters=3, warmup=1)
+    r["bound_ms"], r["bound_by"], nb_g = gathered_bound(xf.shape[0], Fx, nnz, w is not None,
+                                                        rows)
+    # the values form's inputs: the [E, F] rows, dst3, the weights, the
+    # tiles; the output once
+    nb_v = (vals_d.numel() * 4 + plan.dst3.numel() * 4 + (nnz * 4 if w is not None else 0)
+            + plan.num_tiles * 8 + rows * Fx * 4)
+    r["values_bound_ms"], r["values_bound_by"] = bound_ms(
+        nb_v, (2 if w is not None else 1) * nnz * Fx)
+    ncsr = node_csr(dst_d, src_d, w, xf.shape[0])
+    r["library_ms"] = cuda_ms(lambda: torch.sparse.mm(ncsr, xf))
+    del ncsr
+    ecsr = edge_csr(dst_d, w, rows)
+    r["values_library_ms"] = cuda_ms(lambda: torch.sparse.mm(ecsr, vals_d))
+    del ecsr, vals_d
+    log(f"{card} bat_segment_sum {what} F={Fx}: gathered (x[src[e]] in the kernel) "
+        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+        f"{nb_g / 1e9:.4f} GB, x's rows once), library torch.sparse.mm (node CSR) "
+        f"{r['library_ms']:.4f} ms || values form {r['values_ms']:.4f} ms (bound "
+        f"{r['values_bound_ms']:.4f} ms: {nb_v / 1e9:.4f} GB), library (edge -> row CSR) "
+        f"{r['values_library_ms']:.4f} ms; the [E, F] gather alone {r['gather_ms']:.4f} ms"
+        + (f"; plain {r['plain_ms']:.4f} ms" if plain else ""))
+    return r
+
+
 def run_hybrid(dev, card):
     """Phases 10-14: GCN serving and training over the hybrid stream+gather
     path on the ogbn-products-shaped clustered graph. Returns the numbers
@@ -319,7 +376,7 @@ def run_hybrid(dev, card):
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_clustered_graph
     from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
     from geot_tpu_torch.ops import api
-    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
     from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
     from geot_tpu_torch.ops.stream_kernels import (
         stream_segment_acc,
@@ -372,7 +429,10 @@ def run_hybrid(dev, card):
     path = api.dispatch_path(g)
     if path != "hybrid":
         raise AssertionError(f"dispatch_path is {path!r}, expected 'hybrid'")
-    log("phase 10 dispatch_path(graph) == 'hybrid'")
+    log("phase 10 dispatch_path(graph) == 'hybrid'; the remainders' edge-row schedules "
+        "(built inside rest_bat_plan_*): " + ", ".join(
+            f"{k} {v['seconds']:.2f}s {v['bytes'] / 1e6:.1f} MB"
+            for k, v in g.build_stats["row_schedule"].items()))
     hyb, hyb_t = g.hyb, g.hyb_t
     x = torch.from_numpy(data.x).to(dev)
 
@@ -410,6 +470,34 @@ def run_hybrid(dev, card):
     log("phase 11 reruns bit-identical on every family, both directions, F 128 and "
         f"F {c}")
     del k, p, a, carry0, xf
+    # the remainder's bat_segment_sum, both directions: gathered (x[src[e]],
+    # as the route runs it) at F 128 and 47, the values form at 47 (its
+    # [24.6 M, 128] block and the plain version's copies would take ~40 GB)
+    errs["bat_segment_sum"] = 0.0
+    for F in (128, c):
+        xf = x128 if F == 128 else torch.randn(n, F, generator=gen, device=dev)
+        for direction, h in (("forward", hyb), ("transpose", hyb_t)):
+            rp, rs, rw = h.rest, h.rest_src, h.rest_w
+            forms = [("gathered", xf, rs)]
+            if F != 128:
+                forms.append(("values", xf.index_select(0, rs.long()), None))
+            for form, xv, src in forms:
+                what = f"phase 11 {direction} remainder bat_segment_sum F={F} {form}"
+                k = bat_segment_sum(rp, xv, rw, src=src)
+                torch.cuda.synchronize()
+                p = bat_segment_sum_plain(rp, xv, rw, src=src)
+                a = bat_segment_sum_plain(rp, xv.abs(), None if rw is None else rw.abs(),
+                                          src=src)
+                errs["bat_segment_sum"] = max(errs["bat_segment_sum"],
+                                              check_close_abs_sum(k, p, a, what))
+                del p, a
+                if not torch.equal(bat_segment_sum(rp, xv, rw, src=src), k):
+                    raise AssertionError(f"{what}: not deterministic")
+                del k
+            del forms
+    log("phase 11 the remainder's bat_segment_sum within the abs-sum rule on both "
+        "directions' plans, reruns bit-identical")
+    del xf
 
     # 12. serve: GCN requests over the hybrid path
     arm("hyb_serve")
@@ -420,7 +508,7 @@ def run_hybrid(dev, card):
 
     def per_spmm(h):
         return {"stream_segment_sum": 1, "stream_segment_acc": len(h.stream) - 1,
-                "bat_segment_sum": 0 if h.rest is None else max(len(h.rest.chunks), 1),
+                "bat_segment_sum": 0 if h.rest is None else 1,
                 "sddmm_bat": 0}
 
     fwd = {k: 3 * v for k, v in per_spmm(hyb).items()}
@@ -562,6 +650,16 @@ def run_hybrid(dev, card):
         log(f"{card}   device ms, main pass + fix-up pass: " + "; ".join(
             f"{key.replace('_f47', f' F {c}')} {fam[key + '_main_ms']:.4f} + "
             f"{fam[key + '_fix_ms']:.4f}" for key in ("sum", "acc", "sum_f47", "acc_f47")))
+    # the remainder's bat_segment_sum in both forms (the route runs the
+    # gathered one), per direction and width
+    rest_timing = {}
+    for direction, h in (("forward", hyb), ("transpose", hyb_t)):
+        rp = h.rest
+        dst_r = rp.dst3.reshape(-1)[: rp.num_edges]
+        for xf in (x128, x47):
+            rest_timing[f"{direction}_F{xf.shape[1]}"] = bat_timing(
+                rp, xf, h.rest_src, dst_r, h.rest_w, card,
+                f"{direction} remainder ({rp.num_edges} edges)", plain=False)
     del x47
     adj = torch.sparse_coo_tensor(
         torch.stack([g.dst.long(), g.src.long()]), g.edge_weight, (n, n),
@@ -592,7 +690,7 @@ def run_hybrid(dev, card):
                 "bound_rows_ms": sum(fm["acc_bound_rows_ms"] for fm in rest),
                 "library_ms": sum(fm["library_ms"] for fm in rest)},
         "spmm_ms": t_spmm, "forward_ms": t_fwd, "train_step_ms": t_step,
-        "library_whole_ms": t_lib, "losses": losses,
+        "library_whole_ms": t_lib, "losses": losses, "rest_timing": rest_timing,
     }
 
 def relu_flips(z_kernel, z_ref, what):
@@ -758,6 +856,7 @@ def run_slot(dev, card):
     arm("slot_kernel")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     errs = {k: 0.0 for k in slot_names}
+    n_checks = 0
     cases = [("plan_segment_sum_sr", F, "graphsage", d, False) for F in (f, 128)
              for d in ("plan", "plan_t")]
     cases += [("plan_segment_sum_sr_packed", F, "gcn", d, False) for F in (64, 32, 16, 8, c)
@@ -774,6 +873,7 @@ def run_slot(dev, card):
         g = graphs[gname]
         plan = getattr(g, d)
         w = (g.w_slots if d == "plan" else g.w_slots_t) if gname == "gcn" else plan.mask
+        src_d = g.src if d == "plan" else g.dst_t  # the plan's edge-order src
         if zeroed:
             third = torch.arange(w.numel(), device=dev).reshape(w.shape) % 3 == 1
             w = torch.where(third, torch.zeros_like(w), w)
@@ -782,16 +882,26 @@ def run_slot(dev, card):
         shape = (F, slots) if name == "plan_segment_sum_pr" else (slots, F)
         vals = (torch.ones(shape, device=dev) if name == "plan_segment_sum_pr"
                 else torch.randn(shape, generator=gen, device=dev))
-        k = counters[name](plan, vals, w)
-        torch.cuda.synchronize()
-        p = plain[name](plan, vals, w)
-        a = plain[name](plan, vals.abs(), w.abs())
-        errs[name] = max(errs[name], check_close_abs_sum(
-            k, p, a, f"phase 16 {name} F={F} {gname}.{d}"))
-        if not torch.equal(counters[name](plan, vals, w), k):
-            raise AssertionError(f"phase 16 {name} F={F} {gname}.{d}: not deterministic")
-        del vals, k, p, a
-    log(f"phase 16 {len(cases)} kernel checks within the abs-sum rule, reruns bit-identical")
+        forms = [("", vals, {})]
+        if name == "plan_segment_sum_sr_packed":
+            # the gathered form the route runs: x[src[e]] read in the kernel,
+            # src the plan's edge-order src
+            forms.append((" gathered", torch.randn(n, F, generator=gen, device=dev),
+                          {"src": src_d}))
+        for form, xv, kw in forms:
+            k = counters[name](plan, xv, w, **kw)
+            torch.cuda.synchronize()
+            p = plain[name](plan, xv, w, **kw)
+            a = plain[name](plan, xv.abs(), w.abs(), **kw)
+            errs[name] = max(errs[name], check_close_abs_sum(
+                k, p, a, f"phase 16 {name}{form} F={F} {gname}.{d}"))
+            if not torch.equal(counters[name](plan, xv, w, **kw), k):
+                raise AssertionError(f"phase 16 {name}{form} F={F} {gname}.{d}: not "
+                                     "deterministic")
+            n_checks += 1
+        del vals, k, p, a, forms
+    log(f"phase 16 {n_checks} kernel checks within the abs-sum rule (sr_packed in both "
+        "forms), reruns bit-identical")
     dst_s, src_s = gs.dst.cpu().numpy(), gs.src.cpu().numpy()
     hub_tiles = int(torch.bincount(gs.plan.out_block.long()).max())
     chunk_slots = FLICKR_SLOT["e_tile"] * max(hub_tiles // 3, 2)
@@ -803,7 +913,11 @@ def run_slot(dev, card):
         raise AssertionError("the chunked plan does not split the hub window")
     x64 = torch.randn(n, 64, generator=gen, device=dev)
     with torch.inference_mode():
-        got = api._slot_spmm(pc, x64, pc.mask)
+        before = sk.plan_segment_sum_sr_packed.launches
+        got = api._slot_spmm(pc, x64, pc.mask, gs.src)
+        torch.cuda.synchronize()
+        expect_launches(sk.plan_segment_sum_sr_packed.launches - before, 1,
+                        "phase 16 chunked plan: sr_packed once, the plan whole")
         vals = x64.index_select(0, gs.plan.src_slots.reshape(-1))
         want = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals, gs.plan.mask)[:n]
         a = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals.abs(), gs.plan.mask)[:n]
@@ -975,12 +1089,33 @@ def run_slot(dev, card):
             f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
             f"slot -> row CSR with its slot weights) {t_lib:.4f} ms")
         del vals, csr, dense
+        if name == "plan_segment_sum_sr_packed":
+            # the gathered form the route runs (x[src[e]] in the kernel), with
+            # the [slots, F] gather it replaces; the values form above
+            xg = torch.randn(n, F, generator=gen, device=dev)
+            t_g = cuda_ms(lambda: fn(plan, xg, w, src=g.src))
+            t_pg = cuda_ms(lambda: pl(plan, xg, w, src=g.src), iters=3, warmup=1)
+            t_gather = cuda_ms(lambda: xg.index_select(0, plan.src_slots.reshape(-1)))
+            ncsr = node_csr(g.dst, g.src, g.edge_weight, n)
+            t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
+            bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True,
+                                                 plan.n_blocks * plan.s_tile)
+            timing[(name, F)] = {"ms": t_g, "plain_ms": t_pg, "bound_ms": bound_g,
+                                 "bound_by": by_g, "library_ms": t_libg,
+                                 "form": "gathered (x[src[e]] read in the kernel)",
+                                 "values_form": dict(timing[(name, F)], gather_ms=t_gather)}
+            log(f"{card} {name} F={F} gathered (x[src[e]] in the kernel): {t_g:.4f} ms "
+                f"(bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's rows once); "
+                f"plain {t_pg:.4f} ms; library torch.sparse.mm (the node CSR) {t_libg:.4f} ms; "
+                f"the [slots, F] gather alone {t_gather:.4f} ms")
+            del xg, ncsr
     spmm = {}
     with torch.inference_mode():
         for F, g, w in ((f, gs, gs.plan.mask), (FLICKR_HIDDEN, gg, gg.w_slots), (c, gg, gg.w_slots)):
             xf = torch.randn(n, F, generator=gen, device=dev)
-            spmm[F] = cuda_ms(lambda: api._slot_spmm(g.plan, xf, w))
-            log(f"{card} slot SpMM (gather x[src_slots] + kernel) F={F}: {spmm[F]:.4f} ms")
+            spmm[F] = cuda_ms(lambda: api._slot_spmm(g.plan, xf, w, g.src))
+            how = "x[src[e]] read in the kernel" if F <= 64 else "gather x[src_slots] + kernel"
+            log(f"{card} slot SpMM F={F} ({how}): {spmm[F]:.4f} ms")
     fwd, stp, busy = {}, {}, {}
     for name in ("graphsage", "gcn"):
         model, g = models[name], graphs[name]
@@ -1754,12 +1889,10 @@ def run_narrow(dev, card):
     arm("narrow_serve")
     mk = {"gin": lambda f, c, **kw: GIN(f, GIN_HIDDEN, 3, c, **kw),
           "appnp": lambda f, c, **kw: APPNP(f, FLICKR_HIDDEN, 2, c, **APPNP_KW, **kw)}
-    chunks = {name: (max(len(g.bat.chunks), 1), max(len(g.bat_t.chunks), 1))
-              for name, g in graphs.items()}
-    # the packed kernel: one launch a plan, chunked or not; the wide one a
-    # launch a chunk
-    per_request = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 2}, "appnp": {PK: 10}}
-    per_step = {"gin": {"bat_segment_sum": chunks["gin"][0], PK: 4}, "appnp": {PK: 20}}
+    # both BAT sums: one launch a plan, chunked or not (GIN's 128-wide layer
+    # 1 runs the wide sum over its packed plan's schedule)
+    per_request = {"gin": {"bat_segment_sum": 1, PK: 2}, "appnp": {PK: 10}}
+    per_step = {"gin": {"bat_segment_sum": 1, PK: 4}, "appnp": {PK: 20}}
     models, ref_models, xs, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}, {}
     for name, g in graphs.items():
         data, f, c = datasets[name]
@@ -2014,32 +2147,40 @@ def main():
     x = torch.from_numpy(data.x).to(dev)
     nnz = g.num_edges
 
-    # 3. bat_segment_sum vs plain at the real plan, F_pad 128
+    # 3. bat_segment_sum vs plain at the real plans, both forms (edge-order
+    # values; x[src[e]] read in the kernel), at the layers' widths 128 and
+    # 40 and at 100 and 47 (not multiples of 128, 47 not of 4)
     arm("kernel")
     w_gcn = gcn_edge_weight(g)
-    src_pad = torch.nn.functional.pad(g.src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
-    vals = x.index_select(0, src_pad)  # [n_vblocks*e_tile, 128], edge order
-    max_err = 0.0
-    for label, w in (("weighted", w_gcn), ("unweighted", None)):
-        k = bat_segment_sum(bp, vals, w)
-        torch.cuda.synchronize()
-        p = bat_segment_sum_plain(bp, vals, w)
-        a = bat_segment_sum_plain(bp, vals.abs(), None if w is None else w.abs())
-        max_err = max(max_err, check_close_abs_sum(k, p, a, f"phase 3 kernel {label}"))
-        k2 = bat_segment_sum(bp, vals, w)
-        if not torch.equal(k, k2):
-            raise AssertionError("kernel is not deterministic")
-    # the backward's launches: the same kernel over the transpose plan, on
-    # dst-gathered rows with transpose-order weights
     w_t = w_gcn[g.perm_t.long()]
-    dst_t_pad = torch.nn.functional.pad(g.dst_t.long(),
-                                        (0, bpt.n_vblocks * bpt.e_tile - nnz))
-    vals_t = x.index_select(0, dst_t_pad)
-    k = bat_segment_sum(bpt, vals_t, w_t)
-    torch.cuda.synchronize()
-    p = bat_segment_sum_plain(bpt, vals_t, w_t)
-    a = bat_segment_sum_plain(bpt, vals_t.abs(), w_t.abs())
-    max_err = max(max_err, check_close_abs_sum(k, p, a, "phase 3 kernel over bat_t"))
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    max_err, n_checks = 0.0, 0
+
+    def held_bat(plan, xv, w, src, what):
+        """bat_segment_sum against its plain version, and rerun bit-identical."""
+        nonlocal max_err, n_checks
+        k = bat_segment_sum(plan, xv, w, src=src)
+        torch.cuda.synchronize()
+        p = bat_segment_sum_plain(plan, xv, w, src=src)
+        a = bat_segment_sum_plain(plan, xv.abs(), None if w is None else w.abs(), src=src)
+        max_err = max(max_err, check_close_abs_sum(k, p, a, what))
+        if not torch.equal(bat_segment_sum(plan, xv, w, src=src), k):
+            raise AssertionError(f"{what}: not deterministic")
+        n_checks += 1
+        return k
+
+    for F in (128, 100, 47, c):
+        xf = torch.randn(n, F, generator=kgen, device=dev)
+        for d, plan, src_d, w_d in (("bat", bp, g.src, w_gcn), ("bat_t", bpt, g.dst_t, w_t)):
+            vals_d = xf.index_select(0, src_d.long())  # [nnz, F], edge order
+            for label, w in (("weighted", w_d), ("unweighted", None)):
+                held_bat(plan, xf, w, src_d, f"phase 3 {d} F={F} {label} gathered")
+                held_bat(plan, vals_d, w, None, f"phase 3 {d} F={F} {label} values")
+            del vals_d
+        del xf
+    # a plan forced into ragged chunks that split the hub window, and a
+    # uniformized chunked plan whose pad tiles point at the sentinel block
+    # and past the next chunk's first window: each summed whole, one launch
     hub_w = int(torch.bincount(bp.out_block.long()).argmax())
     cap = max(int(torch.bincount(bp.out_block.long()).max()) // 3, 2)
     ch = compute_chunks(bp.out_block.cpu().numpy(), cap)
@@ -2047,13 +2188,31 @@ def main():
     if len(ch) < 3 or not split:
         raise AssertionError("forced chunking did not split a hub window")
     bpc = with_chunks(bp, ch)
+    dst_np = g.dst.cpu().numpy()
+    for cap_u in (700, 600, 500, 400, 300, 200):
+        bpu = build_bat_plan(dst_np, n, e_tile=bp.e_tile, s_tile=bp.s_tile,
+                             max_chunk_tiles=cap_u, device=dev)
+        ob_u = bpu.out_block.cpu()
+        if bpu.chunks and bool((ob_u[1:] < ob_u[:-1]).any()):
+            break
+    else:
+        raise AssertionError("no chunk cap puts a pad tile past the next chunk's window")
     with torch.inference_mode():
-        ref_rows = bat_segment_sum_plain(bp, vals, w_gcn)[:n]
-        got = api._spmm_fwd_bat(bpc, x, g.src, w_gcn)
-        a = bat_segment_sum_plain(bp, vals.abs(), w_gcn.abs())[:n]
-    max_err = max(max_err, check_close_abs_sum(
-        got, ref_rows, a, f"phase 3 chunked ({len(ch)} chunks, hub window {hub_w} split)"))
-    del vals, k, k2, p, a, ref_rows, got
+        whole = bat_segment_sum(bp, x, w_gcn, src=g.src)
+        for lbl, plan in ((f"{len(ch)} ragged chunks, hub window {hub_w} split", bpc),
+                          (f"{len(bpu.chunks)} uniform chunks of cap {cap_u}, pad tiles "
+                           "past the next chunk", bpu)):
+            before = bat_segment_sum.launches
+            got = api._spmm_fwd_bat(plan, x, g.src, w_gcn)
+            torch.cuda.synchronize()
+            expect_launches(bat_segment_sum.launches - before, 1,
+                            f"phase 3 chunked route ({lbl}): one launch a plan")
+            held_bat(plan, x, w_gcn, g.src, f"phase 3 chunked ({lbl})")
+            if not torch.equal(got, whole[:n]):
+                raise AssertionError(f"phase 3 chunked ({lbl}): differs from the whole plan")
+    log(f"phase 3 {n_checks} bat_segment_sum checks within the abs-sum rule, reruns "
+        "bit-identical; both chunked plans (one launch each) bit-identical to the whole plan")
+    del whole, got, bpu
 
     # 4. serve: GCN inference requests
     arm("serve")
@@ -2071,17 +2230,17 @@ def main():
             out = model(x, g)
             torch.cuda.synchronize()
             req_s.append(time.perf_counter() - ts)
-            if bat_segment_sum.launches - before != 3 * n_chunks:
+            if bat_segment_sum.launches - before != 3:
                 raise AssertionError(
                     f"request {i}: {bat_segment_sum.launches - before} kernel launches, "
-                    f"expected 3 x {n_chunks}")
+                    "expected 3 (one a layer, the plan whole)")
             outs.append(out)
     serve_launches = bat_segment_sum.launches
     serve_sddmm = sddmm_bat.launches
     if serve_sddmm:
         raise AssertionError("serving launched sddmm_bat")
     log(f"phase 4 serve: {REQUESTS} requests, bat_segment_sum launches={serve_launches} "
-        f"(3 layers x {n_chunks} chunk(s) each); request s: "
+        f"(3 layers, one launch a plan of {n_chunks} chunk(s)); request s: "
         + ", ".join(f"{s:.4f}" for s in req_s))
     with torch.inference_mode():
         ref = ref_model(x, g)
@@ -2093,35 +2252,29 @@ def main():
         f"= {float((outs[0] - ref).abs().max()):.3e} (tolerance {MODEL_TOL})")
     del outs, ref
 
-    # 5. timing of the serving path
+    # 5. timing of the serving path: bat_segment_sum in both forms (the
+    # routes run the gathered one), the [E, F] gather alone, the plain
+    # version, the library yardsticks (torch.sparse.mm, never called by the
+    # port: the node CSR for the gathered form, the edge -> row CSR for the
+    # values form), one SpMM and one forward pass
     arm("timing")
-    vals = x.index_select(0, src_pad)
-    F = vals.shape[1]
-    t_k = cuda_ms(lambda: bat_segment_sum(bp, vals, w_gcn))
-    t_p = cuda_ms(lambda: bat_segment_sum_plain(bp, vals, w_gcn), iters=5)
-    adj = torch.sparse_coo_tensor(
-        torch.stack([g.dst.long(), g.src.long()]), w_gcn, (n, n),
-        check_invariants=False).coalesce().to_sparse_csr()
-    t_lib = cuda_ms(lambda: torch.sparse.mm(adj, x))
+    t5 = bat_timing(bp, x, g.src, g.dst, w_gcn, card, "bat (arxiv GCN)")
+    t5_40 = bat_timing(bp, torch.randn(n, c, generator=kgen, device=dev), g.src, g.dst,
+                       w_gcn, card, "bat (arxiv GCN, layer 3)", plain=False)
+    t_k, t_p, bound, bound_by, t_lib = (t5["ms"], t5["plain_ms"], t5["bound_ms"],
+                                        t5["bound_by"], t5["library_ms"])
     with torch.inference_mode():
         t_spmm = cuda_ms(lambda: api.segment_spmm(g, x, edge_weight=w_gcn))
         t_fwd = cuda_ms(lambda: model(x, g), iters=5)
-    # bound: each input read once, each output written once (bytes), and
-    # 2 flops per weighted value (f32, no tensor cores)
-    n_bytes = (nnz * F * 4 + (bp.n_vblocks + 1) * bp.e_tile * 4 + nnz * 4
-               + bp.num_tiles * 8 + bp.n_blocks * bp.s_tile * F * 4)
-    bound, bound_by = bound_ms(n_bytes, 2 * nnz * F)
-    log(f"{card} bat_segment_sum kernel {t_k:.4f} ms (bound {bound:.4f} ms by "
-        f"{bound_by}: {n_bytes / 1e9:.3f} GB)")
-    log(f"{card} bat_segment_sum_plain {t_p:.4f} ms")
-    log(f"{card} library torch.sparse.mm (CSR adjacency @ x, whole SpMM) {t_lib:.4f} ms")
-    log(f"{card} segment_spmm (gather + kernel, one layer's SpMM) {t_spmm:.4f} ms")
+    log(f"{card} segment_spmm (one layer's SpMM, x[src[e]] read in the kernel) "
+        f"{t_spmm:.4f} ms")
     log(f"{card} GCN forward (3 layers) {t_fwd:.4f} ms; request wall "
         f"{min(req_s) * 1e3:.4f} ms min")
-    del vals, adj
 
     # 6. sddmm_bat vs plain at the real plan and at a chunked plan
     arm("sddmm")
+    F = x.shape[1]
+    src_pad = torch.nn.functional.pad(g.src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
     sgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     a_nodes = torch.randn(n, F, generator=sgen, device=dev)
     b_nodes = torch.randn(n, F, generator=sgen, device=dev)
@@ -2140,7 +2293,6 @@ def main():
     sddmm_err = check_close_abs_sum(ks, ps, abs_s, "phase 6 sddmm_bat")
     if not torch.equal(sddmm_bat(bp, a_p, b_vals), ks):
         raise AssertionError("sddmm_bat is not deterministic")
-    dst_np = g.dst.cpu().numpy()
     for cap_c in (700, 600, 500, 400, 300, 200):
         bpu = build_bat_plan(dst_np, n, e_tile=bp.e_tile, s_tile=bp.s_tile,
                              max_chunk_tiles=cap_c, device=dev)
@@ -2183,16 +2335,16 @@ def main():
     torch.cuda.synchronize()
     grad_launches = {"bat_segment_sum": bat_segment_sum.launches,
                      "sddmm_bat": sddmm_bat.launches}
-    if grad_launches != {"bat_segment_sum": n_chunks + n_chunks_t, "sddmm_bat": 1}:
+    if grad_launches != {"bat_segment_sum": 2, "sddmm_bat": 1}:
         raise AssertionError(f"gradient path launches {grad_launches}, expected "
-                             f"{n_chunks} + {n_chunks_t} bat_segment_sum and 1 sddmm_bat")
+                             "1 + 1 bat_segment_sum (bat, bat_t) and 1 sddmm_bat")
     dx_r, dw_r = gws_grads("reference")
     dx_abs = ref_ops.gather_weight_scatter_ref(g.dst, g.src, w_dyn.abs(), cot.abs(), n)
     dw_abs = ref_ops.sddmm_coo_ref(g.src, g.dst, cot.abs(), x.abs())
     check_close_abs_sum(dx, dx_r, dx_abs, "phase 7 dx (transpose plan) vs reference")
     grad_err = check_close_abs_sum(dw, dw_r, dw_abs, "phase 7 dw (sddmm_bat) vs reference")
-    log(f"phase 7 launches: forward {n_chunks} + backward {n_chunks_t} bat_segment_sum "
-        f"(bat_t chunks), 1 sddmm_bat")
+    log("phase 7 launches: forward 1 + backward 1 bat_segment_sum (each plan whole), "
+        "1 sddmm_bat")
     del dx, dw, dx_r, dw_r, dx_abs, dw_abs
 
     # 8. training: 5 AdamW steps, kernel path beside the reference path
@@ -2203,7 +2355,7 @@ def main():
     step = make_train_step(model, make_optimizer(model, LR, WEIGHT_DECAY), has_dropout=False)
     ref_step = make_train_step(ref_model, make_optimizer(ref_model, LR, WEIGHT_DECAY),
                                has_dropout=False)
-    per_step = 3 * n_chunks + 3 * n_chunks_t
+    per_step = 3 + 3
     losses, step_s = [], []
     bat_segment_sum.launches = 0  # count the training path's launches only
     sddmm_bat.launches = 0
@@ -2236,7 +2388,7 @@ def main():
     log(f"phase 8 train: {TRAIN_STEPS} steps, losses (kernel, reference) "
         + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses))
     log(f"phase 8 launches: bat_segment_sum {train_launches} = {TRAIN_STEPS} x "
-        f"(3 forward x {n_chunks} + 3 backward x {n_chunks_t}); sddmm_bat {train_sddmm} "
+        f"(3 forward + 3 backward, one a plan); sddmm_bat {train_sddmm} "
         "(gcn_edge_weight is a constant of the graph: no dw is asked for)")
     log("phase 8 step wall s: " + ", ".join(f"{s:.4f}" for s in step_s))
 
@@ -2244,10 +2396,9 @@ def main():
     arm("timing_train")
     t_step = cuda_ms(lambda: step(x, g, y, mask), iters=5, warmup=1)
     t_bwd = cuda_ms(lambda: api._spmm_fwd_bat(bpt, cot, g.dst_t, w_t))
-    t_kt = cuda_ms(lambda: bat_segment_sum(bpt, vals_t, w_t))
-    nt_bytes = (nnz * F * 4 + (bpt.n_vblocks + 1) * bpt.e_tile * 4 + nnz * 4
-                + bpt.num_tiles * 8 + bpt.n_blocks * bpt.s_tile * F * 4)
-    bound_t, _ = bound_ms(nt_bytes, 2 * nnz * F)
+    t9 = bat_timing(bpt, cot, g.dst_t, g.src.index_select(0, g.perm_t.long()), w_t, card,
+                    "bat_t (arxiv GCN backward)", plain=False)
+    t_kt, bound_t = t9["ms"], t9["bound_ms"]
     t_sk = cuda_ms(lambda: sddmm_bat(bp, a_p, b_vals))
     t_sp = cuda_ms(lambda: sddmm_bat_plain(bp, a_p, b_vals), iters=5)
     n_dst = int(torch.unique(g.dst).numel())
@@ -2263,8 +2414,8 @@ def main():
                                                         beta=0.0, alpha=1.0))
     log(f"{card} training step (3-layer GCN, forward + backward + AdamW) {t_step:.4f} ms; "
         f"step wall {min(step_s) * 1e3:.4f} ms min")
-    log(f"{card} backward SpMM over bat_t (gather + kernel, one layer) {t_bwd:.4f} ms; "
-        f"bat_segment_sum over bat_t {t_kt:.4f} ms (bound {bound_t:.4f} ms)")
+    log(f"{card} backward SpMM over bat_t (one layer, x[src[e]] read in the kernel) "
+        f"{t_bwd:.4f} ms")
     log(f"{card} sddmm_bat kernel {t_sk:.4f} ms (bound {s_bound:.4f} ms by {s_bound_by}: "
         f"{s_bytes / 1e9:.3f} GB: b_vals, {n_dst} a rows, dst3, out)")
     log(f"{card} sddmm_bat_plain {t_sp:.4f} ms")
@@ -2272,7 +2423,7 @@ def main():
         f"{t_slib:.4f} ms; the CSR pattern merges {merged} duplicate edges "
         f"({pattern._nnz()} of {nnz} positions)")
     faulthandler.cancel_dump_traceback_later()
-    del pattern, b_t, a_nodes, b_nodes, b_vals, a_p, cot, vals_t
+    del pattern, b_t, a_nodes, b_nodes, b_vals, a_p, cot
 
     hy = run_hybrid(dev, card)
     sl = run_slot(dev, card)
@@ -2293,7 +2444,7 @@ def main():
             **hy[key],
         }
 
-    def slot_entry(name, source_line, F):
+    def slot_entry(name, source_line, F, source="slot_segment_sum.cu"):
         by_path = {}
         for m in ("graphsage", "gcn"):
             by_path[f"{m}_serve_requests"] = sl["serve"][m][name]
@@ -2301,7 +2452,7 @@ def main():
         return {
             "name": name,
             "route": "cuda",
-            "source": "geot_tpu_torch/ops/csrc/slot_segment_sum.cu",
+            "source": f"geot_tpu_torch/ops/csrc/{source}",
             "replaces": f"geot_tpu/ops/pallas_segment.py:{source_line}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -2333,8 +2484,8 @@ def main():
         "kernels": [{
             "name": "bat_segment_sum",
             "route": "cuda",
-            "source": "geot_tpu_torch/ops/csrc/bat_segment_sum.cu",
-            "replaces": "geot_tpu/ops/pallas_segment.py:730",
+            "source": "geot_tpu_torch/ops/csrc/edge_row_sum.cu",
+            "replaces": "geot_tpu/ops/pallas_segment.py:772",
             "launches": train_launches,
             "launches_by_path": {"serve_requests": serve_launches,
                                  "train_steps": train_launches,
@@ -2350,9 +2501,13 @@ def main():
             "bound_ms": bound,
             "bound_by": bound_by,
             "library_ms": t_lib,
-            "backward_ms": t_kt,
-            "backward_bound_ms": bound_t,
+            "form": "gathered (x[src[e]] read in the kernel)",
+            "values_form": {k: t5[k] for k in ("values_ms", "values_bound_ms",
+                                               "values_library_ms", "gather_ms")},
+            "F40": t5_40,
+            "backward": t9,
             "backward_spmm_ms": t_bwd,
+            "hybrid_remainder": hy["rest_timing"],
         }, {
             "name": "sddmm_bat",
             "route": "cuda",
@@ -2374,7 +2529,7 @@ def main():
         }, hyb_entry("stream_segment_sum", "sum", 1243),
            hyb_entry("stream_segment_acc", "acc", 1176),
            slot_entry("plan_segment_sum_sr", 1302, 500),
-           slot_entry("plan_segment_sum_sr_packed", 233, 64),
+           slot_entry("plan_segment_sum_sr_packed", 233, 64, "edge_row_sum.cu"),
            slot_entry("plan_segment_sum_pr", 1348, 8),
            new_entry("plan_segment_sum_mh", "slot_mh.cu", 1391, 4 * 64),
            new_entry("plan_segment_sum_sr2", "edge_row_sum.cu", 384, 64),

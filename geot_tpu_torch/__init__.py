@@ -7,7 +7,8 @@ over slot-layout plans, block-aligned-tile (BAT) plans, packed BAT plans
 for narrow features and hybrid stream+gather plans:
 
     prepare_graph -> GCN -> GCNConv -> segment_spmm -> _spmm_fwd_bat
-      -> _bat_sum -> bat_segment_sum (hand-written CUDA, sm_90a)
+      -> _bat_row_sum -> bat_segment_sum (hand-written CUDA, sm_90a: the
+         edge-row kernel, reading x[src[e]] itself)
     prefer="sr": GCN / GraphSAGE -> segment_spmm -> _slot_spmm
       -> plan_segment_sum_sr / _sr_packed (CUDA, sm_90a); the mean's degree
          -> segment_counts -> plan_segment_sum_pr (CUDA, sm_90a)
@@ -15,7 +16,7 @@ for narrow features and hybrid stream+gather plans:
       -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a)
     GAT -> GATConv -> gat_attention_spmm -> plan_segment_sum_mh (CUDA, sm_90a)
     feature_hint <= 64: GIN / APPNP / SGC -> segment_spmm -> _spmm_fwd_bat
-      -> _bat_sum -> bat_segment_sum_packed (CUDA, sm_90a) at 8-64 columns
+      -> _bat_row_sum -> bat_segment_sum_packed (CUDA, sm_90a) at 8-64 columns
     layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid
       -> stream_segment_sum / stream_segment_acc (CUDA, sm_90a) per stream
          family + the BAT path over the remainder

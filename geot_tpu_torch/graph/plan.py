@@ -26,7 +26,7 @@ the tile reduces the ones whose dst lies in window `out_block[t]` (rows
 In both, tiles are ordered by window and every window has at least one
 tile (coverage), so a kernel can write every output row.
 
-Port-only: a slot plan (with e0) and a packed BAT plan carry the edge-row
+Port-only: a slot plan (with e0) and every BAT plan carry the edge-row
 kernel's schedule (`row_sched`, `graph.row_schedule.RowSchedule`), made
 from the plan's host arrays when the plan is made; `row_schedule_of`
 makes one for a plan that lacks it (a chunk cut out of a plan).
@@ -92,7 +92,10 @@ class BatPlan:
       km_pack. Set with km_pack > 1, for the packed kernel
       (`bat_segment_sum_packed`, features 128 // km_pack wide).
     chunks:    ((t0, t1, w0, w1), ...) tile ranges [t0, t1) covering windows
-      [w0, w1); consecutive chunks may share one (hub) window.
+      [w0, w1); consecutive chunks may share one (hub) window. The TPU
+      runs a plan chunk by chunk (its scalar-prefetch and VMEM limits); the
+      port's sums take the plan whole, by its `row_sched`, and keep the
+      chunks so that the plan equals the reference's.
     """
 
     out_block: torch.Tensor
@@ -108,16 +111,9 @@ class BatPlan:
     chunks: tuple = ()
     chunk_blocks: int = 0
     chunk_vblocks: int = 0
-    # first value block of each chunk (n_vblocks where a chunk starts with a
-    # pad tile), kept on the host so executing a chunk needs no device read
-    chunk_vbase: tuple = ()
-    # out_block non-decreasing over the whole plan, as bat_segment_sum needs
-    # when handed the plan whole (pad tiles of uniformized chunks can break
-    # it; such a plan runs chunk by chunk). Checked on the host when made.
-    monotone: bool = False
     dst_km: Optional[torch.Tensor] = None
-    # the edge-row kernel's schedule (`bat_segment_sum_packed`), made with
-    # a packed plan (`bat_plan_from_host`)
+    # the edge-row kernel's schedule (`bat_segment_sum`,
+    # `bat_segment_sum_packed`), made with the plan (`bat_plan_from_host`)
     row_sched: Optional[RowSchedule] = dataclasses.field(default=None, compare=False,
                                                          repr=False)
 
@@ -519,14 +515,14 @@ def _uniformize_bat_chunks(arrays: dict, meta: dict) -> None:
 def _check_window_order(
     ob: np.ndarray, vb: np.ndarray, n_vblocks: int, chunks: tuple = ()
 ) -> None:
-    """What the CUDA kernels rely on. bat_segment_sum meets a window's
-    edges in dst order: within each chunk (the whole plan when unchunked)
-    out_block must be non-decreasing and a window's real tiles must have
-    increasing vblock. The pad tiles of uniformized chunks may point past
-    the next chunk's first window, so the order is checked per chunk.
-    sddmm_bat writes each edge from its one owner tile: no (vblock,
-    out_block) pair may occur twice among the real tiles. Plans from
-    `build_bat_plan_host` always pass."""
+    """The reference's plan order, and what the kernels rely on. Within
+    each chunk (the whole plan when unchunked) out_block must be
+    non-decreasing and a window's real tiles must have increasing vblock
+    (the pad tiles of uniformized chunks may point past the next chunk's
+    first window, so the order is checked per chunk). sddmm_bat writes
+    each edge from its one owner tile, and the edge-row schedule lists
+    each edge once: no (vblock, out_block) pair may occur twice among the
+    real tiles. Plans from `build_bat_plan_host` always pass."""
     for t0, t1 in [(c[0], c[1]) for c in chunks] or [(0, len(ob))]:
         o, v = ob[t0:t1], vb[t0:t1]
         if len(o) > 1 and not bool(np.all(o[1:] >= o[:-1])):
@@ -545,21 +541,16 @@ def bat_plan_from_host(arrays: dict, meta: dict, device=None) -> BatPlan:
     dev = torch.device("cpu") if device is None else torch.device(device)
     ob, vb = arrays["out_block"], arrays["vblock"]
     _check_window_order(ob, vb, meta["n_vblocks"], meta["chunks"])
-    vbase = tuple(min(int(vb[c[0]]), meta["n_vblocks"]) for c in meta["chunks"])
     bp = BatPlan(
         out_block=torch.from_numpy(np.ascontiguousarray(arrays["out_block"])).to(dev),
         vblock=torch.from_numpy(np.ascontiguousarray(arrays["vblock"])).to(dev),
         dst3=torch.from_numpy(np.ascontiguousarray(arrays["dst3"])).to(dev),
         dst_km=(torch.from_numpy(np.ascontiguousarray(arrays["dst_km"])).to(dev)
                 if "dst_km" in arrays else None),
-        chunk_vbase=vbase,
-        monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
     )
-    if bp.dst_km is None:
-        return bp
     return dataclasses.replace(bp, row_sched=_bat_schedule(
-        bp, ob, vb, arrays["dst_km"].reshape(-1), dev))
+        bp, ob, vb, arrays.get("dst_km", arrays["dst3"]), dev))
 
 
 def _sched_key(plan) -> tuple:
@@ -567,7 +558,7 @@ def _sched_key(plan) -> tuple:
     others (a chunk cut out of a plan, rebased ids) needs its own."""
     if isinstance(plan, SegmentPlan):
         return (plan.out_block, plan.dst_slots, plan.mask, plan.e0)
-    return (plan.out_block, plan.vblock, plan.dst_km)
+    return (plan.out_block, plan.vblock, plan.dst3 if plan.dst_km is None else plan.dst_km)
 
 
 def _slot_schedule(plan: SegmentPlan, dst_slots, mask, e0, device, **knobs) -> RowSchedule:
@@ -577,15 +568,20 @@ def _slot_schedule(plan: SegmentPlan, dst_slots, mask, e0, device, **knobs) -> R
                               _sched_key(plan), seconds=time.perf_counter() - t0, **knobs)
 
 
-def _bat_schedule(bp: BatPlan, out_block, vblock, dst_km_flat, device,
+def _bat_schedule(bp: BatPlan, out_block, vblock, dst_ids, device,
                   **knobs) -> RowSchedule:
-    """A packed BAT plan's schedule, its dst ids read from the k-major
-    `dst_km` (edge r*P + k of a block at lane k*(E // P) + r), as the
-    packed kernel's plain version reads them."""
+    """A BAT plan's schedule, its dst ids read from `dst3` (an unpacked
+    plan) or from the k-major `dst_km` (a packed plan: edge r*P + k of a
+    block at lane k*(E // P) + r), as the plain versions read them; the
+    wide sum over a packed plan (GIN's 128-wide layer) takes the same
+    schedule."""
     t0 = time.perf_counter()
-    P, E = bp.km_pack, bp.e_tile
-    nb = dst_km_flat.shape[0] // E
-    dst_blocks = dst_km_flat.reshape(nb, P, E // P).transpose(0, 2, 1).reshape(nb, E)
+    E = bp.e_tile
+    nb = dst_ids.size // E
+    dst_blocks = np.asarray(dst_ids).reshape(nb, E)
+    if bp.dst_km is not None:
+        P = bp.km_pack
+        dst_blocks = dst_blocks.reshape(nb, P, E // P).transpose(0, 2, 1).reshape(nb, E)
     row, edge = bat_plan_entries(out_block, vblock, dst_blocks, bp.s_tile,
                                  bp.n_blocks * bp.s_tile)
     return build_row_schedule(row, edge, None, bp.n_blocks * bp.s_tile, device,
@@ -600,15 +596,14 @@ def _new_schedule(plan, **knobs) -> RowSchedule:
             raise ValueError("the slot plan carries no e0")
         return _slot_schedule(plan, plan.dst_slots.cpu().numpy(), plan.mask.cpu().numpy(),
                               plan.e0.cpu().numpy(), dev, **knobs)
-    if plan.dst_km is None or plan.km_pack < 2:
-        raise ValueError("the BAT plan is not packed (no dst_km)")
+    ids = plan.dst3 if plan.dst_km is None else plan.dst_km
     return _bat_schedule(plan, plan.out_block.cpu().numpy(), plan.vblock.cpu().numpy(),
-                         plan.dst_km.reshape(-1).cpu().numpy(), dev, **knobs)
+                         ids.cpu().numpy(), dev, **knobs)
 
 
 def row_schedule_of(plan) -> RowSchedule:
-    """The edge-row kernel's schedule of a slot plan (with e0) or a packed
-    BAT plan: the one made with the plan, or, for a plan without one or
+    """The edge-row kernel's schedule of a slot plan (with e0) or a BAT
+    plan: the one made with the plan, or, for a plan without one or
     whose tensors are not those it was made from (a chunk cut out of a
     plan), one made now from the plan's tensors and kept on the plan."""
     s = plan.row_sched
@@ -633,15 +628,13 @@ def build_bat_plan(dst, num_segments: int, *, device=None, **kwargs) -> BatPlan:
 def with_chunks(bp: BatPlan, chunks: tuple) -> BatPlan:
     """`bp` with its chunk schedule replaced by ragged chunks over its own
     tiles (e.g. `compute_chunks` at a smaller cap, to force a split hub
-    window), keeping `chunk_vbase` in step and dropping the uniform-chunk
-    sizes (`dst_km`, per value block, comes along as it is). Reads the
-    plan back to the host once, to check the new chunks as
+    window), dropping the uniform-chunk sizes (`dst_km`, per value block,
+    and the schedule, over the same tiles, come along as they are). Reads
+    the plan back to the host once, to check the new chunks as
     `bat_plan_from_host` checks its own."""
-    vb = bp.vblock.cpu().numpy()
-    _check_window_order(bp.out_block.cpu().numpy(), vb, bp.n_vblocks, tuple(chunks))
-    vbase = tuple(min(int(vb[c[0]]), bp.n_vblocks) for c in chunks)
-    return dataclasses.replace(bp, chunks=tuple(chunks), chunk_vbase=vbase,
-                               chunk_blocks=0, chunk_vblocks=0)
+    _check_window_order(bp.out_block.cpu().numpy(), bp.vblock.cpu().numpy(), bp.n_vblocks,
+                        tuple(chunks))
+    return dataclasses.replace(bp, chunks=tuple(chunks), chunk_blocks=0, chunk_vblocks=0)
 
 
 def packed_width(n: int) -> int:

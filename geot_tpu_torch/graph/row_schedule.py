@@ -3,7 +3,8 @@
 Two CUDA kernels sum by output row: the stream kernel
 (`ops/csrc/stream_segment.cu`, its schedule `stream_plan.kernel_schedule`)
 and the edge-row kernel (`ops/csrc/edge_row_sum.cu`, behind
-`plan_segment_sum_sr2`, `plan_segment_sum_packed2` and
+`plan_segment_sum_sr2`, `plan_segment_sum_packed2`,
+`plan_segment_sum_sr_packed`, `bat_segment_sum` and
 `bat_segment_sum_packed`). Both take the same work list, made here once
 per plan: entries in output-row order, each carrying a payload (an x row,
 or an edge id) with bit 31 marking the last entry of its unit; a unit is
@@ -51,8 +52,11 @@ ZERO_COST = 2
 # and slices of 32 the 16 timed sums of `python -m geot_tpu_torch.probe_slot
 # rowsum` (the flickr AEB and the GIN / APPNP packed BAT shapes, both
 # forms) took 1.2165 ms in all, with the stream kernel's 128 1.8633 ms
-# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The fan-in is the stream
-# kernel's.
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The wide plans want
+# the same: `rowsum --wide --products` summed 1.4223 / 1.9102 / 12.9459 ms
+# (narrow / wide BAT and sr_packed / the products remainder) at 32, 1.5542
+# / 1.9449 / 12.8378 at 64 and 1.4129 / 2.0841 / 15.2530 at 16, so one
+# value serves every plan class. The fan-in is the stream kernel's.
 EDGE_SLICE = 32
 EDGE_FANIN = 32
 EDGE_TASK_COST = 32
@@ -229,24 +233,41 @@ def slot_plan_entries(dst_slots: np.ndarray, mask: np.ndarray, e0: np.ndarray, n
     return _in_row_order(row[keep], edge[keep], slot[keep])
 
 
+# edges `bat_plan_entries` reads at a time (~200 MB of int64 temporaries)
+_EDGE_STEP = 1 << 22
+
+
 def bat_plan_entries(out_block: np.ndarray, vblock: np.ndarray, dst_blocks: np.ndarray,
                      s_tile: int, n_out: int):
-    """(row, edge) of a BAT plan's live edges in row order: for each tile t,
-    the edges b*E + j of its value block b = vblock[t] whose dst
-    dst_blocks[b, j] lies in window out_block[t] (`bat_tiles_plain`'s
-    rule). The -1 pads, the sentinel block and out-of-window edges are left
-    out, and so is a row outside [0, n_out)."""
+    """(row, edge) of a BAT plan's live edges in row order: edge b*E + j of
+    value block b, with dst d = dst_blocks[b, j] >= 0, is live where the
+    plan has the real tile (window d // s_tile, block b) that sums it
+    (`bat_tiles_plain`'s rule; a plan repeats no tile). The -1 pads, the
+    sentinel block (`vblock` >= n_vblocks: uniformized chunks' pad tiles)
+    and edges no tile reaches are left out, and so is a row outside
+    [0, n_out). The edges are read `_EDGE_STEP` at a time, so the host
+    holds O(nnz) and no [T, E] array (the products remainder's plan has
+    24.6 M edges)."""
     nb, E = dst_blocks.shape
     ob = np.asarray(out_block, np.int64)
     vb = np.asarray(vblock, np.int64)
     real = vb < nb
-    ob, vb = ob[real], vb[real]
-    local = np.asarray(dst_blocks)[vb].astype(np.int64) - ob[:, None] * s_tile
-    t_i, j = np.nonzero((local >= 0) & (local < s_tile))
-    row = ob[t_i] * s_tile + local[t_i, j]
-    edge = vb[t_i] * E + j
-    keep = row < n_out
-    return _in_row_order(row[keep], edge[keep])
+    keys = np.unique(ob[real] * nb + vb[real])
+    flat = np.asarray(dst_blocks).reshape(-1)
+    rows, edges = [], []
+    for e0 in range(0, len(flat), _EDGE_STEP):
+        d = flat[e0:e0 + _EDGE_STEP].astype(np.int64)
+        e = np.arange(e0, e0 + len(d), dtype=np.int64)
+        ok = (d >= 0) & (d < n_out)
+        d, e = d[ok], e[ok]
+        k = (d // s_tile) * nb + e // E
+        pos = np.minimum(np.searchsorted(keys, k), max(len(keys) - 1, 0))
+        hit = keys[pos] == k if len(keys) else np.zeros(len(k), bool)
+        rows.append(d[hit])
+        edges.append(e[hit])
+    row = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    edge = np.concatenate(edges) if edges else np.zeros(0, np.int64)
+    return _in_row_order(row, edge)
 
 
 def build_row_schedule(row: np.ndarray, edge: np.ndarray, slot: Optional[np.ndarray],

@@ -76,8 +76,9 @@ class Graph:
       took (the reference keeps this in its module's LAST_BUILD_STATS):
       "stream" ({"forward", "transpose"}: each direction's census
       statistics and remainder edges), "seconds" (per step) and
-      "row_schedule" (per plan with an edge-row schedule: its host
-      seconds, inside the plan's step, and its bytes). For logging only.
+      "row_schedule" (per plan with an edge-row schedule, the hybrid
+      remainders' too: its host seconds, inside the plan's step, and its
+      bytes). For logging only.
     """
 
     src: torch.Tensor
@@ -225,10 +226,11 @@ def build_graph(
     remainder's BAT plan stays unpacked: the hybrid path is built only
     past 64 features, as in the reference.
 
-    Every slot plan and every packed BAT plan carries the edge-row
-    kernel's schedule (`plan.row_sched`, made from the plan's own host
-    arrays); `build_stats["row_schedule"]` holds each one's host seconds
-    and bytes on the device.
+    Every slot plan and every BAT plan (the hybrid remainder's too)
+    carries the edge-row kernel's schedule (`plan.row_sched`, made from the
+    plan's own host arrays); `build_stats["row_schedule"]` holds each
+    one's host seconds and bytes on the device, under "plan", "plan_t",
+    "bat", "bat_t", "hyb.rest" and "hyb_t.rest".
     """
     layouts = tuple(layouts)
     if layouts not in LAYOUTS:
@@ -299,10 +301,12 @@ def build_graph(
                 # needs the pair, so both stay on the gather path
                 hyb = None
 
+    rests = [(f"{name}.rest", h.rest) for name, h in (("hyb", hyb), ("hyb_t", hyb_t))
+             if h is not None]
     stats["row_schedule"] = {
         name: {"seconds": p.row_sched.seconds, "bytes": p.row_sched.nbytes}
-        for name, p in (("plan", plan), ("plan_t", plan_t), ("bat", bat), ("bat_t", bat_t))
-        if p is not None and p.row_sched is not None}
+        for name, p in [("plan", plan), ("plan_t", plan_t), ("bat", bat), ("bat_t", bat_t)]
+        + rests if p is not None and p.row_sched is not None}
     return Graph(
         src=t(src),
         dst=t(dst),

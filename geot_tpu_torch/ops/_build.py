@@ -38,7 +38,6 @@ NVCC_TIMEOUT_S = 300
 
 # kernel name -> source file under ops/csrc/
 SOURCES: Dict[str, str] = {
-    "bat_segment_sum": "bat_segment_sum.cu",
     "sddmm_bat": "sddmm_bat.cu",
     "stream_segment": "stream_segment.cu",
     "slot_segment_sum": "slot_segment_sum.cu",

@@ -2,10 +2,10 @@
 hybrid stream+gather plans, with their gradients.
 
 Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
-`_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155,
-`_plan_sum_chunked` :182, `_plan_sum_gather` :216, `_aeb_packed_ok` :267,
-`_aeb_sum` :281, `_bat_sum` :335 (its wide branch; the packed one is in
-`_spmm_fwd_bat`), `_slot_spmm` :654,
+`_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155 and
+`_plan_sum_gather` :216 (in `_slot_spmm`), `_plan_sum_chunked` :182,
+`_aeb_packed_ok` :267, `_aeb_sum` :281, `_bat_sum` :335 (`_bat_row_sum`),
+`_slot_spmm` :654,
 `_make_gws_static` :675 and `_make_gs` :1008 (one Function), `_spmm_fwd`
 :698 (its AEB branches), `_spmm_fwd_bat` :750, `_stream_accum` :778,
 `_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
@@ -16,13 +16,15 @@ Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 :1256, `dispatch_path` :1298, `segment_spmm` :1367, `mh_spmm` :1486,
 `mh_spmm_transposed` :1510, `_make_mh_slot` :1523, `gat_attention_spmm`
 :1562, `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
-:1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The slot
-layout gathers exactly `x[src_slots]`: the reference's gather pad
-(`_fast_gather_fn`, odd multiples of 512 rows) answers a TPU emitter and
-is not carried over. The slot_dyn route and the packed BAT routes hand
-their sums x and src (`_aeb_sum`, `_spmm_fwd_bat`): the edge-row kernel reads
-x[src[e]] itself, with no edge-order gather, one launch a plan where the
-reference gathers and runs chunk by chunk.
+:1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The BAT
+routes at every width (the hybrid remainder's too), the slot routes at
+n <= 64 and slot_dyn hand their sums x and src (`_bat_row_sum`,
+`_slot_spmm`, `_aeb_sum`): the edge-row kernel reads x[src[e]] itself,
+with no edge-order or slot-order gather, one launch a plan where the
+reference gathers and runs chunk by chunk. The slot sums past 64
+columns (sr, pr) gather exactly `x[src_slots]` chunk by chunk: the
+reference's gather pad (`_fast_gather_fn`, odd multiples of 512 rows)
+answers a TPU emitter and is not carried over.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
 fused SpMM runs the same kernels over the transpose plan (`plan_t`,
@@ -92,36 +94,25 @@ def _pick_f_tile(n_features: int) -> int:
     return 256 if (n_features % 256 == 0 and n_features >= 256) else 128
 
 
-def _chunk_plan(plan, c):
-    """Slice chunk c = (t0, t1, w0, w1) out of a BAT or slot plan; its
-    output rows start at window w0. With uniform chunks the output spans
+def _chunk_plan(plan: SegmentPlan, c) -> SegmentPlan:
+    """Slice chunk c = (t0, t1, w0, w1) out of a slot plan; its output rows
+    start at window w0. With uniform chunks the output spans
     `chunk_blocks` windows and `num_segments` trims it to the real rows."""
     t0, t1, w0, w1 = c
     s = plan.s_tile
     nb = plan.chunk_blocks or (w1 - w0)
     num_segments = min(max(plan.num_segments - w0 * s, 0), (w1 - w0) * s)
-    if isinstance(plan, SegmentPlan):
-        def cut(t):
-            return None if t is None else t[t0:t1]
 
-        return dataclasses.replace(
-            plan, src_slots=cut(plan.src_slots), dst_slots=cut(plan.dst_slots) - w0 * s,
-            edge_pos=cut(plan.edge_pos), mask=cut(plan.mask),
-            out_block=cut(plan.out_block) - w0, e0=cut(plan.e0),
-            n_blocks=nb, num_segments=num_segments, chunks=(),
-            chunk_blocks=0,
-            monotone=True,  # uniformized chunks are in order one by one
-        )
+    def cut(t):
+        return None if t is None else t[t0:t1]
+
     return dataclasses.replace(
-        plan,
-        out_block=plan.out_block[t0:t1] - w0,
-        vblock=plan.vblock[t0:t1],
-        n_blocks=nb,
-        num_segments=num_segments,
-        chunks=(),
+        plan, src_slots=cut(plan.src_slots), dst_slots=cut(plan.dst_slots) - w0 * s,
+        edge_pos=cut(plan.edge_pos), mask=cut(plan.mask),
+        out_block=cut(plan.out_block) - w0, e0=cut(plan.e0),
+        n_blocks=nb, num_segments=num_segments, chunks=(),
         chunk_blocks=0,
-        chunk_vbase=(),
-        monotone=True,  # checked per chunk when the plan was made
+        monotone=True,  # uniformized chunks are in order one by one
     )
 
 
@@ -163,45 +154,38 @@ def _pick_mode(n_features: int, plan: SegmentPlan) -> str:
     return "sr"
 
 
-def _plan_sum_one(plan: SegmentPlan, vals_slots: torch.Tensor, w_slots: torch.Tensor,
-                  mode: str) -> torch.Tensor:
-    """One (unchunked) slot plan's sum [num_segments, n] float32, through
-    the kernel for the layout and width: pr, packed sr (n <= 64) or sr."""
-    n = vals_slots.shape[1]
-    if mode == "pr":
-        out_t = plan_segment_sum_pr(plan, vals_slots.t().contiguous(), w_slots)
-        return out_t[:, : plan.num_segments].t()
-    nw = packed_width(n)
-    if nw and plan.e_tile % (128 // nw) == 0:
-        return plan_segment_sum_sr_packed(plan, vals_slots, w_slots)[: plan.num_segments]
-    return plan_segment_sum_sr(plan, vals_slots, w_slots)[: plan.num_segments]
+def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor,
+               src: torch.Tensor) -> torch.Tensor:
+    """out[dst_slot] += w_slot * x[src_slot] over the slots; `src` is the
+    plan's edge-order src (`Graph.src` for `plan`, `Graph.dst_t` for
+    `plan_t`: src_slots holds src[e0[t] + j] at slot j of tile t). With
+    w_slots = plan.mask this is the unweighted sum (the reference's
+    `_w_slots(plan, None)`). Returns [num_segments, n] float32.
 
-
-def _plan_sum_gather(plan: SegmentPlan, gather_fn: Callable, w_slots: torch.Tensor,
-                     n: int) -> torch.Tensor:
-    """Tiled segment sum over slot-ordered values: `gather_fn(lo, hi)`
-    returns the values [hi - lo, n] of slots [lo, hi), one chunk at a time,
-    so only one chunk's gather is ever held."""
+    At n <= 64 (the reference's packed width, its lanes dividing e_tile)
+    `plan_segment_sum_sr_packed` takes x and src and reads x[src[e]] in
+    the kernel, over the whole plan in one launch. Otherwise (pr where
+    the plan's mode hint asks for it, sr past 64) the gather emits exactly
+    x[src_slots] ([slots, n] float32, pads gather node 0 and weigh 0), one
+    chunk at a time, so only one chunk's gather is ever held."""
+    x = x.float().contiguous()
+    n = x.shape[1]
     mode = _pick_mode(n, plan)
+    nw = packed_width(n)
+    if mode == "sr" and nw and plan.e_tile % (128 // nw) == 0:
+        out = plan_segment_sum_sr_packed(plan, x, w_slots, src=src.int().contiguous())
+        return out[: plan.num_segments]
+    idx = plan.src_slots.reshape(-1)
     E = plan.e_tile
 
     def run_one(cp, i, c):
         t0, t1 = c[0], c[1]
-        return _plan_sum_one(cp, gather_fn(t0 * E, t1 * E), w_slots[t0:t1], mode)
+        v, w = x.index_select(0, idx[t0 * E:t1 * E]), w_slots[t0:t1]
+        if mode == "pr":
+            return plan_segment_sum_pr(cp, v.t().contiguous(), w)[:, : cp.num_segments].t()
+        return plan_segment_sum_sr(cp, v, w)[: cp.num_segments]
 
     return _plan_sum_chunked(plan, run_one)
-
-
-def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor) -> torch.Tensor:
-    """out[dst_slot] += w_slot * x[src_slot] over the slots: the gather
-    emits exactly x[src_slots] ([slots, n] float32, pads gather node 0 and
-    weigh 0). With w_slots = plan.mask this is the unweighted sum (the
-    reference's `_w_slots(plan, None)`). Returns [num_segments, n]
-    float32."""
-    x = x.float().contiguous()
-    idx = plan.src_slots.reshape(-1)
-    return _plan_sum_gather(plan, lambda lo, hi: x.index_select(0, idx[lo:hi]), w_slots,
-                            x.shape[1])
 
 
 def _aeb_packed_ok(plan: SegmentPlan, n: int) -> int:
@@ -273,121 +257,45 @@ def _edge_dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
     return out
 
 
-def _bat_width(bp: BatPlan, n: int) -> int:
-    """The columns the BAT kernels take for n features: the packed width
-    where the plan is packed for it (km_pack == 128 // packed_width(n) and
-    `dst_km` set: the reference's test, api.py:347-348), for
-    `bat_segment_sum_packed`; else n padded to the wide kernel's feature
-    tile, for `bat_segment_sum`."""
+def _bat_packed(bp: BatPlan, n: int) -> int:
+    """The packed width where the plan is packed for n features (km_pack ==
+    128 // packed_width(n) and `dst_km` set: the reference's test,
+    api.py:347-348), for `bat_segment_sum_packed`; else 0, for the wide
+    `bat_segment_sum`, which takes n columns as they are."""
     nw = packed_width(n)
     if nw and bp.km_pack == 128 // nw and bp.dst_km is not None:
         return nw
-    return _round_up(max(n, 1), _pick_f_tile(n))
+    return 0
 
 
-def _bat_sum(
-    bp: BatPlan,
-    vals_fn: Callable,
-    n: int,
-    w_edge: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Tiled segment sum over EDGE-ordered values through the wide BAT
-    kernel (`bat_segment_sum`). `vals_fn(e_begin, size)` returns value rows
-    for edges [e_begin, e_begin + size) ([<= size, n]), or the whole edge
-    list for e_begin None; n is a multiple of the kernel's feature tile
-    (`_bat_width`).
-
-    The reference runs more than 2 chunks of a wide sum under `lax.scan`
-    (`_bat_sum_scan`, api.py:415) to compile one chunk body. PyTorch runs
-    eagerly, so every chunk count goes through this one Python loop; the
-    sums are the same. Each chunk gathers min(chunk_vblocks, tiles + 1)
-    value blocks, as the scan does (every real block of a chunk lies in
-    that span), and its dst ids are rebased to the chunk's blocks and
-    windows (reference :383-393). The packed branch takes the plan whole
-    (`_spmm_fwd_bat`, `_IndexScatterBat`).
-    """
-    E, s = bp.e_tile, bp.s_tile
-    if _bat_width(bp, n) != n or n < 128:
-        raise ValueError(f"_bat_sum: width {n} is not the plan's wide kernel width "
-                         f"{_bat_width(bp, n)}")
-    f_tile = _pick_f_tile(n)
-    if bp.chunks and len(bp.chunk_vbase) != len(bp.chunks):
-        raise ValueError("chunk_vbase out of step with chunks; use plan.with_chunks")
-
-    def rebase(ids: torch.Tensor, vbase: int, nblk: int, w0: int) -> torch.Tensor:
-        # a chunk's dst ids: its blocks, then one forced -1 block for the
-        # pad (sentinel) tiles; ids shift into the chunk's window-local
-        # range (-1 entries shift too but stay below any window)
-        real = ids[vbase : min(vbase + nblk, bp.n_vblocks)]
-        out = torch.full((nblk + 1, 1, E), -1, dtype=ids.dtype, device=ids.device)
-        out[: real.shape[0]] = real
-        out[: real.shape[0]] -= w0 * s
-        return out
-
-    def run_one(cp: BatPlan, i, c):
-        t0, t1, w0, _ = c
-        if i is None:
-            cpp, v, we = cp, vals_fn(None, bp.num_edges), w_edge
-        else:
-            vbase = bp.chunk_vbase[i]
-            nblk = min(bp.chunk_vblocks or (t1 - t0 + 1), t1 - t0 + 1)
-            size = nblk * E
-            vb_rel = torch.where(
-                cp.vblock >= bp.n_vblocks,
-                torch.full_like(cp.vblock, nblk),
-                cp.vblock - vbase,
-            )
-            cpp = dataclasses.replace(
-                cp, vblock=vb_rel, dst3=rebase(bp.dst3, vbase, nblk, w0), n_vblocks=nblk,
-                dst_km=None)
-            v = vals_fn(vbase * E, size)
-            we = None
-            if w_edge is not None:
-                we = w_edge[vbase * E : vbase * E + size]
-        return bat_segment_sum(cpp, v, we, f_tile=f_tile)[: cpp.num_segments]
-
-    return _plan_sum_chunked(bp, run_one)
+def _bat_row_sum(bp: BatPlan, vals: torch.Tensor, w_edge: Optional[torch.Tensor] = None,
+                 src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The BAT segment sum of n-column float32 values, in edge order or,
+    with `src`, x read as x[src[e]] in the kernel: no edge-order gather,
+    the whole plan (chunked or not) in one launch, where the reference
+    gathers and runs chunk by chunk (`_bat_sum_scan`, api.py:415). On a
+    plan packed for n the values' columns are padded to the packed width
+    (`bat_segment_sum_packed`); otherwise the wide `bat_segment_sum` takes
+    them as they are (the reference pads them to its 128-lane tile).
+    Returns [num_segments, n] float32."""
+    n = vals.shape[1]
+    nw = _bat_packed(bp, n)
+    if nw:
+        v = F.pad(vals, (0, nw - n)) if nw != n else vals.contiguous()
+        out = bat_segment_sum_packed(bp, v, w_edge, src=src)[:, :n]
+    else:
+        out = bat_segment_sum(bp, vals.contiguous(), w_edge, src=src)
+    return out[: bp.num_segments]
 
 
 def _spmm_fwd_bat(
     bp: BatPlan, x: torch.Tensor, src: torch.Tensor, w_edge: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """sum_e w_e * x[src_e] by dst window via the BAT kernels. Returns
-    [num_segments, n] float32 whatever x's dtype (the kernels sum float32;
-    callers cast back).
-
-    x's columns are padded to the kernels' width first (`_bat_width`: the
-    packed width on a plan packed for n, else the wide kernel's feature
-    tile), so the pad touches x's rows only. On a plan packed for n the
-    packed kernel reads x[src[e]] itself, with no edge-order gather, over
-    the whole plan in one launch. Otherwise the wide kernel's gather emits rows in raw EDGE order
-    and weights stream in edge order. The reference pads narrow rows after
-    its gather; the sums are the same."""
-    x = x.float()
-    if w_edge is not None:
-        w_edge = w_edge.float()
-    n = x.shape[1]
-    f_pad = _bat_width(bp, n)
-    if f_pad != n:
-        x = F.pad(x, (0, f_pad - n))
-    if f_pad < 128:  # the reference's packed branch: the whole plan, one launch
-        out = bat_segment_sum_packed(bp, x.contiguous(), w_edge, src=src.int().contiguous())
-        out = out[: bp.num_segments]
-        return out[:, :n] if f_pad != n else out
-    E = bp.e_tile
-    nnz = src.shape[0]
-    # src padded to whole value blocks; the pad rows gather node 0 and meet
-    # only -1 dst ids. A chunk's gather may run past the end: it then
-    # returns fewer rows, and the kernel reads missing rows as zero.
-    src_pad = F.pad(src.long(), (0, _round_up(max(nnz, E), E) - nnz))
-
-    def vals_fn(e_begin, size):
-        if e_begin is None:
-            return x.index_select(0, src_pad)
-        return x.index_select(0, src_pad[e_begin : e_begin + size])
-
-    out = _bat_sum(bp, vals_fn, f_pad, w_edge=w_edge)
-    return out[:, :n] if f_pad != n else out
+    """sum_e w_e * x[src_e] by dst window via the BAT kernels, which read
+    x[src[e]] themselves (`_bat_row_sum`). Returns [num_segments, n] float32
+    whatever x's dtype (the kernels sum float32; callers cast back)."""
+    return _bat_row_sum(bp, x.float(), None if w_edge is None else w_edge.float(),
+                        src=src.int().contiguous())
 
 
 def _stream_sum(plans: tuple, x: torch.Tensor) -> torch.Tensor:
@@ -476,20 +384,23 @@ class _SlotSpmm(torch.autograd.Function):
     """Fused SpMM over the slot plans with slot-order weights: the graph's
     static weights (`slot_static`, `_make_gws_static`) or the masks
     (`slot`, unweighted, `_make_gs`). Backward = the same sum over
-    `plan_t` with its weights; no weight gradient."""
+    `plan_t` with its weights (its edge-order src is dst_t); no weight
+    gradient."""
 
     @staticmethod
-    def forward(ctx, x, plan, plan_t, w_slots, w_slots_t):
+    def forward(ctx, x, src, dst_t, plan, plan_t, w_slots, w_slots_t):
+        ctx.save_for_backward(dst_t)
         ctx.plan_t, ctx.w_slots_t = plan_t, w_slots_t
-        return _slot_spmm(plan, x, w_slots).to(x.dtype)
+        return _slot_spmm(plan, x, w_slots, src).to(x.dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        (dst_t,) = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = _slot_spmm(ctx.plan_t, g, ctx.w_slots_t).to(g.dtype)
-        return dx, None, None, None, None
+            dx = _slot_spmm(ctx.plan_t, g, ctx.w_slots_t, dst_t).to(g.dtype)
+        return dx, None, None, None, None, None, None
 
 
 class _GatherScatterBat(torch.autograd.Function):
@@ -575,20 +486,7 @@ class _IndexScatterBat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, index, plan):
         ctx.save_for_backward(index)
-        n = vals.shape[1]
-        f_pad = _bat_width(plan, n)
-        v = vals.float()
-        v = F.pad(v, (0, f_pad - n)) if f_pad != n else v.contiguous()
-        if f_pad < 128:  # the whole plan, one launch
-            out = bat_segment_sum_packed(plan, v)[: plan.num_segments]
-        else:
-            def vals_fn(e_begin, size):
-                # a chunk's slice may run past the end: the kernel reads
-                # the missing rows as zero
-                return v if e_begin is None else v[e_begin : e_begin + size]
-
-            out = _bat_sum(plan, vals_fn, f_pad)
-        return (out[:, :n] if f_pad != n else out).to(vals.dtype)
+        return _bat_row_sum(plan, vals.float()).to(vals.dtype)
 
     @staticmethod
     @once_differentiable
@@ -625,29 +523,31 @@ class _SddmmBat(torch.autograd.Function):
 class _GatherWeightScatterSlot(torch.autograd.Function):
     """Weighted fused SpMM over the slot plans with per-call edge-order
     weights (`slot_dyn`, `_make_gws`). dx = the weighted sum over `plan_t`
-    with slot weights w[edge_pos_t] (sr / sr_packed); dw[e] = <g[dst_e],
-    x[src_e]>, the plain per-edge dot, as the reference takes it."""
+    with slot weights w[edge_pos_t] (sr / sr_packed, which reads
+    g[dst_t[e]] itself); dw[e] = <g[dst_e], x[src_e]>, the plain per-edge
+    dot, as the reference takes it."""
 
     @staticmethod
-    def forward(ctx, x, w, src, dst, plan, plan_t, edge_pos_t):
+    def forward(ctx, x, w, src, dst, dst_t, plan, plan_t, edge_pos_t):
         ctx.plan_t = plan_t
-        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, edge_pos_t)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, dst_t,
+                              edge_pos_t)
         return _spmm_fwd_slot_dyn(plan, x, w, src).to(x.dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, w, src, dst, edge_pos_t = ctx.saved_tensors
+        x, w, src, dst, dst_t, edge_pos_t = ctx.saved_tensors
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             pt = ctx.plan_t
             w_t = pt.mask * w.float().index_select(0, edge_pos_t.reshape(-1)).reshape(
                 pt.mask.shape)
-            dx = _slot_spmm(pt, g, w_t).to(g.dtype)
+            dx = _slot_spmm(pt, g, w_t, dst_t).to(g.dtype)
         if ctx.needs_input_grad[1]:
             dw = _edge_dots(src, dst, g, x).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 class _IndexScatterSlot(torch.autograd.Function):
@@ -770,10 +670,11 @@ def segment_spmm(
     if path == "hybrid":
         out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
     elif path == "slot_static":
-        out = _SlotSpmm.apply(x, graph.plan, graph.plan_t, graph.w_slots, graph.w_slots_t)
+        out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
+                              graph.w_slots, graph.w_slots_t)
     elif path == "slot":
-        out = _SlotSpmm.apply(x, graph.plan, graph.plan_t, graph.plan.mask,
-                              graph.plan_t.mask)
+        out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
+                              graph.plan.mask, graph.plan_t.mask)
     elif path == "bat_static":
         out = _GatherWeightScatterBat.apply(
             x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
@@ -782,8 +683,8 @@ def segment_spmm(
     elif path == "bat":
         out = _GatherScatterBat.apply(x, graph.src, graph.dst_t, graph.bat, graph.bat_t)
     elif path == "slot_dyn":
-        out = _GatherWeightScatterSlot.apply(x, w, graph.src, graph.dst, graph.plan,
-                                             graph.plan_t, graph.edge_pos_t)
+        out = _GatherWeightScatterSlot.apply(x, w, graph.src, graph.dst, graph.dst_t,
+                                             graph.plan, graph.plan_t, graph.edge_pos_t)
     else:  # bat_dyn
         out = _GatherWeightScatterBat.apply(
             x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
@@ -857,8 +758,8 @@ def gather_scatter(
             out = _GatherScatterBat.apply(src, graph.src, graph.dst_t, _bat_of(graph),
                                           graph.bat_t)
         else:
-            out = _SlotSpmm.apply(src, graph.plan, graph.plan_t, graph.plan.mask,
-                                  graph.plan_t.mask)
+            out = _SlotSpmm.apply(src, graph.src, graph.dst_t, graph.plan, graph.plan_t,
+                                  graph.plan.mask, graph.plan_t.mask)
         return _apply_reduce_post(out, _plan_of(graph), reduce, graph.dst)
     return ref.gather_scatter_ref(src_index, dst_index, src, num_segments, reduce)
 
@@ -883,7 +784,8 @@ def gather_weight_scatter(
     if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
         if dispatch_path(graph, dynamic_w=True) == "slot_dyn":
             out = _GatherWeightScatterSlot.apply(src, weight, graph.src, graph.dst,
-                                                 graph.plan, graph.plan_t, graph.edge_pos_t)
+                                                 graph.dst_t, graph.plan, graph.plan_t,
+                                                 graph.edge_pos_t)
         else:
             out = _GatherWeightScatterBat.apply(
                 src, weight, graph.src, graph.dst, graph.dst_t, graph.perm_t,

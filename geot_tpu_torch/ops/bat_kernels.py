@@ -1,133 +1,83 @@
-"""BAT segment sums: the CUDA kernels' wrappers, wide and packed.
+"""BAT segment sums: the CUDA kernel's wrappers, wide and packed.
 
 Replace `bat_segment_sum` / `_bat_kernel` and `bat_segment_sum_packed` /
 `_bat_packed_kernel` of the JAX package
-(`geot_tpu/ops/pallas_segment.py:730-849`, `:852-1000`). The kernels are
-`ops/csrc/bat_segment_sum.cu` (F_pad a multiple of 128) and
-`ops/csrc/edge_row_sum.cu` (F 8-64: the row-ordered edge sum over a packed
-plan's `RowSchedule`, shared with the AEB slot functions), built by nvcc
-for sm_90a and called through ctypes (see those files for their design
-and bound). For a tensor
-on the CPU a wrapper runs its plain version (`bat_segment_sum_plain`, and
-`ops.reference.bat_segment_sum_packed_plain`); for a CUDA tensor it
-launches its kernel or raises.
+(`geot_tpu/ops/pallas_segment.py:730-849`, `:852-1000`). On the card both
+are the row-ordered edge sum of `ops/csrc/edge_row_sum.cu` over the
+plan's `RowSchedule` (shared with the AEB slot functions and
+`plan_segment_sum_sr_packed`), built by nvcc for sm_90a and called through
+ctypes (see that file for its design and bound): the wide sum at any
+width, the packed one at the widths its plan is packed for. Each takes
+values in edge order (the TPU kernels' contract) or x with `src`, read as
+x[src[e]] in the kernel, and sums a plan whole, chunked or not, in one
+launch. For a tensor on the CPU a wrapper runs its plain version
+(`bat_segment_sum_plain`, `ops.reference.bat_segment_sum_packed_plain`);
+for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from geot_tpu_torch.graph.plan import BatPlan, row_schedule_of
-from geot_tpu_torch.ops._build import load_kernel
 from geot_tpu_torch.ops.edge_row_kernels import edge_row_sum
 from geot_tpu_torch.ops.reference import bat_segment_sum_packed_plain, bat_tiles_plain
 
 __all__ = ["bat_segment_sum", "bat_segment_sum_plain", "bat_segment_sum_packed"]
-
-_KERNEL_COLS = 128  # columns one CUDA block covers (32 lanes x float4)
-
-
-def _bound_fn():
-    fn = load_kernel("bat_segment_sum").geot_bat_segment_sum
-    if fn.argtypes is None:
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, i64, i32, p, p, i64, p, p, i32, i32, i32, i32, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def bat_segment_sum_plain(
     bp: BatPlan,
     vals: torch.Tensor,
     w_edge: Optional[torch.Tensor] = None,
-    f_tile: int = 128,
+    *,
+    src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain-torch BAT segment sum, the same function as the kernel:
-    for each tile t, sum w[e]*vals[e] over the edges e of value block
+    for each tile t, sum w[e] * v(e) over the edges e of value block
     vblock[t] whose dst lies in window out_block[t], into row dst
-    (`bat_tiles_plain` over dst3). Rows e >= vals.shape[0] read as zero,
-    weights e >= len(w_edge) as zero. Returns [n_blocks*s_tile, F] float32
-    (every row written; empty rows 0). `f_tile` is accepted for the
-    kernel's signature and does not change the result."""
-    del f_tile
-    return bat_tiles_plain(bp, bp.dst3.reshape(bp.dst3.shape[0], bp.e_tile), vals, w_edge)
+    (`bat_tiles_plain` over dst3). v(e) = vals[e] (edge order), or
+    vals[src[e]] with `src`; a row past the end of vals, an edge past
+    src's and a weight past w_edge's read as zero. Returns
+    [n_blocks*s_tile, F] float32 (every row written; empty rows 0)."""
+    return bat_tiles_plain(bp, bp.dst3.reshape(bp.dst3.shape[0], bp.e_tile), vals, w_edge,
+                           src=src)
 
 
-def _check(t: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, vals on {dev}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != dim:
-        raise ValueError(f"{name} must be {dim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _row_sum(bp: BatPlan, vals, w_edge, src, what: str) -> torch.Tensor:
+    """Checks the plan and launches the edge-row kernel over its schedule:
+    every live edge, a weight-0 one adding 0 * v as the TPU kernels do."""
+    if tuple(bp.dst3.shape) != (bp.n_vblocks + 1, 1, bp.e_tile):
+        raise ValueError(f"{what}: dst3 shape {tuple(bp.dst3.shape)} does not match the plan")
+    return edge_row_sum(row_schedule_of(bp), vals, what=what, src=src, w_edge=w_edge)
 
 
 def bat_segment_sum(
     bp: BatPlan,
     vals: torch.Tensor,
     w_edge: Optional[torch.Tensor] = None,
-    f_tile: int = 128,
+    *,
+    src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Wide BAT segment sum over EDGE-ordered values [>= nnz rows, F_pad]
-    (F_pad a multiple of f_tile, f_tile a multiple of 128) with optional
-    per-edge weights [nnz]. Returns [n_blocks*s_tile, F_pad] float32.
+    """Wide BAT segment sum: vals [rows, F] in EDGE order (any F >= 1; the
+    TPU kernel's F_pad of whole 128-lane tiles is not needed), or, with
+    `src` [nnz] int32, node rows x that edge e reads as x[src[e]];
+    optional per-edge weights [n_w]. Rows past the end of vals (or of
+    src) and weights past n_w read as zero; a live edge of weight 0 adds
+    0 * v. Returns [n_blocks*s_tile, F] float32. Any plan, packed or not,
+    chunked or uniformized with pad tiles, is summed whole in one launch.
 
-    The kernel finds each window's tiles by a binary search over
-    out_block, so the plan must be ordered as a whole (`bp.monotone`). A
-    uniformized chunked plan whose pad tiles break that order is refused
-    on every device; run it chunk by chunk, as `segment_spmm` does.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel and
+    CPU tensors run the plain version; CUDA tensors launch the edge-row
+    kernel (`ops/csrc/edge_row_sum.cu`, over the plan's `row_sched`) and
     add one to `bat_segment_sum.launches`."""
-    if not bp.monotone:
-        raise ValueError("bat_segment_sum: out_block is not non-decreasing over "
-                         "the whole plan; run its chunks one by one")
     dev = vals.device
     if dev.type == "cpu":
-        return bat_segment_sum_plain(bp, vals, w_edge, f_tile)
+        return bat_segment_sum_plain(bp, vals, w_edge, src=src)
     if dev.type != "cuda":
         raise ValueError(f"bat_segment_sum: unsupported device {dev}")
-    _check(vals, "vals", torch.float32, 2, dev)
-    _check(bp.dst3, "dst3", torch.int32, 3, dev)
-    _check(bp.out_block, "out_block", torch.int32, 1, dev)
-    _check(bp.vblock, "vblock", torch.int32, 1, dev)
-    if w_edge is not None:
-        _check(w_edge, "w_edge", torch.float32, 1, dev)
-    F = vals.shape[1]
-    if f_tile % _KERNEL_COLS or F % f_tile:
-        raise ValueError(f"F_pad={F} must be a multiple of f_tile={f_tile}, "
-                         f"itself a multiple of {_KERNEL_COLS}")
-    if bp.e_tile % 32:
-        raise ValueError(f"e_tile={bp.e_tile} must be a multiple of 32")
-    if tuple(bp.dst3.shape) != (bp.n_vblocks + 1, 1, bp.e_tile):
-        raise ValueError(f"dst3 shape {tuple(bp.dst3.shape)} does not match the plan")
-    if bp.vblock.shape != bp.out_block.shape:
-        raise ValueError("vblock and out_block differ in length")
-    if vals.data_ptr() % 16:
-        raise ValueError("vals must be 16-byte aligned")
-    out = torch.empty(bp.n_blocks * bp.s_tile, F, dtype=torch.float32, device=dev)
-    # scratch: each tile's first and last row and their partial sums
-    part_rows = torch.empty(2 * bp.num_tiles, dtype=torch.int32, device=dev)
-    part_vals = torch.empty(2 * bp.num_tiles, F, dtype=torch.float32, device=dev)
-    fn = _bound_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            vals.data_ptr(), vals.shape[0], F,
-            bp.dst3.data_ptr(),
-            None if w_edge is None else w_edge.data_ptr(),
-            0 if w_edge is None else w_edge.shape[0],
-            bp.out_block.data_ptr(), bp.vblock.data_ptr(), bp.num_tiles,
-            bp.n_blocks, bp.e_tile, bp.s_tile, out.data_ptr(),
-            part_rows.data_ptr(), part_vals.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bat_segment_sum kernel launch failed: cudaError {rc}")
+    out = _row_sum(bp, vals, w_edge, src, "bat_segment_sum")
     bat_segment_sum.launches += 1
     return out
 
@@ -166,13 +116,11 @@ def bat_segment_sum_packed(
         return bat_segment_sum_packed_plain(bp, vals, w_edge, src=src)
     if dev.type != "cuda":
         raise ValueError(f"bat_segment_sum_packed: unsupported device {dev}")
-    _check(bp.dst_km, "dst_km", torch.int32, 3, dev)
     if bp.e_tile % bp.km_pack:
         raise ValueError(f"e_tile={bp.e_tile} is not a multiple of km_pack={bp.km_pack}")
     if tuple(bp.dst_km.shape) != (bp.n_vblocks + 1, 1, bp.e_tile):
         raise ValueError(f"dst_km shape {tuple(bp.dst_km.shape)} does not match the plan")
-    out = edge_row_sum(row_schedule_of(bp), vals, what="bat_segment_sum_packed", src=src,
-                       w_edge=w_edge)
+    out = _row_sum(bp, vals, w_edge, src, "bat_segment_sum_packed")
     bat_segment_sum_packed.launches += 1
     return out
 

@@ -1,11 +1,13 @@
 // Row-ordered edge sum for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces three TPU kernels of geot_tpu/ops/pallas_segment.py, which on
+// Replaces five TPU kernels of geot_tpu/ops/pallas_segment.py, which on
 // the card are one function:
 //
-//   plan_segment_sum_sr2      (:384, `_sr2_kernel` :323-382, `pallas_call` :496)
-//   plan_segment_sum_packed2  (:581, `_packed2_kernel` :512-579, :688)
-//   bat_segment_sum_packed    (:852-1000, `_bat_packed_kernel`, :906, :976)
+//   plan_segment_sum_sr2        (:384, `_sr2_kernel` :323-382, `pallas_call` :496)
+//   plan_segment_sum_packed2    (:581, `_packed2_kernel` :512-579, :688)
+//   bat_segment_sum_packed      (:852-1000, `_bat_packed_kernel`, :906, :976)
+//   bat_segment_sum             (:772, `_bat_kernel` :730, :837), any width
+//   plan_segment_sum_sr_packed  (:233, `_sr_packed_kernel` :190, :274), F <= 64
 //
 //   out[d, :] = sum over the plan's live edges e with dst d, in edge order,
 //               of w(e) * v(e, :)
@@ -19,20 +21,24 @@
 // block, pad slots and out-of-window slots are not listed.
 //
 //   v(e)  vals[e - e_base] (edge order: the TPU kernels' contract), or
-//         vals[slot(e)] (a slot plan's slot order, sr2), or vals[src[e]]
-//         (the fused gather: vals is x); a row outside vals reads as zero
+//         vals[slot(e)] (a slot plan's slot order, sr2 and sr_packed), or
+//         vals[src[e]] (the fused gather: vals is x, src the plan's
+//         edge-order src); a row outside vals reads as zero
 //   w(e)  1, times w_slots[slot(e)] (a slot plan's static weights or mask),
 //         times w_edge[e] where per-call edge-order weights are given (0
 //         past n_w; read only where the slot weight is not 0)
 //
-// With skip_zero (sr2, packed2) an entry of weight 0 adds nothing and its
-// row is not read, as the slot kernels skip such slots (ROADMAP C.9);
-// without it (the packed BAT kernel) it adds 0 * v, as the TPU kernel does.
+// With skip_zero (sr2, packed2, sr_packed) an entry of weight 0 adds nothing
+// and its row is not read, as the slot kernels skip such slots (ROADMAP
+// C.9); without it (the BAT sums) it adds 0 * v, as the TPU kernels do.
 //
 // Bound on the H100: bytes. Each live edge reads one value row (256 bytes
 // at F 64), its entry and weight, and every output row is written once;
 // in the fused form the value rows are x's, which the graph's edges read
-// again and again: flickr's x at F 64 is 23 MB, inside the 50 MB L2. The
+// again and again: flickr's x at F 64 is 23 MB, inside the 50 MB L2;
+// arxiv's at F 128 is 87 MB and the products graph's 1.25 GB, so there the
+// gathered rows come partly from DRAM, and rows in flight hide its latency.
+// The
 // TPU kernels walk tiles of E slots in a sequential grid and carry a
 // window's sum in VMEM; the first port of them (a tile pass and a window
 // pass over shared-memory partials) spent its time on dependent loads and
@@ -64,9 +70,17 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps a block
-constexpr int kBatch = 4;      // value rows in flight per lane
-constexpr int kCols = 128;     // columns per slab at G = 32
+// Rows in flight per lane. A build flag for `probe_slot rowsum`'s sweep:
+// over its narrow, wide and products sums 8 took 1.3941 / 1.9701 /
+// 13.7884 ms, 4 1.4223 / 1.9102 / 12.9459, 2 1.6145 / 2.3889 / 15.5881
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), so 4 stays.
+#ifndef GEOT_EDGE_BATCH
+#define GEOT_EDGE_BATCH 4
+#endif
+
+constexpr int kThreads = 128;             // 4 warps a block
+constexpr int kBatch = GEOT_EDGE_BATCH;   // value rows in flight per lane
+constexpr int kCols = 128;                // columns per slab at G = 32
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowMask = 0x7fffffff;  // cols entry -> edge (bit 31: last of unit)

@@ -1,6 +1,6 @@
 // The multi-head slot-layout segment sum for Hopper (sm_90a): the kernels
 // of slot_mh.cu, which binds them to a plain C interface for ctypes. They
-// extend the design of slot_segment_sum.cu (sr, sr_packed, pr), which keeps
+// extend the design of slot_segment_sum.cu (sr, pr), which keeps
 // its own copy: built from this template, its 128-column
 // sr tile kernel took 71 registers instead of 64 and 10% more time at
 // F 500 (1.11 vs 1.01 ms on the flickr plan, NVIDIA H100 80GB HBM3, 700 W,

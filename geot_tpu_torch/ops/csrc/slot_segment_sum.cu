@@ -1,17 +1,19 @@
 // Slot-layout segment sums for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces three TPU kernels of geot_tpu/ops/pallas_segment.py that compute
+// Replaces two TPU kernels of geot_tpu/ops/pallas_segment.py that compute
 // one function over a slot plan (SegmentPlan: T tiles of E slots, tile t in
 // output window out_block[t], out_block non-decreasing):
 //
 //   plan_segment_sum_sr         (:1302, `_sr_kernel` :89-116)
-//   plan_segment_sum_sr_packed  (:233, `_sr_packed_kernel` :190-230), F <= 64
 //   plan_segment_sum_pr         (:1348, `_pr_kernel` :119-144), transposed
+//
+// (The third, plan_segment_sum_sr_packed (:233) at F <= 64, is the
+// row-ordered edge sum of edge_row_sum.cu, which reads x[src[e]] itself.)
 //
 //   out[dst[t*E + j], :] += w[t*E + j] * vals[t*E + j, :]   for each slot with
 //                                                           w[t*E + j] != 0
 //
-// with dst[t*E + j] in window out_block[t]. sr and sr_packed read vals
+// with dst[t*E + j] in window out_block[t]. sr reads vals
 // [>= T*E, F] and write out [n_windows*s_tile, F]; pr reads the transpose
 // vals_t [F, ld_in] and writes the transpose out_t [F, n_windows*s_tile].
 // Every row of every window is written exactly once (zeros included), with
@@ -26,12 +28,12 @@
 // TPU kernels add 0 * v there, which is the same sum wherever v is finite.
 //
 // Bound on the H100: bytes. At the flickr shape (981,504 slots) sr at F 500
-// must read ~1.96 GB of slot values and write ~179 MB; sr_packed at F 64
-// ~0.26 GB; F 7 and pr on [8, T*E] are a few tens of MB, so launch latency
-// bounds them. The flops (2 per value) are negligible.
+// must read ~1.96 GB of slot values and write ~179 MB; pr on [8, T*E] a
+// few tens of MB, so launch latency bounds it. The flops (2 per value) are
+// negligible.
 //
 // The TPU grid runs the tiles in order and carries a window's sum in VMEM;
-// Hopper blocks run in no order. So, as in bat_segment_sum.cu:
+// Hopper blocks run in no order. So:
 //
 //  1. slot_tile_kernel, one block of 8 warps per (tile, column slab). Each
 //     warp sums a contiguous eighth of the tile's slots in order and writes
@@ -50,8 +52,8 @@
 //     dependent rounds.)
 //
 // A warp takes G lanes per slot, each lane 4 columns: G = 32 (a 128-column
-// slab) for sr and for pr past 64 rows, G = F_pad / 4 for F_pad = 8, 16, 32
-// or 64. With G < 32 a warp reads P = 32 / G consecutive slots at once (the
+// slab) for sr and for pr past 64 rows, G = F_pad / 4 for pr's F_pad = 8,
+// 16, 32 or 64 rows. With G < 32 a warp reads P = 32 / G consecutive slots at once (the
 // TPU kernel's packing of 128 / F edges into one lane row), adds equal rows
 // among them with a segmented suffix sum over shuffles, and then takes the
 // runs in order.
@@ -469,7 +471,7 @@ int row_major(int G, const void* vals, int F, const void* dst, const void* w,
 // the kernel's slab, `slot_scratch_width`). Each launches two kernels on
 // `stream` and returns cudaGetLastError() (0 on success).
 
-// Scratch row width of the three kernels for F columns (pr: F rows of vals_t).
+// Scratch row width of the two kernels for F columns (pr: F rows of vals_t).
 extern "C" int geot_slot_scratch_width(int F, int packed) {
   const int G = packed ? lanes_for(F) : 32;
   return (F + 4 * G - 1) / (4 * G) * 4 * G;
@@ -482,17 +484,6 @@ extern "C" int geot_plan_segment_sum_sr(const void* vals, int F, const void* dst
                                         void* part_rows, void* part_vals, void* stream) {
   return row_major(32, vals, F, dst, w, out_block, T, n_windows, E, s_tile, out, part_rows,
                    part_vals, stream);
-}
-
-// The same function for 1 <= F <= 64, 32 / (F_pad / 4) slots per warp step.
-extern "C" int geot_plan_segment_sum_sr_packed(const void* vals, int F, const void* dst,
-                                               const void* w, const void* out_block, int T,
-                                               int n_windows, int E, int s_tile, void* out,
-                                               void* part_rows, void* part_vals,
-                                               void* stream) {
-  if (F > 64) return (int)cudaErrorInvalidValue;
-  return row_major(lanes_for(F), vals, F, dst, w, out_block, T, n_windows, E, s_tile, out,
-                   part_rows, part_vals, stream);
 }
 
 // vals_t [N, ld_in] f32 (slot i of row c at c*ld_in + i, ld_in >= T*E) ->

@@ -1,6 +1,7 @@
 """The row-ordered edge-sum kernel's launcher (`ops/csrc/edge_row_sum.cu`).
 
-`plan_segment_sum_sr2`, `plan_segment_sum_packed2` (`ops/slot_kernels.py`)
+`plan_segment_sum_sr2`, `plan_segment_sum_packed2`,
+`plan_segment_sum_sr_packed` (`ops/slot_kernels.py`), `bat_segment_sum`
 and `bat_segment_sum_packed` (`ops/bat_kernels.py`) launch it on CUDA
 tensors, each counting its launches under its own name; their plain
 versions are in `ops/reference.py`. It sums a plan's live edges by output

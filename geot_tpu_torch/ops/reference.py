@@ -224,12 +224,17 @@ def plan_segment_sum_sr_plain(plan, vals_slots: torch.Tensor,
     return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)
 
 
-def plan_segment_sum_sr_packed_plain(plan, vals_slots: torch.Tensor,
-                                     w_slots: torch.Tensor) -> torch.Tensor:
-    """`plan_segment_sum_sr_plain` for narrow rows (F <= 64)."""
-    if vals_slots.shape[1] > 64:
-        raise ValueError(f"packed slot sum takes F <= 64, got {vals_slots.shape[1]}")
-    return plan_segment_sum_sr_plain(plan, vals_slots, w_slots)
+def plan_segment_sum_sr_packed_plain(plan, vals: torch.Tensor, w_slots: torch.Tensor,
+                                     src=None) -> torch.Tensor:
+    """`plan_segment_sum_sr_plain` for narrow rows (F <= 64), over values
+    in slot order, or, with `src` (the plan's edge-order src), node rows
+    that slot j of tile t reads as vals[src[e0[t] + j]] (rows past the end
+    of vals, and edges past src's, read as zero)."""
+    if vals.shape[1] > 64:
+        raise ValueError(f"packed slot sum takes F <= 64, got {vals.shape[1]}")
+    if src is None:
+        return plan_segment_sum_sr_plain(plan, vals, w_slots)
+    return plan_segment_sum_sr2_plain(plan, vals, vals_layout="edge", w_slots=w_slots, src=src)
 
 
 def plan_segment_sum_pr_plain(plan, vals_slots_t: torch.Tensor,

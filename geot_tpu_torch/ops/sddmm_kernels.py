@@ -16,9 +16,21 @@ import torch
 
 from geot_tpu_torch.graph.plan import BatPlan
 from geot_tpu_torch.ops._build import load_kernel
-from geot_tpu_torch.ops.bat_kernels import _KERNEL_COLS, _check
 
 __all__ = ["sddmm_bat", "sddmm_bat_plain"]
+
+_KERNEL_COLS = 128  # columns one CUDA block covers (32 lanes x float4)
+
+
+def _check(t: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, a on {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _bound_fn():

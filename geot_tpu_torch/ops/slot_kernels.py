@@ -4,11 +4,11 @@ Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed`,
 `plan_segment_sum_pr`, `plan_segment_sum_sr2`, `plan_segment_sum_packed2`
 and `plan_segment_sum_mh` of the JAX package
 (`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`, `:384`, `:581`,
-`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (sr, sr_packed,
-pr), `slot_mh.cu` (mh, the template in `slot_common.cuh`) and
-`edge_row_sum.cu` (sr2 and packed2: one row-ordered edge sum over the
-plan's `RowSchedule`, values in edge or slot order or gathered in the
-kernel as x[src[e]]), built by nvcc for sm_90a and called through ctypes
+`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (sr, pr),
+`slot_mh.cu` (mh, the template in `slot_common.cuh`) and `edge_row_sum.cu`
+(sr_packed, sr2 and packed2: one row-ordered edge sum over the plan's
+`RowSchedule`, values in edge or slot order or gathered in the kernel as
+x[src[e]]), built by nvcc for sm_90a and called through ctypes
 (see those files for their design and bound); their plain versions are in
 `ops/reference.py`. For tensors on the
 CPU a wrapper runs its plain version; for CUDA tensors it launches its
@@ -49,7 +49,6 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _TAIL = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
 _ARGTYPES = {
     "geot_plan_segment_sum_sr": [_P, _I32, _P, _P] + _TAIL,
-    "geot_plan_segment_sum_sr_packed": [_P, _I32, _P, _P] + _TAIL,
     "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P] + _TAIL,
     "geot_plan_segment_sum_mh": [_P, _I32, _P, _P, _I32, _I32] + _TAIL,
     "geot_slot_scratch_width": [_I32, _I32],
@@ -136,27 +135,26 @@ def plan_segment_sum_sr(plan: SegmentPlan, vals_slots: torch.Tensor,
     return out
 
 
-def plan_segment_sum_sr_packed(plan: SegmentPlan, vals_slots: torch.Tensor,
-                               w_slots: torch.Tensor) -> torch.Tensor:
-    """`plan_segment_sum_sr` for narrow rows, 1 <= F <= 64: a warp reads
-    32 / (F_pad / 4) slots at once (F_pad = 8, 16, 32 or 64).
+def plan_segment_sum_sr_packed(plan: SegmentPlan, vals: torch.Tensor, w_slots: torch.Tensor,
+                               *, src=None) -> torch.Tensor:
+    """`plan_segment_sum_sr` for narrow rows, 1 <= F <= 64: values in slot
+    order (vals [>= T*E, F], the TPU kernel's contract), or, with `src`
+    [nnz] int32 (the plan's edge-order src: `Graph.src` for `plan`,
+    `Graph.dst_t` for `plan_t`), node rows x that slot j of tile t reads
+    as x[src[e0[t] + j]]; weights w_slots [T, E] (0 on pads). A slot of
+    weight 0 adds nothing. -> [n_blocks*s_tile, F] float32.
 
     CPU tensors run `plan_segment_sum_sr_packed_plain`; CUDA tensors
-    launch the kernel and add one to
+    launch the edge-row kernel (`ops/csrc/edge_row_sum.cu`, over the
+    plan's `row_sched`, the whole plan in one launch) and add one to
     `plan_segment_sum_sr_packed.launches`."""
-    if _device_of(vals_slots, "plan_segment_sum_sr_packed") == "cpu":
-        return plan_segment_sum_sr_packed_plain(plan, vals_slots, w_slots)
-    F = vals_slots.shape[1]
+    if _device_of(vals, "plan_segment_sum_sr_packed") == "cpu":
+        return plan_segment_sum_sr_packed_plain(plan, vals, w_slots, src=src)
+    F = vals.shape[1]
     if not 1 <= F <= 64:
         raise ValueError(f"plan_segment_sum_sr_packed takes 1 <= F <= 64, got {F}")
-    if vals_slots.shape[0] < plan.num_tiles * plan.e_tile:
-        raise ValueError(f"vals_slots has {vals_slots.shape[0]} rows, the plan "
-                         f"{plan.num_tiles * plan.e_tile} slots")
-    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
-                      device=vals_slots.device)
-    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots.device)
-    _launch("geot_plan_segment_sum_sr_packed", plan, vals_slots,
-            [vals_slots, F, plan.dst_slots, w_slots], F, out, True)
+    out = _row_sum("plan_segment_sum_sr_packed", plan, vals,
+                   "slot" if src is None else "edge", w_slots, None, 0, src)
     plan_segment_sum_sr_packed.launches += 1
     return out
 
@@ -183,10 +181,10 @@ def plan_segment_sum_pr(plan: SegmentPlan, vals_slots_t: torch.Tensor,
     return out
 
 
-def _aeb_sum(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
+def _row_sum(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
              w_edge, e_base: int, src) -> torch.Tensor:
-    """Checks the AEB function's arguments and launches the edge-row kernel
-    over the plan's schedule (`row_schedule_of`): sr2 and packed2 are one
+    """Checks the arguments and launches the edge-row kernel over the
+    plan's schedule (`row_schedule_of`): sr_packed, sr2 and packed2 are one
     kernel on the card, and a chunked plan is one launch."""
     T, E = plan.num_tiles, plan.e_tile
     if vals_layout not in ("slot", "edge"):
@@ -226,7 +224,7 @@ def plan_segment_sum_sr2(plan: SegmentPlan, vals: torch.Tensor, *, vals_layout: 
     if _device_of(vals, "plan_segment_sum_sr2") == "cpu":
         return plan_segment_sum_sr2_plain(plan, vals, vals_layout=vals_layout, w_slots=w_slots,
                                           w_edge=w_edge, e_base=e_base, src=src)
-    out = _aeb_sum("plan_segment_sum_sr2", plan, vals, vals_layout, w_slots, w_edge, e_base,
+    out = _row_sum("plan_segment_sum_sr2", plan, vals, vals_layout, w_slots, w_edge, e_base,
                    src)
     plan_segment_sum_sr2.launches += 1
     return out
@@ -248,7 +246,7 @@ def plan_segment_sum_packed2(plan: SegmentPlan, vals_edges: torch.Tensor, *, w_s
     F = vals_edges.shape[1]
     if not 1 <= F <= 64:
         raise ValueError(f"plan_segment_sum_packed2 takes 1 <= F <= 64, got {F}")
-    out = _aeb_sum("plan_segment_sum_packed2", plan, vals_edges, "edge", w_slots, w_edge,
+    out = _row_sum("plan_segment_sum_packed2", plan, vals_edges, "edge", w_slots, w_edge,
                    e_base, src)
     plan_segment_sum_packed2.launches += 1
     return out

@@ -19,9 +19,17 @@ a version's `slot_common.cuh` beside its files), timed in turns (the
 others, this, this, the others in reverse) with CUDA events in one
 process, at the shapes of `chip_smoke.py`. Each `--other` names a file
 by its kind:
-  - `slot_segment_sum.cu`: sr (F 500), sr_packed (F 64, 7) and pr (8 rows)
-    at the flickr plans of phase 19, outputs compared for equality, and
-    the registers ptxas gave each build's 128-column sr tile kernel;
+  - `slot_segment_sum.cu`: sr (F 500) and pr (8 rows) at the flickr plans
+    of phase 19, outputs compared for equality, and the registers ptxas
+    gave each build's 128-column sr tile kernel; and the other's sr_packed
+    kernel (F 64, 7; before the edge-row kernel took it) against this
+    checkout's over the same slot-order values and reading x[src[e]]
+    itself, with the [slots, F] gather's own time;
+  - `bat_segment_sum.cu` (the wide BAT tile and window kernels before the
+    edge-row kernel took the wide sum): at phase 5's and 9's shapes (the
+    arxiv GCN's bat and bat_t at F 128 and 40; the other's kernel on the
+    rows padded to 128) and, with `--products`, phase 14's remainder
+    plans at F 128 and 47, the same three;
   - `slot_aeb.cu` (the AEB tile and window kernels behind sr2 / packed2
     before the edge-row kernel): at phase 24's shapes (flickr GCN with
     self-loops, per-call weights; F 64 and 7, the plans of feature_hint
@@ -38,12 +46,15 @@ by its kind:
 `rowsum`: the edge-row kernel (`ops/csrc/edge_row_sum.cu`) built from
 this checkout with extra nvcc flags and run over schedules with other
 knobs, `--config "LABEL|NVCC FLAGS|slice_slots=N,task_cost=N,fix_fanin=N"`
-(e.g. `"t64||task_cost=64,slice_slots=64"`), timed in turns at the shapes
-of `ab`'s AEB and packed BAT comparisons, in both forms.
+(e.g. `"t64||task_cost=64,slice_slots=64"`, `"b8|-DGEOT_EDGE_BATCH=8|"`),
+timed in turns at the shapes of `ab`'s AEB and packed BAT comparisons, in
+both forms; `--wide` adds the wide BAT and sr_packed shapes, `--products`
+the products remainder's.
 
 `paths`: each model's request (forward) and training step with CUDA
-events, `--model` among `appnp` (flickr), `gin` (arxiv) and `gcn-dyn`
-(flickr, feature_hint 64 and 128), in a process of its own per run, with
+events, `--model` among `appnp` (flickr), `gin` (arxiv), `gcn-dyn`
+(flickr, feature_hint 64 and 128), `gcn-arxiv`, `gcn-flickr`,
+`graphsage-flickr` and `gcn-products`, in a process of its own per run, with
 `--parent`'s tree (an unpacked archive of another commit, e.g.
 `git archive <commit> geot_tpu_torch | tar -x -C DIR`) and this one's in
 turns (parent, this, this, parent): its kernels and its routes.
@@ -181,8 +192,7 @@ def _ab_slot(dev: torch.device, sources: list) -> None:
     turns = others + ["this", "this"] + others[::-1]
     own = sk._bound
     try:
-        for name, g, w, F in (("sr", gs, gs.plan.mask, f), ("sr_packed", gg, gg.w_slots, 64),
-                              ("sr_packed", gg, gg.w_slots, c), ("pr", gs, gs.plan.mask, 8)):
+        for name, g, w, F in (("sr", gs, gs.plan.mask, f), ("pr", gs, gs.plan.mask, 8)):
             plan = g.plan
             slots = plan.num_tiles * plan.e_tile
             fn = getattr(sk, "plan_segment_sum_" + name)
@@ -199,6 +209,55 @@ def _ab_slot(dev: torch.device, sources: list) -> None:
                   + f"; outputs equal: {same}", flush=True)
     finally:
         sk._bound = own
+    # sr_packed: the others' slot kernel against this checkout's edge-row
+    # kernel over slot-order values, and reading x[src[e]] itself
+    plan, w = gg.plan, gg.w_slots
+    scsr = _slot_csr(plan, w)
+    ncsr = _node_csr(gg.dst, gg.src, gg.edge_weight, n)
+    for F in (64, c):
+        x = torch.randn(n, F, generator=gen, device=dev)
+        vals = x.index_select(0, plan.src_slots.reshape(-1))
+
+        def run(label):
+            if label == "this":
+                return _ms(lambda: sk.plan_segment_sum_sr_packed(plan, vals, w))
+            return _ms(lambda: _old_sr_packed(libs[label], plan, vals, w))
+
+        times = _in_turns(labels, run)
+        mine = sk.plan_segment_sum_sr_packed(plan, vals, w)
+        a_abs = sk.plan_segment_sum_sr_packed(plan, vals.abs(), w.abs())
+        same = all(_close(_old_sr_packed(libs[o], plan, vals, w), mine, a_abs) for o in others)
+        _report_forms(f"sr_packed F={F} (flickr GCN, slot weights)", times,
+                      _ms(lambda: sk.plan_segment_sum_sr_packed(plan, x, w, src=gg.src)),
+                      _ms(lambda: x.index_select(0, plan.src_slots.reshape(-1))),
+                      _ms(lambda: torch.sparse.mm(scsr, vals)), same,
+                      _ms(lambda: torch.sparse.mm(ncsr, x)), "slot -> row")
+
+
+def _slot_csr(plan, w):
+    """The plan's slot -> row matrix in CSR with the slot weights."""
+    wf = w.reshape(-1)
+    keep = torch.nonzero(wf != 0).reshape(-1)
+    return torch.sparse_coo_tensor(
+        torch.stack([plan.dst_slots.reshape(-1).long()[keep], keep]), wf[keep],
+        (plan.n_blocks * plan.s_tile, wf.numel()),
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def _node_csr(dst, src, w, n):
+    """The node adjacency [n, n] in CSR (ones where w is None)."""
+    vals = torch.ones(dst.shape[0], device=dst.device) if w is None else w
+    return torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]), vals, (n, n),
+                                   check_invariants=False).coalesce().to_sparse_csr()
+
+
+def _edge_csr(dst, w, n_rows):
+    """The edge -> row matrix [n_rows, nnz] in CSR (ones where w is None)."""
+    nnz = dst.shape[0]
+    vals = torch.ones(nnz, device=dst.device) if w is None else w
+    return torch.sparse_coo_tensor(
+        torch.stack([dst.long(), torch.arange(nnz, device=dst.device)]), vals,
+        (n_rows, nnz), check_invariants=False).coalesce().to_sparse_csr()
 
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -206,6 +265,49 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _OLD_AEB = [_P, _I32, _I64, _I32, _I64, _P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _P,
             _P, _P, _P]
 _OLD_BAT = [_P, _I32, _I64, _P, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+_OLD_WIDE = [_P, _I64, _I32, _P, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+# the slot kernels' tail: out_block, T, n_windows, E, s_tile, out, part_rows,
+# part_vals, stream
+_OLD_SR_PACKED = [_P, _I32, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+
+
+def _old_sr_packed(lib, plan, vals, w):
+    """The packed slot tile + window kernels of `slot_segment_sum.cu` before
+    the edge-row kernel took sr_packed, over slot-order values."""
+    fn = lib.geot_plan_segment_sum_sr_packed
+    fn.argtypes, fn.restype = _OLD_SR_PACKED, ctypes.c_int
+    lib.geot_slot_scratch_width.argtypes = [_I32, _I32]
+    T, F = plan.num_tiles, vals.shape[1]
+    width = lib.geot_slot_scratch_width(F, 1)
+    out = torch.empty(plan.n_blocks * plan.s_tile, F, device=vals.device)
+    pr = torch.empty(2 * T, dtype=torch.int32, device=vals.device)
+    pv = torch.empty(2 * T, width, device=vals.device)
+    rc = fn(vals.data_ptr(), F, plan.dst_slots.data_ptr(), w.data_ptr(),
+            plan.out_block.data_ptr(), T, plan.n_blocks, plan.e_tile, plan.s_tile,
+            out.data_ptr(), pr.data_ptr(), pv.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"old sr_packed kernel: cudaError {rc}")
+    return out
+
+
+def _old_wide(lib, bp, vals, w):
+    """The wide BAT tile + window kernels of `bat_segment_sum.cu` before
+    the edge-row kernel took the wide sum, over edge-order values padded to
+    128 columns, on a plan ordered as a whole."""
+    fn = lib.geot_bat_segment_sum
+    fn.argtypes, fn.restype = _OLD_WIDE, ctypes.c_int
+    T, F = bp.num_tiles, vals.shape[1]
+    out = torch.empty(bp.n_blocks * bp.s_tile, F, device=vals.device)
+    pr = torch.empty(2 * T, dtype=torch.int32, device=vals.device)
+    pv = torch.empty(2 * T, F, device=vals.device)
+    rc = fn(vals.data_ptr(), vals.shape[0], F, bp.dst3.data_ptr(),
+            None if w is None else w.data_ptr(), 0 if w is None else w.shape[0],
+            bp.out_block.data_ptr(), bp.vblock.data_ptr(), T, bp.n_blocks, bp.e_tile,
+            bp.s_tile, out.data_ptr(), pr.data_ptr(), pv.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"old wide BAT kernel: cudaError {rc}")
+    return out
 
 
 def _old_aeb(lib, plan, vals, w_edge):
@@ -247,10 +349,13 @@ def _old_bat(lib, bp, vals, w):
     return out
 
 
-def _report_forms(what, times, gathered_ms, gather_ms, lib_ms, same):
+def _report_forms(what, times, gathered_ms, gather_ms, lib_ms, same, node_lib_ms=None,
+                  lib_kind="edge -> row"):
     print(f"{what}: values form {_fmt(times)}; this kernel gathered (x[src[e]]) "
-          f"{gathered_ms:.4f} ms; the [E, F] gather {gather_ms:.4f} ms; torch.sparse.mm (edge "
-          f"-> row CSR) {lib_ms:.4f} ms; outputs within the abs-sum rule: {same}", flush=True)
+          f"{gathered_ms:.4f} ms; the [E, F] gather {gather_ms:.4f} ms; torch.sparse.mm "
+          f"({lib_kind} CSR) {lib_ms:.4f} ms"
+          + ("" if node_lib_ms is None else f", (node CSR) {node_lib_ms:.4f} ms")
+          + f"; outputs within the abs-sum rule: {same}", flush=True)
 
 
 def _close(a, b, a_abs) -> bool:
@@ -337,6 +442,103 @@ def _ab_bat(dev, sources: list) -> None:
                           _ms(lambda: torch.sparse.mm(csr, vals)), same)
 
 
+def _wide_case(libs, what, bp, x, src_d, dst_d, w):
+    """One wide BAT shape: the others' kernel over the edge-order rows
+    padded to 128 columns (their contract) against this checkout's
+    edge-row kernel over the rows at their width and reading x[src[e]]
+    itself, with the gathers and the library calls beside them."""
+    import torch.nn.functional as F_
+
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+
+    F = x.shape[1]
+    vals = x.index_select(0, src_d.long())
+    v128 = F_.pad(vals, (0, 128 - F)) if F % 128 else vals
+
+    def run(label):
+        if label == "this":
+            return _ms(lambda: bat_segment_sum(bp, vals, w), iters=10)
+        return _ms(lambda: _old_wide(libs[label], bp, v128, w), iters=10)
+
+    times = _in_turns(["this"] + list(libs), run)
+    mine = bat_segment_sum(bp, vals, w)
+    a_abs = bat_segment_sum(bp, vals.abs(), None if w is None else w.abs())
+    same = all(_close(_old_wide(lib, bp, v128, w)[:, :F], mine, a_abs) for lib in libs.values())
+    x128 = F_.pad(x, (0, 128 - F)) if F % 128 else x
+    gathered = _ms(lambda: bat_segment_sum(bp, x, w, src=src_d), iters=10)
+    gather = _ms(lambda: x.index_select(0, src_d.long()), iters=10)
+    gather128 = _ms(lambda: x128.index_select(0, src_d.long()), iters=10)
+    del v128
+    ecsr = _edge_csr(dst_d, w, bp.n_blocks * bp.s_tile)
+    lib_ms = _ms(lambda: torch.sparse.mm(ecsr, vals), iters=10)
+    del ecsr, vals
+    ncsr = _node_csr(dst_d, src_d, w, x.shape[0])
+    node_ms = _ms(lambda: torch.sparse.mm(ncsr, x), iters=10)
+    del ncsr
+    _report_forms(f"{what} F={F} (others at 128 columns; their route's gather at 128 "
+                  f"{gather128:.4f} ms)", times, gathered, gather, lib_ms, same, node_ms)
+
+
+def _ab_wide(dev, sources: list, products: bool) -> None:
+    """The wide BAT sum at `chip_smoke.py`'s shapes: the arxiv GCN's bat
+    and bat_t at F 128 and 40 (phases 5 and 9), and with `products` the
+    hybrid GCN's remainder plans at F 128 and 47 (phase 14, ~100 s of host
+    build). The others' kernel needs a plan ordered as a whole: the plans
+    are built unchunked (the parent's route ran chunks of the same tiles
+    one by one)."""
+    from geot_tpu_torch.graph import plan as tplan
+    from geot_tpu_torch.graph.datasets import (
+        DATASET_SHAPES,
+        synthetic_clustered_graph,
+        synthetic_graph,
+    )
+    from geot_tpu_torch.models import gcn_edge_weight, prepare_graph
+
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "wide"))}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cap = tplan.MAX_PREFETCH_TILES
+
+    def whole(dst_d, n, like):
+        tplan.MAX_PREFETCH_TILES = 1 << 30  # one chunk: the others' kernel needs order
+        try:
+            bp = tplan.build_bat_plan(dst_d.cpu().numpy(), n, e_tile=like.e_tile,
+                                      s_tile=like.s_tile, max_chunk_tiles=1 << 30, device=dev)
+        finally:
+            tplan.MAX_PREFETCH_TILES = cap
+        assert not bp.chunks
+        return bp
+
+    n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+    data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=0)
+    g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
+    w = gcn_edge_weight(g)
+    dst_t = g.src.index_select(0, g.perm_t.long())
+    for d, src_d, dst_d, w_d in (("bat", g.src, g.dst, w),
+                                 ("bat_t", g.dst_t, dst_t, w[g.perm_t.long()])):
+        bp = whole(dst_d, n, g.bat)
+        for F in (128, c):
+            x = torch.randn(n, F, generator=gen, device=dev)
+            _wide_case(libs, f"bat_segment_sum arxiv GCN {d}", bp, x, src_d, dst_d, w_d)
+    del g, data
+    if not products:
+        return
+    n, e, f, c = DATASET_SHAPES["ogbn-products"]
+    data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
+                                     feat_dim=f, num_classes=c, seed=0)
+    g = prepare_graph(data.src, data.dst, n, normalize="gcn", layouts=("bat", "stream"),
+                      device=dev)
+    del data
+    for d, h in (("forward", g.hyb), ("transpose", g.hyb_t)):
+        dst_r = h.rest.dst3.reshape(-1)[: h.rest.num_edges]
+        bp = whole(dst_r, n, h.rest)
+        for F in (128, c):
+            x = torch.randn(n, F, generator=gen, device=dev)
+            _wide_case(libs, f"bat_segment_sum products remainder {d} ({h.rest.num_edges} "
+                       "edges)", bp, x, h.rest_src, dst_r, h.rest_w)
+            del x
+        del bp
+
+
 def _ab_mh(dev, sources: list) -> None:
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
     from geot_tpu_torch.ops import slot_kernels as sk
@@ -381,9 +583,10 @@ def _ab_mh(dev, sources: list) -> None:
         sk._bound = own
 
 
-def ab(dev: torch.device, sources: list) -> None:
+def ab(dev: torch.device, sources: list, products: bool = False) -> None:
     kinds = {"slot_segment_sum.cu": _ab_slot, "slot_aeb.cu": _ab_aeb,
-             "bat_segment_sum_packed.cu": _ab_bat, "slot_mh.cu": _ab_mh}
+             "bat_segment_sum_packed.cu": _ab_bat, "slot_mh.cu": _ab_mh,
+             "bat_segment_sum.cu": lambda dev, files: _ab_wide(dev, files, products)}
     for name, run in kinds.items():
         files = [Path(s) for s in sources if Path(s).name == name]
         if files:
@@ -410,14 +613,19 @@ def _variant(flags: list, tag: str):
     return fn, p.stdout + p.stderr
 
 
-def rowsum(dev: torch.device, configs: list) -> None:
+def rowsum(dev: torch.device, configs: list, wide: bool = False,
+           products: bool = False) -> None:
     """The edge-row kernel built with each configuration ("LABEL|NVCC
     FLAGS|slice_slots=N,task_cost=N,fix_fanin=N": extra nvcc flags and the
     schedule's knobs, each part may be empty), timed
     in turns (in order, then in reverse) at phase 24's and phase 29's
     shapes, in both forms: the flickr AEB sums (per-call weights, F 64 and
     7) and the packed BAT sums of GIN (arxiv, F 64) and APPNP (flickr, F 8),
-    over `bat` and `bat_t`."""
+    over `bat` and `bat_t`. With `wide`, also phase 5's and 9's wide BAT
+    sums (the arxiv GCN, F 128 and 40, bat and bat_t) and phase 19's
+    sr_packed (flickr GCN, F 64 and 7); with `products`, phase 14's
+    remainder sums (F 128 and 47, both directions, gathered). The lower
+    times are summed per class (narrow, wide, products)."""
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
     from geot_tpu_torch.graph.plan import with_row_schedule
     from geot_tpu_torch.models import prepare_graph
@@ -457,9 +665,9 @@ def rowsum(dev: torch.device, configs: list) -> None:
         for F in (FLICKR_HIDDEN, c):
             x = torch.randn(n, F, generator=gen, device=dev)
             vals = x.index_select(0, g.src.long())
-            cases.append((f"{name} F={F} values", g.plan,
+            cases.append(("narrow", f"{name} F={F} values", g.plan,
                           lambda p, fn=fn, v=vals, w=we, kw=kw: fn(p, v, w_edge=w, **kw)))
-            cases.append((f"{name} F={F} gathered", g.plan,
+            cases.append(("narrow", f"{name} F={F} gathered", g.plan,
                           lambda p, fn=fn, x=x, w=we, s=g.src, kw=kw: fn(p, x, w_edge=w, src=s,
                                                                           **kw)))
     for name, shape, kw, extra, weighted in (("gin", "ogbn-arxiv", ARXIV_GIN, {}, False),
@@ -475,14 +683,16 @@ def rowsum(dev: torch.device, configs: list) -> None:
             w = (torch.rand(g.num_edges, generator=gen, device=dev) + 0.1) if weighted else None
             x = torch.randn(n, F, generator=gen, device=dev)
             vals = x.index_select(0, src_d.long())
-            cases.append((f"{name}.{d} F={F} values", bp,
+            cases.append(("narrow", f"{name}.{d} F={F} values", bp,
                           lambda p, v=vals, w=w: bat_segment_sum_packed(p, v, w)))
-            cases.append((f"{name}.{d} F={F} gathered", bp,
+            cases.append(("narrow", f"{name}.{d} F={F} gathered", bp,
                           lambda p, x=x, w=w, s=src_d: bat_segment_sum_packed(p, x, w, src=s)))
+    if wide:
+        cases += _wide_rowsum_cases(dev, gen, products)
     own = erk._bound_fn
-    sums = {label: 0.0 for label, _, _ in cfgs}
+    sums = {}
     try:
-        for what, plan, call in cases:
+        for cls, what, plan, call in cases:
             plans = {label: with_row_schedule(plan, **kn) if kn else plan
                      for label, _, kn in cfgs}
             times = {label: [] for label, _, _ in cfgs}
@@ -494,13 +704,68 @@ def rowsum(dev: torch.device, configs: list) -> None:
             ref = outs[cfgs[0][0]]
             scale = ref.abs().max().clamp(min=1.0)
             close = all(bool(((o - ref).abs() <= 1e-4 * scale).all()) for o in outs.values())
-            for label in sums:
-                sums[label] += min(times[label])
+            for label, _, _ in cfgs:
+                sums.setdefault(cls, {}).setdefault(label, 0.0)
+                sums[cls][label] += min(times[label])
             print(f"{what}: {_fmt(times)}; outputs agree: {close}", flush=True)
     finally:
         erk._bound_fn = own
-    print("sum of the lower times: " + "; ".join(f"{k} {v:.4f} ms" for k, v in sums.items()),
-          flush=True)
+    for cls, by in sums.items():
+        print(f"sum of the lower times ({cls}): "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in by.items()), flush=True)
+
+
+def _wide_rowsum_cases(dev, gen, products: bool) -> list:
+    """`rowsum`'s wide cases: (class, label, plan, call(plan))."""
+    from geot_tpu_torch.graph.datasets import (
+        DATASET_SHAPES,
+        synthetic_clustered_graph,
+        synthetic_graph,
+    )
+    from geot_tpu_torch.models import gcn_edge_weight, prepare_graph
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, flickr_graph
+
+    cases = []
+    n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+    data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=0)
+    g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
+    w = gcn_edge_weight(g)
+    for d, bp, src_d, w_d in (("bat", g.bat, g.src, w),
+                              ("bat_t", g.bat_t, g.dst_t, w[g.perm_t.long()])):
+        for F in (128, c):
+            x = torch.randn(n, F, generator=gen, device=dev)
+            vals = x.index_select(0, src_d.long())
+            cases.append(("wide", f"bat_segment_sum arxiv {d} F={F} values", bp,
+                          lambda p, v=vals, w=w_d: bat_segment_sum(p, v, w)))
+            cases.append(("wide", f"bat_segment_sum arxiv {d} F={F} gathered", bp,
+                          lambda p, x=x, w=w_d, s=src_d: bat_segment_sum(p, x, w, src=s)))
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    gg = flickr_graph(data, "gcn", dev)
+    for F in (FLICKR_HIDDEN, c):
+        x = torch.randn(n, F, generator=gen, device=dev)
+        vals = x.index_select(0, gg.plan.src_slots.reshape(-1))
+        ws = gg.w_slots
+        cases.append(("wide", f"sr_packed flickr F={F} values", gg.plan,
+                      lambda p, v=vals, w=ws: sk.plan_segment_sum_sr_packed(p, v, w)))
+        cases.append(("wide", f"sr_packed flickr F={F} gathered", gg.plan,
+                      lambda p, x=x, w=ws, s=gg.src: sk.plan_segment_sum_sr_packed(p, x, w,
+                                                                                  src=s)))
+    if products:
+        n, e, f, c = DATASET_SHAPES["ogbn-products"]
+        data = synthetic_clustered_graph(n, e, mixing=0.3, mean_community=2000, power=1.0,
+                                         feat_dim=f, num_classes=c, seed=0)
+        g = prepare_graph(data.src, data.dst, n, normalize="gcn", layouts=("bat", "stream"),
+                          device=dev)
+        for d, h in (("forward", g.hyb), ("transpose", g.hyb_t)):
+            for F in (128, c):
+                x = torch.randn(n, F, generator=gen, device=dev)
+                cases.append(("products", f"bat_segment_sum products {d} F={F} gathered",
+                              h.rest, lambda p, x=x, h=h: bat_segment_sum(p, x, h.rest_w,
+                                                                          src=h.rest_src)))
+    return cases
 
 
 # one model's request and training step, run in the tree named by the
@@ -530,7 +795,10 @@ print("PATH " + json.dumps({"forward_ms": fwd, "train_step_ms": stp}))
 """
 
 _PATHS = {"appnp": ("flickr", "appnp", 128), "gin": ("arxiv", "gin", 128),
-          "gcn-dyn64": ("flickr", "gcn-dyn", 64), "gcn-dyn128": ("flickr", "gcn-dyn", 128)}
+          "gcn-dyn64": ("flickr", "gcn-dyn", 64), "gcn-dyn128": ("flickr", "gcn-dyn", 128),
+          "gcn-arxiv": ("arxiv", "gcn", 128), "gcn-flickr": ("flickr", "gcn", 128),
+          "graphsage-flickr": ("flickr", "graphsage", 128),
+          "gcn-products": ("products-clustered", "gcn", 128)}
 
 
 def paths(parent: str, models: list) -> None:
@@ -559,15 +827,21 @@ def main(argv=None) -> int:
     sub.add_parser("gathers")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--other", action="append", required=True,
-                      help="a slot_segment_sum.cu, slot_aeb.cu, bat_segment_sum_packed.cu or "
-                           "slot_mh.cu to compare with (repeatable)")
+                      help="a slot_segment_sum.cu, slot_aeb.cu, bat_segment_sum_packed.cu, "
+                           "bat_segment_sum.cu or slot_mh.cu to compare with (repeatable)")
+    p_ab.add_argument("--products", action="store_true",
+                      help="bat_segment_sum.cu: the products remainder's shapes too")
     p_rs = sub.add_parser("rowsum")
     p_rs.add_argument("--config", action="append", required=True,
                       help='"LABEL|NVCC FLAGS|slice_slots=N,task_cost=N,fix_fanin=N"')
+    p_rs.add_argument("--wide", action="store_true",
+                      help="the wide BAT and sr_packed shapes too")
+    p_rs.add_argument("--products", action="store_true",
+                      help="with --wide: the products remainder's shapes too")
     p_paths = sub.add_parser("paths")
     p_paths.add_argument("--parent", required=True, help="another commit's unpacked tree")
     p_paths.add_argument("--model", action="append", choices=tuple(_PATHS),
-                         help="default: all")
+                         help="default: all but gcn-products (~100 s of host build a run)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_slot: needs a CUDA card")
@@ -577,11 +851,11 @@ def main(argv=None) -> int:
     if args.what == "gathers":
         gathers(dev)
     elif args.what == "ab":
-        ab(dev, args.other)
+        ab(dev, args.other, args.products)
     elif args.what == "rowsum":
-        rowsum(dev, args.config)
+        rowsum(dev, args.config, args.wide, args.products)
     else:
-        paths(args.parent, args.model or list(_PATHS))
+        paths(args.parent, args.model or [m for m in _PATHS if m != "gcn-products"])
     return 0
 
 

@@ -66,31 +66,37 @@ def _hubby(rng, n, nnz, hub_edges, hub=7):
     return src, dst
 
 
-@pytest.mark.parametrize("f_pad", [128, 256])
+@pytest.mark.parametrize("f_pad", [128, 256, 100, 47])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("e_tile,s_tile", [(64, 32), (1024, 256), (32, 4), (96, 8), (32, 1)])
-def test_kernel_matches_plain(cuda, f_pad, weighted, e_tile, s_tile):
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_kernel_matches_plain(cuda, f_pad, weighted, e_tile, s_tile, form):
+    """The wide BAT sum (the edge-row kernel over the plan's schedule) at
+    any width, in edge-order values or reading x[src[e]] itself."""
     rng = np.random.default_rng(f_pad + weighted + e_tile)
     n = 700
-    _, dst = _hubby(rng, n, 5000, 1500)
-    dst = np.sort(dst)
+    src, dst = _hubby(rng, n, 5000, 1500)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
     nnz = len(dst)
     bp = tplan.build_bat_plan(dst, n + 300, e_tile=e_tile, s_tile=s_tile, device=cuda)
-    vals = torch.from_numpy(rng.standard_normal((nnz, f_pad)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f_pad)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(src).to(cuda) if form == "gathered" else None
+    vals = x if s is not None else x.index_select(0, torch.from_numpy(src).long().to(cuda))
     w = (torch.from_numpy(rng.standard_normal(nnz).astype(np.float32)).to(cuda)
          if weighted else None)
     # leave NaN in the memory the caching allocator hands out next, so a
     # row the kernel fails to write shows
     torch.full((bp.n_blocks * s_tile + 4 * bp.num_tiles, f_pad), float("nan"), device=cuda)
     before = bat_segment_sum.launches
-    k = bat_segment_sum(bp, vals, w, f_tile=256 if f_pad == 256 else 128)
+    k = bat_segment_sum(bp, vals, w, src=s)
     torch.cuda.synchronize()
     assert bat_segment_sum.launches == before + 1
-    p = bat_segment_sum_plain(bp, vals, w)
+    p = bat_segment_sum_plain(bp, vals, w, src=s)
     assert k.shape == p.shape == (bp.n_blocks * s_tile, f_pad)
     torch.testing.assert_close(k, p, **TOL_HUB)
     # deterministic: no atomics, bit-identical rerun
-    torch.testing.assert_close(bat_segment_sum(bp, vals, w), k, rtol=0, atol=0)
+    torch.testing.assert_close(bat_segment_sum(bp, vals, w, src=s), k, rtol=0, atol=0)
 
 
 def test_segment_spmm_chunked_hub_on_card(cuda):
@@ -107,20 +113,21 @@ def test_segment_spmm_chunked_hub_on_card(cuda):
     with torch.inference_mode():
         out = api.segment_spmm(gc, torch.from_numpy(x).to(cuda))
         exp = api.segment_spmm(gh, torch.from_numpy(x))
-    assert bat_segment_sum.launches == before + len(gc.bat.chunks)
+    assert bat_segment_sum.launches == before + 1  # the plan whole
     torch.testing.assert_close(out.cpu(), exp, **TOL_HUB)
     ch = tplan.compute_chunks(gh.bat.out_block.numpy(), 8)
     g2 = dataclasses.replace(gc, bat=tplan.with_chunks(gc.bat, ch))
     with torch.inference_mode():
         out2 = api.segment_spmm(g2, torch.from_numpy(x).to(cuda))
-    torch.testing.assert_close(out2.cpu(), exp, **TOL_HUB)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
 
 
-def test_kernel_refuses_plan_out_of_order(cuda):
+def test_kernel_sums_uniformized_plan_whole(cuda):
     """A uniformized chunked plan whose pad tiles run past the next
-    chunk's first window is not ordered as a whole; the kernel's binary
-    search over out_block would miss tiles, so the wrapper refuses it whole
-    on the card, and segment_spmm runs it chunk by chunk."""
+    chunk's first window is not ordered as a whole; its schedule leaves
+    the pad tiles out and lists each edge once in row order, so the
+    kernel sums it whole in one launch, bit-identical to the unchunked
+    plan."""
     rng = np.random.default_rng(5)
     n = 3000
     src, dst = _hubby(rng, n, 30000, 3000, hub=3)
@@ -129,19 +136,22 @@ def test_kernel_refuses_plan_out_of_order(cuda):
     for cap in range(3, 80):
         bp = tplan.build_bat_plan(dst, n, e_tile=256, s_tile=64, max_chunk_tiles=cap,
                                   device=cuda)
-        if not bp.monotone:
+        ob = bp.out_block.cpu()
+        if bool((ob[1:] < ob[:-1]).any()):
             break
     else:
         raise AssertionError("no cap gives pad tiles past the next chunk")
-    vals = torch.from_numpy(rng.standard_normal((len(dst), 128)).astype(np.float32)).to(cuda)
+    whole = tplan.build_bat_plan(dst, n, e_tile=256, s_tile=64, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(src).to(cuda)
     before = bat_segment_sum.launches
-    with pytest.raises(ValueError, match="non-decreasing over the whole plan"):
-        bat_segment_sum(bp, vals)
-    assert bat_segment_sum.launches == before
-    out = api._bat_sum(bp, lambda e0, size: vals if e0 is None else vals[e0:e0 + size], 128)
+    out = bat_segment_sum(bp, x, src=s)
+    torch.cuda.synchronize()
+    assert bat_segment_sum.launches == before + 1
+    assert torch.equal(out, bat_segment_sum(whole, x, src=s))
     exp = torch.zeros(n, 128, device=cuda).index_add_(0, torch.from_numpy(dst).long().to(cuda),
-                                                      vals)
-    torch.testing.assert_close(out, exp, **TOL_HUB)
+                                                      x.index_select(0, s.long()))
+    torch.testing.assert_close(out[:n], exp, **TOL_HUB)
 
 
 def test_gcn_on_card_matches_cpu(cuda):
@@ -247,8 +257,8 @@ def test_gws_grad_kernel_vs_reference(cuda, needs):
     before = (sddmm_bat.launches, bat_segment_sum.launches)
     dx, dw = grads("auto")
     torch.cuda.synchronize()
-    n_fwd = len(g.bat.chunks)
-    n_bwd = (len(g.bat_t.chunks) or 1) if needs == "both" else 0
+    n_fwd = 1  # each plan whole, chunked or not
+    n_bwd = 1 if needs == "both" else 0
     assert sddmm_bat.launches == before[0] + 1
     assert bat_segment_sum.launches == before[1] + n_fwd + n_bwd
     dx_r, dw_r = grads("reference")
@@ -580,6 +590,44 @@ def test_slot_kernels_zero_weight_edges(cuda, kernel, F, tiles):
     torch.cuda.synchronize()
     _assert_abs_sum(k, plain(plan, vals, w), plain(plan, vals.abs(), w.abs()))
     assert torch.equal(fn(plan, vals, w), k)
+
+
+@pytest.mark.parametrize("F", [64, 32, 16, 8, 7, 1])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (32, 1, 1)])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_sr_packed_gathered_matches_plain(cuda, F, tiles, chunked):
+    """plan_segment_sum_sr_packed reading x[src[e]] itself (src the plan's
+    edge-order src) and over slot-order values, with every third slot
+    weight exactly 0 (skipped), against the plain version: one launch a
+    plan, chunked (the hub window split) or not, every row written,
+    reruns bit-identical, the two forms within the rule of each other."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(F + e_tile + chunked)
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda,
+                                    max_chunk_slots=e_tile * 6 if chunked else 4 << 20)
+    assert bool(plan.chunks) == chunked
+    T, E = plan.num_tiles, plan.e_tile
+    w = plan.mask * torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
+    w.reshape(-1)[::3] = 0.0
+    x = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(src).to(cuda)
+    fn, plain = _SLOT["sr_packed"]
+    torch.full((4 * plan.n_blocks * s_tile * max(F, 8),), float("nan"), device=cuda)
+    before = fn.launches
+    k = fn(plan, x, w, src=s)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_abs_sum(k, plain(plan, x, w, src=s), plain(plan, x.abs(), w.abs(), src=s))
+    assert torch.equal(fn(plan, x, w, src=s), k)
+    vals = x.index_select(0, plan.src_slots.reshape(-1).long())
+    kv = fn(plan, vals, w)
+    _assert_abs_sum(kv, plain(plan, vals, w), plain(plan, vals.abs(), w.abs()))
+    _assert_abs_sum(kv, k, plain(plan, vals.abs(), w.abs()))
 
 
 def test_slot_kernels_refuse_what_they_do_not_take(cuda):

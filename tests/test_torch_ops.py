@@ -62,7 +62,7 @@ def test_bat_segment_sum_plain_vs_pallas(f_pad, weighted, ragged):
     j = jbat_segment_sum(jbp, jnp.asarray(vals), None if w is None else jnp.asarray(w),
                          f_tile=f_tile, interpret=True)
     t = bat_segment_sum(tbp, torch.from_numpy(vals),
-                        None if w is None else torch.from_numpy(w), f_tile=f_tile)
+                        None if w is None else torch.from_numpy(w))
     assert t.shape == tuple(j.shape) == (meta["n_blocks"] * s_tile, f_pad)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL_PALLAS)
     # and against the f32 oracle on the real rows
@@ -123,8 +123,11 @@ def test_segment_spmm_vs_jax(n_feat, mode, chunked, monkeypatch):
 
 def test_chunked_hub_window_overlap_add():
     """Mirror of test_ops.test_chunked_hub_window_overlap_add on the BAT
-    plan: ragged chunks from compute_chunks cut the hub window mid-window,
-    and the overlapping chunk outputs add-combine exactly."""
+    plan: ragged chunks from compute_chunks cut the hub window mid-window.
+    The port sums the plan whole by its edge-row schedule, so the chunked
+    plan sums exactly what the whole one does, and the chunks (the TPU's)
+    are not read: a chunk list out of step with the plan changes
+    nothing."""
     rng = np.random.default_rng(61)
     n, F = 100, 24
     dst = np.concatenate([np.full(1500, 3, np.int32),
@@ -145,10 +148,11 @@ def test_chunked_hub_window_overlap_add():
         jnp.asarray(g.src.numpy()), jnp.asarray(g.dst.numpy()),
         jnp.asarray(g.edge_weight.numpy()), jnp.asarray(x.numpy()), n)
     np.testing.assert_allclose(out.numpy(), np.asarray(exp), **TOL_F32_HUB_SPLIT)
-    np.testing.assert_allclose(out.numpy(), whole.numpy(), **TOL_F32_HUB_SPLIT)
-    # a stale chunk schedule is refused rather than run
-    with pytest.raises(ValueError, match="chunk_vbase"):
-        tapi.segment_spmm(dataclasses.replace(g, bat=dataclasses.replace(g.bat, chunks=ch)), x)
+    torch.testing.assert_close(out, whole, rtol=0, atol=0)
+    with torch.no_grad():
+        stale = tapi.segment_spmm(
+            dataclasses.replace(g, bat=dataclasses.replace(g.bat, chunks=ch)), x)
+    torch.testing.assert_close(stale, whole, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])

@@ -156,11 +156,12 @@ def test_packed_wrapper_rules():
             bat_segment_sum_packed(bp, bad)
     with pytest.raises(ValueError, match="km_pack"):
         bat_segment_sum_packed(dataclasses.replace(bp, dst_km=None), vals)
-    # a wide plan: the fused ops pad narrow rows to 128 and run the wide kernel
+    # a wide plan, or a width the plan is not packed for: the fused ops run
+    # the wide sum at the rows' own width (packed width 0)
     wide = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16)
-    assert tapi._bat_width(wide, 32) == 128 and tapi._bat_width(bp, 32) == 32
-    assert tapi._bat_width(bp, 20) == 32 and tapi._bat_width(bp, 40) == 128
-    assert tapi._bat_width(bp, 100) == 128
+    assert tapi._bat_packed(wide, 32) == 0 and tapi._bat_packed(bp, 32) == 32
+    assert tapi._bat_packed(bp, 20) == 32 and tapi._bat_packed(bp, 40) == 0
+    assert tapi._bat_packed(bp, 100) == 0
 
 
 def _graphs(n, src, dst, w, feature_hint, chunked):

@@ -67,10 +67,12 @@ def test_bat_plan_host_equal(case):
     _assert_host_equal(ja, jm, ta, tm)
     if mct < 100 and nnz + hub:
         assert tm["chunks"], "case meant to be chunked"
-    # the device plan carries the same arrays and a consistent chunk_vbase
+    # the device plan carries the same arrays and the edge-row schedule of
+    # its own tensors, one entry per edge (chunked or not)
     bp = tplan.bat_plan_from_host(ta, tm)
     np.testing.assert_array_equal(bp.vblock.numpy(), ta["vblock"])
-    assert len(bp.chunk_vbase) == len(tm["chunks"])
+    assert bp.row_sched is not None and bp.row_sched.matches(tplan._sched_key(bp))
+    assert bp.row_sched.cols.shape[0] == len(dst)
 
 
 def test_compute_chunks_equal_and_hub_split():
@@ -223,14 +225,15 @@ def test_uniformized_pad_tiles_may_overlap_the_next_chunk():
     """The pad tiles of a uniformized chunk cover windows up to
     w0 + chunk_blocks, which may lie past the next chunk's first window:
     out_block is then non-decreasing only within each chunk. Such a plan
-    (the JAX package builds and runs it) is accepted, and the port's sum
-    over it, chunk by chunk, equals the reference. Handed whole to
-    bat_segment_sum, whose kernel binary-searches out_block, it is
-    refused. A (vblock, out_block) tile repeated across two chunks is
-    refused when the plan is made."""
-    from geot_tpu_torch.ops import api as tapi
+    (the JAX package builds and runs it) is accepted, and
+    bat_segment_sum over the whole plan in one call (its schedule drops
+    the pad tiles) equals the chunk-by-chunk plain sum and the reference.
+    A (vblock, out_block) tile repeated across two chunks is refused when
+    the plan is made."""
+    import dataclasses
+
     from geot_tpu_torch.ops import reference as tref
-    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
 
     rng = np.random.default_rng(5)
     n = 3000
@@ -247,13 +250,18 @@ def test_uniformized_pad_tiles_may_overlap_the_next_chunk():
     _assert_host_equal(ja, jm, ta, tm)
     bp = tplan.bat_plan_from_host(ta, tm)
     vals = torch.from_numpy(rng.standard_normal((len(dst), 128)).astype(np.float32))
-    out = tapi._bat_sum(bp, lambda e0, size: vals if e0 is None else vals[e0:e0 + size], 128)
+    whole = bat_segment_sum(bp, vals)
+    by_chunk = torch.zeros_like(whole)
+    for t0, t1, _, _ in tm["chunks"]:
+        by_chunk += bat_segment_sum_plain(dataclasses.replace(
+            bp, out_block=bp.out_block[t0:t1], vblock=bp.vblock[t0:t1]), vals)
+    torch.testing.assert_close(whole, by_chunk, rtol=1e-4, atol=1e-4)
     exp = tref.segment_reduce_ref(vals, torch.from_numpy(dst), n)
-    torch.testing.assert_close(out, exp, rtol=1e-4, atol=1e-4)
-    assert not bp.monotone
-    assert tplan.build_bat_plan(dst, n, e_tile=256, s_tile=64).monotone
-    with pytest.raises(ValueError, match="non-decreasing over the whole plan"):
-        bat_segment_sum(bp, vals)
+    torch.testing.assert_close(whole[:n], exp, rtol=1e-4, atol=1e-4)
+    assert not np.all(ob[1:] >= ob[:-1])
+    # the schedule lists each edge once, the pad tiles' sentinel block none
+    cols = bp.row_sched.cols.numpy().view(np.uint32) & 0x7FFFFFFF
+    np.testing.assert_array_equal(np.sort(cols), np.arange(len(dst)))
     # the same real tile at the end of one chunk and the start of the next
     # (a split hub window): each chunk is in order, the plan is refused
     ch = tm["chunks"]

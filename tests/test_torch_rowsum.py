@@ -1,22 +1,31 @@
 """The edge-row kernel's schedule (`graph.row_schedule`, `plan.row_sched`)
 and its order of summation, against the JAX package.
 
-- The schedule of slot plans and packed BAT plans (whole, chunked, with a
-  hub row cut through 3 or more fix-up levels at small knobs) against a
-  brute-force per-row edge list: every live edge once, each row's edges in
-  edge order, slices near-equal, every output row written once, pads,
-  the sentinel block and out-of-window edges left out.
+- The schedule of slot plans, packed BAT plans and unpacked (wide) BAT
+  plans (whole, chunked, uniformized with pad tiles past the next chunk,
+  with a hub row cut through 3 or more fix-up levels at small knobs)
+  against a brute-force per-row edge list: every live edge once, each
+  row's edges in edge order, slices near-equal, every output row written
+  once, pads, the sentinel block and out-of-window edges left out.
 - A numpy walk in the kernel's order (entries, slices, fix-up levels),
   resolving each entry as `ops/csrc/edge_row_sum.cu` does, against JAX's
-  `plan_segment_sum_sr2`, `plan_segment_sum_packed2` and
-  `bat_segment_sum_packed` in interpret mode at rtol/atol 2e-4 (the Pallas
-  f32 kernels multiply through a bf16 hi/lo split; tests/test_ops.py's
-  bound), with every fifth weight 0 and values ending mid-block.
+  `plan_segment_sum_sr2`, `plan_segment_sum_packed2`,
+  `plan_segment_sum_sr_packed`, `bat_segment_sum_packed` and
+  `bat_segment_sum` in interpret mode at rtol/atol 2e-4 (the Pallas f32
+  kernels multiply through a bf16 hi/lo split; tests/test_ops.py's bound),
+  with every fifth weight 0 and values ending mid-block. The walk sums
+  each row in edge order within slices of the schedule, then adds the
+  slices by the fix-up tree (ROADMAP C.4).
+- The slot plans' edge-order src (`Graph.src` for `plan`, `Graph.dst_t`
+  for `plan_t`), which `plan_segment_sum_sr_packed` reads in place of
+  src_slots: src_slots.flat[slot] == src[edge] on every live entry.
 - The fused routes (`slot_dyn`; packed BAT forward and backward), which
   hand the kernel x and src instead of a gathered block, against
   `geot_tpu` `segment_spmm` and its gradients at the tolerances of
   tests/test_torch_aeb.py and tests/test_torch_packed.py.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -211,10 +220,19 @@ def test_row_schedule_made_for_a_chunk_cut_out_of_a_plan():
     moved = bp.to("cpu")
     assert moved.row_sched.matches(tplan._sched_key(moved))
     assert tplan.row_schedule_of(moved) is moved.row_sched
+    # an unpacked plan carries one too, keyed by dst3; a plan holding other
+    # tiles (here the first half) gets its own on first use
     wide = tplan.build_bat_plan(dst, 300, e_tile=64, s_tile=32)
-    assert wide.row_sched is None
-    with pytest.raises(ValueError, match="not packed"):
-        tplan.row_schedule_of(wide)
+    assert wide.row_sched is not None and tplan.row_schedule_of(wide) is wide.row_sched
+    half = dataclasses.replace(wide, out_block=wide.out_block[: wide.num_tiles // 2],
+                               vblock=wide.vblock[: wide.num_tiles // 2])
+    s = tplan.row_schedule_of(half)
+    assert s is not wide.row_sched and s.matches(tplan._sched_key(half))
+    ob, vb = half.out_block.numpy(), half.vblock.numpy()
+    keep = np.isin(dst.astype(np.int64) // 32 * 10**6 + np.arange(len(dst)) // 64,
+                   ob.astype(np.int64) * 10**6 + vb)
+    row, edge = _bat_brute(dst)
+    _check_schedule(s, row[keep], edge[keep], half.n_blocks * 32)
 
 
 def _walk(s, vals, *, src=None, e_base=0, by_slot=False, w_slots=None, w_edge=None,
@@ -490,11 +508,129 @@ def test_packed_bat_fused_route_vs_jax(monkeypatch, n_feat, mode, chunked):
         np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), **TOL)
 
 
-def test_bat_sum_refuses_packed_widths():
-    """`_bat_sum` is the wide branch only; the packed one is one call of
-    `bat_segment_sum_packed` over the whole plan (`_spmm_fwd_bat`)."""
-    rng = np.random.default_rng(2)
-    _, dst = _hubby_sorted(rng, 50, 300, 0)
-    bp = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16, km_pack=4)
-    with pytest.raises(ValueError, match="wide kernel width"):
-        tapi._bat_sum(bp, lambda e0, size: torch.zeros(300, 32), 32)
+def _uniformized_cap(dst, n, e_tile, s_tile):
+    """A chunk cap whose uniformized chunks put pad tiles past the next
+    chunk's first window (out_block not monotone over the plan)."""
+    for cap in (12, 10, 8, 6, 5, 4, 3):
+        ob = tplan.build_bat_plan_host(dst, n, e_tile=e_tile, s_tile=s_tile,
+                                       max_chunk_tiles=cap)[0]["out_block"]
+        if np.any(ob[1:] < ob[:-1]):
+            return cap
+    raise AssertionError("no cap gives pad tiles past the next chunk")
+
+
+@pytest.mark.parametrize("knobs", [{}, SMALL])
+@pytest.mark.parametrize("kind", ["whole", "chunked", "uniformized"])
+def test_wide_bat_row_schedule_vs_brute_force(knobs, kind):
+    """An unpacked BAT plan's schedule, built from dst3: whole, forced into
+    ragged chunks that split the hub window (`with_chunks`: the schedule
+    comes along), and uniformized with pad tiles that point at the
+    sentinel block and past the next chunk's first window (left out, no
+    order assumed), each edge once into its row."""
+    rng = np.random.default_rng(len(kind) + len(knobs))
+    _, dst = _hubby_sorted(rng, 200, 1000, 700, hub=3)
+    cap = _uniformized_cap(dst, 260, 64, 32) if kind == "uniformized" else 8192
+    bp = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32, max_chunk_tiles=cap)
+    assert bp.dst_km is None and bp.row_sched is not None
+    if kind == "chunked":
+        ch = tplan.compute_chunks(bp.out_block.numpy(), 4)
+        assert any(b[2] < a[3] for a, b in zip(ch[:-1], ch[1:]))
+        bp = tplan.with_chunks(bp, ch)
+        assert tplan.row_schedule_of(bp) is bp.row_sched
+    if kind == "uniformized":
+        ob = bp.out_block.numpy()
+        assert np.any(ob[1:] < ob[:-1]) and (bp.vblock.numpy() == bp.n_vblocks).any()
+        # the same entries as the unchunked plan's, so the same sums bit for bit
+        whole = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32).row_sched
+        for k in ("cols", "unit_dest", "tasks", "zero_runs", "fix"):
+            assert torch.equal(getattr(bp.row_sched, k), getattr(whole, k)), k
+    if knobs:
+        bp = tplan.with_row_schedule(bp, **knobs)
+        assert len(bp.row_sched.fix_levels) - 1 >= 3
+    assert bp.row_sched.slot is None
+    row, edge = _bat_brute(dst)
+    _check_schedule(bp.row_sched, row, edge, bp.n_blocks * bp.s_tile, **knobs)
+
+
+@pytest.mark.parametrize("knobs", [{}, SMALL])
+@pytest.mark.parametrize("f_pad,pack", [(128, 0), (256, 0), (128, 2)])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_walk_bat_wide_vs_pallas(knobs, f_pad, pack, form):
+    """The kernel's order over a BAT plan's schedule against JAX's wide
+    bat_segment_sum in interpret mode (F_pad 128 and 256): unpacked plans
+    (schedule from dst3) and a packed one at the wide width (GIN's 128-wide
+    layer 1 over its km_pack 2 plan, schedule from dst_km), exactly nnz
+    value rows (the last block partial), weights with every fifth one 0
+    (added as 0 * v), and the gathered form (x[src[e]])."""
+    rng = np.random.default_rng(f_pad + pack + len(form) + len(knobs))
+    src, dst = _hubby_sorted(rng, 150, 700, 200)
+    nnz = len(dst)
+    arrays, meta = jplan.build_bat_plan_host(dst, 150, e_tile=64, s_tile=32, km_pack=pack)
+    jbp = jplan.bat_plan_from_host(arrays, meta)
+    tbp = tplan.bat_plan_from_host(arrays, meta)
+    assert (tbp.dst_km is not None) == bool(pack)
+    if knobs:
+        tbp = tplan.with_row_schedule(tbp, **knobs)
+    assert nnz % 64
+    w = rng.standard_normal(nnz).astype(np.float32)
+    w[::5] = 0.0
+    x = rng.standard_normal((150, f_pad)).astype(np.float32)
+    v = x[src]
+    j = jps.bat_segment_sum(jbp, jnp.asarray(v), jnp.asarray(w), f_tile=min(f_pad, 256),
+                            interpret=True)
+    if form == "gathered":
+        got = _walk(tbp.row_sched, x, src=src, w_edge=w)
+    else:
+        got = _walk(tbp.row_sched, v, w_edge=w)
+    np.testing.assert_allclose(got, np.asarray(j), **TOL)
+    # the kernel's f32 regrouping (edge order within slices, then the
+    # fix-up tree; ROADMAP C.4) against the float64 sum: rows up to ~45 in
+    # magnitude, a 200-edge hub row
+    exp = np.zeros(got.shape)
+    np.add.at(exp, dst, w[:, None].astype(np.float64) * v)
+    np.testing.assert_allclose(got, exp, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("knobs", [{}, SMALL])
+@pytest.mark.parametrize("F", [8, 16, 32, 64])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_walk_sr_packed_vs_pallas(knobs, F, form):
+    """The kernel's order over a slot plan's schedule against JAX's
+    plan_segment_sum_sr_packed in interpret mode: slot weights with every
+    fifth one 0 (skipped: C.9), values in slot order (x[src_slots]) or
+    gathered (x[src[e]], src the plan's edge-order src)."""
+    rng = np.random.default_rng(F + len(form) + len(knobs))
+    jp, tp, src, dst = _aeb_plans(rng, 16)
+    if knobs:
+        tp = tplan.with_row_schedule(tp, **knobs)
+    T, E = tp.num_tiles, tp.e_tile
+    ws = (_np(tp.mask) * rng.standard_normal((T, E))).astype(np.float32)
+    ws.reshape(-1)[::5] = 0.0
+    x = rng.standard_normal((400, F)).astype(np.float32)
+    v = x[_np(tp.src_slots).reshape(-1)]
+    j = jps.plan_segment_sum_sr_packed(jp, jnp.asarray(v), jnp.asarray(ws), interpret=True)
+    if form == "gathered":
+        got = _walk(tp.row_sched, x, src=src, w_slots=ws, skip_zero=True)
+    else:
+        got = _walk(tp.row_sched, v, by_slot=True, w_slots=ws, skip_zero=True)
+    np.testing.assert_allclose(got, np.asarray(j), **TOL)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_slot_plans_src_by_edge(chunked):
+    """`plan_segment_sum_sr_packed`'s gathered form reads x[src[e]] with src
+    the plan's edge-order src: `Graph.src` for `plan` (built over (dst,
+    src)) and `Graph.dst_t` for `plan_t` (built over (src_t, dst[perm_t])).
+    On every live entry of both schedules, src_slots.flat[slot] equals
+    src[edge]."""
+    rng = np.random.default_rng(11 + chunked)
+    src, dst = _hubby_sorted(rng, 300, 2000, 700, hub=9)
+    g = tbuild_graph(src, dst, 300, e_tile=64, s_tile=64, layouts=("slot",), device="cpu",
+                     max_chunk_slots=64 * 4 if chunked else 4 << 20)
+    assert bool(g.plan.chunks) == chunked
+    for plan, src_e in ((g.plan, g.src), (g.plan_t, g.dst_t)):
+        s = plan.row_sched
+        edge = _np(s.cols).view(np.uint32).astype(np.int64) & 0x7FFFFFFF
+        np.testing.assert_array_equal(_np(plan.src_slots).reshape(-1)[_np(s.slot)],
+                                      _np(src_e)[edge])
+        assert len(edge) == len(dst)
