@@ -19,7 +19,8 @@ classes) over the slot plans of a flickr-shaped graph (89,250 nodes,
 GCN's with self-loops and the norm baked into slot weights), with the
 reference tuning table's knobs (`profile_gcn.FLICKR_SLOT`). Phases 20-24:
 on the same flickr graph with self-loops and no baked norm, a 3-layer GAT
-(hidden 64, 4 heads averaged: `plan_segment_sum_mh`) and a 3-layer GCN
+(hidden 64, 4 heads averaged: `plan_segment_sum_mh`, reading xh[src[e]] in
+the edge-row kernel) and a 3-layer GCN
 whose norm is a per-call weight (`slot_dyn`), over slot-only plans with
 feature_hint 64 (pack-aligned: `plan_segment_sum_packed2`) and 128
 (`plan_segment_sum_sr2`). Weights come from a seeded torch.Generator.
@@ -80,12 +81,13 @@ Phases, each printed with its elapsed seconds:
      weighted adjacency;
  15. the flickr graph's host build for each model, and dispatch_path ==
      "slot" (GraphSAGE, mean) and "slot_static" (GCN);
- 16. plan_segment_sum_sr (F 500, 128), plan_segment_sum_sr_packed (F 64,
-     32, 16, 8, 7, in both forms: slot-order values and x[src[e]] read in
-     the edge-row kernel) and plan_segment_sum_pr (8 rows) against their
-     plain versions on both directions' real plans, with bit-identical
-     reruns, and the slot SpMM over a plan chunked so that its hub window
-     splits (sr_packed once, the plan whole);
+ 16. plan_segment_sum_sr (F 500, 128) and plan_segment_sum_sr_packed (F
+     64, 32, 16, 8, 7), both the edge-row kernel, in both forms (slot-order
+     values and x[src[e]] read in the kernel), and plan_segment_sum_pr (8
+     rows) against their plain versions on both directions' real plans,
+     with bit-identical reruns, and the slot SpMM over a plan chunked so
+     that its hub window splits (sr_packed at F 64 and sr at F 128 once
+     each, the plan whole);
  17. 5 requests per model, launches per request asserted (GraphSAGE: sr
      1, sr_packed 2, pr 3; GCN: sr_packed 3), each against the same model
      on the plain reference path;
@@ -96,38 +98,45 @@ Phases, each printed with its elapsed seconds:
      pattern;
  19. CUDA-event timings of each slot kernel at its main-path shape, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
-     slot -> row CSR; sr_packed's gathered form too, over the node CSR,
-     with the [slots, F] gather alone), the slot SpMM per layer width, each
+     slot -> row CSR; sr's and sr_packed's gathered form too, over the node
+     CSR, with the [slots, F] gather alone and the bound with each live
+     edge's row once beside x's rows once), the slot SpMM per layer width, each
      model's forward and training step, and each one's busy share
      (profile_gcn.trace);
  20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128)
      with their edge-row schedules, dispatch_path == "slot_dyn" for the
-     per-call weights, the AEB name each width launches under, GAT's fused
-     route, and build_graph with its default layouts (the reference's);
+     per-call weights, the AEB name each width launches under, the name of
+     GAT's route, and build_graph with its default layouts (the reference's);
  21. plan_segment_sum_mh ((H, D) = (4, 64), (4, 7), (3, 96), (8, 32), with
-     weights exactly 0 on chosen heads), plan_segment_sum_sr2 (slot values
+     weights exactly 0 on chosen heads and on every head, in both forms:
+     slot-order values and weights; xh[src[e]] read in the edge-row kernel
+     with edge-order weights), plan_segment_sum_sr2 (slot values
      with per-call weights, edge values with static and/or per-call
      weights; F 500, 128, 64) and plan_segment_sum_packed2 (F 64, 32, 16,
      8), and both in the gathered form (x[src[e]] read in the edge-row
      kernel; F 128, 64, 7 and 64-7) against their plain versions on both
      directions' real plans, with every third per-call weight exactly 0 too
      and bit-identical reruns; each one's route over a plan chunked so that
-     its hub window splits (sr2 / packed2: the whole plan in one launch);
+     its hub window splits (sr2 / packed2 / mh: the whole plan in one
+     launch);
  22. 5 requests per model, launches per request asserted (GAT: mh 3; GCN:
      packed2 3 / sr2 3), each against the same model on the reference path
      in float64;
  23. 5 AdamW steps per model beside the reference path (launches per step:
      GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, the
-     attention's gradient being gathers; GCN packed2 3 / sr2 3 and
+     attention's gradient a per-edge dot; GCN packed2 3 / sr2 3 and
      sr_packed 3 over plan_t), the step-0 gradients against the reference
      path in float32 and in float64 through the kernel path's ReLU
      pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
-     at H*D 256 and 28, one forward and backward against the fused route;
+     at H*D 256 and 28, one forward and backward against the default route
+     (one computation on the card);
  24. CUDA-event timings of each kernel at its main-path shapes, its
      plain version, the library yardstick (torch.sparse.mm over the plan's
-     CSR with the kernel's weights; mh: one call over the head-expanded
-     CSR); sr2 / packed2 in both forms (edge-order values against the edge
-     -> row CSR; gathered against the node [n, n] CSR, the whole SpMM);
+     CSR with the kernel's weights); mh, sr2 and packed2 in both forms
+     (slot- or edge-order values against the slot or edge -> row CSR;
+     gathered against the node [n, n] CSR, the whole SpMM, head-expanded
+     for mh: [n*H, n*H]), mh with the [slots, H*D] gather alone and both
+     bounds (x's rows once; each live edge's row once);
      each model's forward and training step, and each one's busy share;
  25. the narrow BAT path's host builds: GIN's arxiv graph (phases 1-9's,
      no self-loops, unweighted; feature_hint 64: km_pack 2) and APPNP's
@@ -883,7 +892,7 @@ def run_slot(dev, card):
         vals = (torch.ones(shape, device=dev) if name == "plan_segment_sum_pr"
                 else torch.randn(shape, generator=gen, device=dev))
         forms = [("", vals, {})]
-        if name == "plan_segment_sum_sr_packed":
+        if name != "plan_segment_sum_pr":
             # the gathered form the route runs: x[src[e]] read in the kernel,
             # src the plan's edge-order src
             forms.append((" gathered", torch.randn(n, F, generator=gen, device=dev),
@@ -900,8 +909,8 @@ def run_slot(dev, card):
                                      "deterministic")
             n_checks += 1
         del vals, k, p, a, forms
-    log(f"phase 16 {n_checks} kernel checks within the abs-sum rule (sr_packed in both "
-        "forms), reruns bit-identical")
+    log(f"phase 16 {n_checks} kernel checks within the abs-sum rule (sr and sr_packed in "
+        "both forms), reruns bit-identical")
     dst_s, src_s = gs.dst.cpu().numpy(), gs.src.cpu().numpy()
     hub_tiles = int(torch.bincount(gs.plan.out_block.long()).max())
     chunk_slots = FLICKR_SLOT["e_tile"] * max(hub_tiles // 3, 2)
@@ -911,21 +920,22 @@ def run_slot(dev, card):
     split = [c_ for a_, c_ in zip(pc.chunks[:-1], pc.chunks[1:]) if c_[2] < a_[3]]
     if len(pc.chunks) < 3 or not split:
         raise AssertionError("the chunked plan does not split the hub window")
-    x64 = torch.randn(n, 64, generator=gen, device=dev)
-    with torch.inference_mode():
-        before = sk.plan_segment_sum_sr_packed.launches
-        got = api._slot_spmm(pc, x64, pc.mask, gs.src)
-        torch.cuda.synchronize()
-        expect_launches(sk.plan_segment_sum_sr_packed.launches - before, 1,
-                        "phase 16 chunked plan: sr_packed once, the plan whole")
-        vals = x64.index_select(0, gs.plan.src_slots.reshape(-1))
-        want = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals, gs.plan.mask)[:n]
-        a = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals.abs(), gs.plan.mask)[:n]
-    errs["plan_segment_sum_sr_packed"] = max(errs["plan_segment_sum_sr_packed"],
-                                             check_close_abs_sum(
-        got, want, a, f"phase 16 chunked plan ({len(pc.chunks)} uniform chunks of "
-        f"{chunk_slots} slots, hub window split {len(split)} time(s)) F=64"))
-    del pc, got, want, a, vals
+    for name, F in (("plan_segment_sum_sr_packed", 64), ("plan_segment_sum_sr", 128)):
+        xf = torch.randn(n, F, generator=gen, device=dev)
+        with torch.inference_mode():
+            before = counters[name].launches
+            got = api._slot_spmm(pc, xf, pc.mask, gs.src)
+            torch.cuda.synchronize()
+            expect_launches(counters[name].launches - before, 1,
+                            f"phase 16 chunked plan: {name} once, the plan whole")
+            vals = xf.index_select(0, gs.plan.src_slots.reshape(-1))
+            want = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals, gs.plan.mask)[:n]
+            a = ref_ops.plan_segment_sum_sr_plain(gs.plan, vals.abs(), gs.plan.mask)[:n]
+        errs[name] = max(errs[name], check_close_abs_sum(
+            got, want, a, f"phase 16 chunked plan ({len(pc.chunks)} uniform chunks of "
+            f"{chunk_slots} slots, hub window split {len(split)} time(s)) {name} F={F}"))
+        del got, want, a, vals, xf
+    del pc
 
     # 17. serve: 5 requests per model, each against the reference path
     arm("slot_serve")
@@ -1089,7 +1099,7 @@ def run_slot(dev, card):
             f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
             f"slot -> row CSR with its slot weights) {t_lib:.4f} ms")
         del vals, csr, dense
-        if name == "plan_segment_sum_sr_packed":
+        if name != "plan_segment_sum_pr":
             # the gathered form the route runs (x[src[e]] in the kernel), with
             # the [slots, F] gather it replaces; the values form above
             xg = torch.randn(n, F, generator=gen, device=dev)
@@ -1098,14 +1108,17 @@ def run_slot(dev, card):
             t_gather = cuda_ms(lambda: xg.index_select(0, plan.src_slots.reshape(-1)))
             ncsr = node_csr(g.dst, g.src, g.edge_weight, n)
             t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
-            bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True,
-                                                 plan.n_blocks * plan.s_tile)
+            n_out = plan.n_blocks * plan.s_tile
+            bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True, n_out)
+            rows_ms, _, nb_r = edge_rows_bound(int((w != 0).sum()), F, g.num_edges, 4, n_out)
             timing[(name, F)] = {"ms": t_g, "plain_ms": t_pg, "bound_ms": bound_g,
                                  "bound_by": by_g, "library_ms": t_libg,
+                                 "rows_bound_ms": rows_ms,
                                  "form": "gathered (x[src[e]] read in the kernel)",
                                  "values_form": dict(timing[(name, F)], gather_ms=t_gather)}
             log(f"{card} {name} F={F} gathered (x[src[e]] in the kernel): {t_g:.4f} ms "
-                f"(bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's rows once); "
+                f"(bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's rows once; "
+                f"{rows_ms:.4f} ms with each live edge's row once: {nb_r / 1e9:.4f} GB); "
                 f"plain {t_pg:.4f} ms; library torch.sparse.mm (the node CSR) {t_libg:.4f} ms; "
                 f"the [slots, F] gather alone {t_gather:.4f} ms")
             del xg, ncsr
@@ -1114,8 +1127,7 @@ def run_slot(dev, card):
         for F, g, w in ((f, gs, gs.plan.mask), (FLICKR_HIDDEN, gg, gg.w_slots), (c, gg, gg.w_slots)):
             xf = torch.randn(n, F, generator=gen, device=dev)
             spmm[F] = cuda_ms(lambda: api._slot_spmm(g.plan, xf, w, g.src))
-            how = "x[src[e]] read in the kernel" if F <= 64 else "gather x[src_slots] + kernel"
-            log(f"{card} slot SpMM F={F} ({how}): {spmm[F]:.4f} ms")
+            log(f"{card} slot SpMM F={F} (x[src[e]] read in the kernel): {spmm[F]:.4f} ms")
     fwd, stp, busy = {}, {}, {}
     for name in ("graphsage", "gcn"):
         model, g = models[name], graphs[name]
@@ -1185,6 +1197,17 @@ def node_csr(dst, src, w, n):
                                    check_invariants=False).coalesce().to_sparse_csr()
 
 
+def edge_rows_bound(n_live, F, nnz, w_bytes, n_out):
+    """The least time of the gathered form with each live edge's x row
+    counted once (the row reads the kernel issues, which `gathered_bound`
+    counts once per node): those rows, src and w_bytes of weights per edge,
+    and every output row written once (bytes); or 2 f32 flops per live
+    edge and column."""
+    n_bytes = n_live * F * 4 + nnz * (4 + w_bytes) + n_out * F * 4
+    bound, by = bound_ms(n_bytes, 2 * n_live * F)
+    return bound, by, n_bytes
+
+
 def gathered_bound(n_rows, F, nnz, weighted, n_out):
     """The least time of the gathered form (edge e reads x[src[e]] in the
     kernel): x's rows once, src and the weights in edge order, and every
@@ -1208,6 +1231,19 @@ def mh_csr(plan, w_heads):
     return torch.sparse_coo_tensor(
         torch.stack([rows, keep]), wf[keep], (plan.n_blocks * plan.s_tile * H, S * H),
         check_invariants=False).coalesce().to_sparse_csr()
+
+
+def mh_node_csr(dst, src, w_heads, n):
+    """The multi-head SpMM as one sparse matrix over node rows: x [n, H*D]
+    viewed as [n*H, D], the CSR [n*H, n*H] with entry (dst_e*H + h, src_e*H
+    + h) = w_heads[e, h]. For the library yardstick only."""
+    H = w_heads.shape[1]
+    h = torch.arange(H, device=dst.device)
+    rows = (dst.long()[:, None] * H + h).reshape(-1)
+    cols = (src.long()[:, None] * H + h).reshape(-1)
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), w_heads.reshape(-1),
+                                   (n * H, n * H), check_invariants=False
+                                   ).coalesce().to_sparse_csr()
 
 
 def mh_bound(plan, w_heads, F):
@@ -1295,13 +1331,13 @@ def run_gat_dyn(dev, card):
     if packed != (64, 8, 0):
         raise AssertionError(f"AEB kernel names {packed}, expected packed2 at F 64 and {c} on "
                              "the pack-aligned plan, sr2 on the other")
-    fused = gg.plan is not None and gg.num_edges <= api.GAT_FUSED_MAX_EDGES
-    if not fused:
-        raise AssertionError("the GAT graph does not take the fused slot-space route")
+    if gg.plan is None or gg.num_edges > api.GAT_FUSED_MAX_EDGES:
+        raise AssertionError("the GAT graph has no slot plan or does not name the fused route")
     log(f"phase 20 dispatch_path: per-call weights 'slot_dyn' on both GCN graphs (one route, "
         f"the AEB function reading x[src[e]] in the edge-row kernel, launched as the reference "
-        f"names it: packed2 at F 64 and {c} with pack_align 16, sr2 with pack_align 1); GAT "
-        f"fused ({gg.num_edges} edges <= fused_max_edges {api.GAT_FUSED_MAX_EDGES})")
+        f"names it: packed2 at F 64 and {c} with pack_align 16, sr2 with pack_align 1); GAT's "
+        f"route named fused ({gg.num_edges} edges <= fused_max_edges "
+        f"{api.GAT_FUSED_MAX_EDGES}), one computation with the composed route on the card")
     for name in ("gcn_dyn64", "gcn_dyn128"):
         st = graphs[name].build_stats["row_schedule"]
         log(f"phase 20 {name} edge-row schedules (host build, bytes on the card): "
@@ -1339,24 +1375,33 @@ def run_gat_dyn(dev, card):
     n_checks = 0
     for d in ("plan", "plan_t"):
         plan = getattr(gg, d)
-        S = plan.num_tiles * plan.e_tile
-        mask = plan.mask.reshape(-1, 1)
+        src_d = gg.src if d == "plan" else gg.dst_t  # the plan's edge-order src
+        nnz, mask = gg.num_edges, plan.mask.reshape(-1, 1)
+        edge_pos = plan.edge_pos.reshape(-1).long()
         for H, D in ((4, 64), (4, 7), (3, 96), (8, 32)):
-            vals = torch.randn(S, H * D, generator=gen, device=dev)
-            wh = torch.rand(S, H, generator=gen, device=dev) * mask
+            xh = torch.randn(n, H * D, generator=gen, device=dev)
+            vals = xh.index_select(0, plan.src_slots.reshape(-1))
+            wh = torch.rand(nnz, H, generator=gen, device=dev)
             for zeroed in (False, True):
                 w = wh
-                if zeroed:  # heads 0 and 2 exactly 0 on every third slot, the rest kept
-                    third = (torch.arange(S, device=dev) % 3 == 1)[:, None]
-                    w = torch.where(third & (torch.arange(H, device=dev) % 2 == 0), 0.0, wh)
-                k = sk.plan_segment_sum_mh(plan, vals, w, D)
-                torch.cuda.synchronize()
-                held("plan_segment_sum_mh", k, ref_ops.plan_segment_sum_mh_plain(plan, vals, w, D),
-                     ref_ops.plan_segment_sum_mh_plain(plan, vals.abs(), w, D),
-                     f"(H, D) = ({H}, {D}) gat.{d}" + (" zero heads" if zeroed else ""),
-                     lambda: sk.plan_segment_sum_mh(plan, vals, w, D))
-                n_checks += 1
-            del vals, wh, w, k
+                if zeroed:  # heads 0 and 2 exactly 0 on every third edge, all on every 7th
+                    edge = torch.arange(nnz, device=dev)[:, None]
+                    w = torch.where((edge % 3 == 1) & (torch.arange(H, device=dev) % 2 == 0)
+                                    | (edge % 7 == 3), 0.0, wh)
+                w_slots = (w.index_select(0, edge_pos) * mask).contiguous()
+                # the values form (slot order, the TPU kernel's contract) and
+                # the gathered one the routes run (x[src[e]], edge-order weights)
+                for form, v, w_, kw in (("values", vals, w_slots, {}),
+                                        ("gathered", xh, w, {"src": src_d})):
+                    k = sk.plan_segment_sum_mh(plan, v, w_, D, **kw)
+                    torch.cuda.synchronize()
+                    held("plan_segment_sum_mh", k,
+                         ref_ops.plan_segment_sum_mh_plain(plan, v, w_, D, **kw),
+                         ref_ops.plan_segment_sum_mh_plain(plan, v.abs(), w_, D, **kw),
+                         f"(H, D) = ({H}, {D}) gat.{d} {form}" + (" zero heads" if zeroed else ""),
+                         lambda: sk.plan_segment_sum_mh(plan, v, w_, D, **kw))
+                    n_checks += 1
+            del xh, vals, wh, w, w_slots, k
     for gname, g in (("gcn_dyn128", g128), ("gcn_dyn64", g64)):
         for d in ("plan", "plan_t"):
             plan = getattr(g, d)
@@ -1406,8 +1451,8 @@ def run_gat_dyn(dev, card):
                 n_checks += 1
                 del vals, k
     # a plan chunked so that its hub window splits: the slot_dyn sums (both
-    # AEB routes: the whole plan in one launch) and mh (chunk by chunk),
-    # against the unchunked plain sums
+    # AEB routes) and mh, each the whole plan in one launch, against the
+    # unchunked plain sums
     dst_s, src_s = g64.dst.cpu().numpy(), g64.src.cpu().numpy()
     hub_tiles = int(torch.bincount(g64.plan.out_block.long()).max())
     for name, fh, F in (("plan_segment_sum_packed2", 64, 64),
@@ -1423,7 +1468,10 @@ def run_gat_dyn(dev, card):
         with torch.inference_mode():
             if name == "plan_segment_sum_mh":
                 wh = torch.rand(g64.num_edges, 4, generator=gen, device=dev)
-                got = api._mh_fwd(pc, xf.reshape(n, 4, 64), wh).reshape(n, F)
+                before = sk.plan_segment_sum_mh.launches
+                got = api._mh_fwd(pc, xf.reshape(n, 4, 64), wh, g64.src).reshape(n, F)
+                expect_launches(sk.plan_segment_sum_mh.launches - before, 1,
+                                "phase 21 mh route on a chunked plan (summed whole)")
                 vals = xf.index_select(0, whole.src_slots.reshape(-1))
                 wsl = wh.index_select(0, whole.edge_pos.reshape(-1)) * whole.mask.reshape(-1, 1)
                 want = ref_ops.plan_segment_sum_mh_plain(whole, vals, wsl, 64)[:n]
@@ -1568,10 +1616,12 @@ def run_gat_dyn(dev, card):
         if not serve[name][k] or not train[name][k]:
             raise AssertionError(f"{k} was not launched on the {name} path")
     del ref_models
-    # the composed GAT route (edge-space softmax + mh_spmm) at both layer
-    # widths: one forward and one backward of gat_attention_spmm against
-    # the fused route on the same inputs. Both aggregate with the mh kernel
-    # (forward over plan, the xh gradient over plan_t) at H*D 256 and 28.
+    # the composed GAT route (fused_max_edges 0) at both layer widths: one
+    # forward and one backward of gat_attention_spmm against the default
+    # (the reference's fused) route on the same inputs. Both are one
+    # computation here: the mh kernel reads xh[src[e]] and the edge-order
+    # attention (forward over plan, the xh gradient over plan_t) at H*D 256
+    # and 28, the attention's gradient the per-edge, per-head dot.
     for H, D, want in ((4, FLICKR_HIDDEN, (2, 2)), (4, c, (2, 2))):
         xh = torch.randn(n, H, D, generator=gen, device=dev)
         a_s = 0.3 * torch.randn(n, H, generator=gen, device=dev)
@@ -1596,38 +1646,63 @@ def run_gat_dyn(dev, card):
         log(f"phase 23 composed GAT route (fused_max_edges 0), (H, D) = ({H}, {D}): output "
             f"max |composed - fused| {float((o_c - o_f).abs().max()):.3e}, gradients of xh, "
             f"alpha_src, alpha_dst within rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g|; mh "
-            f"launches forward + backward: fused {l_f} (the attention's gradient by gathers), "
-            f"composed {l_c}")
+            f"launches forward + backward: fused {l_f}, composed {l_c}")
     del res, xh, a_s, a_d, co, o_f, o_c, g_f, g_c
 
     # 24. timings: each new kernel at its main-path shapes, forward and
     # training step per model, busy share
     arm("gat_timing")
     timing = {}
+    plan, nnz = gg.plan, gg.num_edges
+    n_out = plan.n_blocks * plan.s_tile
     for H, D in ((4, FLICKR_HIDDEN), (4, c)):
-        plan = gg.plan
-        S = plan.num_tiles * plan.e_tile
-        vals = torch.randn(S, H * D, generator=gen, device=dev)
-        wh = (torch.rand(S, H, generator=gen, device=dev) + 0.1) * plan.mask.reshape(-1, 1)
-        t_k = cuda_ms(lambda: sk.plan_segment_sum_mh(plan, vals, wh, D))
-        t_p = cuda_ms(lambda: ref_ops.plan_segment_sum_mh_plain(plan, vals, wh, D), iters=3,
-                      warmup=1)
-        csr = mh_csr(plan, wh)
-        v2 = vals.view(S * H, D)
-        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, v2))
+        F = H * D
+        xh = torch.randn(n, F, generator=gen, device=dev)
+        we = torch.rand(nnz, H, generator=gen, device=dev) + 0.1
+        ws = (we.index_select(0, plan.edge_pos.reshape(-1).long())
+              * plan.mask.reshape(-1, 1)).contiguous()
+        vals = xh.index_select(0, plan.src_slots.reshape(-1))
+        # the gathered form the routes run: xh[src[e]] and the edge-order
+        # attention read in the kernel
+        t_g = cuda_ms(lambda: sk.plan_segment_sum_mh(plan, xh, we, D, src=gg.src))
+        t_p = cuda_ms(lambda: ref_ops.plan_segment_sum_mh_plain(plan, xh, we, D, src=gg.src),
+                      iters=3, warmup=1)
+        t_gather = cuda_ms(lambda: xh.index_select(0, plan.src_slots.reshape(-1)))
+        ncsr = mh_node_csr(gg.dst, gg.src, we, n)
+        x2 = xh.view(n * H, D)
         # the yardstick computes the same function
-        lib_out = torch.sparse.mm(csr, v2).reshape(-1, H * D)
-        check_close_abs_sum(lib_out, ref_ops.plan_segment_sum_mh_plain(plan, vals, wh, D),
-                            ref_ops.plan_segment_sum_mh_plain(plan, vals.abs(), wh, D),
-                            f"phase 24 library yardstick of plan_segment_sum_mh H*D={H * D}")
-        bound, by, nb = mh_bound(plan, wh, H * D)
-        timing[("plan_segment_sum_mh", H * D)] = {
-            "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_lib}
-        log(f"{card} plan_segment_sum_mh H*D={H * D}: kernel {t_k:.4f} ms (bound {bound:.4f} ms "
-            f"by {by}: {nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the "
-            f"head-expanded slot -> row CSR [rows*{H}, slots*{H}] over vals viewed as "
-            f"[slots*{H}, {D}]) {t_lib:.4f} ms")
-        del vals, wh, csr, v2, lib_out
+        lib_out = torch.sparse.mm(ncsr, x2).reshape(n, F)
+        check_close_abs_sum(lib_out, ref_ops.plan_segment_sum_mh_plain(plan, xh, we, D,
+                                                                       src=gg.src)[:n],
+                            ref_ops.plan_segment_sum_mh_plain(plan, xh.abs(), we, D,
+                                                              src=gg.src)[:n],
+                            f"phase 24 library yardstick of plan_segment_sum_mh H*D={F}")
+        t_lib = cuda_ms(lambda: torch.sparse.mm(ncsr, x2))
+        del ncsr, lib_out
+        nb = n * F * 4 + nnz * 4 * (1 + H) + n_out * F * 4  # xh once, src, weights, out
+        bound, by = bound_ms(nb, 2 * nnz * F)
+        rows_ms, _, nb_r = edge_rows_bound(nnz, F, nnz, 4 * H, n_out)
+        # the values form: slot-order rows and weights (the TPU kernel's
+        # contract), against the plan's head-expanded slot -> row CSR
+        t_v = cuda_ms(lambda: sk.plan_segment_sum_mh(plan, vals, ws, D))
+        csr = mh_csr(plan, ws)
+        v2 = vals.view(-1, D)
+        t_vlib = cuda_ms(lambda: torch.sparse.mm(csr, v2))
+        bound_v, by_v, nb_v = mh_bound(plan, ws, F)
+        timing[("plan_segment_sum_mh", F)] = {
+            "ms": t_g, "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_lib,
+            "rows_bound_ms": rows_ms, "form": "gathered (xh[src[e]] read in the kernel)",
+            "values_form": {"ms": t_v, "bound_ms": bound_v, "bound_by": by_v,
+                            "library_ms": t_vlib, "gather_ms": t_gather}}
+        log(f"{card} plan_segment_sum_mh H*D={F} gathered (xh[src[e]] and the edge-order "
+            f"weights in the kernel): {t_g:.4f} ms (bound {bound:.4f} ms by {by}: "
+            f"{nb / 1e9:.4f} GB, xh's rows once; {rows_ms:.4f} ms with each live edge's row "
+            f"once: {nb_r / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the "
+            f"head-expanded node CSR [n*{H}, n*{H}] over xh viewed as [n*{H}, {D}]) "
+            f"{t_lib:.4f} ms || values form (slot order) {t_v:.4f} ms (bound {bound_v:.4f} ms "
+            f"by {by_v}: {nb_v / 1e9:.4f} GB); library (the head-expanded slot -> row CSR) "
+            f"{t_vlib:.4f} ms; the [slots, H*D] gather alone {t_gather:.4f} ms")
+        del xh, we, ws, vals, csr, v2, x2
     for name, g, F in (("plan_segment_sum_sr2", g128, FLICKR_HIDDEN),
                        ("plan_segment_sum_sr2", g128, c),
                        ("plan_segment_sum_packed2", g64, FLICKR_HIDDEN),
@@ -2528,10 +2603,10 @@ def main():
             "library_ms": t_slib,
         }, hyb_entry("stream_segment_sum", "sum", 1243),
            hyb_entry("stream_segment_acc", "acc", 1176),
-           slot_entry("plan_segment_sum_sr", 1302, 500),
+           slot_entry("plan_segment_sum_sr", 1302, 500, "edge_row_sum.cu"),
            slot_entry("plan_segment_sum_sr_packed", 233, 64, "edge_row_sum.cu"),
            slot_entry("plan_segment_sum_pr", 1348, 8),
-           new_entry("plan_segment_sum_mh", "slot_mh.cu", 1391, 4 * 64),
+           new_entry("plan_segment_sum_mh", "edge_row_sum.cu", 1391, 4 * 64),
            new_entry("plan_segment_sum_sr2", "edge_row_sum.cu", 384, 64),
            new_entry("plan_segment_sum_packed2", "edge_row_sum.cu", 581, 64), {
             "name": "bat_segment_sum_packed",

@@ -10,11 +10,13 @@ for narrow features and hybrid stream+gather plans:
       -> _bat_row_sum -> bat_segment_sum (hand-written CUDA, sm_90a: the
          edge-row kernel, reading x[src[e]] itself)
     prefer="sr": GCN / GraphSAGE -> segment_spmm -> _slot_spmm
-      -> plan_segment_sum_sr / _sr_packed (CUDA, sm_90a); the mean's degree
+      -> plan_segment_sum_sr / _sr_packed (CUDA, sm_90a: the edge-row
+         kernel, reading x[src[e]] itself); the mean's degree
          -> segment_counts -> plan_segment_sum_pr (CUDA, sm_90a)
     per-call weights, prefer_dyn="sr": GCN -> segment_spmm -> _spmm_fwd_slot_dyn
-      -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a)
-    GAT -> GATConv -> gat_attention_spmm -> plan_segment_sum_mh (CUDA, sm_90a)
+      -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a: the edge-row kernel)
+    GAT -> GATConv -> gat_attention_spmm -> mh_spmm -> plan_segment_sum_mh
+      (CUDA, sm_90a: the edge-row kernel with per-head weights)
     feature_hint <= 64: GIN / APPNP / SGC -> segment_spmm -> _spmm_fwd_bat
       -> _bat_row_sum -> bat_segment_sum_packed (CUDA, sm_90a) at 8-64 columns
     layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid

@@ -41,7 +41,6 @@ SOURCES: Dict[str, str] = {
     "sddmm_bat": "sddmm_bat.cu",
     "stream_segment": "stream_segment.cu",
     "slot_segment_sum": "slot_segment_sum.cu",
-    "slot_mh": "slot_mh.cu",
     "edge_row_sum": "edge_row_sum.cu",
 }
 

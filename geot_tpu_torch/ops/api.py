@@ -14,17 +14,18 @@ Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 :1092 (BatPlan and AEB branches), `_apply_reduce_post` :1159,
 `index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter`
 :1256, `dispatch_path` :1298, `segment_spmm` :1367, `mh_spmm` :1486,
-`mh_spmm_transposed` :1510, `_make_mh_slot` :1523, `gat_attention_spmm`
-:1562, `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
+`mh_spmm_transposed` :1510, `gat_attention_spmm` :1562 (its fused route,
+`_make_mh_slot` :1523, is the composed one here), `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
 :1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The BAT
 routes at every width (the hybrid remainder's too), the slot routes at
-n <= 64 and slot_dyn hand their sums x and src (`_bat_row_sum`,
-`_slot_spmm`, `_aeb_sum`): the edge-row kernel reads x[src[e]] itself,
-with no edge-order or slot-order gather, one launch a plan where the
-reference gathers and runs chunk by chunk. The slot sums past 64
-columns (sr, pr) gather exactly `x[src_slots]` chunk by chunk: the
-reference's gather pad (`_fast_gather_fn`, odd multiples of 512 rows)
-answers a TPU emitter and is not carried over.
+every width (sr, sr_packed), slot_dyn, the multi-head SpMM and both GAT
+routes hand their sums x and src (`_bat_row_sum`, `_slot_spmm`,
+`_aeb_sum`, `_mh_fwd`): the edge-row kernel reads x[src[e]] itself, with
+no edge-order or slot-order gather, one launch a plan where the reference
+gathers and runs chunk by chunk. Only the transposed slot sum (pr, where
+a plan's mode hint asks for it) gathers exactly `x[src_slots]` chunk by
+chunk: the reference's gather pad (`_fast_gather_fn`, odd multiples of
+512 rows) answers a TPU emitter and is not carried over.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
 fused SpMM runs the same kernels over the transpose plan (`plan_t`,
@@ -82,7 +83,7 @@ BACKENDS = ("auto", "reference")
 SDDMM_MAX_BYTES = 4 << 30
 # gat_attention_spmm's route switch, the reference's value
 # (`GEOT_GAT_FUSED_MAX_EDGES`, api.py:1602-1606): a TPU figure, not
-# measured on the H100
+# measured on the H100; here both routes are one computation
 GAT_FUSED_MAX_EDGES = 8_000_000
 
 
@@ -162,28 +163,28 @@ def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor,
     w_slots = plan.mask this is the unweighted sum (the reference's
     `_w_slots(plan, None)`). Returns [num_segments, n] float32.
 
-    At n <= 64 (the reference's packed width, its lanes dividing e_tile)
-    `plan_segment_sum_sr_packed` takes x and src and reads x[src[e]] in
-    the kernel, over the whole plan in one launch. Otherwise (pr where
-    the plan's mode hint asks for it, sr past 64) the gather emits exactly
-    x[src_slots] ([slots, n] float32, pads gather node 0 and weigh 0), one
-    chunk at a time, so only one chunk's gather is ever held."""
+    In mode "sr" the sum takes x and src and reads x[src[e]] in the
+    kernel, over the whole plan in one launch, under the name the
+    reference would launch: `plan_segment_sum_sr_packed` at n <= 64 (the
+    reference's packed width, its lanes dividing e_tile), else
+    `plan_segment_sum_sr`. In mode "pr" (where the plan's mode hint asks
+    for it) the gather emits exactly x[src_slots] ([slots, n] float32,
+    pads gather node 0 and weigh 0), one chunk at a time, so only one
+    chunk's gather is ever held."""
     x = x.float().contiguous()
     n = x.shape[1]
-    mode = _pick_mode(n, plan)
-    nw = packed_width(n)
-    if mode == "sr" and nw and plan.e_tile % (128 // nw) == 0:
-        out = plan_segment_sum_sr_packed(plan, x, w_slots, src=src.int().contiguous())
-        return out[: plan.num_segments]
+    if _pick_mode(n, plan) == "sr":
+        nw = packed_width(n)
+        packed = nw and plan.e_tile % (128 // nw) == 0
+        fn = plan_segment_sum_sr_packed if packed else plan_segment_sum_sr
+        return fn(plan, x, w_slots, src=src.int().contiguous())[: plan.num_segments]
     idx = plan.src_slots.reshape(-1)
     E = plan.e_tile
 
     def run_one(cp, i, c):
         t0, t1 = c[0], c[1]
-        v, w = x.index_select(0, idx[t0 * E:t1 * E]), w_slots[t0:t1]
-        if mode == "pr":
-            return plan_segment_sum_pr(cp, v.t().contiguous(), w)[:, : cp.num_segments].t()
-        return plan_segment_sum_sr(cp, v, w)[: cp.num_segments]
+        v = x.index_select(0, idx[t0 * E:t1 * E]).t().contiguous()
+        return plan_segment_sum_pr(cp, v, w_slots[t0:t1])[:, : cp.num_segments].t()
 
     return _plan_sum_chunked(plan, run_one)
 
@@ -826,46 +827,46 @@ def sddmm_coo(
     return ref.sddmm_coo_ref(src_index, dst_index, a, b)
 
 
-def _mh_fwd(plan: SegmentPlan, x: torch.Tensor, w_heads: torch.Tensor) -> torch.Tensor:
-    """x [nodes, H, D], w_heads [nnz, H] in the plan's edge order ->
-    [num_segments, H, D] float32 through `plan_segment_sum_mh`, chunk by
-    chunk: the flat [slots, H*D] gather of one chunk and its slot weights
-    w_heads[edge_pos] * mask. The reference pads H*D past 128 to its lane
-    tile; the kernel reads H*D columns as they are."""
+def _mh_fwd(plan: SegmentPlan, x: torch.Tensor, w_heads: torch.Tensor,
+            src: torch.Tensor) -> torch.Tensor:
+    """x [nodes, H, D], w_heads [nnz, H] in the plan's edge order, src the
+    plan's edge-order src (`Graph.src` for `plan`, `Graph.dst_t` for
+    `plan_t`) -> [num_segments, H, D] float32 through `plan_segment_sum_mh`,
+    which reads x[src[e]] and w_heads[e] in the kernel: no slot gather and
+    no weight placement, the whole plan in one launch where the reference
+    runs it chunk by chunk over a [slots, H*D] gather. The reference pads
+    H*D past 128 to its lane tile; the kernel reads H*D columns as they
+    are."""
     n_nodes, H, D = x.shape
-    x2 = x.reshape(n_nodes, H * D).float().contiguous()
-    wh = w_heads.float()
-
-    def run_one(cp, i, c):
-        vals = x2.index_select(0, cp.src_slots.reshape(-1))
-        w = wh.index_select(0, cp.edge_pos.reshape(-1)) * cp.mask.reshape(-1, 1)
-        return plan_segment_sum_mh(cp, vals, w.contiguous(), D)[: cp.num_segments]
-
-    return _plan_sum_chunked(plan, run_one).reshape(plan.num_segments, H, D)
+    out = plan_segment_sum_mh(plan, x.reshape(n_nodes, H * D).float().contiguous(),
+                              w_heads.float().contiguous(), D, src=src.int().contiguous())
+    return out[: plan.num_segments].reshape(plan.num_segments, H, D)
 
 
 class _MhSpmm(torch.autograd.Function):
     """Multi-head SpMM over the slot plans (`_make_mh`). Backward: dx = the
     same sum over `plan_t` with weights w[perm_t]; dw[e, h] = <g[dst_e, h],
-    x[src_e, h]>, the plain per-head dot."""
+    x[src_e, h]>, the plain per-head dot in edge order (`_edge_dots`). Both
+    run in a fixed order with no atomics, so reruns are bit-identical."""
 
     @staticmethod
-    def forward(ctx, x, w, src, dst, plan, plan_t, perm_t):
+    def forward(ctx, x, w, src, dst, dst_t, plan, plan_t, perm_t):
         ctx.plan_t = plan_t
-        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, perm_t)
-        return _mh_fwd(plan, x, w).to(x.dtype)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, src, dst, dst_t,
+                              perm_t)
+        return _mh_fwd(plan, x, w, src).to(x.dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, w, src, dst, perm_t = ctx.saved_tensors
+        x, w, src, dst, dst_t, perm_t = ctx.saved_tensors
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _mh_fwd(ctx.plan_t, g, w.index_select(0, perm_t.long())).to(g.dtype)
+            dx = _mh_fwd(ctx.plan_t, g, w.index_select(0, perm_t.long()), dst_t).to(g.dtype)
         if ctx.needs_input_grad[1]:
             dw = _edge_dots(src, dst, g, x).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def mh_spmm(
@@ -891,8 +892,8 @@ def mh_spmm(
         if graph.plan is None:
             raise NotImplementedError("mh_spmm over a graph runs on its slot plans: build "
                                       "it with 'slot' in layouts")
-        return _MhSpmm.apply(src, weight, graph.src, graph.dst, graph.plan, graph.plan_t,
-                             graph.perm_t)
+        return _MhSpmm.apply(src, weight, graph.src, graph.dst, graph.dst_t, graph.plan,
+                             graph.plan_t, graph.perm_t)
     return ref.mh_spmm_ref(src_index, dst_index, weight, src, num_segments)
 
 
@@ -1028,59 +1029,6 @@ def segment_softmax(
     return e / _gather_rows(torch.clamp(s, min=1e-16), idx, offsets=offsets)
 
 
-class _MhSlot(torch.autograd.Function):
-    """Slot-space multi-head weighted segment sum (`_make_mh_slot`): vals
-    [T*E, H*D] and w [T*E, H], both slot-ordered -> [n_blocks*s_tile, H*D]
-    through `plan_segment_sum_mh`. Backward is pure gathers: g[dst_slots]
-    times w per head (dvals) and dotted with vals per head (dw)."""
-
-    @staticmethod
-    def forward(ctx, vals, w, plan, head_dim):
-        ctx.plan = plan
-        ctx.save_for_backward(vals, w)
-        return plan_segment_sum_mh(plan, vals.float().contiguous(), w.float().contiguous(),
-                                   head_dim).to(vals.dtype)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        vals, w = ctx.saved_tensors
-        te, hd = vals.shape
-        H = w.shape[1]
-        g3 = g.index_select(0, ctx.plan.dst_slots.reshape(-1)).reshape(te, H, hd // H)
-        dvals = dw = None
-        if ctx.needs_input_grad[0]:
-            dvals = (g3 * w[:, :, None].to(g3.dtype)).reshape(te, hd).to(vals.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = (g3 * vals.reshape(te, H, hd // H)).sum(dim=-1).to(w.dtype)
-        return dvals, dw, None, None
-
-
-class _XhGradT(torch.autograd.Function):
-    """The identity on the fused GAT route's output [n, H, D], which adds
-    the xh gradient in backward: the multi-head SpMM of the output gradient
-    over `plan_t` with the attention in transposed order (att[perm_t]),
-    through `plan_segment_sum_mh`, as the composed route takes it (`_MhSpmm`):
-    a fixed order with no atomics. The slot gather of xh is detached, so
-    this is xh's only gradient; the attention's comes through `_MhSlot`."""
-
-    @staticmethod
-    def forward(ctx, out, xh, att, plan_t, perm_t):
-        ctx.save_for_backward(att, perm_t)
-        ctx.plan_t, ctx.xh_dtype = plan_t, xh.dtype
-        return out.view_as(out)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        att, perm_t = ctx.saved_tensors
-        dxh = None
-        if ctx.needs_input_grad[1]:
-            dxh = _mh_fwd(ctx.plan_t, g.contiguous(),
-                          att.index_select(0, perm_t.long())).to(ctx.xh_dtype)
-        return g, dxh, None, None, None
-
-
 def gat_attention_spmm(
     graph: Graph,
     xh: torch.Tensor,
@@ -1097,30 +1045,31 @@ def gat_attention_spmm(
     Differentiable in all three.
 
     The attention is taken in edge order: the softmax's max and sum run
-    over the dst-sorted runs (`segment_softmax`'s statistics). Then, on
-    graphs of at most `fused_max_edges` edges, it is placed into the slot
-    layout by each slot's edge (pad slots weigh exactly 0), chunk by chunk,
-    and summed by `plan_segment_sum_mh` (`_MhSlot`, whose attention
-    gradient is pure gathers); the xh gradient is the mh kernel over
-    `plan_t` (`_XhGradT`). Past it, it feeds `mh_spmm` (the same kernel
-    over `plan`, and over `plan_t` for the xh gradient). The switch defaults to the
-    reference's `GEOT_GAT_FUSED_MAX_EDGES`, a TPU figure, not measured on
-    the H100; the reference's other switch, the plain aggregation below
-    H*D 64 on its composed route, is a TPU measurement and is not carried
-    over. backend="reference" runs the plain edge-space softmax and
+    over the dst-sorted runs (`segment_softmax`'s statistics). It is then
+    summed with xh by `mh_spmm` over the graph's slot plans: the mh kernel
+    reads xh[src[e]] and att[e] itself, over `plan`, and over `plan_t` for
+    the xh gradient; the attention's gradient is the per-edge, per-head
+    dot <g[dst_e, h], xh[src_e, h]> in edge order. The reference has two
+    routes, switched at `fused_max_edges` (its `GEOT_GAT_FUSED_MAX_EDGES`,
+    a TPU figure, kept as the reference's keyword with its value): a fused
+    one that places the attention into the slot layout and sums a
+    [slots, H*D] gather of xh, and the composed one above. Here both are
+    this one computation, and the argument only names the route; the
+    reference's other switch, the plain aggregation below H*D 64 on its
+    composed route, is a TPU measurement and is not carried over.
+    backend="reference" runs the plain edge-space softmax and
     `mh_spmm_ref` (edge order, no plan).
 
     Each gather of per-node terms into edge order has a fixed-order
     backward (`_gather_rows` with run boundaries; the src-indexed one
-    through `perm_t`, the src-sorted order), and so has the placement into
-    slots (one slot per edge). The xh gradient is a kernel sum over
-    `plan_t` on both routes (it was an `index_add_` over the fused route's
-    slot gather, with atomics on the card: ROADMAP C.12), so every
-    gradient is bit-identical across reruns."""
+    through `perm_t`, the src-sorted order), and the sums and dots are in
+    a fixed order with no atomics (the reference's fused route added slot
+    terms with index_add_, ROADMAP C.12), so every gradient is
+    bit-identical across reruns. Pad slots add nothing: the attention
+    lives on real edges only (the reference multiplies its slot placement
+    by the mask and gives NaN where a pad's logit overflows, C.11)."""
     _check_backend(backend)
     n = graph.num_nodes
-    H = alpha_src.shape[1]
-    D = xh.shape[-1]
     src_l, dst_l, perm_t = graph.src.long(), graph.dst.long(), graph.perm_t.long()
     off_dst = _runs(graph.dst, n)
     off_src = _runs(graph.src.index_select(0, perm_t), n)
@@ -1132,23 +1081,4 @@ def gat_attention_spmm(
         return ref.mh_spmm_ref(graph.src, graph.dst, att.to(xh.dtype), xh, n)
     e, s = _softmax_stats(logit, dst_l, off_dst)
     att = e / _gather_rows(torch.clamp(s, min=1e-16), dst_l, offsets=off_dst)
-    if graph.num_edges > fused_max_edges:
-        return mh_spmm(graph.src, graph.dst, att.to(xh.dtype), xh, n, graph=graph,
-                       backend=backend)
-    plan = graph.plan
-    if plan is None:
-        raise NotImplementedError("the fused GAT route runs on the graph's slot plans: build "
-                                  "it with 'slot' in layouts")
-    # detached: xh's gradient is _XhGradT's, over plan_t
-    xflat = xh.detach().reshape(-1, H * D)
-
-    def run_one(cp, i, c):
-        w = _gather_rows(att, cp.edge_pos.reshape(-1).long())
-        # the reference multiplies by the mask; a pad's weight is exactly 0
-        # here whatever the edge it names
-        w = torch.where(cp.mask.reshape(-1, 1) > 0, w, torch.zeros_like(w))
-        vals = xflat.index_select(0, cp.src_slots.reshape(-1))
-        return _MhSlot.apply(vals, w.to(vals.dtype), cp, D)[: cp.num_segments]
-
-    out = _plan_sum_chunked(plan, run_one)[:n].reshape(n, H, D)
-    return _XhGradT.apply(out, xh, att.detach().to(xh.dtype), graph.plan_t, graph.perm_t)
+    return mh_spmm(graph.src, graph.dst, att.to(xh.dtype), xh, n, graph=graph, backend=backend)

@@ -1,36 +1,32 @@
-// Slot-layout segment sums for Hopper (sm_90a), plain C interface for ctypes.
+// Transposed slot-layout segment sum for Hopper (sm_90a), plain C interface
+// for ctypes.
 //
-// Replaces two TPU kernels of geot_tpu/ops/pallas_segment.py that compute
-// one function over a slot plan (SegmentPlan: T tiles of E slots, tile t in
-// output window out_block[t], out_block non-decreasing):
+// Replaces plan_segment_sum_pr of geot_tpu/ops/pallas_segment.py (:1348,
+// `_pr_kernel` :119-144) over a slot plan (SegmentPlan: T tiles of E slots,
+// tile t in output window out_block[t], out_block non-decreasing), with the
+// edges on the contiguous axis:
 //
-//   plan_segment_sum_sr         (:1302, `_sr_kernel` :89-116)
-//   plan_segment_sum_pr         (:1348, `_pr_kernel` :119-144), transposed
+//   out_t[:, dst[t*E + j]] += w[t*E + j] * vals_t[:, t*E + j]   for each slot
+//                                                              with w != 0
 //
-// (The third, plan_segment_sum_sr_packed (:233) at F <= 64, is the
-// row-ordered edge sum of edge_row_sum.cu, which reads x[src[e]] itself.)
-//
-//   out[dst[t*E + j], :] += w[t*E + j] * vals[t*E + j, :]   for each slot with
-//                                                           w[t*E + j] != 0
-//
-// with dst[t*E + j] in window out_block[t]. sr reads vals
-// [>= T*E, F] and write out [n_windows*s_tile, F]; pr reads the transpose
-// vals_t [F, ld_in] and writes the transpose out_t [F, n_windows*s_tile].
-// Every row of every window is written exactly once (zeros included), with
-// no atomics, so reruns are bit-identical. The sums are float32. The F
-// columns are read in place: no padding to 128 lanes.
+// with dst[t*E + j] in window out_block[t]. It reads vals_t [N, ld_in] and
+// writes out_t [N, n_windows*s_tile]. Every row of every window is written
+// exactly once (zeros included), with no atomics, so reruns are
+// bit-identical. The sums are float32. The N rows are read in place: no
+// padding to 128 lanes. (The row-major slot sums, sr at any width and
+// sr_packed, are the row-ordered edge sum of edge_row_sum.cu, which reads
+// x[src[e]] itself.)
 //
 // A slot of weight 0 is not read. A plan's pad slots have weight 0 and hold
 // their window's base row, out of dst order (after a tile's real slots, and
 // before them when the plan is pack-aligned); skipping them leaves every
 // tile's slots in dst order. A real edge of weight 0 is skipped the same
 // way, so a skipped slot may also sit inside one row's run of slots. The
-// TPU kernels add 0 * v there, which is the same sum wherever v is finite.
+// TPU kernel adds 0 * v there, which is the same sum wherever v is finite.
 //
-// Bound on the H100: bytes. At the flickr shape (981,504 slots) sr at F 500
-// must read ~1.96 GB of slot values and write ~179 MB; pr on [8, T*E] a
-// few tens of MB, so launch latency bounds it. The flops (2 per value) are
-// negligible.
+// Bound on the H100: bytes. At the flickr shape (981,504 slots) pr on
+// [8, T*E] reads a few tens of MB, so launch latency bounds it. The flops
+// (2 per value) are negligible.
 //
 // The TPU grid runs the tiles in order and carries a window's sum in VMEM;
 // Hopper blocks run in no order. So:
@@ -51,10 +47,10 @@
 //     window, walked the 900 tiles of a power-law head window in 113
 //     dependent rounds.)
 //
-// A warp takes G lanes per slot, each lane 4 columns: G = 32 (a 128-column
-// slab) for sr and for pr past 64 rows, G = F_pad / 4 for pr's F_pad = 8,
-// 16, 32 or 64 rows. With G < 32 a warp reads P = 32 / G consecutive slots at once (the
-// TPU kernel's packing of 128 / F edges into one lane row), adds equal rows
+// A warp takes G lanes per slot, each lane 4 of the N rows: G = N_pad / 4
+// for N_pad = 8, 16, 32 or 64 rows, G = 32 (a 128-row slab) past 64. With
+// G < 32 a warp reads P = 32 / G consecutive slots at once (the TPU
+// kernel's packing of 128 / N edges into one lane row), adds equal rows
 // among them with a segmented suffix sum over shuffles, and then takes the
 // runs in order.
 
@@ -68,11 +64,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBatch = 8;      // slot groups in flight per warp
 constexpr int kTileBatch = 8;  // tiles whose partials are in flight per warp
 constexpr unsigned kFull = 0xffffffffu;
-
-// how a kernel reads values and writes rows
-constexpr int kRowVec = 0;     // row-major [*, F], F % 4 == 0, 16-byte aligned
-constexpr int kRowScalar = 1;  // row-major [*, F], any F
-constexpr int kTransposed = 2; // [F, ld]: element (slot or row i, column c) at c*ld + i
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
@@ -103,60 +94,47 @@ __device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
   return lo;
 }
 
-// Columns col..col+3 of slot `i`; zero past F.
-template <int MODE>
+// Rows col..col+3 of slot `i` of v [F, ld] (element (c, i) at c*ld + i);
+// zero past F.
 __device__ __forceinline__ float4 load4(const float* __restrict__ v, int64_t i, int F,
                                         int64_t ld, int col) {
-  if (MODE == kRowVec) {
-    if (col >= F) return zero4();
-    return __ldg(reinterpret_cast<const float4*>(v + i * F + col));
-  }
   float r[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int cc = col + c;
-    r[c] = 0.f;
-    if (cc < F) r[c] = __ldg(MODE == kRowScalar ? v + i * F + cc : v + (int64_t)cc * ld + i);
+    r[c] = cc < F ? __ldg(v + (int64_t)cc * ld + i) : 0.f;
   }
   return make_float4(r[0], r[1], r[2], r[3]);
 }
 
-// Columns col..col+3 of output row `row` = a; nothing past F.
-template <int MODE>
+// Rows col..col+3 of output column `row` of o [F, ld] = a; nothing past F.
 __device__ __forceinline__ void store4(float* __restrict__ o, int64_t row, int F,
                                        int64_t ld, int col, const float4& a) {
-  if (MODE == kRowVec) {
-    if (col < F) *reinterpret_cast<float4*>(o + row * F + col) = a;
-    return;
-  }
   const float r[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int cc = col + c;
-    if (cc < F) {
-      if (MODE == kRowScalar) o[row * F + cc] = r[c];
-      else o[(int64_t)cc * ld + row] = r[c];
-    }
+    if (cc < F) o[(int64_t)cc * ld + row] = r[c];
   }
 }
 
 // The rows of window `win` as one warp sees them: group g of P = 32/G
 // groups, lane gl of G in its group, columns col..col+3. Group 0 writes a
 // row; a range of zero rows is shared by the groups.
-template <int G, int MODE>
+template <int G>
 struct Rows {
   float* out;
   int64_t win_base, ld;
   int F, col, g;
   __device__ __forceinline__ void put(int r, const float4& a) const {
-    if (g == 0) store4<MODE>(out, win_base + r, F, ld, col, a);
+    if (g == 0) store4(out, win_base + r, F, ld, col, a);
   }
   __device__ __forceinline__ void zeros(int lo, int hi) const {
-    for (int r = lo + g; r < hi; r += 32 / G) store4<MODE>(out, win_base + r, F, ld, col, zero4());
+    for (int r = lo + g; r < hi; r += 32 / G) store4(out, win_base + r, F, ld, col, zero4());
   }
 };
 
-template <int G, int MODE>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 slot_tile_kernel(const float* __restrict__ vals, int F, int64_t ld_in,
                  const int* __restrict__ dst, const float* __restrict__ w,
@@ -171,7 +149,7 @@ slot_tile_kernel(const float* __restrict__ vals, int F, int64_t ld_in,
   const int col = blockIdx.y * (4 * G) + 4 * gl;
   const int win = __ldg(out_block + t);
   const int base = win * s_tile;
-  const Rows<G, MODE> o{out, (int64_t)base, ld_out, F, col, g};
+  const Rows<G> o{out, (int64_t)base, ld_out, F, col, g};
   const int64_t slot0 = (int64_t)t * E;
   // this warp's slots: a contiguous run, a multiple of P long
   const int seg = ((E + kWarps - 1) / kWarps + P - 1) / P * P;
@@ -198,7 +176,7 @@ slot_tile_kernel(const float* __restrict__ vals, int F, int64_t ld_in,
     float4 vk[kBatch];
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
-      vk[k] = rk[k] >= 0 ? scale4(wk[k], load4<MODE>(vals, slot0 + j0 + k * P + g, F,
+      vk[k] = rk[k] >= 0 ? scale4(wk[k], load4(vals, slot0 + j0 + k * P + g, F,
                                                      ld_in, col))
                          : zero4();
     }
@@ -312,7 +290,7 @@ slot_tile_kernel(const float* __restrict__ vals, int F, int64_t ld_in,
   }
 }
 
-template <int G, int MODE>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 slot_window_kernel(const int* __restrict__ part_rows, const float* __restrict__ part_vals,
                    int Fp, const int* __restrict__ out_block, int T, int F, int s_tile,
@@ -322,7 +300,7 @@ slot_window_kernel(const int* __restrict__ part_rows, const float* __restrict__ 
   const int warp = threadIdx.x >> 5;
   const int g = lane / G, gl = lane % G;
   const int col = blockIdx.y * (4 * G) + 4 * gl;
-  const Rows<G, MODE> o{out, (int64_t)win * s_tile, ld_out, F, col, g};
+  const Rows<G> o{out, (int64_t)win * s_tile, ld_out, F, col, g};
   const float4* pv = reinterpret_cast<const float4*>(part_vals);
   const int t_begin = lower_bound(out_block, T, win);
   const int t_end = lower_bound(out_block, T, win + 1);
@@ -407,96 +385,68 @@ slot_window_kernel(const int* __restrict__ part_rows, const float* __restrict__ 
   o.zeros(mrow + 1, s_tile);
 }
 
-template <int G, int MODE>
+template <int G>
 int launch(const float* vals, int F, int64_t ld_in, const int* dst, const float* w,
            const int* out_block, int T, int n_windows, int E, int s_tile, float* out,
            int64_t ld_out, int* part_rows, float* part_vals, cudaStream_t s) {
   const int n_slabs = (F + 4 * G - 1) / (4 * G);
   const int Fp = n_slabs * 4 * G;
   if (T > 0) {
-    slot_tile_kernel<G, MODE><<<dim3(T, n_slabs), kThreads, 0, s>>>(
+    slot_tile_kernel<G><<<dim3(T, n_slabs), kThreads, 0, s>>>(
         vals, F, ld_in, dst, w, out_block, E, s_tile, out, ld_out, part_rows, part_vals, Fp);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  slot_window_kernel<G, MODE><<<dim3(n_windows, n_slabs), kThreads, 0, s>>>(
+  slot_window_kernel<G><<<dim3(n_windows, n_slabs), kThreads, 0, s>>>(
       part_rows, part_vals, Fp, out_block, T, F, s_tile, out, ld_out);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
 int launch_g(int G, const float* vals, int F, int64_t ld_in, const int* dst, const float* w,
              const int* out_block, int T, int n_windows, int E, int s_tile, float* out,
              int64_t ld_out, int* part_rows, float* part_vals, cudaStream_t s) {
 #define GEOT_SLOT_ARGS vals, F, ld_in, dst, w, out_block, T, n_windows, E, s_tile, out, \
                        ld_out, part_rows, part_vals, s
   switch (G) {
-    case 2: return launch<2, MODE>(GEOT_SLOT_ARGS);
-    case 4: return launch<4, MODE>(GEOT_SLOT_ARGS);
-    case 8: return launch<8, MODE>(GEOT_SLOT_ARGS);
-    case 16: return launch<16, MODE>(GEOT_SLOT_ARGS);
-    case 32: return launch<32, MODE>(GEOT_SLOT_ARGS);
+    case 2: return launch<2>(GEOT_SLOT_ARGS);
+    case 4: return launch<4>(GEOT_SLOT_ARGS);
+    case 8: return launch<8>(GEOT_SLOT_ARGS);
+    case 16: return launch<16>(GEOT_SLOT_ARGS);
+    case 32: return launch<32>(GEOT_SLOT_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef GEOT_SLOT_ARGS
 }
 
-// lanes per slot for a column width: F_pad / 4 for F <= 64, else 32
+// lanes per slot for N rows: N_pad / 4 for N <= 64, else 32
 int lanes_for(int F) {
   for (int d = 8; d <= 64; d *= 2)
     if (F <= d) return d / 4;
   return 32;
 }
 
-int row_major(int G, const void* vals, int F, const void* dst, const void* w,
-              const void* out_block, int T, int n_windows, int E, int s_tile, void* out,
-              void* part_rows, void* part_vals, void* stream) {
-  if (n_windows <= 0 || F <= 0) return (int)cudaSuccess;
-  const bool vec = F % 4 == 0 && ((uintptr_t)vals % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  if (vec) {
-    return launch_g<kRowVec>(G, (const float*)vals, F, 0, (const int*)dst, (const float*)w,
-                             (const int*)out_block, T, n_windows, E, s_tile, (float*)out, 0,
-                             (int*)part_rows, (float*)part_vals, (cudaStream_t)stream);
-  }
-  return launch_g<kRowScalar>(G, (const float*)vals, F, 0, (const int*)dst, (const float*)w,
-                              (const int*)out_block, T, n_windows, E, s_tile, (float*)out, 0,
-                              (int*)part_rows, (float*)part_vals, (cudaStream_t)stream);
-}
-
 }  // namespace
 
-// Common arguments: dst int32 [T*E] (the plan's dst_slots), w f32 [T*E]
-// (the slot weights), out_block int32 [T] non-decreasing; scratch
-// part_rows int32 [2*T] and part_vals f32 [2*T, Fp] (Fp: F rounded up to
-// the kernel's slab, `slot_scratch_width`). Each launches two kernels on
-// `stream` and returns cudaGetLastError() (0 on success).
-
-// Scratch row width of the two kernels for F columns (pr: F rows of vals_t).
-extern "C" int geot_slot_scratch_width(int F, int packed) {
-  const int G = packed ? lanes_for(F) : 32;
-  return (F + 4 * G - 1) / (4 * G) * 4 * G;
+// Scratch row width of the two kernels for N rows of vals_t.
+extern "C" int geot_slot_scratch_width(int N) {
+  const int G = lanes_for(N);
+  return (N + 4 * G - 1) / (4 * G) * 4 * G;
 }
 
-// vals [>= T*E, F] f32 row-major -> out [n_windows*s_tile, F] f32, any F.
-extern "C" int geot_plan_segment_sum_sr(const void* vals, int F, const void* dst,
-                                        const void* w, const void* out_block, int T,
-                                        int n_windows, int E, int s_tile, void* out,
-                                        void* part_rows, void* part_vals, void* stream) {
-  return row_major(32, vals, F, dst, w, out_block, T, n_windows, E, s_tile, out, part_rows,
-                   part_vals, stream);
-}
-
-// vals_t [N, ld_in] f32 (slot i of row c at c*ld_in + i, ld_in >= T*E) ->
-// out_t [N, n_windows*s_tile] f32.
+// vals_t [N, ld_in] f32 (slot i of row c at c*ld_in + i, ld_in >= T*E), dst
+// int32 [T*E] (the plan's dst_slots), w f32 [T*E] (the slot weights),
+// out_block int32 [T] non-decreasing -> out_t [N, n_windows*s_tile] f32.
+// Scratch part_rows int32 [2*T] and part_vals f32 [2*T,
+// geot_slot_scratch_width(N)]. Launches two kernels on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int geot_plan_segment_sum_pr(const void* vals_t, int N, int64_t ld_in,
                                         const void* dst, const void* w,
                                         const void* out_block, int T, int n_windows, int E,
                                         int s_tile, void* out_t, void* part_rows,
                                         void* part_vals, void* stream) {
   if (n_windows <= 0 || N <= 0) return (int)cudaSuccess;
-  return launch_g<kTransposed>(lanes_for(N), (const float*)vals_t, N, ld_in,
-                               (const int*)dst, (const float*)w, (const int*)out_block, T,
-                               n_windows, E, s_tile, (float*)out_t,
-                               (int64_t)n_windows * s_tile, (int*)part_rows,
-                               (float*)part_vals, (cudaStream_t)stream);
+  return launch_g(lanes_for(N), (const float*)vals_t, N, ld_in, (const int*)dst,
+                  (const float*)w, (const int*)out_block, T, n_windows, E, s_tile,
+                  (float*)out_t, (int64_t)n_windows * s_tile, (int*)part_rows,
+                  (float*)part_vals, (cudaStream_t)stream);
 }

@@ -1,13 +1,15 @@
 """The row-ordered edge-sum kernel's launcher (`ops/csrc/edge_row_sum.cu`).
 
 `plan_segment_sum_sr2`, `plan_segment_sum_packed2`,
-`plan_segment_sum_sr_packed` (`ops/slot_kernels.py`), `bat_segment_sum`
-and `bat_segment_sum_packed` (`ops/bat_kernels.py`) launch it on CUDA
-tensors, each counting its launches under its own name; their plain
-versions are in `ops/reference.py`. It sums a plan's live edges by output
-row in edge order, from the plan's `RowSchedule` (`graph.row_schedule`):
-values in edge order, in a slot plan's slot order, or gathered in the
-kernel as x[src[e]]. Nothing is built or loaded at import.
+`plan_segment_sum_sr_packed`, `plan_segment_sum_sr`, `plan_segment_sum_mh`
+(`ops/slot_kernels.py`), `bat_segment_sum` and `bat_segment_sum_packed`
+(`ops/bat_kernels.py`) launch it on CUDA tensors, each counting its
+launches under its own name; their plain versions are in
+`ops/reference.py`. It sums a plan's live edges by output row in edge
+order, from the plan's `RowSchedule` (`graph.row_schedule`): values in edge
+order, in a slot plan's slot order, or gathered in the kernel as
+x[src[e]], with one weight per edge or one per edge and head (mh). Nothing
+is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ def _bound_fn():
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         host_ints = ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [p, i64, i32, p, i64, i64, p, p, i32, p, p, i64, i32, p, i32, p, i32,
-                       p, p, host_ints, i32, p, p, p]
+        fn.argtypes = [p, i64, i32, p, i64, i64, p, p, i32, p, p, i64, i32, p, i64, i32, i32,
+                       p, i32, p, i32, p, p, host_ints, i32, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -56,13 +58,18 @@ def _check(t: torch.Tensor, name: str, dtype, dev, what: str) -> None:
 def edge_row_sum(sched: RowSchedule, vals: torch.Tensor, *, what: str,
                  src: Optional[torch.Tensor] = None, e_base: int = 0, by_slot: bool = False,
                  w_slots: Optional[torch.Tensor] = None, w_edge: Optional[torch.Tensor] = None,
-                 skip_zero: bool = False) -> torch.Tensor:
+                 skip_zero: bool = False, w_heads: Optional[torch.Tensor] = None,
+                 head_dim: int = 0) -> torch.Tensor:
     """out [sched.n_out, F] float32 on the card: for each output row, the
     sum over its scheduled edges e, in edge order, of w(e) * v(e). v(e) is
     vals[src[e]] (src given), vals[slot(e)] (by_slot) or vals[e - e_base];
     a row outside vals, or an edge past src, reads as zero. w(e) is 1, times
     w_slots[slot(e)] (flat), times w_edge[e] (0 past its end) where given;
-    with skip_zero an edge of weight 0 adds nothing. Checks what the kernel
+    with skip_zero an edge of weight 0 adds nothing. Or, with `w_heads`
+    [rows, H] (neither w_slots nor w_edge), column c of v(e) is weighted by
+    w_heads[id, c // head_dim], id the edge's slot (by_slot) or the edge
+    (rows past w_heads' end weigh 0); columns past H heads are inert, and
+    an edge whose H weights are all 0 adds nothing. Checks what the kernel
     relies on and raises on what it does not take (`what` names the
     caller); launches on the current stream."""
     dev = vals.device
@@ -89,6 +96,19 @@ def edge_row_sum(sched: RowSchedule, vals: torch.Tensor, *, what: str,
         _check(w_slots, "w_slots", torch.float32, dev, what)
     if w_edge is not None:
         _check(w_edge, "w_edge", torch.float32, dev, what)
+    H = 0
+    if w_heads is not None:
+        if w_slots is not None or w_edge is not None:
+            raise ValueError(f"{what}: head weights take neither w_slots nor w_edge")
+        if w_heads.device != dev or w_heads.dtype != torch.float32:
+            raise ValueError(f"{what}: w_heads must be float32 on {dev}, got {w_heads.dtype} "
+                             f"on {w_heads.device}")
+        if w_heads.dim() != 2 or w_heads.shape[1] < 1 or not w_heads.is_contiguous():
+            raise ValueError(f"{what}: w_heads must be a contiguous [rows, H] tensor, got shape "
+                             f"{tuple(w_heads.shape)}")
+        if head_dim < 1:
+            raise ValueError(f"{what}: head_dim must be >= 1, got {head_dim}")
+        H = w_heads.shape[1]
     n_tasks = sched.tasks.shape[0] - 1
     if sched.fix_levels[-1] != sched.fix.shape[0] or n_tasks < 0:
         raise ValueError(f"{what}: a malformed schedule")
@@ -106,7 +126,8 @@ def edge_row_sum(sched: RowSchedule, vals: torch.Tensor, *, what: str,
         rc = fn(vals.data_ptr(), vals.shape[0], F, ptr(src),
                 0 if src is None else src.shape[0], int(e_base), sched.cols.data_ptr(),
                 ptr(sched.slot), int(by_slot), ptr(w_slots), ptr(w_edge),
-                0 if w_edge is None else w_edge.shape[0], int(skip_zero),
+                0 if w_edge is None else w_edge.shape[0], int(skip_zero), ptr(w_heads),
+                0 if w_heads is None else w_heads.shape[0], H, int(head_dim),
                 sched.unit_dest.data_ptr(), sched.unit_dest.shape[0], sched.tasks.data_ptr(),
                 n_tasks, sched.zero_runs.data_ptr(), sched.fix.data_ptr(), levels,
                 len(sched.fix_levels) - 1, part.data_ptr(), out.data_ptr(), stream)

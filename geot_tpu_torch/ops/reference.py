@@ -208,33 +208,34 @@ def sddmm_coo_ref(
     return (a[dst_index.long()] * b[src_index.long()]).sum(dim=-1)
 
 
-def plan_segment_sum_sr_plain(plan, vals_slots: torch.Tensor,
-                              w_slots: torch.Tensor) -> torch.Tensor:
-    """out[dst_slots[s]] += w_slots[s] * vals_slots[s] over the slots s of a
-    slot plan with w_slots[s] != 0 (pads have weight 0 and are not read),
-    in float32 with `index_add_`. vals_slots [>= T*E, F]; returns
-    [n_blocks*s_tile, F] float32, every row written."""
+def plan_segment_sum_sr_plain(plan, vals: torch.Tensor, w_slots: torch.Tensor, *,
+                              src=None) -> torch.Tensor:
+    """out[dst_slots[s]] += w_slots[s] * v(s) over the slots s of a slot
+    plan with w_slots[s] != 0 (pads have weight 0 and are not read), in
+    float32 with `index_add_`. v(s) = vals[s] (slot order, vals [>= T*E,
+    F]), or, with `src` (the plan's edge-order src), node rows that slot j
+    of tile t reads as vals[src[e0[t] + j]] (rows past the end of vals, and
+    edges past src's, read as zero). Returns [n_blocks*s_tile, F] float32,
+    every row written."""
+    if src is not None:
+        return plan_segment_sum_sr2_plain(plan, vals, vals_layout="edge", w_slots=w_slots,
+                                          src=src)
     n = plan.num_tiles * plan.e_tile
-    dev = vals_slots.device
+    dev = vals.device
     w = w_slots.reshape(-1).to(dev).float()
     keep = torch.nonzero(w != 0).reshape(-1)
-    v = vals_slots[:n].index_select(0, keep).float() * w[keep][:, None]
-    out = torch.zeros(plan.n_blocks * plan.s_tile, vals_slots.shape[1], dtype=torch.float32,
+    v = vals[:n].index_select(0, keep).float() * w[keep][:, None]
+    out = torch.zeros(plan.n_blocks * plan.s_tile, vals.shape[1], dtype=torch.float32,
                       device=dev)
     return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)
 
 
 def plan_segment_sum_sr_packed_plain(plan, vals: torch.Tensor, w_slots: torch.Tensor,
                                      src=None) -> torch.Tensor:
-    """`plan_segment_sum_sr_plain` for narrow rows (F <= 64), over values
-    in slot order, or, with `src` (the plan's edge-order src), node rows
-    that slot j of tile t reads as vals[src[e0[t] + j]] (rows past the end
-    of vals, and edges past src's, read as zero)."""
+    """`plan_segment_sum_sr_plain` for narrow rows (F <= 64)."""
     if vals.shape[1] > 64:
         raise ValueError(f"packed slot sum takes F <= 64, got {vals.shape[1]}")
-    if src is None:
-        return plan_segment_sum_sr_plain(plan, vals, w_slots)
-    return plan_segment_sum_sr2_plain(plan, vals, vals_layout="edge", w_slots=w_slots, src=src)
+    return plan_segment_sum_sr_plain(plan, vals, w_slots, src=src)
 
 
 def plan_segment_sum_pr_plain(plan, vals_slots_t: torch.Tensor,
@@ -320,25 +321,40 @@ def plan_segment_sum_packed2_plain(plan, vals_edges: torch.Tensor, *, w_slots=No
                                       w_edge=w_edge, e_base=e_base, src=src)
 
 
-def plan_segment_sum_mh_plain(plan, vals_slots: torch.Tensor, w_heads: torch.Tensor,
-                              head_dim: int) -> torch.Tensor:
+def plan_segment_sum_mh_plain(plan, vals: torch.Tensor, w_heads: torch.Tensor,
+                              head_dim: int, *, src=None) -> torch.Tensor:
     """Multi-head slot sum over flat lanes: out[dst_slots[s], c] +=
-    w_heads[s, c // head_dim] * vals_slots[s, c] over the slots s with any
-    head's weight not 0; columns past H heads are inert. vals_slots
-    [>= T*E, F], w_heads [T*E, H] (0 on pads). Returns [n_blocks*s_tile, F]
-    float32, every row written."""
-    dev = vals_slots.device
+    w(s, c // head_dim) * v(s, c) over the real slots s with any head's
+    weight not 0; columns past H heads are inert, and pad slots weigh 0
+    whatever they name. v(s) = vals[s] with w = w_heads [T*E, H] (slot
+    order), or, with `src` (the plan's edge-order src), node rows that slot
+    j of tile t reads as vals[src[e]], e = e0[t] + j, with w = w_heads[e]
+    ([nnz, H], the plan's edge order; rows past the end of vals or of
+    w_heads, and edges past src's, read as zero). Returns
+    [n_blocks*s_tile, F] float32, every row written."""
+    dev = vals.device
     n = plan.num_tiles * plan.e_tile
-    wh = w_heads.reshape(n, -1).to(dev).float()
-    H, F = wh.shape[1], vals_slots.shape[1]
-    keep = torch.nonzero((wh != 0).any(dim=1)).reshape(-1)
+    real = plan.mask.reshape(-1).to(dev) != 0
+    if src is None:
+        wh = w_heads.reshape(n, -1).to(dev).float()
+    else:
+        edge = _edge_of_slots(plan, dev)
+        whe = w_heads.to(dev).float()
+        wh = torch.zeros(n, whe.shape[1], dtype=torch.float32, device=dev)
+        inside = real & (edge < whe.shape[0])
+        wh[inside] = whe[edge[inside]]
+    H, F = wh.shape[1], vals.shape[1]
+    keep = torch.nonzero(real & (wh != 0).any(dim=1)).reshape(-1)
     head = torch.arange(F, device=dev) // head_dim
     lane_w = torch.zeros(keep.shape[0], F, dtype=torch.float32, device=dev)
-    real = head < H
-    lane_w[:, real] = wh[keep][:, head[real]]
-    v = vals_slots[:n].index_select(0, keep).float() * lane_w
+    in_heads = head < H
+    lane_w[:, in_heads] = wh[keep][:, head[in_heads]]
+    if src is None:
+        v = vals[:n].index_select(0, keep).float()
+    else:
+        v = _rows_or_zero(vals, _gathered_rows(src, edge[keep]))
     out = torch.zeros(plan.n_blocks * plan.s_tile, F, dtype=torch.float32, device=dev)
-    return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v)
+    return out.index_add_(0, plan.dst_slots.reshape(-1).to(dev).long()[keep], v * lane_w)
 
 
 def bat_tiles_plain(bp, dst_blocks: torch.Tensor, vals: torch.Tensor,

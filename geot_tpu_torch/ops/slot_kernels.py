@@ -4,16 +4,15 @@ Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed`,
 `plan_segment_sum_pr`, `plan_segment_sum_sr2`, `plan_segment_sum_packed2`
 and `plan_segment_sum_mh` of the JAX package
 (`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`, `:384`, `:581`,
-`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (sr, pr),
-`slot_mh.cu` (mh, the template in `slot_common.cuh`) and `edge_row_sum.cu`
-(sr_packed, sr2 and packed2: one row-ordered edge sum over the plan's
-`RowSchedule`, values in edge or slot order or gathered in the kernel as
-x[src[e]]), built by nvcc for sm_90a and called through ctypes
+`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (pr) and
+`edge_row_sum.cu` (sr, sr_packed, sr2, packed2 and mh: one row-ordered
+edge sum over the plan's `RowSchedule`, values in edge or slot order or
+gathered in the kernel as x[src[e]], with one weight per edge or, for mh,
+one per edge and head), built by nvcc for sm_90a and called through ctypes
 (see those files for their design and bound); their plain versions are in
-`ops/reference.py`. For tensors on the
-CPU a wrapper runs its plain version; for CUDA tensors it launches its
-kernel or raises. Each returns float32 and reads F columns as they are
-(no lane padding).
+`ops/reference.py`. For tensors on the CPU a wrapper runs its plain
+version; for CUDA tensors it launches its kernel or raises. Each returns
+float32 and reads F columns as they are (no lane padding).
 """
 
 from __future__ import annotations
@@ -44,21 +43,17 @@ __all__ = [
 ]
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# the plan's tail of every launch: out_block, T, n_windows, E, s_tile, out,
-# part_rows, part_vals, stream
-_TAIL = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+# pr's launch: vals_t, N, ld_in, dst, w, out_block, T, n_windows, E, s_tile,
+# out, part_rows, part_vals, stream
 _ARGTYPES = {
-    "geot_plan_segment_sum_sr": [_P, _I32, _P, _P] + _TAIL,
-    "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P] + _TAIL,
-    "geot_plan_segment_sum_mh": [_P, _I32, _P, _P, _I32, _I32] + _TAIL,
-    "geot_slot_scratch_width": [_I32, _I32],
+    "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
+                                 _P, _P],
+    "geot_slot_scratch_width": [_I32],
 }
-# the library of each kernel
-_LIB = {"geot_plan_segment_sum_mh": "slot_mh"}
 
 
-def _bound(name: str, lib: str = ""):
-    fn = getattr(load_kernel(lib or _LIB.get(name, "slot_segment_sum")), name)
+def _bound(name: str):
+    fn = getattr(load_kernel("slot_segment_sum"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -76,61 +71,30 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, plan: SegmentPlan, vals: torch.Tensor, head: list, n_cols: int,
-            out: torch.Tensor, packed: bool) -> None:
-    """Checks what every slot kernel relies on and launches kernel `name`
-    with arguments `head` (pointers as tensors) and the plan's tail."""
-    dev = vals.device
-    T, E = plan.num_tiles, plan.e_tile
-    if not plan.monotone:
-        raise ValueError(f"{name}: out_block is not non-decreasing over the whole plan; "
-                         "run its chunks one by one")
-    if vals.dtype != torch.float32 or vals.dim() != 2 or not vals.is_contiguous():
-        raise ValueError(f"{name}: values must be a contiguous 2-D float32 tensor, got "
-                         f"{vals.dtype} {tuple(vals.shape)}")
-    _check(plan.dst_slots, "dst_slots", torch.int32, (T, E), dev)
-    _check(plan.out_block, "out_block", torch.int32, (T,), dev)
-    if T == 0 or E < 1 or plan.s_tile < 1:
-        raise ValueError(f"{name}: the plan has no tiles")
-    width = _bound("geot_slot_scratch_width", _LIB.get(name, "slot_segment_sum"))(
-        n_cols, int(packed))
-    part_rows = torch.empty(2 * T, dtype=torch.int32, device=dev)
-    part_vals = torch.empty(2 * T, width, dtype=torch.float32, device=dev)
-    fn = _bound(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in head]
-        args += [plan.out_block.data_ptr(), T, plan.n_blocks, E, plan.s_tile, out.data_ptr(),
-                 part_rows.data_ptr(), part_vals.data_ptr(), stream]
-        rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 def _device_of(vals: torch.Tensor, what: str) -> str:
     if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {vals.device}")
     return vals.device.type
 
 
-def plan_segment_sum_sr(plan: SegmentPlan, vals_slots: torch.Tensor,
-                        w_slots: torch.Tensor) -> torch.Tensor:
-    """Slot-layout segment sum: vals_slots [>= T*E, F] (slot order, any F),
-    w_slots [T, E] (0 on pads) -> [n_blocks*s_tile, F] float32.
+def plan_segment_sum_sr(plan: SegmentPlan, vals: torch.Tensor, w_slots: torch.Tensor, *,
+                        src=None) -> torch.Tensor:
+    """Slot-layout segment sum at any width F: values in slot order (vals
+    [>= T*E, F], the TPU kernel's contract), or, with `src` [nnz] int32
+    (the plan's edge-order src: `Graph.src` for `plan`, `Graph.dst_t` for
+    `plan_t`), node rows x that slot j of tile t reads as x[src[e0[t] +
+    j]] (rows past x's end read as zero); weights w_slots [T, E] (0 on
+    pads). A slot of weight 0 adds nothing. -> [n_blocks*s_tile, F]
+    float32.
 
     CPU tensors run `plan_segment_sum_sr_plain`; CUDA tensors launch the
-    kernel and add one to `plan_segment_sum_sr.launches`."""
-    if _device_of(vals_slots, "plan_segment_sum_sr") == "cpu":
-        return plan_segment_sum_sr_plain(plan, vals_slots, w_slots)
-    if vals_slots.shape[0] < plan.num_tiles * plan.e_tile:
-        raise ValueError(f"vals_slots has {vals_slots.shape[0]} rows, the plan "
-                         f"{plan.num_tiles * plan.e_tile} slots")
-    F = vals_slots.shape[1]
-    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
-                      device=vals_slots.device)
-    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots.device)
-    _launch("geot_plan_segment_sum_sr", plan, vals_slots,
-            [vals_slots, F, plan.dst_slots, w_slots], F, out, False)
+    edge-row kernel (`ops/csrc/edge_row_sum.cu`, over the plan's
+    `row_sched`, the whole plan in one launch, chunked or not) and add one
+    to `plan_segment_sum_sr.launches`."""
+    if _device_of(vals, "plan_segment_sum_sr") == "cpu":
+        return plan_segment_sum_sr_plain(plan, vals, w_slots, src=src)
+    out = _row_sum("plan_segment_sum_sr", plan, vals, "slot" if src is None else "edge",
+                   w_slots, None, 0, src)
     plan_segment_sum_sr.launches += 1
     return out
 
@@ -165,27 +129,49 @@ def plan_segment_sum_pr(plan: SegmentPlan, vals_slots_t: torch.Tensor,
     [N, T*E] -> [N, n_blocks*s_tile] float32.
 
     CPU tensors run `plan_segment_sum_pr_plain`; CUDA tensors launch the
-    kernel and add one to `plan_segment_sum_pr.launches`."""
+    kernel (a tile pass and a window pass over the plan's tiles, which must
+    be in window order as a whole) and add one to
+    `plan_segment_sum_pr.launches`."""
     if _device_of(vals_slots_t, "plan_segment_sum_pr") == "cpu":
         return plan_segment_sum_pr_plain(plan, vals_slots_t, w_slots)
+    dev = vals_slots_t.device
+    T, E = plan.num_tiles, plan.e_tile
     N, ld = vals_slots_t.shape
-    if ld != plan.num_tiles * plan.e_tile:
-        raise ValueError(f"vals_slots_t has {ld} columns, the plan "
-                         f"{plan.num_tiles * plan.e_tile} slots")
-    out = torch.empty(N, plan.n_blocks * plan.s_tile, dtype=torch.float32,
-                      device=vals_slots_t.device)
-    _check(w_slots, "w_slots", torch.float32, (plan.num_tiles, plan.e_tile), vals_slots_t.device)
-    _launch("geot_plan_segment_sum_pr", plan, vals_slots_t,
-            [vals_slots_t, N, ld, plan.dst_slots, w_slots], N, out, True)
+    if not plan.monotone:
+        raise ValueError("plan_segment_sum_pr: out_block is not non-decreasing over the whole "
+                         "plan; run its chunks one by one")
+    if vals_slots_t.dtype != torch.float32 or vals_slots_t.dim() != 2 or \
+            not vals_slots_t.is_contiguous():
+        raise ValueError("plan_segment_sum_pr: values must be a contiguous 2-D float32 "
+                         f"tensor, got {vals_slots_t.dtype} {tuple(vals_slots_t.shape)}")
+    if ld != T * E:
+        raise ValueError(f"vals_slots_t has {ld} columns, the plan {T * E} slots")
+    _check(w_slots, "w_slots", torch.float32, (T, E), dev)
+    _check(plan.dst_slots, "dst_slots", torch.int32, (T, E), dev)
+    _check(plan.out_block, "out_block", torch.int32, (T,), dev)
+    if T == 0 or E < 1 or plan.s_tile < 1:
+        raise ValueError("plan_segment_sum_pr: the plan has no tiles")
+    out = torch.empty(N, plan.n_blocks * plan.s_tile, dtype=torch.float32, device=dev)
+    part_rows = torch.empty(2 * T, dtype=torch.int32, device=dev)
+    part_vals = torch.empty(2 * T, _bound("geot_slot_scratch_width")(N), dtype=torch.float32,
+                            device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bound("geot_plan_segment_sum_pr")(
+            vals_slots_t.data_ptr(), N, ld, plan.dst_slots.data_ptr(), w_slots.data_ptr(),
+            plan.out_block.data_ptr(), T, plan.n_blocks, E, plan.s_tile, out.data_ptr(),
+            part_rows.data_ptr(), part_vals.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"plan_segment_sum_pr kernel launch failed: cudaError {rc}")
     plan_segment_sum_pr.launches += 1
     return out
 
 
 def _row_sum(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str, w_slots,
-             w_edge, e_base: int, src) -> torch.Tensor:
+             w_edge, e_base: int, src, w_heads=None, head_dim: int = 0) -> torch.Tensor:
     """Checks the arguments and launches the edge-row kernel over the
-    plan's schedule (`row_schedule_of`): sr_packed, sr2 and packed2 are one
-    kernel on the card, and a chunked plan is one launch."""
+    plan's schedule (`row_schedule_of`): sr, sr_packed, sr2, packed2 and mh
+    are one kernel on the card, and a chunked plan is one launch."""
     T, E = plan.num_tiles, plan.e_tile
     if vals_layout not in ("slot", "edge"):
         raise ValueError(f"{name}: vals_layout={vals_layout!r}, 'slot' or 'edge'")
@@ -201,7 +187,7 @@ def _row_sum(name: str, plan: SegmentPlan, vals: torch.Tensor, vals_layout: str,
         w_slots = w_slots.reshape(-1)
     return edge_row_sum(row_schedule_of(plan), vals, what=name, src=src, e_base=e_base,
                         by_slot=vals_layout == "slot", w_slots=w_slots, w_edge=w_edge,
-                        skip_zero=True)
+                        skip_zero=True, w_heads=w_heads, head_dim=head_dim)
 
 
 def plan_segment_sum_sr2(plan: SegmentPlan, vals: torch.Tensor, *, vals_layout: str = "slot",
@@ -252,30 +238,31 @@ def plan_segment_sum_packed2(plan: SegmentPlan, vals_edges: torch.Tensor, *, w_s
     return out
 
 
-def plan_segment_sum_mh(plan: SegmentPlan, vals_slots: torch.Tensor, w_heads: torch.Tensor,
-                        head_dim: int) -> torch.Tensor:
-    """Multi-head slot sum over flat lanes: vals_slots [>= T*E, F] (slot
-    order, F = H*head_dim or wider: columns past H heads are inert),
-    w_heads [T*E, H] (0 on pads) -> [n_blocks*s_tile, F] float32, column c
-    weighted by head c // head_dim.
+def plan_segment_sum_mh(plan: SegmentPlan, vals: torch.Tensor, w_heads: torch.Tensor,
+                        head_dim: int, *, src=None) -> torch.Tensor:
+    """Multi-head slot sum over flat lanes, column c weighted by head c //
+    head_dim (F = H*head_dim or wider: columns past H heads are inert):
+    values in slot order (vals [>= T*E, F]) with w_heads [T*E, H] in slot
+    order (0 on pads: the TPU kernel's contract), or, with `src` [nnz]
+    int32 (the plan's edge-order src), node rows x that slot j of tile t
+    reads as x[src[e]], e = e0[t] + j, with w_heads [nnz, H] in the plan's
+    edge order (rows past x's or w_heads' end read as zero, and weigh 0). A slot whose H
+    weights are all 0 adds nothing; one zero on some heads only adds 0
+    there. -> [n_blocks*s_tile, F] float32.
 
     CPU tensors run `plan_segment_sum_mh_plain`; CUDA tensors launch the
-    kernel and add one to `plan_segment_sum_mh.launches`."""
-    if _device_of(vals_slots, "plan_segment_sum_mh") == "cpu":
-        return plan_segment_sum_mh_plain(plan, vals_slots, w_heads, head_dim)
-    T, E = plan.num_tiles, plan.e_tile
-    F = vals_slots.shape[1]
-    if vals_slots.shape[0] < T * E:
-        raise ValueError(f"vals_slots has {vals_slots.shape[0]} rows, the plan {T * E} slots")
+    edge-row kernel (over the plan's `row_sched`, the whole plan in one
+    launch, chunked or not) and add one to `plan_segment_sum_mh.launches`."""
+    if _device_of(vals, "plan_segment_sum_mh") == "cpu":
+        return plan_segment_sum_mh_plain(plan, vals, w_heads, head_dim, src=src)
     if w_heads.dim() != 2 or head_dim < 1:
-        raise ValueError(f"w_heads must be [T*E, H] and head_dim >= 1, got "
-                         f"{tuple(w_heads.shape)} and {head_dim}")
-    H = w_heads.shape[1]
-    _check(w_heads, "w_heads", torch.float32, (T * E, H), vals_slots.device)
-    out = torch.empty(plan.n_blocks * plan.s_tile, F, dtype=torch.float32,
-                      device=vals_slots.device)
-    _launch("geot_plan_segment_sum_mh", plan, vals_slots,
-            [vals_slots, F, plan.dst_slots, w_heads, H, head_dim], F, out, True)
+        raise ValueError(f"plan_segment_sum_mh: w_heads must be [rows, H] and head_dim >= 1, "
+                         f"got {tuple(w_heads.shape)} and {head_dim}")
+    if src is None:
+        _check(w_heads, "w_heads", torch.float32,
+               (plan.num_tiles * plan.e_tile, w_heads.shape[1]), vals.device)
+    out = _row_sum("plan_segment_sum_mh", plan, vals, "slot" if src is None else "edge", None,
+                   None, 0, src, w_heads=w_heads, head_dim=head_dim)
     plan_segment_sum_mh.launches += 1
     return out
 

@@ -19,12 +19,13 @@ a version's `slot_common.cuh` beside its files), timed in turns (the
 others, this, this, the others in reverse) with CUDA events in one
 process, at the shapes of `chip_smoke.py`. Each `--other` names a file
 by its kind:
-  - `slot_segment_sum.cu`: sr (F 500) and pr (8 rows) at the flickr plans
-    of phase 19, outputs compared for equality, and the registers ptxas
-    gave each build's 128-column sr tile kernel; and the other's sr_packed
-    kernel (F 64, 7; before the edge-row kernel took it) against this
-    checkout's over the same slot-order values and reading x[src[e]]
-    itself, with the [slots, F] gather's own time;
+  - `slot_segment_sum.cu` (with the sr tile and window kernels, before
+    the edge-row kernel took sr): sr at the GraphSAGE plan of phase 19
+    (F 500, and 128), the other's kernel over the [slots, F] gather
+    against this checkout's edge-row kernel over the same slot-order
+    values and reading x[src[e]] itself, with the gather's own time and
+    torch.sparse.mm over the slot -> row and the node CSR; and pr (8
+    rows), outputs compared for equality;
   - `bat_segment_sum.cu` (the wide BAT tile and window kernels before the
     edge-row kernel took the wide sum): at phase 5's and 9's shapes (the
     arxiv GCN's bat and bat_t at F 128 and 40; the other's kernel on the
@@ -39,7 +40,12 @@ by its kind:
   - `bat_segment_sum_packed.cu` (the packed BAT tile and window kernels
     before it): at phase 29's shapes (GIN on arxiv, F 64, bat and bat_t;
     APPNP on flickr, F 8, weighted), the same three;
-  - `slot_mh.cu`: plan_segment_sum_mh at phase 24's H*D 256 and 28.
+  - `slot_mh.cu` (the mh tile and window kernels of `slot_common.cuh`,
+    before the edge-row kernel took mh): at phase 24's H*D 256 and 28 over
+    GAT's `plan` and `plan_t`, the other's kernel over the [slots, H*D]
+    gather with slot-order weights against this checkout's over the same
+    values and reading xh[src[e]] with edge-order weights itself, with the
+    gather's own time and torch.sparse.mm over the head-expanded node CSR.
   `git show <commit>:geot_tpu_torch/ops/csrc/<file> > DIR/<file>` gives a
   parent's source, DIR git-ignored and in the chip copy (e.g. `_archive/`).
 
@@ -49,12 +55,14 @@ knobs, `--config "LABEL|NVCC FLAGS|slice_slots=N,task_cost=N,fix_fanin=N"`
 (e.g. `"t64||task_cost=64,slice_slots=64"`, `"b8|-DGEOT_EDGE_BATCH=8|"`),
 timed in turns at the shapes of `ab`'s AEB and packed BAT comparisons, in
 both forms; `--wide` adds the wide BAT and sr_packed shapes, `--products`
-the products remainder's.
+the products remainder's, `--slot` the sr (GraphSAGE, F 500) and mh (GAT,
+H*D 256 and 28, `plan` and `plan_t`) shapes (e.g. with
+`"col|-DGEOT_HEADS_LANE=0|"`: mh's weights looked up per column).
 
 `paths`: each model's request (forward) and training step with CUDA
 events, `--model` among `appnp` (flickr), `gin` (arxiv), `gcn-dyn`
 (flickr, feature_hint 64 and 128), `gcn-arxiv`, `gcn-flickr`,
-`graphsage-flickr` and `gcn-products`, in a process of its own per run, with
+`graphsage-flickr`, `gat-flickr` and `gcn-products`, in a process of its own per run, with
 `--parent`'s tree (an unpacked archive of another commit, e.g.
 `git archive <commit> geot_tpu_torch | tar -x -C DIR`) and this one's in
 turns (parent, this, this, parent): its kernels and its routes.
@@ -114,20 +122,6 @@ def gathers(dev: torch.device) -> None:
               + "; ".join(f"{k} {v:.4f} ms" for k, v in res.items()), flush=True)
 
 
-def _sr_registers(ptxas_report: str) -> str:
-    """The registers of the G = 32 (128-column), row-vector sr tile kernel
-    in an nvcc -Xptxas -v report."""
-    regs, fn = [], None
-    for line in ptxas_report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn and "slot_tile_kernel" in fn and "slot_tile_kernelILi32ELi0E" in fn:
-            regs.append(m.group(1))
-    return "/".join(regs) or "?"
-
-
 def _build_all(files: list, tag: str):
     """nvcc each file (the same flags as `ops._build`), in parallel, into
     the build directory; returns [(library, ptxas report)]."""
@@ -165,73 +159,49 @@ def _fmt(times: dict) -> str:
 
 def _ab_slot(dev: torch.device, sources: list) -> None:
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
-    from geot_tpu_torch.ops import _build
     from geot_tpu_torch.ops import slot_kernels as sk
     from geot_tpu_torch.profile_gcn import flickr_graph
 
-    labels = ["this"] + [str(s) for s in sources]
-    files = [_build._CSRC / _build.SOURCES["slot_segment_sum"]] + list(sources)
-    libs = {}
-    for label, (lib, report) in zip(labels, _build_all(files, "sr")):
-        libs[label] = lib
-        print(f"{label}: sr tile kernel (128 columns) registers {_sr_registers(report)}",
-              flush=True)
-
-    def bound_in(lib):
-        def bound(name, lib_name=""):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = sk._ARGTYPES[name], ctypes.c_int
-            return fn
-        return bound
-
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "sr"))}
+    labels = ["this"] + list(libs)
     n, e, f, c = DATASET_SHAPES["flickr"]
     data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
-    gs, gg = flickr_graph(data, "graphsage", dev), flickr_graph(data, "gcn", dev)
+    g = flickr_graph(data, "graphsage", dev)
+    plan, w = g.plan, g.plan.mask
     gen = torch.Generator(device=dev).manual_seed(0)
-    others = labels[1:]
-    turns = others + ["this", "this"] + others[::-1]
-    own = sk._bound
-    try:
-        for name, g, w, F in (("sr", gs, gs.plan.mask, f), ("pr", gs, gs.plan.mask, 8)):
-            plan = g.plan
-            slots = plan.num_tiles * plan.e_tile
-            fn = getattr(sk, "plan_segment_sum_" + name)
-            vals = (torch.ones(F, slots, device=dev) if name == "pr"
-                    else torch.randn(slots, F, generator=gen, device=dev))
-            times = {label: [] for label in labels}
-            outs = {}
-            for turn in turns:
-                sk._bound = bound_in(libs[turn])
-                times[turn].append(_ms(lambda: fn(plan, vals, w)))
-                outs[turn] = fn(plan, vals, w)
-            same = all(torch.equal(outs[o], outs["this"]) for o in others)
-            print(f"{name} F={F}: " + "; ".join(f"{k} {v} ms" for k, v in times.items())
-                  + f"; outputs equal: {same}", flush=True)
-    finally:
-        sk._bound = own
-    # sr_packed: the others' slot kernel against this checkout's edge-row
-    # kernel over slot-order values, and reading x[src[e]] itself
-    plan, w = gg.plan, gg.w_slots
     scsr = _slot_csr(plan, w)
-    ncsr = _node_csr(gg.dst, gg.src, gg.edge_weight, n)
-    for F in (64, c):
+    ncsr = _node_csr(g.dst, g.src, None, n)
+    for F in (f, 128):
         x = torch.randn(n, F, generator=gen, device=dev)
         vals = x.index_select(0, plan.src_slots.reshape(-1))
 
         def run(label):
             if label == "this":
-                return _ms(lambda: sk.plan_segment_sum_sr_packed(plan, vals, w))
-            return _ms(lambda: _old_sr_packed(libs[label], plan, vals, w))
+                return _ms(lambda: sk.plan_segment_sum_sr(plan, vals, w))
+            return _ms(lambda: _old_slot(libs[label], "sr", plan, vals, w))
 
         times = _in_turns(labels, run)
-        mine = sk.plan_segment_sum_sr_packed(plan, vals, w)
-        a_abs = sk.plan_segment_sum_sr_packed(plan, vals.abs(), w.abs())
-        same = all(_close(_old_sr_packed(libs[o], plan, vals, w), mine, a_abs) for o in others)
-        _report_forms(f"sr_packed F={F} (flickr GCN, slot weights)", times,
-                      _ms(lambda: sk.plan_segment_sum_sr_packed(plan, x, w, src=gg.src)),
+        mine = sk.plan_segment_sum_sr(plan, vals, w)
+        a_abs = sk.plan_segment_sum_sr(plan, vals.abs(), w)
+        same = all(_close(_old_slot(lib, "sr", plan, vals, w), mine, a_abs)
+                   for lib in libs.values())
+        _report_forms(f"sr F={F} (flickr GraphSAGE, the plan's mask)", times,
+                      _ms(lambda: sk.plan_segment_sum_sr(plan, x, w, src=g.src)),
                       _ms(lambda: x.index_select(0, plan.src_slots.reshape(-1))),
                       _ms(lambda: torch.sparse.mm(scsr, vals)), same,
                       _ms(lambda: torch.sparse.mm(ncsr, x)), "slot -> row")
+        del x, vals
+    vt = torch.randn(8, plan.num_tiles * plan.e_tile, generator=gen, device=dev)
+
+    def run_pr(label):
+        if label == "this":
+            return _ms(lambda: sk.plan_segment_sum_pr(plan, vt, w))
+        return _ms(lambda: _old_slot(libs[label], "pr", plan, vt, w))
+
+    times = _in_turns(labels, run_pr)
+    mine = sk.plan_segment_sum_pr(plan, vt, w)
+    same = all(torch.equal(_old_slot(lib, "pr", plan, vt, w), mine) for lib in libs.values())
+    print(f"pr F=8: {_fmt(times)}; outputs equal: {same}", flush=True)
 
 
 def _slot_csr(plan, w):
@@ -266,27 +236,37 @@ _OLD_AEB = [_P, _I32, _I64, _I32, _I64, _P, _P, _P, _P, _I64, _P, _I32, _I32, _I
             _P, _P, _P]
 _OLD_BAT = [_P, _I32, _I64, _P, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
 _OLD_WIDE = [_P, _I64, _I32, _P, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
-# the slot kernels' tail: out_block, T, n_windows, E, s_tile, out, part_rows,
-# part_vals, stream
-_OLD_SR_PACKED = [_P, _I32, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+# the slot tile + window kernels' tail: out_block, T, n_windows, E, s_tile,
+# out, part_rows, part_vals, stream
+_OLD_TAIL = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P]
+_OLD_SLOT = {"sr": [_P, _I32, _P, _P] + _OLD_TAIL,
+             "pr": [_P, _I32, _I64, _P, _P] + _OLD_TAIL,
+             "mh": [_P, _I32, _P, _P, _I32, _I32] + _OLD_TAIL}
 
 
-def _old_sr_packed(lib, plan, vals, w):
-    """The packed slot tile + window kernels of `slot_segment_sum.cu` before
-    the edge-row kernel took sr_packed, over slot-order values."""
-    fn = lib.geot_plan_segment_sum_sr_packed
-    fn.argtypes, fn.restype = _OLD_SR_PACKED, ctypes.c_int
+def _old_slot(lib, kind, plan, vals, w, head_dim=0):
+    """The slot tile + window kernels of `slot_segment_sum.cu` (sr over
+    slot-order values [T*E, F]; pr over their transpose [F, T*E]) or of
+    `slot_mh.cu` (mh, slot-order head weights w [T*E, H]) before the
+    edge-row kernel took sr and mh; the plan ordered as a whole."""
+    fn = getattr(lib, f"geot_plan_segment_sum_{kind}")
+    fn.argtypes, fn.restype = _OLD_SLOT[kind], ctypes.c_int
     lib.geot_slot_scratch_width.argtypes = [_I32, _I32]
-    T, F = plan.num_tiles, vals.shape[1]
-    width = lib.geot_slot_scratch_width(F, 1)
-    out = torch.empty(plan.n_blocks * plan.s_tile, F, device=vals.device)
-    pr = torch.empty(2 * T, dtype=torch.int32, device=vals.device)
-    pv = torch.empty(2 * T, width, device=vals.device)
-    rc = fn(vals.data_ptr(), F, plan.dst_slots.data_ptr(), w.data_ptr(),
-            plan.out_block.data_ptr(), T, plan.n_blocks, plan.e_tile, plan.s_tile,
+    T, dev = plan.num_tiles, vals.device
+    F = vals.shape[0] if kind == "pr" else vals.shape[1]
+    width = lib.geot_slot_scratch_width(F, int(kind != "sr"))
+    rows = plan.n_blocks * plan.s_tile
+    out = torch.empty((F, rows) if kind == "pr" else (rows, F), device=dev)
+    pr = torch.empty(2 * T, dtype=torch.int32, device=dev)
+    pv = torch.empty(2 * T, width, device=dev)
+    head = {"sr": [vals.data_ptr(), F, plan.dst_slots.data_ptr(), w.data_ptr()],
+            "pr": [vals.data_ptr(), F, vals.shape[1], plan.dst_slots.data_ptr(), w.data_ptr()],
+            "mh": [vals.data_ptr(), F, plan.dst_slots.data_ptr(), w.data_ptr(), w.shape[1],
+                   head_dim]}[kind]
+    rc = fn(*head, plan.out_block.data_ptr(), T, plan.n_blocks, plan.e_tile, plan.s_tile,
             out.data_ptr(), pr.data_ptr(), pv.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"old sr_packed kernel: cudaError {rc}")
+        raise RuntimeError(f"old {kind} kernel: cudaError {rc}")
     return out
 
 
@@ -548,39 +528,39 @@ def _ab_mh(dev, sources: list) -> None:
     n, e, f, c = DATASET_SHAPES["flickr"]
     data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
     g = flickr_graph(data, "gat", dev)
-    plan = g.plan
-    S = plan.num_tiles * plan.e_tile
     gen = torch.Generator(device=dev).manual_seed(0)
-    own = sk._bound
-
-    def bound_in(lib):
-        def bound(name, lib_name=""):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = sk._ARGTYPES[name], ctypes.c_int
-            return fn
-        return bound
-
-    try:
+    for d, plan, src_d, dst_d in (("plan", g.plan, g.src, g.dst),
+                                  ("plan_t", g.plan_t, g.dst_t,
+                                   g.src.index_select(0, g.perm_t.long()))):
         for H, D in ((4, FLICKR_HIDDEN), (4, c)):
-            vals = torch.randn(S, H * D, generator=gen, device=dev)
-            wh = (torch.rand(S, H, generator=gen, device=dev) + 0.1) * plan.mask.reshape(-1, 1)
+            x = torch.randn(n, H * D, generator=gen, device=dev)
+            we = torch.rand(g.num_edges, H, generator=gen, device=dev) + 0.1
+            ws = (we.index_select(0, plan.edge_pos.reshape(-1).long())
+                  * plan.mask.reshape(-1, 1)).contiguous()
+            vals = x.index_select(0, plan.src_slots.reshape(-1))
 
             def run(label):
-                sk._bound = own if label == "this" else bound_in(libs[label])
-                return _ms(lambda: sk.plan_segment_sum_mh(plan, vals, wh, D))
+                if label == "this":
+                    return _ms(lambda: sk.plan_segment_sum_mh(plan, vals, ws, D))
+                return _ms(lambda: _old_slot(libs[label], "mh", plan, vals, ws, D))
 
             times = _in_turns(["this"] + list(libs), run)
-            sk._bound = own
-            mine = sk.plan_segment_sum_mh(plan, vals, wh, D)
-            same = True
-            for lib in libs.values():
-                sk._bound = bound_in(lib)
-                same &= torch.equal(sk.plan_segment_sum_mh(plan, vals, wh, D), mine)
-            sk._bound = own
-            print(f"plan_segment_sum_mh H*D={H * D}: {_fmt(times)}; outputs equal: {same}",
-                  flush=True)
-    finally:
-        sk._bound = own
+            mine = sk.plan_segment_sum_mh(plan, vals, ws, D)
+            a_abs = sk.plan_segment_sum_mh(plan, vals.abs(), ws, D)
+            same = all(_close(_old_slot(lib, "mh", plan, vals, ws, D), mine, a_abs)
+                       for lib in libs.values())
+            h = torch.arange(H, device=dev)
+            ncsr = torch.sparse_coo_tensor(
+                torch.stack([(dst_d.long()[:, None] * H + h).reshape(-1),
+                             (src_d.long()[:, None] * H + h).reshape(-1)]),
+                we.reshape(-1), (n * H, n * H)).coalesce().to_sparse_csr()
+            x2 = x.view(n * H, D)
+            _report_forms(f"mh H*D={H * D} gat.{d}", times,
+                          _ms(lambda: sk.plan_segment_sum_mh(plan, x, we, D, src=src_d)),
+                          _ms(lambda: x.index_select(0, plan.src_slots.reshape(-1))),
+                          _ms(lambda: torch.sparse.mm(ncsr, x2)), same, None,
+                          "head-expanded node")
+            del x, vals, ncsr, x2
 
 
 def ab(dev: torch.device, sources: list, products: bool = False) -> None:
@@ -613,8 +593,24 @@ def _variant(flags: list, tag: str):
     return fn, p.stdout + p.stderr
 
 
+def edge_row_registers(ptxas_report: str) -> list:
+    """[(G, heads mode, registers)] of the 16-byte-row edge_row_kernel
+    builds in an nvcc -Xptxas -v report (heads mode 0: one weight an entry,
+    1: one head weight a lane, 2: one a column; edge_row_sum.cu)."""
+    regs, key = [], None
+    for line in ptxas_report.splitlines():
+        m = re.search(r"Compiling entry function '\S*edge_row_kernelILb1ELi(\d+)ELi(\d+)E", line)
+        key = (int(m.group(1)), int(m.group(2))) if m else (
+            key if "Compiling entry" not in line else None)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            regs.append((*key, int(m.group(1))))
+            key = None
+    return regs
+
+
 def rowsum(dev: torch.device, configs: list, wide: bool = False,
-           products: bool = False) -> None:
+           products: bool = False, slot: bool = False) -> None:
     """The edge-row kernel built with each configuration ("LABEL|NVCC
     FLAGS|slice_slots=N,task_cost=N,fix_fanin=N": extra nvcc flags and the
     schedule's knobs, each part may be empty), timed
@@ -624,8 +620,10 @@ def rowsum(dev: torch.device, configs: list, wide: bool = False,
     over `bat` and `bat_t`. With `wide`, also phase 5's and 9's wide BAT
     sums (the arxiv GCN, F 128 and 40, bat and bat_t) and phase 19's
     sr_packed (flickr GCN, F 64 and 7); with `products`, phase 14's
-    remainder sums (F 128 and 47, both directions, gathered). The lower
-    times are summed per class (narrow, wide, products)."""
+    remainder sums (F 128 and 47, both directions, gathered); with `slot`,
+    phase 19's sr (GraphSAGE, F 500) and phase 24's mh (GAT, H*D 256 and
+    28, over `plan` and `plan_t`). The lower times are summed per class
+    (narrow, wide, products, slot)."""
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
     from geot_tpu_torch.graph.plan import with_row_schedule
     from geot_tpu_torch.models import prepare_graph
@@ -639,16 +637,8 @@ def rowsum(dev: torch.device, configs: list, wide: bool = False,
         label, flags, knobs = (spec.split("|") + ["", ""])[:3]
         kn = {k: int(v) for k, v in (kv.split("=") for kv in knobs.split(",") if kv)}
         fn, report = _variant(flags.split(), f"v{i}")
-        regs, g = [], None
-        for line in report.splitlines():
-            m = re.search(r"Compiling entry function '\S*edge_row_kernelILb1ELi(\d+)E", line)
-            g = m.group(1) if m else g if "Compiling entry" not in line else None
-            m = re.search(r"Used (\d+) registers", line)
-            if m and g:
-                regs.append((int(g), int(m.group(1))))
-                g = None
-        print(f"config {label}: flags {flags!r} knobs {kn}; registers (G, regs) {regs}",
-              flush=True)
+        print(f"config {label}: flags {flags!r} knobs {kn}; registers (G, heads mode, regs) "
+              f"{edge_row_registers(report)}", flush=True)
         cfgs.append((label, fn, kn))
     fn0 = erk._bound_fn()  # sets the C signature once; each variant takes the same
     for _, fn, _ in cfgs:
@@ -689,6 +679,8 @@ def rowsum(dev: torch.device, configs: list, wide: bool = False,
                           lambda p, x=x, w=w, s=src_d: bat_segment_sum_packed(p, x, w, src=s)))
     if wide:
         cases += _wide_rowsum_cases(dev, gen, products)
+    if slot:
+        cases += _slot_rowsum_cases(dev, gen)
     own = erk._bound_fn
     sums = {}
     try:
@@ -768,6 +760,39 @@ def _wide_rowsum_cases(dev, gen, products: bool) -> list:
     return cases
 
 
+def _slot_rowsum_cases(dev, gen) -> list:
+    """`rowsum`'s slot cases: (class, label, plan, call(plan))."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.profile_gcn import FLICKR_HIDDEN, flickr_graph
+
+    cases = []
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    gs = flickr_graph(data, "graphsage", dev)
+    x = torch.randn(n, f, generator=gen, device=dev)
+    vals = x.index_select(0, gs.plan.src_slots.reshape(-1))
+    w = gs.plan.mask
+    cases.append(("slot", f"sr flickr F={f} values", gs.plan,
+                  lambda p: sk.plan_segment_sum_sr(p, vals, w)))
+    cases.append(("slot", f"sr flickr F={f} gathered", gs.plan,
+                  lambda p: sk.plan_segment_sum_sr(p, x, w, src=gs.src)))
+    gg = flickr_graph(data, "gat", dev)
+    for d, plan, src_d in (("plan", gg.plan, gg.src), ("plan_t", gg.plan_t, gg.dst_t)):
+        for H, D in ((4, FLICKR_HIDDEN), (4, c)):
+            xh = torch.randn(n, H * D, generator=gen, device=dev)
+            we = torch.rand(gg.num_edges, H, generator=gen, device=dev) + 0.1
+            ws = (we.index_select(0, plan.edge_pos.reshape(-1).long())
+                  * plan.mask.reshape(-1, 1)).contiguous()
+            vh = xh.index_select(0, plan.src_slots.reshape(-1))
+            cases.append(("slot", f"mh gat.{d} H*D={H * D} values", plan,
+                          lambda p, v=vh, w=ws, D=D: sk.plan_segment_sum_mh(p, v, w, D)))
+            cases.append(("slot", f"mh gat.{d} H*D={H * D} gathered", plan,
+                          lambda p, x=xh, w=we, s=src_d, D=D: sk.plan_segment_sum_mh(
+                              p, x, w, D, src=s)))
+    return cases
+
+
 # one model's request and training step, run in the tree named by the
 # process's working directory (its own package on the path)
 _PATH_TIMING = r"""
@@ -797,7 +822,7 @@ print("PATH " + json.dumps({"forward_ms": fwd, "train_step_ms": stp}))
 _PATHS = {"appnp": ("flickr", "appnp", 128), "gin": ("arxiv", "gin", 128),
           "gcn-dyn64": ("flickr", "gcn-dyn", 64), "gcn-dyn128": ("flickr", "gcn-dyn", 128),
           "gcn-arxiv": ("arxiv", "gcn", 128), "gcn-flickr": ("flickr", "gcn", 128),
-          "graphsage-flickr": ("flickr", "graphsage", 128),
+          "graphsage-flickr": ("flickr", "graphsage", 128), "gat-flickr": ("flickr", "gat", 128),
           "gcn-products": ("products-clustered", "gcn", 128)}
 
 
@@ -838,6 +863,8 @@ def main(argv=None) -> int:
                       help="the wide BAT and sr_packed shapes too")
     p_rs.add_argument("--products", action="store_true",
                       help="with --wide: the products remainder's shapes too")
+    p_rs.add_argument("--slot", action="store_true",
+                      help="the sr (F 500) and mh (H*D 256, 28) shapes too")
     p_paths = sub.add_parser("paths")
     p_paths.add_argument("--parent", required=True, help="another commit's unpacked tree")
     p_paths.add_argument("--model", action="append", choices=tuple(_PATHS),
@@ -853,7 +880,7 @@ def main(argv=None) -> int:
     elif args.what == "ab":
         ab(dev, args.other, args.products)
     elif args.what == "rowsum":
-        rowsum(dev, args.config, args.wide, args.products)
+        rowsum(dev, args.config, args.wide, args.products, args.slot)
     else:
         paths(args.parent, args.model or [m for m in _PATHS if m != "gcn-products"])
     return 0

@@ -16,7 +16,8 @@ flickr-shaped graph (`FLICKR_SLOT`: the reference tuning table's picks;
 GCN with self-loops and the norm baked into slot weights, GraphSAGE
 without loops, mean aggregation). On flickr, `--model gat` is the 3-layer
 GAT (hidden 64, `FLICKR_GAT`: 4 heads averaged) over the same graph with
-self-loops and no norm (the fused route, `plan_segment_sum_mh`), and
+self-loops and no norm (`plan_segment_sum_mh`, reading xh[src[e]] in the
+edge-row kernel), and
 `--model gcn-dyn` the 3-layer GCN over a slot-only graph with self-loops
 and no baked norm, so each layer's norm is a per-call weight (`slot_dyn`,
 `FLICKR_DYN`: an edge-order gather and the aligned-edge-block kernel):

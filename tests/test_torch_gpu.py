@@ -631,6 +631,10 @@ def test_sr_packed_gathered_matches_plain(cuda, F, tiles, chunked):
 
 
 def test_slot_kernels_refuse_what_they_do_not_take(cuda):
+    """Width, dtype, shape, the slot-order row count and the gathered
+    form's src are checked before a launch; a plan whose out_block is not
+    non-decreasing as a whole (uniformized chunks) is refused by pr, to be
+    run chunk by chunk, and summed whole by sr (the edge-row kernel)."""
     rng = np.random.default_rng(3)
     dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
     plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
@@ -641,11 +645,22 @@ def test_slot_kernels_refuse_what_they_do_not_take(cuda):
         tslot.plan_segment_sum_sr(plan, v.double(), plan.mask)
     with pytest.raises(ValueError, match="w_slots"):
         tslot.plan_segment_sum_sr(plan, v, plan.mask[:-1])
+    with pytest.raises(ValueError, match="rows"):
+        tslot.plan_segment_sum_sr(plan, v[:-1], plan.mask)  # slot order needs T*E rows
+    src = torch.from_numpy(dst).to(cuda)
+    with pytest.raises(ValueError, match="src"):
+        tslot.plan_segment_sum_sr(plan, v, plan.mask, src=src.long())
+    with pytest.raises(ValueError, match="src"):
+        tslot.plan_segment_sum_sr(plan, v, plan.mask, src=src[None])
     chunked = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32,
                                        max_chunk_slots=64 * 5, device=cuda)
+    vc = torch.randn(chunked.num_tiles * 64, 65, device=cuda)
+    k = tslot.plan_segment_sum_sr(chunked, vc, chunked.mask)
+    _assert_abs_sum(k, tref.plan_segment_sum_sr_plain(chunked, vc, chunked.mask),
+                    tref.plan_segment_sum_sr_plain(chunked, vc.abs(), chunked.mask))
     if not chunked.monotone:
         with pytest.raises(ValueError, match="non-decreasing"):
-            tslot.plan_segment_sum_sr(chunked, v[: chunked.num_tiles * 64], chunked.mask)
+            tslot.plan_segment_sum_pr(chunked, vc[:, :8].t().contiguous(), chunked.mask)
 
 
 @pytest.mark.parametrize("model", ["gcn", "graphsage"])
@@ -794,41 +809,100 @@ def test_edge_row_kernel_deep_fix_tree(cuda, F, form):
     assert torch.equal(bat_segment_sum_packed(bp, vp, we, **kw), k)
 
 
+def _both_directions(cuda, seed, tiles, chunked, n=1500):
+    """A slot graph with a hub row spanning many tiles, pad slots before
+    (pack_align 16) and after a tile's real slots, empty windows and,
+    chunked, uniformized chunks that split the hub window; and x [n - 100,
+    .] so that the node rows past its end read as zero. Yields (plan, its
+    edge-order src) for `plan` and `plan_t`."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(seed)
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    g = build_graph(src, dst, n + 400, e_tile=e_tile, s_tile=s_tile,
+                    feature_hint=64 if pack_align == 16 else 128, layouts=("slot",),
+                    device=cuda, max_chunk_slots=e_tile * 6 if chunked else 4 << 20)
+    assert bool(g.plan.chunks) == chunked and g.plan.pack_align == pack_align
+    return rng, ((g.plan, g.src), (g.plan_t, g.dst_t))
+
+
+def _slot_rows(x, plan):
+    """x[src_slots] [T*E, F] with zeros where a slot names a row past x's
+    end: the values form of a gathered sum."""
+    ss = plan.src_slots.reshape(-1).long()
+    inside = ss < x.shape[0]
+    return torch.where(inside[:, None], x[ss.clamp(max=x.shape[0] - 1)], 0.0).contiguous()
+
+
+def _held_both_forms(fn, plain, plan, x, src_e, w_vals, w_edge, *extra):
+    """fn in both forms (slot-order values with weights w_vals; x[src[e]]
+    read in the kernel with weights w_edge) against its plain version in
+    the same form, one launch each, every row written, three reruns
+    bit-identical, and the two forms within the rule of each other."""
+    vals = _slot_rows(x, plan)
+    outs = []
+    for v, w, kw in ((vals, w_vals, {}), (x, w_edge, {"src": src_e})):
+        torch.full((4 * plan.n_blocks * plan.s_tile * max(x.shape[1], 8),), float("nan"),
+                   device=x.device)
+        before = fn.launches
+        k = fn(plan, v, w, *extra, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _assert_abs_sum(k, plain(plan, v, w, *extra, **kw),
+                        plain(plan, v.abs(), w.abs(), *extra, **kw))
+        for _ in range(3):
+            assert torch.equal(fn(plan, v, w, *extra, **kw), k)
+        outs.append(k)
+    _assert_abs_sum(outs[1], outs[0], plain(plan, vals.abs(), w_vals.abs(), *extra))
+
+
+@pytest.mark.parametrize("F", [500, 128, 100, 7])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (96, 128, 1), (32, 1, 1)])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_sr_both_forms_match_plain(cuda, F, tiles, chunked):
+    """plan_segment_sum_sr (the edge-row kernel) over slot-order values and
+    reading x[src[e]] itself, on both directions' plans, with a third of
+    the slot weights exactly 0 (skipped) and node rows past x's end: one
+    launch a plan, chunked (the hub window split) or not."""
+    rng, plans = _both_directions(cuda, F + tiles[0] + chunked, tiles, chunked)
+    fn, plain = _SLOT["sr"]
+    for plan, src_e in plans:
+        w = plan.mask * torch.from_numpy(rng.standard_normal(tuple(plan.mask.shape))
+                                         .astype(np.float32)).to(cuda)
+        w.reshape(-1)[::3] = 0.0
+        x = torch.from_numpy(rng.standard_normal((1400, F)).astype(np.float32)).to(cuda)
+        _held_both_forms(fn, plain, plan, x, src_e, w, w)
+
+
 @pytest.mark.parametrize("H,D", [(4, 64), (4, 7), (3, 96), (8, 32), (2, 100), (4, 16),
                                  (1, 1)])
 @pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (32, 1, 1)])
-def test_mh_kernel_matches_plain(cuda, H, D, tiles):
-    """plan_segment_sum_mh against its plain version: heads that straddle
-    a lane group or a 128-column slab ((3, 96): head 1 spans columns
-    96-191), a third of the (slot, head) weights exactly 0 on chosen heads
-    only, pads zero on every head; reruns bit-identical, one launch."""
-    e_tile, s_tile, pack_align = tiles
-    rng = np.random.default_rng(H * 100 + D + e_tile)
-    n = 1500
-    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
-    order = np.argsort(dst, kind="stable")
-    src, dst = src[order], dst[order]
-    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
-                                    pack_align=pack_align, device=cuda)
-    S = plan.num_tiles * plan.e_tile
-    wh = torch.from_numpy(rng.standard_normal((S, H)).astype(np.float32)).to(cuda)
-    wh = wh * plan.mask.reshape(-1, 1)
-    wh[torch.from_numpy(rng.random((S, H)) < 1 / 3).to(cuda)] = 0.0
-    vals = torch.from_numpy(rng.standard_normal((S, H * D)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("chunked", [False, True])
+def test_mh_kernel_matches_plain(cuda, H, D, tiles, chunked):
+    """plan_segment_sum_mh (the edge-row kernel with per-head weights) in
+    both forms (slot-order values and weights; x[src[e]] read in the
+    kernel with the weights in the plan's edge order) on both directions'
+    plans: heads that straddle a lane's 4 columns ((4, 7)) or a 128-column
+    slab ((3, 96): head 1 spans columns 96-191), a third of the (edge,
+    head) weights exactly 0 on chosen heads only and every seventh edge 0
+    on every head (skipped), pads zero on every head, node rows past x's
+    end; one launch a plan, chunked or not, reruns bit-identical."""
+    rng, plans = _both_directions(cuda, H * 100 + D + tiles[0] + chunked, tiles, chunked)
     fn, plain = tslot.plan_segment_sum_mh, tref.plan_segment_sum_mh_plain
-    before = fn.launches
-    k = fn(plan, vals, wh, D)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    _assert_abs_sum(k, plain(plan, vals, wh, D), plain(plan, vals.abs(), wh.abs(), D))
-    assert torch.equal(fn(plan, vals, wh, D), k)
+    for plan, src_e in plans:
+        nnz = plan.num_edges
+        we = torch.from_numpy(rng.standard_normal((nnz, H)).astype(np.float32)).to(cuda)
+        we[torch.from_numpy(rng.random((nnz, H)) < 1 / 3).to(cuda)] = 0.0
+        we[torch.arange(nnz, device=cuda) % 7 == 3] = 0.0
+        ws = (we[plan.edge_pos.reshape(-1).long()] * plan.mask.reshape(-1, 1)).contiguous()
+        x = torch.from_numpy(rng.standard_normal((1400, H * D)).astype(np.float32)).to(cuda)
+        _held_both_forms(fn, plain, plan, x, src_e, ws, we, D)
 
 
 def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
-    """Width, layout, dtype, shape, e0 and the gathered form's src are
-    checked before a launch; a plan whose out_block is not non-decreasing
-    as a whole (uniformized chunks) is refused by mh, to be run chunk by
-    chunk, and summed whole by sr2 (the edge-row kernel)."""
+    """Width, layout, dtype, shape, e0, head_dim and the gathered form's src
+    are checked before a launch; a plan whose out_block is not
+    non-decreasing as a whole (uniformized chunks) is summed whole by sr2
+    and mh (the edge-row kernel)."""
     rng = np.random.default_rng(4)
     dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
     plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
@@ -849,6 +923,17 @@ def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
         tslot.plan_segment_sum_mh(plan, torch.ones(S, 8, device=cuda),
                                   torch.ones(S - 1, 2, device=cuda), 4)
     src = torch.from_numpy(dst).to(cuda)
+    x8 = torch.ones(300, 8, device=cuda)
+    with pytest.raises(ValueError, match="w_heads"):
+        tslot.plan_segment_sum_mh(plan, x8, torch.ones(2000, 2, device=cuda).double(), 4,
+                                  src=src)
+    with pytest.raises(ValueError, match="w_heads"):
+        tslot.plan_segment_sum_mh(plan, x8, torch.ones(2000, device=cuda), 4, src=src)
+    with pytest.raises(ValueError, match="head_dim"):
+        tslot.plan_segment_sum_mh(plan, x8, torch.ones(2000, 2, device=cuda), 0, src=src)
+    with pytest.raises(ValueError, match="src"):
+        tslot.plan_segment_sum_mh(plan, x8, torch.ones(2000, 2, device=cuda), 4,
+                                  src=src.long())
     with pytest.raises(ValueError, match="vals_layout"):
         tslot.plan_segment_sum_sr2(plan, ve, src=src)  # gathered values are edge order
     with pytest.raises(ValueError, match="src"):
@@ -856,18 +941,17 @@ def test_aeb_and_mh_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="e_base"):
         tslot.plan_segment_sum_packed2(plan, ve[:, :8].contiguous(), src=src, e_base=64)
     # a plan cut into uniformized chunks: the edge-row kernel sums it whole,
-    # in one launch; mh still needs the chunks one by one
+    # in one launch
     chunked = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32,
                                        max_chunk_slots=64 * 5, device=cuda)
     v8 = ve[:, :8].contiguous()
     k = tslot.plan_segment_sum_sr2(chunked, v8, vals_layout="edge")
     _assert_abs_sum(k, tref.plan_segment_sum_sr2_plain(chunked, v8, vals_layout="edge"),
                     tref.plan_segment_sum_sr2_plain(chunked, v8, vals_layout="edge"))
-    if not chunked.monotone:
-        with pytest.raises(ValueError, match="non-decreasing"):
-            tslot.plan_segment_sum_mh(chunked, torch.ones(chunked.num_tiles * 64, 8,
-                                                          device=cuda),
-                                      chunked.mask.reshape(-1, 1).contiguous(), 8)
+    wh = torch.rand(2000, 2, device=cuda)
+    k = tslot.plan_segment_sum_mh(chunked, x8, wh, 4, src=src)
+    _assert_abs_sum(k, tref.plan_segment_sum_mh_plain(chunked, x8, wh, 4, src=src),
+                    tref.plan_segment_sum_mh_plain(chunked, x8, wh, 4, src=src))
 
 
 @pytest.mark.parametrize("model", ["gat", "gcn_dyn64", "gcn_dyn128"])
@@ -916,10 +1000,11 @@ def test_gat_and_slot_dyn_models_on_card_match_cpu(cuda, model, chunked):
 @pytest.mark.parametrize("route", [{}, {"fused_max_edges": 0}])
 def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
     """The gradients of alpha_src and alpha_dst sum in a fixed order (the
-    gathers' backward runs over the dst- or src-sorted runs), so reruns
+    attention's gradient is the per-edge, per-head dot in edge order, and
+    the gathers' backward runs over the dst- or src-sorted runs), so reruns
     give the same bits; so does the xh gradient on both routes (the mh
     kernel over plan_t; the fused route added slot terms with index_add_
-    before, ROADMAP C.12)."""
+    once, ROADMAP C.12). Both routes are one computation on the card."""
     from geot_tpu_torch.models import prepare_graph
 
     rng = np.random.default_rng(21)

@@ -208,9 +208,11 @@ def test_gat_attention_spmm_matches_edge_order():
 
 
 def test_gat_pad_slots_weigh_zero():
-    """The fused route's pad slots (and an empty window's all-pad tile)
-    add exactly nothing, even where their logits would overflow exp: a node
-    with no in-edges aggregates exactly 0. The reference multiplies by the
+    """Pad slots (and an empty window's all-pad tile) add exactly nothing
+    on both routes, even where the node a pad names would overflow exp:
+    the mh sum reads the attention in edge order and weighs every pad 0
+    whatever edge it names, so a node with no in-edges aggregates exactly
+    0. The reference's fused route multiplies its slot placement by the
     mask and gives NaN there (ROADMAP C.11)."""
     rng = np.random.default_rng(3)
     n, H, D = 300, 2, 4
@@ -223,11 +225,12 @@ def test_gat_pad_slots_weigh_zero():
     a_s = torch.from_numpy(rng.standard_normal((n, H)).astype(np.float32))
     a_s[0] = 200.0  # pads gather node 0: exp(200 - m) overflows float32
     a_d = torch.zeros(n, H)
-    out = tapi.gat_attention_spmm(tg, xh, a_s, a_d)
-    assert torch.isfinite(out).all()
-    assert float(out[100:].abs().max()) == 0.0
     ref = tapi.gat_attention_spmm(tg, xh, a_s, a_d, backend="reference")
-    torch.testing.assert_close(out, ref, **TOL_GAT)
+    for kw in ({}, {"fused_max_edges": 0}):
+        out = tapi.gat_attention_spmm(tg, xh, a_s, a_d, **kw)
+        assert torch.isfinite(out).all()
+        assert float(out[100:].abs().max()) == 0.0
+        torch.testing.assert_close(out, ref, **TOL_GAT)
     jg = jprepare_graph(src, dst, n, add_self_loops=False, layouts=("slot",), e_tile=64,
                         s_tile=32)
     j = np.asarray(japi.gat_attention_spmm(jg, jnp.asarray(xh.numpy()), jnp.asarray(a_s.numpy()),
