@@ -44,19 +44,23 @@ Phases, each printed with its elapsed seconds:
      for the gathered form, the edge -> row CSR for the values form), one
      SpMM and one forward pass;
   6. sddmm_bat against sddmm_bat_plain at the real plan and at a
-     uniformized chunked plan whose pad tiles point past n_blocks, with
-     bit-identical reruns;
+     uniformized chunked plan whose pad tiles point past n_blocks, in both
+     forms (b in edge order; a[dst[e]] and b[src[e]] read in the kernel),
+     with bit-identical reruns;
   7. the weight gradient through the entry point gather_weight_scatter:
      dx and dw against the reference backend, and the backward's launches
-     (one sddmm_bat, one bat_segment_sum over each of bat and bat_t);
+     (one sddmm_bat, one bat_segment_sum over each of bat and bat_t); and
+     sddmm_coo with the graph (one sddmm_bat) against sddmm_coo_ref;
   8. 5 AdamW training steps of the GCN (lr 0.01, weight decay 5e-4), each
      beside the same step on the reference path from the same state:
      first-step gradients and every loss compared, launches per step
      asserted;
   9. CUDA-event timings of a training step, a backward SpMM over the
-     transpose plan, bat_segment_sum over bat_t in both forms, sddmm_bat,
-     its plain version and the library yardstick
-     (torch.sparse.sampled_addmm, never called by the port);
+     transpose plan, bat_segment_sum over bat_t in both forms, sddmm_bat
+     in both forms with both bounds (a's and b's rows once; each edge's b
+     row once), the old route's padding and [E, F] gather, its plain
+     version and the library yardstick (torch.sparse.sampled_addmm, never
+     called by the port);
  10. the products-clustered graph's host build, with the seconds of each
      step, each direction's split (stream share, families, remainder, each
      family's kernel schedule, the remainder's edge-row schedule), and
@@ -84,10 +88,12 @@ Phases, each printed with its elapsed seconds:
  16. plan_segment_sum_sr (F 500, 128) and plan_segment_sum_sr_packed (F
      64, 32, 16, 8, 7), both the edge-row kernel, in both forms (slot-order
      values and x[src[e]] read in the kernel), and plan_segment_sum_pr (8
-     rows) against their plain versions on both directions' real plans,
-     with bit-identical reruns, and the slot SpMM over a plan chunked so
-     that its hub window splits (sr_packed at F 64 and sr at F 128 once
-     each, the plan whole);
+     rows, both forms) against their plain versions on both directions'
+     real plans, with bit-identical reruns; the mean's degree
+     (segment_counts: pr over ones [1, slots]) equal to the in-degree; the
+     slot SpMM over a plan chunked so that its hub window splits
+     (sr_packed at F 64 and sr at F 128 once each, the plan whole), and pr
+     and the degree over it, the plan whole;
  17. 5 requests per model, launches per request asserted (GraphSAGE: sr
      1, sr_packed 2, pr 3; GCN: sr_packed 3), each against the same model
      on the plain reference path;
@@ -100,7 +106,9 @@ Phases, each printed with its elapsed seconds:
      plain version, the library yardstick (torch.sparse.mm over the plan's
      slot -> row CSR; sr's and sr_packed's gathered form too, over the node
      CSR, with the [slots, F] gather alone and the bound with each live
-     edge's row once beside x's rows once), the slot SpMM per layer width, each
+     edge's row once beside x's rows once; pr at the degree's [1, slots],
+     at [8, slots] and gathered at F 8, with the old route's [slots, 8]
+     gather and transpose), the slot SpMM per layer width, each
      model's forward and training step, and each one's busy share
      (profile_gcn.trace);
  20. the three graphs' host build (GAT; GCN at feature_hint 64 and 128)
@@ -116,15 +124,17 @@ Phases, each printed with its elapsed seconds:
      8), and both in the gathered form (x[src[e]] read in the edge-row
      kernel; F 128, 64, 7 and 64-7) against their plain versions on both
      directions' real plans, with every third per-call weight exactly 0 too
-     and bit-identical reruns; each one's route over a plan chunked so that
+     and bit-identical reruns; edge_dots (the per-edge, per-head dot of
+     GAT's attention gradient) at (H, D) = (4, 64) and (4, 7) over GAT's
+     edges in both forms; each one's route over a plan chunked so that
      its hub window splits (sr2 / packed2 / mh: the whole plan in one
      launch);
  22. 5 requests per model, launches per request asserted (GAT: mh 3; GCN:
      packed2 3 / sr2 3), each against the same model on the reference path
      in float64;
  23. 5 AdamW steps per model beside the reference path (launches per step:
-     GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, the
-     attention's gradient a per-edge dot; GCN packed2 3 / sr2 3 and
+     GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, and
+     edge_dots 3, the attention's gradient; GCN packed2 3 / sr2 3 and
      sr_packed 3 over plan_t), the step-0 gradients against the reference
      path in float32 and in float64 through the kernel path's ReLU
      pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
@@ -136,7 +146,9 @@ Phases, each printed with its elapsed seconds:
      (slot- or edge-order values against the slot or edge -> row CSR;
      gathered against the node [n, n] CSR, the whole SpMM, head-expanded
      for mh: [n*H, n*H]), mh with the [slots, H*D] gather alone and both
-     bounds (x's rows once; each live edge's row once);
+     bounds (x's rows once; each live edge's row once); edge_dots at H*D
+     256 and 28 in both forms with both bounds and its plain version (the
+     parent's route);
      each model's forward and training step, and each one's busy share;
  25. the narrow BAT path's host builds: GIN's arxiv graph (phases 1-9's,
      no self-loops, unweighted; feature_hint 64: km_pack 2) and APPNP's
@@ -744,6 +756,71 @@ def slot_bound(plan, w, F):
     return bound, by, n_bytes
 
 
+def pr_timing(g, n, gen, card):
+    """Phase 19's pr timings over GraphSAGE's plan: the mean's degree (ones
+    [1, slots] with the mask as weights: the main path's shape), the values
+    form at [8, slots] and the gathered form at F 8 (x[src[e]] read in the
+    kernel), the old route's [slots, 8] gather and transpose before its
+    kernel, the plain versions, the bounds (`slot_bound`; the gathered
+    form's `gathered_bound`) and the library yardsticks (torch.sparse.mm
+    over the plan's slot -> row CSR; the node CSR for the gathered form).
+    Beside each CUDA-event time (back-to-back calls, so the wrapper's host
+    work shows where the kernels are shorter), the device time of its
+    kernels (torch.profiler: the main pass and the fix-up launches)."""
+    from geot_tpu_torch.ops import reference as ref_ops
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.profile_gcn import trace
+
+    def device_ms(run, iters=10):
+        """(main pass, fix-up launches) device ms per call."""
+        _, _, _, events = trace(run, iters, warmup=1)
+        return tuple(sum(ev.time_range.elapsed_us() for ev in events if k in ev.name)
+                     / 1e3 / iters for k in ("pr_row_kernel", "pr_fix_kernel"))
+
+    plan, w = g.plan, g.plan.mask
+    dev = w.device
+    slots, n_out = plan.num_tiles * plan.e_tile, plan.n_blocks * plan.s_tile
+    fn, pl = sk.plan_segment_sum_pr, ref_ops.plan_segment_sum_pr_plain
+    ones = torch.ones(1, slots, device=dev)
+    v8 = torch.randn(8, slots, generator=gen, device=dev)
+    x8 = torch.randn(n, 8, generator=gen, device=dev)
+    csr = slot_csr(plan, w)
+    ones_t, v8_t = ones.t().contiguous(), v8.t().contiguous()
+    r = {"F": 1, "shape": "the mean's degree: ones [1, slots], the mask as weights"}
+    r["ms"] = cuda_ms(lambda: fn(plan, ones, w))
+    r["device_main_ms"], r["device_fix_ms"] = device_ms(lambda: fn(plan, ones, w))
+    r["plain_ms"] = cuda_ms(lambda: pl(plan, ones, w), iters=3, warmup=1)
+    r["bound_ms"], r["bound_by"], nb1 = slot_bound(plan, w, 1)
+    r["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, ones_t))
+    v = {"ms": cuda_ms(lambda: fn(plan, v8, w)),
+         "plain_ms": cuda_ms(lambda: pl(plan, v8, w), iters=3, warmup=1),
+         "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, v8_t))}
+    v["bound_ms"], v["bound_by"], nb8 = slot_bound(plan, w, 8)
+    v["device_main_ms"], v["device_fix_ms"] = device_ms(lambda: fn(plan, v8, w))
+    ncsr = node_csr(g.dst, g.src, None, n)
+    gt = {"ms": cuda_ms(lambda: fn(plan, x8, w, src=g.src)),
+          "plain_ms": cuda_ms(lambda: pl(plan, x8, w, src=g.src), iters=3, warmup=1),
+          "library_ms": cuda_ms(lambda: torch.sparse.mm(ncsr, x8)),
+          "old_route_gather_ms": cuda_ms(
+              lambda: x8.index_select(0, plan.src_slots.reshape(-1)).t().contiguous())}
+    gt["bound_ms"], gt["bound_by"], nbg = gathered_bound(n, 8, g.num_edges, True, n_out)
+    gt["device_main_ms"], gt["device_fix_ms"] = device_ms(lambda: fn(plan, x8, w, src=g.src))
+    r["values_F8"], r["gathered_F8"] = v, gt
+    log(f"{card} plan_segment_sum_pr device ms (torch.profiler), main pass + fix-up launches: "
+        + "; ".join(f"{k} {d['device_main_ms']:.4f} + {d['device_fix_ms']:.4f}"
+                    for k, d in (("the degree", r), ("[8, slots]", v), ("gathered F 8", gt))))
+    log(f"{card} plan_segment_sum_pr, the degree [1, slots]: {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']}: {nb1 / 1e9:.4f} GB); plain "
+        f"{r['plain_ms']:.4f} ms; library torch.sparse.mm (slot -> row CSR) "
+        f"{r['library_ms']:.4f} ms || values form [8, slots] {v['ms']:.4f} ms (bound "
+        f"{v['bound_ms']:.4f} ms: {nb8 / 1e9:.4f} GB), plain {v['plain_ms']:.4f}, library "
+        f"{v['library_ms']:.4f} ms || gathered F 8 (x[src[e]] in the kernel) {gt['ms']:.4f} ms "
+        f"(bound {gt['bound_ms']:.4f} ms: {nbg / 1e9:.4f} GB), plain {gt['plain_ms']:.4f}, "
+        f"library (node CSR) {gt['library_ms']:.4f} ms; the old route's [slots, 8] gather "
+        f"and transpose alone {gt['old_route_gather_ms']:.4f} ms")
+    return r
+
+
 def run_slot(dev, card):
     """Phases 15-19: GraphSAGE and GCN serving and training over the slot
     path on the flickr-shaped graph. Returns the numbers for the kernels
@@ -889,14 +966,11 @@ def run_slot(dev, card):
             d += " with every third slot's weight 0"
         slots = plan.num_tiles * plan.e_tile
         shape = (F, slots) if name == "plan_segment_sum_pr" else (slots, F)
-        vals = (torch.ones(shape, device=dev) if name == "plan_segment_sum_pr"
-                else torch.randn(shape, generator=gen, device=dev))
-        forms = [("", vals, {})]
-        if name != "plan_segment_sum_pr":
-            # the gathered form the route runs: x[src[e]] read in the kernel,
-            # src the plan's edge-order src
-            forms.append((" gathered", torch.randn(n, F, generator=gen, device=dev),
-                          {"src": src_d}))
+        vals = torch.randn(shape, generator=gen, device=dev)
+        # and the gathered form the routes run: x[src[e]] read in the
+        # kernel, src the plan's edge-order src
+        forms = [("", vals, {}), (" gathered", torch.randn(n, F, generator=gen, device=dev),
+                                  {"src": src_d})]
         for form, xv, kw in forms:
             k = counters[name](plan, xv, w, **kw)
             torch.cuda.synchronize()
@@ -909,8 +983,20 @@ def run_slot(dev, card):
                                      "deterministic")
             n_checks += 1
         del vals, k, p, a, forms
-    log(f"phase 16 {n_checks} kernel checks within the abs-sum rule (sr and sr_packed in "
-        "both forms), reruns bit-identical")
+    # the mean's degree: one pr launch of ones [1, slots] a plan, equal to
+    # the in-degree
+    for d, deg_of in (("plan", gs.dst), ("plan_t", gs.src)):
+        before = sk.plan_segment_sum_pr.launches
+        got = api.segment_counts(getattr(gs, d))
+        torch.cuda.synchronize()
+        expect_launches(sk.plan_segment_sum_pr.launches - before, 1,
+                        f"phase 16 segment_counts over graphsage.{d}")
+        if not torch.equal(got, torch.bincount(deg_of.long(), minlength=n).float()):
+            raise AssertionError(f"phase 16 segment_counts over graphsage.{d}: not the "
+                                 "in-degree")
+        n_checks += 1
+    log(f"phase 16 {n_checks} kernel checks within the abs-sum rule (sr, sr_packed and pr in "
+        "both forms; the degree at [1, slots] exact), reruns bit-identical")
     dst_s, src_s = gs.dst.cpu().numpy(), gs.src.cpu().numpy()
     hub_tiles = int(torch.bincount(gs.plan.out_block.long()).max())
     chunk_slots = FLICKR_SLOT["e_tile"] * max(hub_tiles // 3, 2)
@@ -935,7 +1021,23 @@ def run_slot(dev, card):
             got, want, a, f"phase 16 chunked plan ({len(pc.chunks)} uniform chunks of "
             f"{chunk_slots} slots, hub window split {len(split)} time(s)) {name} F={F}"))
         del got, want, a, vals, xf
-    del pc
+    # pr over the chunked plan (out_block out of order as a whole), the
+    # plan whole: the gathered form at F 8 and the degree
+    name = "plan_segment_sum_pr"
+    x8 = torch.randn(n, 8, generator=gen, device=dev)
+    before = sk.plan_segment_sum_pr.launches
+    got = sk.plan_segment_sum_pr(pc, x8, pc.mask, src=gs.src)[:, :n]
+    deg = api.segment_counts(pc)
+    torch.cuda.synchronize()
+    expect_launches(sk.plan_segment_sum_pr.launches - before, 2,
+                    "phase 16 chunked plan: pr and the degree, each the plan whole")
+    want = ref_ops.plan_segment_sum_pr_plain(gs.plan, x8, gs.plan.mask, src=gs.src)[:, :n]
+    a = ref_ops.plan_segment_sum_pr_plain(gs.plan, x8.abs(), gs.plan.mask, src=gs.src)[:, :n]
+    errs[name] = max(errs[name], check_close_abs_sum(
+        got, want, a, f"phase 16 chunked plan ({len(pc.chunks)} chunks) {name} F=8 gathered"))
+    if not torch.equal(deg, torch.bincount(gs.dst.long(), minlength=n).float()):
+        raise AssertionError("phase 16 chunked plan: segment_counts is not the in-degree")
+    del pc, got, want, a, x8, deg
 
     # 17. serve: 5 requests per model, each against the reference path
     arm("slot_serve")
@@ -1077,51 +1179,46 @@ def run_slot(dev, card):
     timing = {}
     shapes = [("plan_segment_sum_sr", gs, gs.plan.mask, f),
               ("plan_segment_sum_sr_packed", gg, gg.w_slots, FLICKR_HIDDEN),
-              ("plan_segment_sum_sr_packed", gg, gg.w_slots, c),
-              ("plan_segment_sum_pr", gs, gs.plan.mask, 8)]
+              ("plan_segment_sum_sr_packed", gg, gg.w_slots, c)]
     for name, g, w, F in shapes:
         plan = g.plan
         slots = plan.num_tiles * plan.e_tile
-        if name == "plan_segment_sum_pr":
-            vals = torch.ones(F, slots, device=dev)
-        else:
-            vals = torch.randn(slots, F, generator=gen, device=dev)
+        vals = torch.randn(slots, F, generator=gen, device=dev)
         fn, pl = counters[name], plain[name]
         t_k = cuda_ms(lambda: fn(plan, vals, w))
         t_p = cuda_ms(lambda: pl(plan, vals, w), iters=3, warmup=1)
         csr = slot_csr(plan, w)
-        dense = vals.t() if name == "plan_segment_sum_pr" else vals
-        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, dense))
+        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, vals))
         bound, by, nb = slot_bound(plan, w, F)
         timing[(name, F)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
                              "library_ms": t_lib}
         log(f"{card} {name} F={F}: kernel {t_k:.4f} ms (bound {bound:.4f} ms by {by}: "
             f"{nb / 1e9:.4f} GB); plain {t_p:.4f} ms; library torch.sparse.mm (the plan's "
             f"slot -> row CSR with its slot weights) {t_lib:.4f} ms")
-        del vals, csr, dense
-        if name != "plan_segment_sum_pr":
-            # the gathered form the route runs (x[src[e]] in the kernel), with
-            # the [slots, F] gather it replaces; the values form above
-            xg = torch.randn(n, F, generator=gen, device=dev)
-            t_g = cuda_ms(lambda: fn(plan, xg, w, src=g.src))
-            t_pg = cuda_ms(lambda: pl(plan, xg, w, src=g.src), iters=3, warmup=1)
-            t_gather = cuda_ms(lambda: xg.index_select(0, plan.src_slots.reshape(-1)))
-            ncsr = node_csr(g.dst, g.src, g.edge_weight, n)
-            t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
-            n_out = plan.n_blocks * plan.s_tile
-            bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True, n_out)
-            rows_ms, _, nb_r = edge_rows_bound(int((w != 0).sum()), F, g.num_edges, 4, n_out)
-            timing[(name, F)] = {"ms": t_g, "plain_ms": t_pg, "bound_ms": bound_g,
-                                 "bound_by": by_g, "library_ms": t_libg,
-                                 "rows_bound_ms": rows_ms,
-                                 "form": "gathered (x[src[e]] read in the kernel)",
-                                 "values_form": dict(timing[(name, F)], gather_ms=t_gather)}
-            log(f"{card} {name} F={F} gathered (x[src[e]] in the kernel): {t_g:.4f} ms "
-                f"(bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's rows once; "
-                f"{rows_ms:.4f} ms with each live edge's row once: {nb_r / 1e9:.4f} GB); "
-                f"plain {t_pg:.4f} ms; library torch.sparse.mm (the node CSR) {t_libg:.4f} ms; "
-                f"the [slots, F] gather alone {t_gather:.4f} ms")
-            del xg, ncsr
+        del vals, csr
+        # the gathered form the route runs (x[src[e]] in the kernel), with
+        # the [slots, F] gather it replaces; the values form above
+        xg = torch.randn(n, F, generator=gen, device=dev)
+        t_g = cuda_ms(lambda: fn(plan, xg, w, src=g.src))
+        t_pg = cuda_ms(lambda: pl(plan, xg, w, src=g.src), iters=3, warmup=1)
+        t_gather = cuda_ms(lambda: xg.index_select(0, plan.src_slots.reshape(-1)))
+        ncsr = node_csr(g.dst, g.src, g.edge_weight, n)
+        t_libg = cuda_ms(lambda: torch.sparse.mm(ncsr, xg))
+        n_out = plan.n_blocks * plan.s_tile
+        bound_g, by_g, nb_g = gathered_bound(n, F, g.num_edges, True, n_out)
+        rows_ms, _, nb_r = edge_rows_bound(int((w != 0).sum()), F, g.num_edges, 4, n_out)
+        timing[(name, F)] = {"ms": t_g, "plain_ms": t_pg, "bound_ms": bound_g,
+                             "bound_by": by_g, "library_ms": t_libg,
+                             "rows_bound_ms": rows_ms,
+                             "form": "gathered (x[src[e]] read in the kernel)",
+                             "values_form": dict(timing[(name, F)], gather_ms=t_gather)}
+        log(f"{card} {name} F={F} gathered (x[src[e]] in the kernel): {t_g:.4f} ms "
+            f"(bound {bound_g:.4f} ms by {by_g}: {nb_g / 1e9:.4f} GB, x's rows once; "
+            f"{rows_ms:.4f} ms with each live edge's row once: {nb_r / 1e9:.4f} GB); "
+            f"plain {t_pg:.4f} ms; library torch.sparse.mm (the node CSR) {t_libg:.4f} ms; "
+            f"the [slots, F] gather alone {t_gather:.4f} ms")
+        del xg, ncsr
+    timing[("plan_segment_sum_pr", 1)] = pr_timing(gs, n, gen, card)
     spmm = {}
     with torch.inference_mode():
         for F, g, w in ((f, gs, gs.plan.mask), (FLICKR_HIDDEN, gg, gg.w_slots), (c, gg, gg.w_slots)):
@@ -1276,7 +1373,7 @@ def run_gat_dyn(dev, card):
     from geot_tpu_torch.ops import reference as ref_ops
     from geot_tpu_torch.ops import slot_kernels as sk
     from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
-    from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+    from geot_tpu_torch.ops.sddmm_kernels import edge_dots, edge_dots_plain, sddmm_bat
     from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
     from geot_tpu_torch.profile_gcn import FLICKR_GAT, FLICKR_HIDDEN, flickr_graph, trace
 
@@ -1284,7 +1381,7 @@ def run_gat_dyn(dev, card):
     counters = {k: getattr(sk, k) for k in new + (
         "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr")}
     counters.update({"bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat,
-                     "stream_segment_sum": stream_segment_sum,
+                     "edge_dots": edge_dots, "stream_segment_sum": stream_segment_sum,
                      "stream_segment_acc": stream_segment_acc})
 
     def reset():
@@ -1365,7 +1462,7 @@ def run_gat_dyn(dev, card):
     # real plans, with exact-zero weights, and on a chunked plan
     arm("gat_kernel")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    errs = {k: 0.0 for k in new}
+    errs = {k: 0.0 for k in new + ("edge_dots",)}
 
     def held(name, k, p, a, what, rerun):
         errs[name] = max(errs[name], check_close_abs_sum(k, p, a, f"phase 21 {name} {what}"))
@@ -1450,6 +1547,21 @@ def run_gat_dyn(dev, card):
                      lambda: fn(plan, vals, **kw))
                 n_checks += 1
                 del vals, k
+    # the per-edge, per-head dot of GAT's attention gradient (edge_dots) at
+    # its two layer shapes, over GAT's dst-sorted edges: a[dst[e]] and
+    # b[src[e]] read in the kernel (the route's form), and b in edge order
+    for H, D in ((4, FLICKR_HIDDEN), (4, c)):
+        a_ = torch.randn(n, H * D, generator=gen, device=dev)
+        b_ = torch.randn(n, H * D, generator=gen, device=dev)
+        for form, bb, s_ in (("gathered", b_, gg.src),
+                             ("values", b_.index_select(0, gg.src.long()), None)):
+            k = edge_dots(a_, bb, gg.dst, s_, D)
+            torch.cuda.synchronize()
+            held("edge_dots", k, edge_dots_plain(a_, bb, gg.dst, s_, D),
+                 edge_dots_plain(a_.abs(), bb.abs(), gg.dst, s_, D),
+                 f"(H, D) = ({H}, {D}) {form}", lambda: edge_dots(a_, bb, gg.dst, s_, D))
+            n_checks += 1
+        del a_, b_, bb, k
     # a plan chunked so that its hub window splits: the slot_dyn sums (both
     # AEB routes) and mh, each the whole plan in one launch, against the
     # unchunked plain sums
@@ -1504,7 +1616,7 @@ def run_gat_dyn(dev, card):
     per_request = {"gat": {"plan_segment_sum_mh": 3},
                    "gcn_dyn64": {"plan_segment_sum_packed2": 3},
                    "gcn_dyn128": {"plan_segment_sum_sr2": 3}}
-    per_step = {"gat": {"plan_segment_sum_mh": 6},
+    per_step = {"gat": {"plan_segment_sum_mh": 6, "edge_dots": 3},
                 "gcn_dyn64": {"plan_segment_sum_packed2": 3, "plan_segment_sum_sr_packed": 3},
                 "gcn_dyn128": {"plan_segment_sum_sr2": 3, "plan_segment_sum_sr_packed": 3}}
     models, ref_models, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}
@@ -1615,6 +1727,8 @@ def run_gat_dyn(dev, card):
                     ("gcn_dyn128", "plan_segment_sum_sr2")):
         if not serve[name][k] or not train[name][k]:
             raise AssertionError(f"{k} was not launched on the {name} path")
+    if not train["gat"]["edge_dots"]:
+        raise AssertionError("edge_dots was not launched on the GAT training path")
     del ref_models
     # the composed GAT route (fused_max_edges 0) at both layer widths: one
     # forward and one backward of gat_attention_spmm against the default
@@ -1622,7 +1736,7 @@ def run_gat_dyn(dev, card):
     # computation here: the mh kernel reads xh[src[e]] and the edge-order
     # attention (forward over plan, the xh gradient over plan_t) at H*D 256
     # and 28, the attention's gradient the per-edge, per-head dot.
-    for H, D, want in ((4, FLICKR_HIDDEN, (2, 2)), (4, c, (2, 2))):
+    for H, D, want in ((4, FLICKR_HIDDEN, ((2, 1), (2, 1))), (4, c, ((2, 1), (2, 1)))):
         xh = torch.randn(n, H, D, generator=gen, device=dev)
         a_s = 0.3 * torch.randn(n, H, generator=gen, device=dev)
         a_d = 0.3 * torch.randn(n, H, generator=gen, device=dev)
@@ -1634,19 +1748,21 @@ def run_gat_dyn(dev, card):
             out = api.gat_attention_spmm(gg, *args, **kw)
             torch.vdot(out.reshape(-1), co.reshape(-1)).backward()
             torch.cuda.synchronize()
-            res.append((out.detach(), [t.grad for t in args], counts()["plan_segment_sum_mh"]))
+            cn = counts()
+            res.append((out.detach(), [t.grad for t in args],
+                        (cn["plan_segment_sum_mh"], cn["edge_dots"])))
         (o_f, g_f, l_f), (o_c, g_c, l_c) = res
         if (l_f, l_c) != want:
-            raise AssertionError(f"(H, D) = ({H}, {D}): mh launches fused {l_f}, composed "
-                                 f"{l_c}; expected {want}")
+            raise AssertionError(f"(H, D) = ({H}, {D}): (mh, edge_dots) launches fused {l_f}, "
+                                 f"composed {l_c}; expected {want}")
         torch.testing.assert_close(o_c, o_f, **MODEL_TOL)
         for a_, b_ in zip(g_c, g_f):
             torch.testing.assert_close(a_, b_, rtol=GRAD_RTOL,
                                        atol=GRAD_RTOL * float(b_.abs().max()))
         log(f"phase 23 composed GAT route (fused_max_edges 0), (H, D) = ({H}, {D}): output "
             f"max |composed - fused| {float((o_c - o_f).abs().max()):.3e}, gradients of xh, "
-            f"alpha_src, alpha_dst within rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g|; mh "
-            f"launches forward + backward: fused {l_f}, composed {l_c}")
+            f"alpha_src, alpha_dst within rtol {GRAD_RTOL}, atol {GRAD_RTOL} * max|g|; (mh, "
+            f"edge_dots) launches forward + backward: fused {l_f}, composed {l_c}")
     del res, xh, a_s, a_d, co, o_f, o_c, g_f, g_c
 
     # 24. timings: each new kernel at its main-path shapes, forward and
@@ -1703,6 +1819,36 @@ def run_gat_dyn(dev, card):
             f"by {by_v}: {nb_v / 1e9:.4f} GB); library (the head-expanded slot -> row CSR) "
             f"{t_vlib:.4f} ms; the [slots, H*D] gather alone {t_gather:.4f} ms")
         del xh, we, ws, vals, csr, v2, x2
+    # edge_dots at GAT's shapes: gathered (the route's), values, plain
+    # (the parent's route: the plain dot over chunks of gathered rows),
+    # bounds; no one PyTorch call computes per-head dots (library null)
+    nnz = gg.num_edges
+    for H, D in ((4, FLICKR_HIDDEN), (4, c)):
+        F = H * D
+        a_ = torch.randn(n, F, generator=gen, device=dev)
+        b_ = torch.randn(n, F, generator=gen, device=dev)
+        bv = b_.index_select(0, gg.src.long())
+        t_g = cuda_ms(lambda: edge_dots(a_, b_, gg.dst, gg.src, D))
+        t_v = cuda_ms(lambda: edge_dots(a_, bv, gg.dst, None, D))
+        t_p = cuda_ms(lambda: edge_dots_plain(a_, b_, gg.dst, gg.src, D), iters=3, warmup=1)
+        # a's and b's rows once, dst, src, out [nnz, H]; and with each
+        # edge's b row once (a's rows come once per dst in edge order)
+        nb = 2 * n * F * 4 + 2 * nnz * 4 + nnz * H * 4
+        bound, by = bound_ms(nb, 2 * nnz * F)
+        nb_r = n * F * 4 + nnz * F * 4 + 2 * nnz * 4 + nnz * H * 4
+        rows_ms, _ = bound_ms(nb_r, 2 * nnz * F)
+        nb_v = nnz * F * 4 + n * F * 4 + nnz * 4 + nnz * H * 4
+        bound_v, by_v = bound_ms(nb_v, 2 * nnz * F)
+        timing[("edge_dots", F)] = {
+            "ms": t_g, "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "rows_bound_ms": rows_ms, "form": "gathered (a[dst[e]] and b[src[e]] in the kernel)",
+            "values_form": {"ms": t_v, "bound_ms": bound_v, "bound_by": by_v}}
+        log(f"{card} edge_dots (H, D) = ({H}, {D}) over GAT's {nnz} edges: gathered {t_g:.4f} ms "
+            f"(bound {bound:.4f} ms by {by}: {nb / 1e9:.4f} GB, a's and b's rows once; "
+            f"{rows_ms:.4f} ms with each edge's b row once: {nb_r / 1e9:.4f} GB); values form "
+            f"{t_v:.4f} ms (bound {bound_v:.4f}: {nb_v / 1e9:.4f} GB); plain (the parent's "
+            f"route) {t_p:.4f} ms")
+        del a_, b_, bv
     for name, g, F in (("plan_segment_sum_sr2", g128, FLICKR_HIDDEN),
                        ("plan_segment_sum_sr2", g128, c),
                        ("plan_segment_sum_packed2", g64, FLICKR_HIDDEN),
@@ -2346,28 +2492,37 @@ def main():
     log(f"{card} GCN forward (3 layers) {t_fwd:.4f} ms; request wall "
         f"{min(req_s) * 1e3:.4f} ms min")
 
-    # 6. sddmm_bat vs plain at the real plan and at a chunked plan
+    # 6. sddmm_bat vs plain at the real plan and at a chunked plan, both
+    # forms: b in edge order (the TPU kernel's contract) and b[src[e]]
+    # read in the kernel (what the routes run)
     arm("sddmm")
     F = x.shape[1]
-    src_pad = torch.nn.functional.pad(g.src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
     sgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     a_nodes = torch.randn(n, F, generator=sgen, device=dev)
     b_nodes = torch.randn(n, F, generator=sgen, device=dev)
-    b_vals = b_nodes.index_select(0, src_pad)
+    b_vals = b_nodes.index_select(0, g.src.long())  # [nnz, F], edge order
+    sddmm_err = 0.0
 
-    def a_rows(plan):
-        margin = plan.chunk_blocks if plan.chunks else 0
-        rows = (plan.n_blocks + margin) * plan.s_tile
-        return torch.nn.functional.pad(a_nodes, (0, 0, 0, rows - n)).contiguous()
+    def held_sddmm(plan, what):
+        """Both forms of sddmm_bat over `plan` against the plain version,
+        reruns bit-identical; returns the gathered dots."""
+        nonlocal sddmm_err
+        out = None
+        for form, b_, kw in (("values", b_vals, {}), ("gathered", b_nodes, {"src": g.src})):
+            k = sddmm_bat(plan, a_nodes, b_, **kw)
+            torch.cuda.synchronize()
+            p = sddmm_bat_plain(plan, a_nodes, b_, **kw)
+            a = sddmm_bat_plain(plan, a_nodes.abs(), b_.abs(), **kw)
+            sddmm_err = max(sddmm_err, check_close_abs_sum(k, p, a,
+                                                           f"phase 6 sddmm_bat {form} {what}"))
+            if not torch.equal(sddmm_bat(plan, a_nodes, b_, **kw), k):
+                raise AssertionError(f"phase 6 sddmm_bat {form} {what}: not deterministic")
+            if out is not None and not torch.equal(k, out):
+                raise AssertionError(f"phase 6 sddmm_bat {what}: the forms differ")
+            out = k
+        return out
 
-    a_p = a_rows(bp)
-    ks = sddmm_bat(bp, a_p, b_vals)
-    torch.cuda.synchronize()
-    ps = sddmm_bat_plain(bp, a_p, b_vals)
-    abs_s = sddmm_bat_plain(bp, a_p.abs(), b_vals.abs())
-    sddmm_err = check_close_abs_sum(ks, ps, abs_s, "phase 6 sddmm_bat")
-    if not torch.equal(sddmm_bat(bp, a_p, b_vals), ks):
-        raise AssertionError("sddmm_bat is not deterministic")
+    ks = held_sddmm(bp, "(the real plan)")
     for cap_c in (700, 600, 500, 400, 300, 200):
         bpu = build_bat_plan(dst_np, n, e_tile=bp.e_tile, s_tile=bp.s_tile,
                              max_chunk_tiles=cap_c, device=dev)
@@ -2375,22 +2530,14 @@ def main():
             break
     else:
         raise AssertionError("no chunk cap puts a pad tile past n_blocks")
-    a_pu = a_rows(bpu)
-    ku = sddmm_bat(bpu, a_pu, b_vals)
-    torch.cuda.synchronize()
-    pu = sddmm_bat_plain(bpu, a_pu, b_vals)
-    sddmm_err = max(sddmm_err, check_close_abs_sum(
-        ku, pu, sddmm_bat_plain(bpu, a_pu.abs(), b_vals.abs()),
-        f"phase 6 sddmm_bat chunked ({len(bpu.chunks)} uniform chunks of cap {cap_c}, "
-        f"pad tiles up to window {int(bpu.out_block.max())} of {bpu.n_blocks})"))
-    if not torch.equal(sddmm_bat(bpu, a_pu, b_vals), ku):
-        raise AssertionError("sddmm_bat is not deterministic (chunked plan)")
-    # the same real tiles own the same edges: equal to the unchunked dots
+    ku = held_sddmm(bpu, f"chunked ({len(bpu.chunks)} uniform chunks of cap {cap_c}, pad "
+                         f"tiles up to window {int(bpu.out_block.max())} of {bpu.n_blocks})")
+    # each edge's dot is its tile's: equal to the unchunked dots
     if not torch.equal(ku[:nnz], ks[:nnz]):
         raise AssertionError("sddmm_bat differs between the plain and chunked plan")
-    log("phase 6 reruns bit-identical; chunked plan equals the unchunked one on all "
-        f"{nnz} edges")
-    del ps, abs_s, pu, ku, a_pu, bpu
+    log("phase 6 both forms bit-identical to each other and across reruns; the chunked plan "
+        f"equals the unchunked one on all {nnz} edges")
+    del ku, bpu
 
     # 7. the weight gradient through gather_weight_scatter
     arm("grad")
@@ -2418,9 +2565,21 @@ def main():
     dw_abs = ref_ops.sddmm_coo_ref(g.src, g.dst, cot.abs(), x.abs())
     check_close_abs_sum(dx, dx_r, dx_abs, "phase 7 dx (transpose plan) vs reference")
     grad_err = check_close_abs_sum(dw, dw_r, dw_abs, "phase 7 dw (sddmm_bat) vs reference")
+    # sddmm_coo with a graph: one sddmm_bat launch, a[dst[e]] and b[src[e]]
+    # read in the kernel
+    sddmm_bat.launches = 0
+    with torch.inference_mode():
+        coo = api.sddmm_coo(g.src, g.dst, a_nodes, b_nodes, graph=g)
+    torch.cuda.synchronize()
+    expect_launches(sddmm_bat.launches, 1, "phase 7 sddmm_coo(graph=)")
+    grad_err = max(grad_err, check_close_abs_sum(
+        coo, ref_ops.sddmm_coo_ref(g.src, g.dst, a_nodes, b_nodes),
+        ref_ops.sddmm_coo_ref(g.src, g.dst, a_nodes.abs(), b_nodes.abs()),
+        "phase 7 sddmm_coo(graph=) vs sddmm_coo_ref"))
     log("phase 7 launches: forward 1 + backward 1 bat_segment_sum (each plan whole), "
+        "1 sddmm_bat (b[src[e]] read in the kernel: no edge-order gather); sddmm_coo(graph=) "
         "1 sddmm_bat")
-    del dx, dw, dx_r, dw_r, dx_abs, dw_abs
+    del dx, dw, dx_r, dw_r, dx_abs, dw_abs, coo
 
     # 8. training: 5 AdamW steps, kernel path beside the reference path
     arm("train")
@@ -2474,11 +2633,26 @@ def main():
     t9 = bat_timing(bpt, cot, g.dst_t, g.src.index_select(0, g.perm_t.long()), w_t, card,
                     "bat_t (arxiv GCN backward)", plain=False)
     t_kt, bound_t = t9["ms"], t9["bound_ms"]
-    t_sk = cuda_ms(lambda: sddmm_bat(bp, a_p, b_vals))
-    t_sp = cuda_ms(lambda: sddmm_bat_plain(bp, a_p, b_vals), iters=5)
+    # sddmm_bat: the gathered form (the routes'), the values form (the TPU
+    # contract), and the old route's work before its kernel: a padded to
+    # the windows and b gathered into whole value blocks
+    t_sk = cuda_ms(lambda: sddmm_bat(bp, a_nodes, b_nodes, src=g.src))
+    t_sp = cuda_ms(lambda: sddmm_bat_plain(bp, a_nodes, b_nodes, src=g.src), iters=5)
+    t_sv = cuda_ms(lambda: sddmm_bat(bp, a_nodes, b_vals))
+    src_pad = torch.nn.functional.pad(g.src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
+    rows_pad = (bp.n_blocks + (bp.chunk_blocks if bp.chunks else 0)) * bp.s_tile
+    t_old_gather = cuda_ms(lambda: (
+        torch.nn.functional.pad(a_nodes, (0, 0, 0, rows_pad - n)).contiguous(),
+        b_nodes.index_select(0, src_pad)))
     n_dst = int(torch.unique(g.dst).numel())
-    s_bytes = (nnz * F * 4 + n_dst * F * 4 + 2 * (bp.n_vblocks + 1) * bp.e_tile * 4)
+    # gathered: a's and b's rows once each, dst and src, out; values: the
+    # [nnz, F] b block, the a rows of every dst node, dst3 and out
+    s_bytes = 2 * n * F * 4 + 2 * nnz * 4 + (bp.n_vblocks + 1) * bp.e_tile * 4
     s_bound, s_bound_by = bound_ms(s_bytes, 2 * nnz * F)
+    s_rows_bytes = nnz * F * 4 + n_dst * F * 4 + 2 * nnz * 4 + (bp.n_vblocks + 1) * bp.e_tile * 4
+    s_rows_bound, _ = bound_ms(s_rows_bytes, 2 * nnz * F)
+    sv_bytes = nnz * F * 4 + n_dst * F * 4 + 2 * (bp.n_vblocks + 1) * bp.e_tile * 4
+    sv_bound, sv_bound_by = bound_ms(sv_bytes, 2 * nnz * F)
     pattern = torch.sparse_coo_tensor(
         torch.stack([g.dst.long(), g.src.long()]), torch.ones(nnz, device=dev), (n, n),
         check_invariants=False).coalesce()
@@ -2491,14 +2665,18 @@ def main():
         f"step wall {min(step_s) * 1e3:.4f} ms min")
     log(f"{card} backward SpMM over bat_t (one layer, x[src[e]] read in the kernel) "
         f"{t_bwd:.4f} ms")
-    log(f"{card} sddmm_bat kernel {t_sk:.4f} ms (bound {s_bound:.4f} ms by {s_bound_by}: "
-        f"{s_bytes / 1e9:.3f} GB: b_vals, {n_dst} a rows, dst3, out)")
-    log(f"{card} sddmm_bat_plain {t_sp:.4f} ms")
+    log(f"{card} sddmm_bat gathered (a[dst[e]] and b[src[e]] read in the kernel) {t_sk:.4f} ms "
+        f"(bound {s_bound:.4f} ms by {s_bound_by}: {s_bytes / 1e9:.3f} GB, a's and b's rows "
+        f"once; {s_rows_bound:.4f} ms with each edge's b row once: {s_rows_bytes / 1e9:.3f} GB) "
+        f"|| values form (b in edge order) {t_sv:.4f} ms (bound {sv_bound:.4f} ms by "
+        f"{sv_bound_by}: {sv_bytes / 1e9:.3f} GB: b_vals, {n_dst} a rows, dst3, out); the old "
+        f"route's a padding and [E, F] b gather before its kernel {t_old_gather:.4f} ms")
+    log(f"{card} sddmm_bat_plain (gathered) {t_sp:.4f} ms")
     log(f"{card} library torch.sparse.sampled_addmm (CSR pattern of the graph) "
         f"{t_slib:.4f} ms; the CSR pattern merges {merged} duplicate edges "
         f"({pattern._nnz()} of {nnz} positions)")
     faulthandler.cancel_dump_traceback_later()
-    del pattern, b_t, a_nodes, b_nodes, b_vals, a_p, cot
+    del pattern, b_t, a_nodes, b_nodes, b_vals, cot
 
     hy = run_hybrid(dev, card)
     sl = run_slot(dev, card)
@@ -2595,17 +2773,26 @@ def main():
                                  "weight_grad": grad_launches["sddmm_bat"],
                                  "hybrid_serve_requests": hy["serve"]["sddmm_bat"],
                                  "hybrid_train_steps": hy["train"]["sddmm_bat"]},
-            "max_abs_err": max(sddmm_err, grad_err),
+            "max_abs_err": max(sddmm_err, grad_err, gd["errs"]["edge_dots"]),
             "ms": t_sk,
             "plain_ms": t_sp,
             "bound_ms": s_bound,
             "bound_by": s_bound_by,
             "library_ms": t_slib,
+            "form": "gathered (a[dst[e]] and b[src[e]] read in the kernel)",
+            "rows_bound_ms": s_rows_bound,
+            "values_form": {"ms": t_sv, "bound_ms": sv_bound, "bound_by": sv_bound_by,
+                            "old_route_gather_ms": t_old_gather},
+            "edge_dots": {
+                "launches_by_path": {f"{m}_{k}": gd[k][m]["edge_dots"]
+                                     for m in ("gat", "gcn_dyn64", "gcn_dyn128")
+                                     for k in ("serve", "train")},
+                **{f"HD{F_}": v for (k, F_), v in gd["timing"].items() if k == "edge_dots"}},
         }, hyb_entry("stream_segment_sum", "sum", 1243),
            hyb_entry("stream_segment_acc", "acc", 1176),
            slot_entry("plan_segment_sum_sr", 1302, 500, "edge_row_sum.cu"),
            slot_entry("plan_segment_sum_sr_packed", 233, 64, "edge_row_sum.cu"),
-           slot_entry("plan_segment_sum_pr", 1348, 8),
+           slot_entry("plan_segment_sum_pr", 1348, 1),
            new_entry("plan_segment_sum_mh", "edge_row_sum.cu", 1391, 4 * 64),
            new_entry("plan_segment_sum_sr2", "edge_row_sum.cu", 384, 64),
            new_entry("plan_segment_sum_packed2", "edge_row_sum.cu", 581, 64), {

@@ -12,7 +12,8 @@ for narrow features and hybrid stream+gather plans:
     prefer="sr": GCN / GraphSAGE -> segment_spmm -> _slot_spmm
       -> plan_segment_sum_sr / _sr_packed (CUDA, sm_90a: the edge-row
          kernel, reading x[src[e]] itself); the mean's degree
-         -> segment_counts -> plan_segment_sum_pr (CUDA, sm_90a)
+         -> segment_counts -> plan_segment_sum_pr (CUDA, sm_90a: the
+         transposed sum over the same row schedule)
     per-call weights, prefer_dyn="sr": GCN -> segment_spmm -> _spmm_fwd_slot_dyn
       -> plan_segment_sum_sr2 / _packed2 (CUDA, sm_90a: the edge-row kernel)
     GAT -> GATConv -> gat_attention_spmm -> mh_spmm -> plan_segment_sum_mh
@@ -24,8 +25,9 @@ for narrow features and hybrid stream+gather plans:
          family + the BAT path over the remainder
 
 The backward of every fused SpMM runs the same kernels over the transpose
-plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA) over
-BAT plans and a plain per-edge dot over slot plans.
+plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA, sm_90a:
+a per-edge dot reading both rows itself) over BAT plans and the same
+kernel as `edge_dots` over slot plans, per head for GAT's attention.
 `models.train` holds the trainer and the checkpoints shared with the JAX
 package.
 

@@ -161,8 +161,6 @@ class SegmentPlan:
     chunks: ((t0, t1, w0, w1), ...) tile ranges covering windows [w0, w1);
       with `chunk_blocks` > 0 they are uniformized (every chunk spans
       chunk_blocks windows; pad tiles are all padding).
-    monotone: out_block non-decreasing over the whole plan (port-only; a
-      uniformized chunked plan may break it and then runs chunk by chunk).
     """
 
     src_slots: torch.Tensor
@@ -182,7 +180,6 @@ class SegmentPlan:
     e0: Optional[torch.Tensor] = None
     n_value_blocks: int = 0
     pack_align: int = 1
-    monotone: bool = True
     # the edge-row kernel's schedule (`plan_segment_sum_sr2` / `_packed2`),
     # made with the plan (`plan_from_host`)
     row_sched: Optional[RowSchedule] = dataclasses.field(default=None, compare=False,
@@ -380,15 +377,13 @@ def plan_from_host(arrays: dict, meta: dict, device=None) -> SegmentPlan:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    ob = arrays["out_block"]
     plan = SegmentPlan(
         src_slots=t(arrays["src_slots"]),
         dst_slots=t(arrays["dst_slots"]),
         edge_pos=t(arrays["edge_pos"]),
         mask=t(arrays["mask"]),
-        out_block=t(ob),
+        out_block=t(arrays["out_block"]),
         e0=t(arrays["e0"]) if "e0" in arrays else None,
-        monotone=len(ob) < 2 or bool(np.all(ob[1:] >= ob[:-1])),
         **meta,
     )
     if plan.e0 is None:
@@ -519,10 +514,10 @@ def _check_window_order(
     each chunk (the whole plan when unchunked) out_block must be
     non-decreasing and a window's real tiles must have increasing vblock
     (the pad tiles of uniformized chunks may point past the next chunk's
-    first window, so the order is checked per chunk). sddmm_bat writes
-    each edge from its one owner tile, and the edge-row schedule lists
-    each edge once: no (vblock, out_block) pair may occur twice among the
-    real tiles. Plans from `build_bat_plan_host` always pass."""
+    first window, so the order is checked per chunk). sddmm_bat gives
+    each edge the dot its one owner tile takes, and the edge-row schedule
+    lists each edge once: no (vblock, out_block) pair may occur twice
+    among the real tiles. Plans from `build_bat_plan_host` always pass."""
     for t0, t1 in [(c[0], c[1]) for c in chunks] or [(0, len(ob))]:
         o, v = ob[t0:t1], vb[t0:t1]
         if len(o) > 1 and not bool(np.all(o[1:] >= o[:-1])):

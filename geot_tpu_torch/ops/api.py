@@ -1,9 +1,8 @@
 """Fused SpMM, multi-head SpMM, GAT attention and SDDMM over slot, BAT and
 hybrid stream+gather plans, with their gradients.
 
-Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
-`_pick_f_tile` :87, `_chunk_plan` :107, `_plan_sum_one` :155 and
-`_plan_sum_gather` :216 (in `_slot_spmm`), `_plan_sum_chunked` :182,
+Port of `geot_tpu/ops/api.py` (`_pick_mode` :71, `_chunk_plan` :107,
+`_plan_sum_one` :155 and `_plan_sum_gather` :216 (in `_slot_spmm`),
 `_aeb_packed_ok` :267, `_aeb_sum` :281, `_bat_sum` :335 (`_bat_row_sum`),
 `_slot_spmm` :654,
 `_make_gws_static` :675 and `_make_gs` :1008 (one Function), `_spmm_fwd`
@@ -18,20 +17,20 @@ Port of `geot_tpu/ops/api.py` (`_round_up` :67, `_pick_mode` :71,
 `_make_mh_slot` :1523, is the composed one here), `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
 :1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The BAT
 routes at every width (the hybrid remainder's too), the slot routes at
-every width (sr, sr_packed), slot_dyn, the multi-head SpMM and both GAT
-routes hand their sums x and src (`_bat_row_sum`, `_slot_spmm`,
-`_aeb_sum`, `_mh_fwd`): the edge-row kernel reads x[src[e]] itself, with
-no edge-order or slot-order gather, one launch a plan where the reference
-gathers and runs chunk by chunk. Only the transposed slot sum (pr, where
-a plan's mode hint asks for it) gathers exactly `x[src_slots]` chunk by
-chunk: the reference's gather pad (`_fast_gather_fn`, odd multiples of
-512 rows) answers a TPU emitter and is not carried over.
+every width (sr, sr_packed, and pr where a plan's mode hint asks for it),
+slot_dyn, the multi-head SpMM and both GAT routes hand their sums x and
+src (`_bat_row_sum`, `_slot_spmm`, `_aeb_sum`, `_mh_fwd`): the kernels
+read x[src[e]] themselves, with no edge-order or slot-order gather, one
+launch a plan where the reference gathers (its gather pad,
+`_fast_gather_fn`, answers a TPU emitter) and runs chunk by chunk. So do
+the SDDMM's route and the per-edge dots of the weight and attention
+gradients (`_sddmm_bat_fwd`, `_dots`): both rows read in the kernel.
 
 Each `jax.custom_vjp` is a `torch.autograd.Function`. The backward of a
 fused SpMM runs the same kernels over the transpose plan (`plan_t`,
 `bat_t`, `hyb_t`); the gradient of per-call edge weights comes from the
-BAT SDDMM kernel over BAT plans and from a plain per-edge dot over slot
-plans, as in the reference. A gradient is computed only for the inputs
+SDDMM kernel: `sddmm_bat` over BAT plans, `edge_dots` (the same kernel)
+over slot plans, where the reference takes a plain per-edge dot. A gradient is computed only for the inputs
 that ask for one. Every op returns its input's dtype and sums in float32,
 as the reference's kernels do.
 """
@@ -39,8 +38,7 @@ as the reference's kernels do.
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +49,7 @@ from geot_tpu_torch.graph.stream_plan import HybridPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
-from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat
+from geot_tpu_torch.ops.sddmm_kernels import edge_dots, sddmm_bat
 from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_mh,
     plan_segment_sum_packed2,
@@ -77,22 +75,10 @@ __all__ = [
 ]
 
 BACKENDS = ("auto", "reference")
-# largest edge-order b-side gather [nnz, max(F, 128)] f32 the SDDMM kernel
-# path may materialise; past it the weight gradient comes from
-# sddmm_coo_ref (the reference's GEOT_SDDMM_MAX_BYTES default)
-SDDMM_MAX_BYTES = 4 << 30
 # gat_attention_spmm's route switch, the reference's value
 # (`GEOT_GAT_FUSED_MAX_EDGES`, api.py:1602-1606): a TPU figure, not
 # measured on the H100; here both routes are one computation
 GAT_FUSED_MAX_EDGES = 8_000_000
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _pick_f_tile(n_features: int) -> int:
-    return 256 if (n_features % 256 == 0 and n_features >= 256) else 128
 
 
 def _chunk_plan(plan: SegmentPlan, c) -> SegmentPlan:
@@ -113,38 +99,7 @@ def _chunk_plan(plan: SegmentPlan, c) -> SegmentPlan:
         out_block=cut(plan.out_block) - w0, e0=cut(plan.e0),
         n_blocks=nb, num_segments=num_segments, chunks=(),
         chunk_blocks=0,
-        monotone=True,  # uniformized chunks are in order one by one
     )
-
-
-def _plan_sum_chunked(plan, run_one: Callable) -> torch.Tensor:
-    """Chunked tiled segment sum: `run_one(chunk_plan, i, chunk)` returns
-    one chunk's trimmed output [chunk_segments, n]. Consecutive chunks that
-    split a hub window mid-window share that window, and their outputs are
-    add-combined on the overlap."""
-    if not plan.chunks:
-        return run_one(plan, None, (0, plan.num_tiles, 0, plan.n_blocks))
-    s = plan.s_tile
-    pieces = []
-    prev_w1 = None
-    for i, c in enumerate(plan.chunks):
-        o = run_one(_chunk_plan(plan, c), i, c)
-        w0, w1 = c[2], c[3]
-        if prev_w1 is not None and w0 < prev_w1:
-            if w0 != prev_w1 - 1:
-                raise ValueError("chunks may only overlap one window")
-            last = pieces[-1]
-            ov = min(s, o.shape[0], last.shape[0])
-            if torch.is_grad_enabled() and (last.requires_grad or o.requires_grad):
-                pieces[-1] = torch.cat([last[:-ov], last[-ov:] + o[:ov]])
-            else:
-                last[-ov:] += o[:ov]  # in place: `last` is this function's own
-            if o.shape[0] > ov:
-                pieces.append(o[ov:])
-        else:
-            pieces.append(o)
-        prev_w1 = w1
-    return torch.cat(pieces, dim=0)[: plan.num_segments]
 
 
 def _pick_mode(n_features: int, plan: SegmentPlan) -> str:
@@ -168,25 +123,19 @@ def _slot_spmm(plan: SegmentPlan, x: torch.Tensor, w_slots: torch.Tensor,
     reference would launch: `plan_segment_sum_sr_packed` at n <= 64 (the
     reference's packed width, its lanes dividing e_tile), else
     `plan_segment_sum_sr`. In mode "pr" (where the plan's mode hint asks
-    for it) the gather emits exactly x[src_slots] ([slots, n] float32,
-    pads gather node 0 and weigh 0), one chunk at a time, so only one
-    chunk's gather is ever held."""
+    for it) the transposed sum `plan_segment_sum_pr` takes x and src the
+    same way, the plan whole, and its [n, rows] result is transposed back
+    (a view); the reference gathers [slots, n] and transposes it, chunk by
+    chunk."""
     x = x.float().contiguous()
     n = x.shape[1]
+    src = src.int().contiguous()
     if _pick_mode(n, plan) == "sr":
         nw = packed_width(n)
         packed = nw and plan.e_tile % (128 // nw) == 0
         fn = plan_segment_sum_sr_packed if packed else plan_segment_sum_sr
-        return fn(plan, x, w_slots, src=src.int().contiguous())[: plan.num_segments]
-    idx = plan.src_slots.reshape(-1)
-    E = plan.e_tile
-
-    def run_one(cp, i, c):
-        t0, t1 = c[0], c[1]
-        v = x.index_select(0, idx[t0 * E:t1 * E]).t().contiguous()
-        return plan_segment_sum_pr(cp, v, w_slots[t0:t1])[:, : cp.num_segments].t()
-
-    return _plan_sum_chunked(plan, run_one)
+        return fn(plan, x, w_slots, src=src)[: plan.num_segments]
+    return plan_segment_sum_pr(plan, x, w_slots, src=src)[:, : plan.num_segments].t()
 
 
 def _aeb_packed_ok(plan: SegmentPlan, n: int) -> int:
@@ -238,24 +187,6 @@ def _spmm_fwd_slot_dyn(plan: SegmentPlan, x: torch.Tensor, w_edge: torch.Tensor,
     x = x.float().contiguous()
     return _aeb_sum(plan, x, x.shape[1], w_edge=w_edge.float().contiguous(),
                     src=src.int().contiguous())
-
-
-def _edge_dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
-    """out[e] = sum over the last axis of a[dst_e] * b[src_e] (a, b [n,
-    ..., D]) -> [nnz, ...] float32: the plain SDDMM of the reference's
-    slot-plan weight gradients (`sddmm_coo_ref`), over edge chunks of at
-    most REF_CHUNK_BYTES of gathered rows each."""
-    nnz = src.shape[0]
-    row_bytes = max(math.prod(a.shape[1:]) * 4, 1)
-    step = max(1, ref.REF_CHUNK_BYTES // row_bytes)
-    out = torch.empty((nnz,) + tuple(a.shape[1:-1]), dtype=torch.float32, device=a.device)
-    s_l, d_l = src.long(), dst.long()
-    for e0 in range(0, nnz, step):
-        sl = slice(e0, min(nnz, e0 + step))
-        out[sl] = (a.index_select(0, d_l[sl]).float()
-                   * b.index_select(0, s_l[sl]).float()).sum(dim=-1)
-    return out
 
 
 def _bat_packed(bp: BatPlan, n: int) -> int:
@@ -334,19 +265,16 @@ def _spmm_fwd_hybrid(hyb: HybridPlan, x: torch.Tensor) -> torch.Tensor:
 
 def segment_counts(plan) -> torch.Tensor:
     """Edges per segment (in-degree) [num_segments] float32. Over a slot
-    plan with s_tile % 128 == 0 the pr kernel sums ones [8, slots] with
-    the mask as weights (chunk by chunk); otherwise, and over a BAT plan,
-    a scatter of the plan's dst ids (integer counts, exact in float32)."""
+    plan with s_tile % 128 == 0 (the reference's rule) the pr kernel sums
+    ones [1, slots] with the mask as weights, the plan whole (the
+    reference sums [8, slots], the TPU's sublanes, chunk by chunk, and
+    reads row 0); otherwise, and over a BAT plan, a scatter of the plan's
+    dst ids (integer counts, exact in float32)."""
     if isinstance(plan, SegmentPlan):
         if plan.s_tile % 128 == 0:
-            E = plan.e_tile
-
-            def run_one(cp, i, c):
-                ones = torch.ones(8, (c[1] - c[0]) * E, dtype=torch.float32,
-                                  device=cp.mask.device)
-                return plan_segment_sum_pr(cp, ones, cp.mask)[0, : cp.num_segments]
-
-            return _plan_sum_chunked(plan, run_one)
+            ones = torch.ones(1, plan.num_tiles * plan.e_tile, dtype=torch.float32,
+                              device=plan.mask.device)
+            return plan_segment_sum_pr(plan, ones, plan.mask)[0, : plan.num_segments]
         d, wt = plan.dst_slots.reshape(-1).long(), plan.mask.reshape(-1)
     else:
         d = plan.dst3.reshape(-1).long()
@@ -359,26 +287,23 @@ def segment_counts(plan) -> torch.Tensor:
 def _sddmm_bat_fwd(
     bp: BatPlan, a: torch.Tensor, b: torch.Tensor, src: torch.Tensor
 ) -> torch.Tensor:
-    """Per-edge dots <a[dst_e], b[src_e]> via the BAT SDDMM kernel: the a
-    side (dst rows) is read by window, the b side is gathered in edge
-    order. Returns [nnz] float32 in edge order.
-
-    a's rows pad to the plan's windows plus the chunk-margin windows (pad
-    tiles of uniformized chunks may point past n_blocks); b's gather pads
-    to whole value blocks (pad rows gather node 0 and meet only -1 dst
-    ids). The reference pads its gather further to a TPU-friendly size;
-    the trimmed result does not depend on it."""
-    n = a.shape[1]
-    f_tile = _pick_f_tile(n)
-    f_pad = _round_up(max(n, 1), f_tile)
-    margin = bp.chunk_blocks if bp.chunks else 0
-    rows_a = (bp.n_blocks + margin) * bp.s_tile
-    a_p = F.pad(a.float(), (0, f_pad - n, 0, rows_a - a.shape[0])).contiguous()
-    b_p = F.pad(b.float(), (0, f_pad - n)) if f_pad != n else b.float()
+    """Per-edge dots <a[dst_e], b[src_e]> via `sddmm_bat`, which reads
+    a[dst[e]] and b[src[e]] itself: no edge-order gather of b, no padding
+    of a to the plan's windows or of either to a lane tile (the reference
+    pads and gathers first). Returns [nnz] float32 in edge order."""
     nnz = src.shape[0]
-    src_pad = F.pad(src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
-    b_vals = b_p.index_select(0, src_pad)
-    return sddmm_bat(bp, a_p, b_vals, f_tile=f_tile)[:nnz]
+    return sddmm_bat(bp, a.float().contiguous(), b.float().contiguous(),
+                     src=src.int().contiguous())[:nnz]
+
+
+def _dots(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+          head_dim: int) -> torch.Tensor:
+    """out[e, h] = <a[dst_e], b[src_e]> over head h's head_dim columns (a,
+    b [n, F]) -> [nnz, F // head_dim] float32, through `edge_dots`: both
+    rows read in the kernel on the card, the plain per-edge dot (the
+    reference's `sddmm_coo_ref`) on the CPU."""
+    return edge_dots(a.float().contiguous(), b.float().contiguous(), dst.int().contiguous(),
+                     src.int().contiguous(), head_dim)
 
 
 class _SlotSpmm(torch.autograd.Function):
@@ -469,13 +394,8 @@ class _GatherWeightScatterBat(torch.autograd.Function):
             w_t = w_t_or_perm if ctx.static_w else w[w_t_or_perm.long()]
             dx = _spmm_fwd_bat(ctx.bat_t, g, dst_t, w_t).to(g.dtype)
         if not ctx.static_w and ctx.needs_input_grad[1]:
-            # dw[e] = <g[dst_e], x[src_e]>: the SDDMM kernel while its
-            # edge-order gather fits the budget
-            if src.shape[0] * max(x.shape[1], 128) * 4 <= SDDMM_MAX_BYTES:
-                dw = _sddmm_bat_fwd(ctx.bat, g, x, src)
-            else:
-                dw = ref.sddmm_coo_ref(src, dst, g, x)
-            dw = dw.to(w.dtype)
+            # dw[e] = <g[dst_e], x[src_e]>: the SDDMM kernel
+            dw = _sddmm_bat_fwd(ctx.bat, g, x, src).to(w.dtype)
         return dx, dw, None, None, None, None, None, None, None
 
 
@@ -525,8 +445,8 @@ class _GatherWeightScatterSlot(torch.autograd.Function):
     """Weighted fused SpMM over the slot plans with per-call edge-order
     weights (`slot_dyn`, `_make_gws`). dx = the weighted sum over `plan_t`
     with slot weights w[edge_pos_t] (sr / sr_packed, which reads
-    g[dst_t[e]] itself); dw[e] = <g[dst_e], x[src_e]>, the plain per-edge
-    dot, as the reference takes it."""
+    g[dst_t[e]] itself); dw[e] = <g[dst_e], x[src_e]> by `edge_dots`,
+    where the reference takes a plain per-edge dot."""
 
     @staticmethod
     def forward(ctx, x, w, src, dst, dst_t, plan, plan_t, edge_pos_t):
@@ -547,7 +467,7 @@ class _GatherWeightScatterSlot(torch.autograd.Function):
                 pt.mask.shape)
             dx = _slot_spmm(pt, g, w_t, dst_t).to(g.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _edge_dots(src, dst, g, x).to(w.dtype)
+            dw = _dots(src, dst, g, x, x.shape[1]).reshape(-1).to(w.dtype)
         return dx, dw, None, None, None, None, None, None
 
 
@@ -809,17 +729,12 @@ def sddmm_coo(
 ) -> torch.Tensor:
     """Per-edge dot product out[e] = <a[dst[e]], b[src[e]]>. With a graph
     that has a BAT plan (and whose src/dst are these indices) the SDDMM
-    kernel runs, while its edge-order gather fits SDDMM_MAX_BYTES; its
-    gradients are the weighted sums over `bat` and `bat_t`. The
+    kernel runs, reading a[dst[e]] and b[src[e]] itself; its gradients are the weighted sums over `bat` and `bat_t`. The
     reference's width gate (b.shape[1] >= 64) is a TPU measurement and is
-    not carried over."""
+    not carried over, nor is its bound on the edge-order gather
+    (`GEOT_SDDMM_MAX_BYTES`): the kernel gathers nothing."""
     _check_backend(backend)
-    if (
-        graph is not None
-        and graph.bat is not None
-        and backend == "auto"
-        and src_index.shape[0] * max(b.shape[1], 128) * 4 <= SDDMM_MAX_BYTES
-    ):
+    if graph is not None and graph.bat is not None and backend == "auto":
         if src_index.shape[0] != graph.num_edges:
             raise ValueError("src_index does not match the graph's edges")
         return _SddmmBat.apply(a, b, graph.src, graph.dst_t, graph.perm_t,
@@ -846,8 +761,9 @@ def _mh_fwd(plan: SegmentPlan, x: torch.Tensor, w_heads: torch.Tensor,
 class _MhSpmm(torch.autograd.Function):
     """Multi-head SpMM over the slot plans (`_make_mh`). Backward: dx = the
     same sum over `plan_t` with weights w[perm_t]; dw[e, h] = <g[dst_e, h],
-    x[src_e, h]>, the plain per-head dot in edge order (`_edge_dots`). Both
-    run in a fixed order with no atomics, so reruns are bit-identical."""
+    x[src_e, h]>, the per-head dot in edge order (`edge_dots`, both rows
+    read in the kernel). Both run in a fixed order with no atomics, so
+    reruns are bit-identical."""
 
     @staticmethod
     def forward(ctx, x, w, src, dst, dst_t, plan, plan_t, perm_t):
@@ -865,7 +781,9 @@ class _MhSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _mh_fwd(ctx.plan_t, g, w.index_select(0, perm_t.long()), dst_t).to(g.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _edge_dots(src, dst, g, x).to(w.dtype)
+            n, H, D = x.shape
+            dw = _dots(src, dst, g.reshape(g.shape[0], H * D), x.reshape(n, H * D),
+                       D).to(w.dtype)
         return dx, dw, None, None, None, None, None, None
 
 

@@ -1,133 +1,193 @@
-// BAT SDDMM for Hopper (sm_90a), plain C interface for ctypes.
+// Per-edge, per-head dot products for Hopper (sm_90a), plain C interface for
+// ctypes: the SDDMM.
 //
 // Replaces the TPU kernel `sddmm_bat` / `_sddmm_bat_kernel`
-// (geot_tpu/ops/pallas_segment.py:1010-1100). For a block-aligned-tile plan
-// (out_block[T], vblock[T], dst3[(n_vblocks+1)*e_tile]) it computes the
-// per-edge dot products, in edge order,
+// (geot_tpu/ops/pallas_segment.py:1010-1100), and serves the per-edge dots
+// the reference computes in plain XLA (`sddmm_coo_ref`, the attention
+// gradient of `mh_spmm`, geot_tpu/ops/api.py:1083-1084, and slot_dyn's
+// weight gradient, :1054):
 //
-//   out[v*e_tile + i] = < a[dst3[v, i]], b_vals[v*e_tile + i] >
+//   out[e, h] = sum_{d < D} a[dst[e], h*D + d] * b[bidx(e), h*D + d]
 //
-// for every real edge of value block v whose tile (the one with vblock = v
-// and out_block = the edge's window) exists. Pad slots, -1 dst ids, the
-// sentinel block n_vblocks and edges without a tile stay at the zero the
-// caller filled `out` with. Rows of `a` past a_rows and rows of `b_vals`
-// past b_rows (the ragged tail, window pad rows of chunk pad tiles) read as
-// zero: no load goes past either buffer.
+// for the H = F / D heads of D columns of every edge e < n_edges, with
+// bidx(e) = src[e] (the gathered form: a and b are node rows, both read in
+// the kernel) or bidx(e) = e (the values form, the TPU kernel's contract:
+// b in edge order). An edge with dst < 0 (the -1 pads of a BAT plan's dst3)
+// gives 0, so does an edge past src's end; a row past a's or b's end reads
+// as zero, and no load goes past either buffer. Every output is written
+// once (zeros included): no atomics, no fix-up, and reruns are
+// bit-identical. The dots are f32 FMAs: no tensor cores, no TF32.
 //
-// On the TPU every tile writes a partial row of dots, selected on the MXU
-// with a one-hot of the tile's dst window, and the partials are summed per
-// value block afterwards. Here each real edge has exactly one owner tile
-// (a plan never repeats a (vblock, out_block) pair among its real tiles:
-// `bat_plan_from_host` checks it), so the owner writes the edge's dot
-// once: no atomics, no second pass, and a rerun is bit-identical.
+// On the TPU each tile of a BAT plan selects its window's a rows with a
+// one-hot matmul and reads b pre-gathered in edge order, and the port's
+// first kernel kept that (a block per tile, b gathered into an [E, F] block
+// first: 0.82 ms at ogbn-arxiv F 128 before a 0.38 ms kernel). Here the
+// edges are walked in order (dst-sorted), each read straight from a and b:
 //
-// Bound on the H100: bytes. At ogbn-arxiv widths (1.34 M edges, F_pad 128)
-// it must read b_vals (~684 MB), the a rows of every dst node (~87 MB) and
-// dst3, and write out (~5 MB): ~0.78 GB, ~0.23 ms at 3.35 TB/s; the FLOPs
-// (2 per product, ~0.34 GFLOP) take ~5 us at the f32 rate. So the design
-// reads each b_vals row once with 16-byte coalesced loads (lane l owns
-// columns 4l..4l+3 of each 128-column slab, a warp reads a 512-byte row),
-// keeps 8 edges' rows in flight per warp, and lets the a rows of a window,
-// which the window's edges share, come from L2. One block of 8 warps per
-// tile; each warp takes 32 of the tile's edge slots at a time, picks the
-// in-window ones with a ballot, and finishes each dot with a warp shuffle
-// reduction. The dots are f32 FMAs: no tensor cores, no TF32.
+//   - a group of G lanes takes kBatch consecutive edges (G = 32 per 128
+//     columns at F > 64, else 16, 8, 4 or 2 at F <= 64, 32, 16, 8, so a
+//     narrow row leaves no lane idle) and keeps their 2 * kBatch rows in
+//     flight; consecutive groups take consecutive edges, so the a[dst] row
+//     they share comes from L1 or L2;
+//   - the columns are walked in sub-slabs in column order: with 16-byte
+//     rows and head_dim % 4 == 0 a lane holds 4 consecutive columns of one
+//     head (one 16-byte load of a and one of b, 4G columns a sub-slab), else
+//     one column (G columns a sub-slab, each load coalesced over the
+//     group), so heads may straddle a lane's 4 columns ((H, D) = (4, 7):
+//     GAT's second layer) or a sub-slab ((3, 96));
+//   - each lane's products are summed per head by a segmented scan over the
+//     group's lanes (a fixed shuffle tree keyed by the lanes' heads); a
+//     head that runs on into the next sub-slab carries its sum there, and
+//     the lane holding a head's last column writes out[e, h].
+//
+// Bound on the H100: bytes. The gathered form reads each edge's a and b
+// rows, which the graph's edges repeat: ogbn-arxiv's 87 MB of a and b at F
+// 128 fit in the 50 MB L2 in part only, so rows come partly from DRAM, and
+// the rows in flight hide its latency. The flops (2 per product) take a
+// few microseconds at the f32 rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 128;  // columns per slab: 32 lanes x float4
-constexpr int kBatch = 8;   // edges in flight per warp
+constexpr int kThreads = 128;  // 4 warps a block
+constexpr int kBatch = 4;      // edges in flight per group
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
 
-__global__ void __launch_bounds__(kThreads)
-sddmm_bat_kernel(const float* __restrict__ a, int64_t a_rows,
-                 const float* __restrict__ b, int64_t b_rows, int F,
-                 const int* __restrict__ dst3, int n_vblocks,
-                 const int* __restrict__ out_block,
-                 const int* __restrict__ vblock, int e_tile, int s_tile,
-                 float* __restrict__ out) {
-  const int t = blockIdx.x;
-  const int vb = __ldg(vblock + t);
-  if (vb < 0 || vb >= n_vblocks) return;  // pad tile: the sentinel block
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t win_base = (int64_t)__ldg(out_block + t) * s_tile;
-  const int64_t base = (int64_t)vb * e_tile;
+struct Args {
+  const float* a;
+  int64_t a_rows;
+  const float* b;
+  int64_t b_rows;
+  int F, D, H;
+  const int* dst;
+  int64_t n_edges;
+  const int* src;  // nullptr: the values form, bidx(e) = e
+  int64_t n_src;
+  float* out;      // [n_edges, H]
+};
 
-  for (int j = warp * 32; j < e_tile; j += kThreads) {
-    // this lane's edge slot, and its row in the window (-1: not this tile's)
-    const int64_t d = __ldg(dst3 + base + j + lane);
-    const int local = (d >= 0 && d - win_base >= 0 && d - win_base < s_tile)
-                          ? (int)(d - win_base) : -1;
-    unsigned mask = __ballot_sync(0xffffffffu, local >= 0);
-    while (mask) {
-      int n = 0;
-      int64_t arow[kBatch], brow[kBatch];
-      bool ok[kBatch];
+// VEC: lane gl holds columns c0 + 4gl .. c0 + 4gl + 3 (one head: D % 4 ==
+// 0), a sub-slab is 4G columns; else column c0 + gl, a sub-slab G columns.
+template <int G, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+edge_dot_kernel(Args p) {
+  constexpr int W = VEC ? 4 * G : G;  // columns a sub-slab
+  const int gl = threadIdx.x % G;
+  const int64_t e0 = (((int64_t)blockIdx.x * kThreads + threadIdx.x) / G) * kBatch;
+  // the group's edges: their a and b rows (-1: the edge adds nothing)
+  int64_t ar[kBatch], br[kBatch];
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int sl = mask ? __ffs(mask) - 1 : 0;
-        if (mask) { mask &= mask - 1; ++n; }
-        arow[k] = win_base + __shfl_sync(0xffffffffu, local, sl);
-        brow[k] = base + j + sl;
-        ok[k] = k < n && arow[k] < a_rows && brow[k] < b_rows;
+  for (int k = 0; k < kBatch; ++k) {
+    const int64_t e = e0 + k;
+    ar[k] = br[k] = -1;
+    if (e < p.n_edges) {
+      const int64_t d = __ldg(p.dst + e);
+      const int64_t s = p.src == nullptr ? e : (e < p.n_src ? (int64_t)__ldg(p.src + e) : -1);
+      if (d >= 0 && d < p.a_rows && s >= 0 && s < p.b_rows) {
+        ar[k] = d;
+        br[k] = s;
       }
-      float acc[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) acc[k] = 0.f;
-      for (int c = 4 * lane; c < F; c += kCols) {
-        float4 av[kBatch], bv[kBatch];
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          av[k] = ok[k] ? __ldg(reinterpret_cast<const float4*>(a + arow[k] * F + c))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-          bv[k] = ok[k] ? __ldg(reinterpret_cast<const float4*>(b + brow[k] * F + c))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) acc[k] = dot4(av[k], bv[k], acc[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-      }
-      // lane k writes edge k of the batch: every lane holds every total
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (lane == k && k < n) out[brow[k]] = acc[k];
     }
   }
+  // a head running on from the previous sub-slab, and each edge's sum of it
+  int carry_head = -1;
+  float carry[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) carry[k] = 0.f;
+  for (int c0 = 0; c0 < p.F; c0 += W) {
+    const int col = VEC ? c0 + 4 * gl : c0 + gl;
+    const int head = col < p.F ? col / p.D : p.H;  // H: a lane past the row
+    // bit s: the lane 2^s to the left lies in this lane's head (the scan's
+    // step s adds its value); the same for every edge of the group
+    unsigned join = 0;
+#pragma unroll
+    for (int s = 0, off = 1; off < G; ++s, off <<= 1) {
+      const int left = __shfl_up_sync(kFull, head, off, G);
+      if (gl >= off && left == head) join |= 1u << s;
+    }
+    // this lane holds its head's last column
+    const bool ends = head < p.H && col + (VEC ? 4 : 1) == (head + 1) * p.D;
+    float v[kBatch];
+    if (VEC) {
+      float4 av[kBatch], bv[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const bool ok = ar[k] >= 0 && col < p.F;
+        av[k] = ok ? __ldg(reinterpret_cast<const float4*>(p.a + ar[k] * p.F + col))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        bv[k] = ok ? __ldg(reinterpret_cast<const float4*>(p.b + br[k] * p.F + col))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) v[k] = dot4(av[k], bv[k]);
+    } else {
+      float av[kBatch], bv[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const bool ok = ar[k] >= 0 && col < p.F;
+        av[k] = ok ? __ldg(p.a + ar[k] * p.F + col) : 0.f;
+        bv[k] = ok ? __ldg(p.b + br[k] * p.F + col) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) v[k] = av[k] * bv[k];
+    }
+    // the segmented inclusive scan over the group's lanes, per head
+#pragma unroll
+    for (int s = 0, off = 1; off < G; ++s, off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const float left = __shfl_up_sync(kFull, v[k], off, G);
+        if (join & (1u << s)) v[k] += left;
+      }
+    }
+    const int next_head = __shfl_sync(kFull, ends ? -1 : (head < p.H ? head : -1), G - 1, G);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const float t = head == carry_head ? v[k] + carry[k] : v[k];
+      if (ends && e0 + k < p.n_edges) p.out[(e0 + k) * p.H + head] = t;
+      carry[k] = __shfl_sync(kFull, t, G - 1, G);
+    }
+    carry_head = next_head;
+  }
+}
+
+template <int G>
+int launch_g(const Args& p, bool vec, cudaStream_t stream) {
+  const int64_t groups = (p.n_edges + kBatch - 1) / kBatch;
+  const unsigned blocks = (unsigned)((groups * G + kThreads - 1) / kThreads);
+  if (vec)
+    edge_dot_kernel<G, true><<<blocks, kThreads, 0, stream>>>(p);
+  else
+    edge_dot_kernel<G, false><<<blocks, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a [a_rows, F] and b [b_rows, F] f32 row-major (F % 128 == 0, 16-byte
-// aligned); dst3 int32 [(n_vblocks+1)*e_tile]; out_block and vblock int32
-// [T]; out f32 [(n_vblocks+1)*e_tile], zero-filled by the caller.
-// e_tile % 32 == 0. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
-extern "C" int geot_sddmm_bat(const void* a, int64_t a_rows, const void* b,
-                              int64_t b_rows, int F, const void* dst3,
-                              int n_vblocks, const void* out_block,
-                              const void* vblock, int T, int e_tile,
-                              int s_tile, void* out, void* stream) {
-  if (T <= 0 || F <= 0) return (int)cudaSuccess;
-  sddmm_bat_kernel<<<T, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)a, a_rows, (const float*)b, b_rows, F, (const int*)dst3,
-      n_vblocks, (const int*)out_block, (const int*)vblock, e_tile, s_tile,
-      (float*)out);
-  return (int)cudaGetLastError();
+// a [a_rows, F] and b [b_rows, F] f32 row-major; dst int32 [n_edges]; src
+// int32 [n_src] (the gathered form, bidx(e) = src[e]) or null (the values
+// form, bidx(e) = e); F = H * head_dim; out f32 [n_edges, H], every element
+// written. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+extern "C" int geot_edge_dots(const void* a, int64_t a_rows, const void* b, int64_t b_rows,
+                              int F, int head_dim, const void* dst, int64_t n_edges,
+                              const void* src, int64_t n_src, void* out, void* stream) {
+  if (n_edges <= 0) return (int)cudaSuccess;
+  if (F <= 0 || head_dim <= 0 || F % head_dim != 0) return (int)cudaErrorInvalidValue;
+  const Args p{(const float*)a, a_rows, (const float*)b, b_rows, F, head_dim, F / head_dim,
+               (const int*)dst, n_edges, (const int*)src, n_src, (float*)out};
+  const bool vec = F % 4 == 0 && head_dim % 4 == 0 && (uintptr_t)a % 16 == 0 &&
+                   (uintptr_t)b % 16 == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (F > 64) return launch_g<32>(p, vec, s);
+  if (F > 32) return launch_g<16>(p, vec, s);
+  if (F > 16) return launch_g<8>(p, vec, s);
+  if (F > 8) return launch_g<4>(p, vec, s);
+  return launch_g<2>(p, vec, s);
 }

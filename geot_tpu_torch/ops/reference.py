@@ -238,12 +238,14 @@ def plan_segment_sum_sr_packed_plain(plan, vals: torch.Tensor, w_slots: torch.Te
     return plan_segment_sum_sr_plain(plan, vals, w_slots, src=src)
 
 
-def plan_segment_sum_pr_plain(plan, vals_slots_t: torch.Tensor,
-                              w_slots: torch.Tensor) -> torch.Tensor:
+def plan_segment_sum_pr_plain(plan, vals: torch.Tensor, w_slots: torch.Tensor, *,
+                              src=None) -> torch.Tensor:
     """The transposed layout: vals_slots_t [N, >= T*E] -> [N, n_blocks*s_tile]
     float32, the transpose of `plan_segment_sum_sr_plain` over
-    vals_slots_t.T."""
-    return plan_segment_sum_sr_plain(plan, vals_slots_t.t(), w_slots).t().contiguous()
+    vals_slots_t.T; or, with `src` (the plan's edge-order src), node rows x
+    [n, N] read as x[src[e0[t] + j]] (rows past x's end read as zero)."""
+    v = vals if src is not None else vals.t()
+    return plan_segment_sum_sr_plain(plan, v, w_slots, src=src).t().contiguous()
 
 
 def _edge_of_slots(plan, dev) -> torch.Tensor:

@@ -4,9 +4,10 @@ Replace `plan_segment_sum_sr`, `plan_segment_sum_sr_packed`,
 `plan_segment_sum_pr`, `plan_segment_sum_sr2`, `plan_segment_sum_packed2`
 and `plan_segment_sum_mh` of the JAX package
 (`geot_tpu/ops/pallas_segment.py:1302`, `:233`, `:1348`, `:384`, `:581`,
-`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (pr) and
+`:1391`). The kernels are `ops/csrc/slot_segment_sum.cu` (pr: the
+transposed sum over the plan's `RowSchedule`, lanes over its slots) and
 `edge_row_sum.cu` (sr, sr_packed, sr2, packed2 and mh: one row-ordered
-edge sum over the plan's `RowSchedule`, values in edge or slot order or
+edge sum over the same schedule, values in edge or slot order or
 gathered in the kernel as x[src[e]], with one weight per edge or, for mh,
 one per edge and head), built by nvcc for sm_90a and called through ctypes
 (see those files for their design and bound); their plain versions are in
@@ -18,6 +19,7 @@ float32 and reads F columns as they are (no lane padding).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,21 +45,31 @@ __all__ = [
 ]
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# pr's launch: vals_t, N, ld_in, dst, w, out_block, T, n_windows, E, s_tile,
-# out, part_rows, part_vals, stream
-_ARGTYPES = {
-    "geot_plan_segment_sum_pr": [_P, _I32, _I64, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
-                                 _P, _P],
-    "geot_slot_scratch_width": [_I32],
-}
+# pr's launch: vals, ld_in, n_rows, N, src, n_src, cols, slot, w, unit_dest,
+# tasks, n_tasks, zero_runs, fix, fix_levels (host), n_levels, part, out_t,
+# n_out, stream
+_PR_ARGS = [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P, _P, _P, _I32, _P, _P,
+            ctypes.POINTER(ctypes.c_int), _I32, _P, _P, _I64, _P]
 
 
 def _bound(name: str):
     fn = getattr(load_kernel("slot_segment_sum"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _PR_ARGS if name == "geot_plan_segment_sum_pr" else []
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _pr_max_rows() -> int:
+    return _bound("geot_pr_max_rows")()
+
+
+@functools.lru_cache(maxsize=64)
+def _host_ints(values: tuple):
+    """A schedule's fix-up level bounds as the C int array the launch takes
+    (made once per schedule, not per call)."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -123,44 +135,56 @@ def plan_segment_sum_sr_packed(plan: SegmentPlan, vals: torch.Tensor, w_slots: t
     return out
 
 
-def plan_segment_sum_pr(plan: SegmentPlan, vals_slots_t: torch.Tensor,
-                        w_slots: torch.Tensor) -> torch.Tensor:
-    """The transposed layout (edges on the contiguous axis): vals_slots_t
-    [N, T*E] -> [N, n_blocks*s_tile] float32.
+def plan_segment_sum_pr(plan: SegmentPlan, vals: torch.Tensor, w_slots: torch.Tensor, *,
+                        src=None) -> torch.Tensor:
+    """The transposed layout (a row's slots on the contiguous axis): values
+    in slot order, vals_slots_t [N, T*E] (the TPU kernel's contract), or,
+    with `src` [nnz] int32 (the plan's edge-order src: `Graph.src` for
+    `plan`, `Graph.dst_t` for `plan_t`), node rows x [n, N] that slot j of
+    tile t reads as x[src[e0[t] + j]] (rows past x's end read as zero);
+    weights w_slots [T, E] (0 on pads). A slot of weight 0 adds nothing. ->
+    out_t [N, n_blocks*s_tile] float32.
 
     CPU tensors run `plan_segment_sum_pr_plain`; CUDA tensors launch the
-    kernel (a tile pass and a window pass over the plan's tiles, which must
-    be in window order as a whole) and add one to
+    kernel (`ops/csrc/slot_segment_sum.cu`, over the plan's `row_sched`,
+    the whole plan in one launch, chunked or not) and add one to
     `plan_segment_sum_pr.launches`."""
-    if _device_of(vals_slots_t, "plan_segment_sum_pr") == "cpu":
-        return plan_segment_sum_pr_plain(plan, vals_slots_t, w_slots)
-    dev = vals_slots_t.device
+    if _device_of(vals, "plan_segment_sum_pr") == "cpu":
+        return plan_segment_sum_pr_plain(plan, vals, w_slots, src=src)
+    dev = vals.device
     T, E = plan.num_tiles, plan.e_tile
-    N, ld = vals_slots_t.shape
-    if not plan.monotone:
-        raise ValueError("plan_segment_sum_pr: out_block is not non-decreasing over the whole "
-                         "plan; run its chunks one by one")
-    if vals_slots_t.dtype != torch.float32 or vals_slots_t.dim() != 2 or \
-            not vals_slots_t.is_contiguous():
+    if vals.dtype != torch.float32 or vals.dim() != 2 or not vals.is_contiguous():
         raise ValueError("plan_segment_sum_pr: values must be a contiguous 2-D float32 "
-                         f"tensor, got {vals_slots_t.dtype} {tuple(vals_slots_t.shape)}")
-    if ld != T * E:
-        raise ValueError(f"vals_slots_t has {ld} columns, the plan {T * E} slots")
+                         f"tensor, got {vals.dtype} {tuple(vals.shape)}")
+    if src is None:
+        N, ld = vals.shape
+        if ld != T * E:
+            raise ValueError(f"vals_slots_t has {ld} columns, the plan {T * E} slots")
+    else:
+        _check(src, "src", torch.int32, (src.shape[0],), dev)
+        N, ld = vals.shape[1], 0
+    if not 1 <= N <= _pr_max_rows():
+        raise ValueError(f"plan_segment_sum_pr: N={N} rows, 1 to {_pr_max_rows()}")
     _check(w_slots, "w_slots", torch.float32, (T, E), dev)
-    _check(plan.dst_slots, "dst_slots", torch.int32, (T, E), dev)
-    _check(plan.out_block, "out_block", torch.int32, (T,), dev)
-    if T == 0 or E < 1 or plan.s_tile < 1:
-        raise ValueError("plan_segment_sum_pr: the plan has no tiles")
-    out = torch.empty(N, plan.n_blocks * plan.s_tile, dtype=torch.float32, device=dev)
-    part_rows = torch.empty(2 * T, dtype=torch.int32, device=dev)
-    part_vals = torch.empty(2 * T, _bound("geot_slot_scratch_width")(N), dtype=torch.float32,
-                            device=dev)
+    if plan.e0 is None:
+        raise ValueError("plan_segment_sum_pr: the plan carries no e0")
+    sched = row_schedule_of(plan)
+    if sched.cols.device != dev:
+        raise ValueError(f"plan_segment_sum_pr: the plan is on {sched.cols.device}, the values "
+                         f"on {dev}")
+    if sched.slot is None or sched.fix_levels[-1] != sched.fix.shape[0]:
+        raise ValueError("plan_segment_sum_pr: a malformed schedule")
+    out = torch.empty(N, sched.n_out, dtype=torch.float32, device=dev)
+    part = torch.empty(max(sched.n_parts, 1) * N, dtype=torch.float32, device=dev)
+    levels = _host_ints(tuple(sched.fix_levels))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _bound("geot_plan_segment_sum_pr")(
-            vals_slots_t.data_ptr(), N, ld, plan.dst_slots.data_ptr(), w_slots.data_ptr(),
-            plan.out_block.data_ptr(), T, plan.n_blocks, E, plan.s_tile, out.data_ptr(),
-            part_rows.data_ptr(), part_vals.data_ptr(), stream)
+            vals.data_ptr(), ld, vals.shape[0], N, None if src is None else src.data_ptr(),
+            0 if src is None else src.shape[0], sched.cols.data_ptr(), sched.slot.data_ptr(),
+            w_slots.data_ptr(), sched.unit_dest.data_ptr(), sched.tasks.data_ptr(),
+            sched.tasks.shape[0] - 1, sched.zero_runs.data_ptr(), sched.fix.data_ptr(), levels,
+            len(sched.fix_levels) - 1, part.data_ptr(), out.data_ptr(), sched.n_out, stream)
     if rc != 0:
         raise RuntimeError(f"plan_segment_sum_pr kernel launch failed: cudaError {rc}")
     plan_segment_sum_pr.launches += 1

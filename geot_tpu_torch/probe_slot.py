@@ -24,8 +24,16 @@ by its kind:
     (F 500, and 128), the other's kernel over the [slots, F] gather
     against this checkout's edge-row kernel over the same slot-order
     values and reading x[src[e]] itself, with the gather's own time and
-    torch.sparse.mm over the slot -> row and the node CSR; and pr (8
-    rows), outputs compared for equality;
+    torch.sparse.mm over the slot -> row and the node CSR (skipped for a
+    version that holds pr only); and pr at [8, slots] and the mean's
+    degree at [1, slots], with this checkout's gathered form and the old
+    route's [slots, 8] gather and transpose;
+  - `sddmm_bat.cu` (the tile kernel over an edge-order b block, before
+    the kernel read b[src[e]] itself): the route at phase 9's shape
+    (arxiv F 128; the other's with its padding and gather), this
+    checkout's values form and the gather alone; and the GAT attention
+    gradient's per-head dots at H*D 256 and 28, the plain dot (the
+    parent's route) against `edge_dots`;
   - `bat_segment_sum.cu` (the wide BAT tile and window kernels before the
     edge-row kernel took the wide sum): at phase 5's and 9's shapes (the
     arxiv GCN's bat and bat_t at F 128 and 40; the other's kernel on the
@@ -97,6 +105,14 @@ def _ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 10) -> float:
+    """Device time per call of fn's kernels (torch.profiler)."""
+    from geot_tpu_torch.profile_gcn import trace
+
+    _, _, busy_us, _ = trace(fn, iters, warmup=2)
+    return busy_us / 1e3 / iters
+
+
 def gathers(dev: torch.device) -> None:
     n, rows = 89_250, 1_088_512
     gen = torch.Generator().manual_seed(0)
@@ -163,7 +179,6 @@ def _ab_slot(dev: torch.device, sources: list) -> None:
     from geot_tpu_torch.profile_gcn import flickr_graph
 
     libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "sr"))}
-    labels = ["this"] + list(libs)
     n, e, f, c = DATASET_SHAPES["flickr"]
     data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
     g = flickr_graph(data, "graphsage", dev)
@@ -171,7 +186,10 @@ def _ab_slot(dev: torch.device, sources: list) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     scsr = _slot_csr(plan, w)
     ncsr = _node_csr(g.dst, g.src, None, n)
-    for F in (f, 128):
+    # versions with the sr tile kernels (before the edge-row kernel took sr)
+    sr_libs = {k: lib for k, lib in libs.items() if hasattr(lib, "geot_plan_segment_sum_sr")}
+    labels = ["this"] + list(sr_libs)
+    for F in ((f, 128) if sr_libs else ()):
         x = torch.randn(n, F, generator=gen, device=dev)
         vals = x.index_select(0, plan.src_slots.reshape(-1))
 
@@ -184,24 +202,150 @@ def _ab_slot(dev: torch.device, sources: list) -> None:
         mine = sk.plan_segment_sum_sr(plan, vals, w)
         a_abs = sk.plan_segment_sum_sr(plan, vals.abs(), w)
         same = all(_close(_old_slot(lib, "sr", plan, vals, w), mine, a_abs)
-                   for lib in libs.values())
+                   for lib in sr_libs.values())
         _report_forms(f"sr F={F} (flickr GraphSAGE, the plan's mask)", times,
                       _ms(lambda: sk.plan_segment_sum_sr(plan, x, w, src=g.src)),
                       _ms(lambda: x.index_select(0, plan.src_slots.reshape(-1))),
                       _ms(lambda: torch.sparse.mm(scsr, vals)), same,
                       _ms(lambda: torch.sparse.mm(ncsr, x)), "slot -> row")
         del x, vals
-    vt = torch.randn(8, plan.num_tiles * plan.e_tile, generator=gen, device=dev)
+    # pr: the values form at [8, slots] and the mean's degree at [1, slots]
+    # (the main path's), then this checkout's gathered form at F 8 and the
+    # old route's [slots, 8] gather and transpose
+    labels = ["this"] + list(libs)
+    slots = plan.num_tiles * plan.e_tile
+    for N in (8, 1):
+        vt = (torch.randn(N, slots, generator=gen, device=dev) if N > 1
+              else torch.ones(1, slots, device=dev))
 
-    def run_pr(label):
+        def other_pr(lib):
+            if hasattr(lib, "geot_pr_max_rows"):  # this interface: over the row schedule
+                return _sched_pr(lib, plan, vt, w)
+            return _old_slot(lib, "pr", plan, vt, w)
+
+        def run_pr(label):
+            if label == "this":
+                return _ms(lambda: sk.plan_segment_sum_pr(plan, vt, w))
+            return _ms(lambda: other_pr(libs[label]))
+
+        times = _in_turns(labels, run_pr)
+        mine = sk.plan_segment_sum_pr(plan, vt, w)
+        a_abs = sk.plan_segment_sum_pr(plan, vt.abs(), w)
+        same = all(_close(other_pr(lib), mine, a_abs) for lib in libs.values())
+        dev_ms = {"this": _device_ms(lambda: sk.plan_segment_sum_pr(plan, vt, w))}
+        dev_ms.update({k: _device_ms(lambda: other_pr(lib)) for k, lib in libs.items()})
+        print(f"pr [{N}, slots]: {_fmt(times)}; device ms (torch.profiler) "
+              + "; ".join(f"{k} {v:.4f}" for k, v in dev_ms.items())
+              + f"; outputs within the abs-sum rule: {same}", flush=True)
+    x8 = torch.randn(n, 8, generator=gen, device=dev)
+    print(f"pr F=8 gathered (x[src[e]] in the kernel): "
+          f"{_ms(lambda: sk.plan_segment_sum_pr(plan, x8, w, src=g.src)):.4f} ms; the old "
+          f"route's [slots, 8] gather and transpose "
+          f"{_ms(lambda: x8.index_select(0, plan.src_slots.reshape(-1)).t().contiguous()):.4f}"
+          " ms", flush=True)
+
+
+def _sched_pr(lib, plan, vt, w):
+    """Another build of this interface's pr kernel (over the plan's row
+    schedule) on vt [N, T*E]: the same launch as `plan_segment_sum_pr`."""
+    from geot_tpu_torch.graph.plan import row_schedule_of
+    from geot_tpu_torch.ops.slot_kernels import _PR_ARGS
+
+    fn = lib.geot_plan_segment_sum_pr
+    fn.argtypes, fn.restype = _PR_ARGS, ctypes.c_int
+    s = row_schedule_of(plan)
+    N = vt.shape[0]
+    out = torch.empty(N, s.n_out, device=vt.device)
+    part = torch.empty(max(s.n_parts, 1) * N, device=vt.device)
+    levels = (ctypes.c_int * len(s.fix_levels))(*s.fix_levels)
+    rc = fn(vt.data_ptr(), vt.shape[1], N, N, None, 0, s.cols.data_ptr(), s.slot.data_ptr(),
+            w.data_ptr(), s.unit_dest.data_ptr(), s.tasks.data_ptr(), s.tasks.shape[0] - 1,
+            s.zero_runs.data_ptr(), s.fix.data_ptr(), levels, len(s.fix_levels) - 1,
+            part.data_ptr(), out.data_ptr(), s.n_out, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"other pr kernel: cudaError {rc}")
+    return out
+
+
+def _old_sddmm(lib, bp, a, b, src):
+    """The parent's route into its tile kernel of `sddmm_bat.cu`: a padded
+    to the plan's windows and to 128 columns, b gathered in edge order into
+    whole value blocks, then its kernel; returns the [nnz] dots."""
+    fn = lib.geot_sddmm_bat
+    fn.argtypes = [_P, _I64, _P, _I64, _I32, _P, _I32, _P, _P, _I32, _I32, _I32, _P, _P]
+    fn.restype = ctypes.c_int
+    F, nnz = a.shape[1], src.shape[0]
+    f_pad = -(-F // 128) * 128
+    rows = (bp.n_blocks + (bp.chunk_blocks if bp.chunks else 0)) * bp.s_tile
+    a_p = torch.nn.functional.pad(a, (0, f_pad - F, 0, rows - a.shape[0])).contiguous()
+    src_pad = torch.nn.functional.pad(src.long(), (0, bp.n_vblocks * bp.e_tile - nnz))
+    b_vals = torch.nn.functional.pad(b, (0, f_pad - F)).index_select(0, src_pad)
+    out = torch.zeros((bp.n_vblocks + 1) * bp.e_tile, device=a.device)
+    rc = fn(a_p.data_ptr(), a_p.shape[0], b_vals.data_ptr(), b_vals.shape[0], f_pad,
+            bp.dst3.data_ptr(), bp.n_vblocks, bp.out_block.data_ptr(), bp.vblock.data_ptr(),
+            bp.num_tiles, bp.e_tile, bp.s_tile, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"old sddmm_bat kernel: cudaError {rc}")
+    return out[:nnz]
+
+
+def _ab_sddmm(dev, sources: list) -> None:
+    """The parent's sddmm_bat route (pad, edge-order gather, tile kernel)
+    against this checkout's kernel reading a[dst[e]] and b[src[e]] itself,
+    at phase 9's arxiv F 128; and the parent's attention-gradient dots
+    (the plain per-edge dot over gathered rows) against `edge_dots` at
+    GAT's H*D 256 and 28 on the flickr graph with self-loops."""
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops.sddmm_kernels import edge_dots, edge_dots_plain, sddmm_bat
+    from geot_tpu_torch.profile_gcn import flickr_graph
+
+    libs = {str(s): lib for s, (lib, _) in zip(sources, _build_all(sources, "sddmm"))}
+    labels = ["this"] + list(libs)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+    data = synthetic_graph(n, e, feat_dim=f, num_classes=c, seed=0)
+    g = prepare_graph(data.src, data.dst, n, layouts=("bat",), device=dev)
+    bp, nnz = g.bat, g.num_edges
+    a = torch.randn(n, 128, generator=gen, device=dev)
+    b = torch.randn(n, 128, generator=gen, device=dev)
+
+    def run(label):
         if label == "this":
-            return _ms(lambda: sk.plan_segment_sum_pr(plan, vt, w))
-        return _ms(lambda: _old_slot(libs[label], "pr", plan, vt, w))
+            return _ms(lambda: sddmm_bat(bp, a, b, src=g.src))
+        return _ms(lambda: _old_sddmm(libs[label], bp, a, b, g.src))
 
-    times = _in_turns(labels, run_pr)
-    mine = sk.plan_segment_sum_pr(plan, vt, w)
-    same = all(torch.equal(_old_slot(lib, "pr", plan, vt, w), mine) for lib in libs.values())
-    print(f"pr F=8: {_fmt(times)}; outputs equal: {same}", flush=True)
+    times = _in_turns(labels, run)
+    mine = sddmm_bat(bp, a, b, src=g.src)[:nnz]
+    a_abs = sddmm_bat(bp, a.abs(), b.abs(), src=g.src)[:nnz]
+    same = all(_close(_old_sddmm(lib, bp, a, b, g.src), mine, a_abs) for lib in libs.values())
+    b_vals = b.index_select(0, g.src.long())
+    print(f"sddmm_bat arxiv F 128 ({nnz} edges), the route (parent: pad, gather, kernel; this: "
+          f"b[src[e]] in the kernel): {_fmt(times)}; this kernel's values form (b in edge "
+          f"order) {_ms(lambda: sddmm_bat(bp, a, b_vals)):.4f} ms; the [E, F] gather alone "
+          f"{_ms(lambda: b.index_select(0, g.src.long())):.4f} ms; outputs within the abs-sum "
+          f"rule: {same}", flush=True)
+    del a, b, b_vals, g, bp
+    n, e, f, c = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(n, e, power=1.0, feat_dim=f, num_classes=c, seed=0)
+    gg = flickr_graph(data, "gat", dev)
+    for H, D in ((4, 64), (4, c)):
+        ga = torch.randn(n, H * D, generator=gen, device=dev)
+        xb = torch.randn(n, H * D, generator=gen, device=dev)
+
+        def run_dots(label):
+            if label == "this":
+                return _ms(lambda: edge_dots(ga, xb, gg.dst, gg.src, D))
+            return _ms(lambda: edge_dots_plain(ga, xb, gg.dst, gg.src, D), iters=5)
+
+        t = _in_turns(["this", "parent"], run_dots)
+        ok = _close(edge_dots(ga, xb, gg.dst, gg.src, D),
+                    edge_dots_plain(ga, xb, gg.dst, gg.src, D),
+                    edge_dots_plain(ga.abs(), xb.abs(), gg.dst, gg.src, D))
+        print(f"GAT attention-gradient dots (H, D) = ({H}, {D}), {gg.num_edges} edges: "
+              f"{_fmt(t)} (parent: the plain dot over gathered rows); within the abs-sum rule: "
+              f"{ok}", flush=True)
 
 
 def _slot_csr(plan, w):
@@ -564,7 +708,7 @@ def _ab_mh(dev, sources: list) -> None:
 
 
 def ab(dev: torch.device, sources: list, products: bool = False) -> None:
-    kinds = {"slot_segment_sum.cu": _ab_slot, "slot_aeb.cu": _ab_aeb,
+    kinds = {"slot_segment_sum.cu": _ab_slot, "slot_aeb.cu": _ab_aeb, "sddmm_bat.cu": _ab_sddmm,
              "bat_segment_sum_packed.cu": _ab_bat, "slot_mh.cu": _ab_mh,
              "bat_segment_sum.cu": lambda dev, files: _ab_wide(dev, files, products)}
     for name, run in kinds.items():
@@ -853,7 +997,8 @@ def main(argv=None) -> int:
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--other", action="append", required=True,
                       help="a slot_segment_sum.cu, slot_aeb.cu, bat_segment_sum_packed.cu, "
-                           "bat_segment_sum.cu or slot_mh.cu to compare with (repeatable)")
+                           "bat_segment_sum.cu, slot_mh.cu or sddmm_bat.cu to compare with "
+                           "(repeatable)")
     p_ab.add_argument("--products", action="store_true",
                       help="bat_segment_sum.cu: the products remainder's shapes too")
     p_rs = sub.add_parser("rowsum")

@@ -11,9 +11,12 @@ Tolerance: the kernel sums each row in edge order in f32, the plain
 version with `index_add_` (atomics on the card, so any order): f32 sums of
 the same terms in two orders, rows of up to ~1500 terms of magnitude ~1,
 so rtol/atol 1e-4 (the reference's own hub-split bound, test_ops.py:362).
-The SDDMM kernel sums each dot lane-wise then by a warp shuffle, the plain
-version with `sum`: f32 sums of the same 40-256 products in two orders,
-held to 1e-4 * sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`). The
+The SDDMM kernel (`sddmm_bat`, `edge_dots`) sums each head's products
+lane-wise then by a segmented shuffle scan, the plain version with `sum`:
+f32 sums of the same 7-256 products in two orders, held to 1e-4 *
+sum|a_i b_i| + 1e-5 (the rule of `chip_smoke.py`). The pr kernel sums each
+row's slots by the same scan over a warp's lanes, slices in order: the
+rule of the slot kernels below. The
 stream kernel sums each row in slot order, the plain version with
 `index_add_`: the same rule. With bfloat16 x both read the same bf16
 values and sum in f32, so the rule holds there too. The slot kernels sum
@@ -40,7 +43,12 @@ from geot_tpu_torch.ops.bat_kernels import (
 )
 from geot_tpu_torch.ops import reference as tref
 from geot_tpu_torch.ops import slot_kernels as tslot
-from geot_tpu_torch.ops.sddmm_kernels import sddmm_bat, sddmm_bat_plain
+from geot_tpu_torch.ops.sddmm_kernels import (
+    edge_dots,
+    edge_dots_plain,
+    sddmm_bat,
+    sddmm_bat_plain,
+)
 from geot_tpu_torch.ops.stream_kernels import (
     stream_segment_acc,
     stream_segment_acc_plain,
@@ -633,8 +641,8 @@ def test_sr_packed_gathered_matches_plain(cuda, F, tiles, chunked):
 def test_slot_kernels_refuse_what_they_do_not_take(cuda):
     """Width, dtype, shape, the slot-order row count and the gathered
     form's src are checked before a launch; a plan whose out_block is not
-    non-decreasing as a whole (uniformized chunks) is refused by pr, to be
-    run chunk by chunk, and summed whole by sr (the edge-row kernel)."""
+    non-decreasing as a whole (uniformized chunks) is summed whole by sr
+    (the edge-row kernel) and by pr (over the same row schedule)."""
     rng = np.random.default_rng(3)
     dst = np.sort(rng.integers(0, 300, 2000)).astype(np.int32)
     plan = tplan.build_segment_plan(dst, dst, 300, e_tile=64, s_tile=32, device=cuda)
@@ -658,9 +666,22 @@ def test_slot_kernels_refuse_what_they_do_not_take(cuda):
     k = tslot.plan_segment_sum_sr(chunked, vc, chunked.mask)
     _assert_abs_sum(k, tref.plan_segment_sum_sr_plain(chunked, vc, chunked.mask),
                     tref.plan_segment_sum_sr_plain(chunked, vc.abs(), chunked.mask))
-    if not chunked.monotone:
-        with pytest.raises(ValueError, match="non-decreasing"):
-            tslot.plan_segment_sum_pr(chunked, vc[:, :8].t().contiguous(), chunked.mask)
+    # pr sums a plan whose uniformized chunks put out_block out of order as
+    # a whole (it once refused one), the plan whole
+    hs, hd = _hubby(np.random.default_rng(1), 1500, 6000, 3000, hub=9)
+    o = np.argsort(hd, kind="stable")
+    disorder = tplan.build_segment_plan(hd[o], hs[o], 1900, e_tile=64, s_tile=32,
+                                        pack_align=16, max_chunk_slots=64 * 6, device=cuda)
+    ob = disorder.out_block
+    assert bool((ob[1:] < ob[:-1]).any()), "the plan is in window order as a whole"
+    vt = torch.randn(8, disorder.num_tiles * 64, device=cuda)
+    _assert_abs_sum(tslot.plan_segment_sum_pr(disorder, vt, disorder.mask),
+                    tref.plan_segment_sum_pr_plain(disorder, vt, disorder.mask),
+                    tref.plan_segment_sum_pr_plain(disorder, vt.abs(), disorder.mask))
+    with pytest.raises(ValueError, match="columns"):
+        tslot.plan_segment_sum_pr(plan, v[:-1, :8].t().contiguous(), plan.mask)
+    with pytest.raises(ValueError, match="rows"):
+        tslot.plan_segment_sum_pr(plan, torch.ones(1, 5000, device=cuda), plan.mask, src=src)
 
 
 @pytest.mark.parametrize("model", ["gcn", "graphsage"])
@@ -1172,3 +1193,205 @@ def test_narrow_models_on_card_match_cpu(cuda, model):
     (oc, dc), (oh, dh) = outs
     torch.testing.assert_close(oc, oh, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dc, dh, rtol=1e-4, atol=1e-4 * float(dh.abs().max()))
+
+
+# --- the per-edge dot (sddmm_bat, edge_dots) and the pr kernel over the
+# row schedule: both forms, reruns bit-identical, rows past the end zero
+
+
+@pytest.mark.parametrize("F", [128, 256, 100, 47, 1])
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_sddmm_bat_both_forms_match_plain(cuda, F, chunked, form):
+    """sddmm_bat over a BAT plan (chunked: uniformized, pad tiles past
+    n_blocks) in the values form (b in edge order, ragged: rows past its
+    end read zero) and the gathered one (b[src[e]] read in the kernel, a
+    and b node rows, some of them past a's and b's ends), against the
+    plain version; every slot written (NaN-filled memory first), pads 0,
+    three reruns bit-identical, one launch each."""
+    rng = np.random.default_rng(F + 2 * chunked + (form == "gathered"))
+    n = 700
+    src, dst = _hubby(rng, n, 5000, 1500)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    if chunked:
+        bp = _chunked_plan_past_n_blocks(dst, n, 64, 32, cuda)
+    else:
+        bp = tplan.build_bat_plan(dst, n, e_tile=64, s_tile=32, device=cuda)
+    nnz = len(dst)
+    a = torch.from_numpy(rng.standard_normal((n - 5, F)).astype(np.float32)).to(cuda)
+    kw = {}
+    if form == "gathered":
+        b = torch.from_numpy(rng.standard_normal((n - 9, F)).astype(np.float32)).to(cuda)
+        kw["src"] = torch.from_numpy(src).to(cuda)
+    else:
+        b = torch.from_numpy(rng.standard_normal((nnz - 7, F)).astype(np.float32)).to(cuda)
+    torch.full(((bp.n_vblocks + 1) * bp.e_tile,), float("nan"), device=cuda)
+    before = sddmm_bat.launches
+    k = sddmm_bat(bp, a, b, **kw)
+    torch.cuda.synchronize()
+    assert sddmm_bat.launches == before + 1
+    assert k.shape == ((bp.n_vblocks + 1) * bp.e_tile,)
+    _assert_abs_sum(k, sddmm_bat_plain(bp, a, b, **kw),
+                    sddmm_bat_plain(bp, a.abs(), b.abs(), **kw))
+    assert bool((k[nnz:] == 0).all())
+    for _ in range(3):
+        assert torch.equal(sddmm_bat(bp, a, b, **kw), k)
+
+
+@pytest.mark.parametrize("H,D", [(4, 64), (4, 7), (3, 96), (1, 47), (8, 32), (2, 1)])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_edge_dots_per_head_match_plain(cuda, H, D, form):
+    """edge_dots per head, against the plain version: GAT's (4, 64) and
+    (4, 7) (heads straddling a lane's 4 columns), (3, 96) (a head across a
+    128-column sub-slab), one head of 47 (rows not 16-byte aligned);
+    -1 dst ids give 0 on every head, rows past a's and b's ends read
+    zero, and in the gathered form edges past src's end read zero; every
+    element written, reruns bit-identical, one launch counted."""
+    rng = np.random.default_rng(H * 100 + D + (form == "gathered"))
+    n, F = 600, H * D
+    src, dst = _hubby(rng, n, 4000, 1200)
+    dst = np.sort(dst)
+    dst[::97] = -1
+    a = torch.from_numpy(rng.standard_normal((n - 3, F)).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(dst).to(cuda)
+    if form == "gathered":
+        b = torch.from_numpy(rng.standard_normal((n - 11, F)).astype(np.float32)).to(cuda)
+        s = torch.from_numpy(src[:-5]).to(cuda)
+    else:
+        b = torch.from_numpy(rng.standard_normal((len(dst) - 13, F)).astype(np.float32)).to(cuda)
+        s = None
+    torch.full((4 * len(dst) * H,), float("nan"), device=cuda)
+    before = edge_dots.launches
+    k = edge_dots(a, b, d, s, D)
+    torch.cuda.synchronize()
+    assert edge_dots.launches == before + 1
+    assert k.shape == (len(dst), H)
+    p = edge_dots_plain(a, b, d, s, D)
+    _assert_abs_sum(k, p, edge_dots_plain(a.abs(), b.abs(), d, s, D))
+    assert bool((k[torch.from_numpy(dst < 0).to(cuda)] == 0).all())
+    if s is not None:
+        assert bool((k[-5:] == 0).all())
+    for _ in range(3):
+        assert torch.equal(edge_dots(a, b, d, s, D), k)
+
+
+def test_edge_dots_refuse_what_they_do_not_take(cuda):
+    a = torch.ones(10, 12, device=cuda)
+    d = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="whole heads"):
+        edge_dots(a, a, d, None, 5)
+    with pytest.raises(ValueError, match="int32"):
+        edge_dots(a, a, d.long(), None, 4)
+    with pytest.raises(ValueError, match="columns"):
+        edge_dots(a, a[:, :8].contiguous(), d, None, 4)
+    with pytest.raises(ValueError, match="float32"):
+        edge_dots(a.double(), a.double(), d, None, 4)
+
+
+@pytest.mark.parametrize("N", [1, 8, 32, 100])
+@pytest.mark.parametrize("tiles", [(512, 256, 1), (64, 32, 16), (32, 1, 1)])
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("form", ["values", "gathered"])
+def test_pr_both_forms_match_plain(cuda, N, tiles, chunked, form):
+    """plan_segment_sum_pr over the plan's row schedule, the plan whole
+    (chunked: uniformized chunks, the hub window split, out_block out of
+    order as a whole), in the values form (vals_t [N, T*E]) and the
+    gathered one (x[src[e]] read in the kernel, x node rows, some past its
+    end), weighted, with every fourth slot weight exactly 0 (inside the
+    hub row's run); every element written (NaN-filled memory first),
+    reruns bit-identical, one launch a plan, the two forms within the rule
+    of each other."""
+    e_tile, s_tile, pack_align = tiles
+    rng = np.random.default_rng(N + e_tile + 2 * chunked + (form == "gathered"))
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    plan = tplan.build_segment_plan(dst, src, n + 400, e_tile=e_tile, s_tile=s_tile,
+                                    pack_align=pack_align, device=cuda,
+                                    max_chunk_slots=e_tile * 6 if chunked else 4 << 20)
+    assert bool(plan.chunks) == chunked
+    T, E = plan.num_tiles, plan.e_tile
+    w = plan.mask * torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32)).to(cuda)
+    w.reshape(-1)[::4] = 0.0
+    x = torch.from_numpy(rng.standard_normal((n - 20, N)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(src).to(cuda)
+    if form == "gathered":
+        v, kw = x, {"src": s}
+    else:
+        v = tref._rows_or_zero(x, plan.src_slots.reshape(-1).long()).t().contiguous()
+        kw = {}
+    fn, plain = _SLOT["pr"]
+    torch.full((4 * plan.n_blocks * s_tile * max(N, 8),), float("nan"), device=cuda)
+    before = fn.launches
+    k = fn(plan, v, w, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert k.shape == (N, plan.n_blocks * s_tile)
+    a = plain(plan, v.abs(), w.abs(), **kw)
+    _assert_abs_sum(k, plain(plan, v, w, **kw), a)
+    for _ in range(2):
+        assert torch.equal(fn(plan, v, w, **kw), k)
+    other = ({"src": s} if form == "values" else {})
+    vo = x if form == "values" else tref._rows_or_zero(
+        x, plan.src_slots.reshape(-1).long()).t().contiguous()
+    _assert_abs_sum(fn(plan, vo, w, **other), k, a)
+
+
+def test_segment_counts_on_card_one_row(cuda):
+    """The mean's degree over a slot plan (s_tile % 128 == 0): one pr launch
+    of ones [1, slots], the plan whole (chunked, hub window split),
+    integer counts equal to a bincount."""
+    rng = np.random.default_rng(4)
+    n = 1500
+    src, dst = _hubby(rng, n, 6000, 3000, hub=9)
+    dst = np.sort(dst)
+    exp = torch.from_numpy(np.bincount(dst, minlength=n).astype(np.float32)).to(cuda)
+    for mcs in (4 << 20, 512 * 3):
+        plan = tplan.build_segment_plan(dst, src, n, e_tile=512, s_tile=256,
+                                        max_chunk_slots=mcs, device=cuda)
+        before = tslot.plan_segment_sum_pr.launches
+        got = api.segment_counts(plan)
+        assert tslot.plan_segment_sum_pr.launches == before + 1
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("model", ["gat", "slot_dyn"])
+def test_weight_gradients_launch_edge_dots(cuda, model):
+    """The attention gradient of gat_attention_spmm (per head) and
+    slot_dyn's weight gradient run the per-edge dot kernel (`edge_dots`,
+    one launch a backward) and equal the CPU's plain dots."""
+    from geot_tpu_torch.models import prepare_graph
+
+    rng = np.random.default_rng(31)
+    n, H, D = 2000, 4, 7
+    src, dst = _hubby(rng, n, 12000, 3000, hub=5)
+    kw = dict(add_self_loops=True, e_tile=512, s_tile=256, mode_hint="sr", prefer="sr",
+              prefer_dyn="sr", layouts=("slot",))
+    res = []
+    for dev in (cuda, "cpu"):
+        g = prepare_graph(src, dst, n, device=dev, **kw)
+        gen = np.random.default_rng(0)
+        if model == "gat":
+            ins = [torch.from_numpy(gen.standard_normal(sh).astype(np.float32)).to(dev)
+                   for sh in ((n, H, D), (n, H), (n, H))]
+            co = torch.from_numpy(gen.standard_normal((n, H, D)).astype(np.float32)).to(dev)
+            args = [t.clone().requires_grad_() for t in ins]
+            before = edge_dots.launches
+            out = api.gat_attention_spmm(g, *args)
+        else:
+            x = torch.from_numpy(gen.standard_normal((n, 24)).astype(np.float32)).to(dev)
+            w = torch.from_numpy(gen.random(g.num_edges).astype(np.float32)).to(dev)
+            co = torch.from_numpy(gen.standard_normal((n, 24)).astype(np.float32)).to(dev)
+            args = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+            assert api.dispatch_path(g, dynamic_w=True) == "slot_dyn"
+            before = edge_dots.launches
+            out = api.gather_weight_scatter(g.src, g.dst, args[1], args[0], n, graph=g)
+        torch.vdot(out.reshape(-1), co.reshape(-1)).backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert edge_dots.launches == before + 1
+        res.append([t.grad.cpu() for t in args])
+    for gk, gp in zip(*res):
+        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4 * float(gp.abs().max()))

@@ -85,7 +85,6 @@ def test_segment_plan_host_equal(case):
     assert jp.km_pack == 16 and tp.num_tiles == jp.num_tiles
     assert tp.num_tiles <= tplan.plan_tile_bounds(len(dst), n + extra, e_tile, s_tile) + (
         len(tm["chunks"]) * max((c[1] - c[0] for c in tm["chunks"]), default=0))
-    assert tp.monotone == bool(np.all(np.diff(ta["out_block"]) >= 0))
 
 
 def test_segment_plan_rejects_bad_edges():
