@@ -4,7 +4,10 @@ GraphSAGE, GAT, GIN and APPNP, time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width. Phases 25-29 serve and train
+Runs the port's main paths at full width. Phases 30-35 serve and train
+the arxiv GCN over bucketed BAT plans (`bucketed_sum`, the edge-row
+kernel), with BasicGNN's norms and jumping knowledge, run max and prod on
+the card and reload the graph from the cache. Phases 25-29 serve and train
 GIN (hidden 64) on the arxiv graph and APPNP (K 10) on the flickr graph
 over packed narrow-feature BAT plans (`bat_segment_sum_packed`). Phases 1-9: a 3-layer GCN
 (hidden 128, 40 classes) over BAT plans of an ogbn-arxiv-shaped synthetic
@@ -180,7 +183,29 @@ Phases, each printed with its elapsed seconds:
      CSR for the gathered one, at the same width and weights) and the wide
      bat_segment_sum on the same values padded to 128 columns over an
      unpacked plan (what a narrow layer cost before); each model's request
-     and training step, and each one's busy share.
+     and training step, and each one's busy share;
+ 30. phases 1-9's arxiv graph built again with the GCN norm baked in and
+     bucketed BAT plans (layouts ("bat",), bucket_table_bytes=1: two
+     buckets of 131,072 rows): the build's seconds, each plan's tiles,
+     chunks and edge-row schedule, and dispatch_path == "bucketed";
+ 31. bucketed_sum (the edge-row kernel over the bucketed plan, reading
+     x[src[e]] by global ids) against bucketed_sum_plain (the reference's
+     chunk order) over bat_b and bat_b_t at F 128 and 40, one launch a
+     plan, three reruns bit-identical;
+ 32. 5 requests and 5 AdamW steps of the GCN (conv_kwargs normalize False)
+     over the bucketed route, and 2 of each for GCN with norm "layer" and
+     jk "cat", and with norm "batch", jk "max" and act_first: each against
+     the reference path, launches asserted (bat_segment_sum 3 a request, 6
+     a step; nothing else);
+ 33. CUDA-event timings of the bucketed SpMM beside the bat_static SpMM on
+     the same graph at F 128 and 40, its bound, its plain version and
+     torch.sparse.mm over the node CSR; each model's forward and step;
+ 34. segment_spmm(reduce="max") and (reduce="prod") on the card (the plain
+     route: segment_reduce over the dst-sorted runs) against the CPU's,
+     reruns bit-identical;
+ 35. save_graph / load_graph of the bucketed graph: the load's seconds
+     beside the build's, the graph and its schedules back on the card, and
+     a request through it bit-identical to the built graph's.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -210,7 +235,9 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "slot_timing": 240, "gat_build": 120, "gat_kernel": 240, "gat_serve": 180,
                   "gat_train": 240, "gat_timing": 240, "narrow_build": 180,
                   "narrow_kernel": 240, "narrow_serve": 180, "narrow_train": 240,
-                  "narrow_timing": 240}
+                  "narrow_timing": 240, "bucket_build": 120, "bucket_kernel": 120,
+                  "bucket_serve": 240, "bucket_timing": 180, "bucket_reduce": 120,
+                  "bucket_cache": 180}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -2306,6 +2333,298 @@ def run_narrow(dev, card):
             "forward_ms": fwd, "train_step_ms": stp, "busy": busy, "losses": losses}
 
 
+def prod_close(k, p, deg, what):
+    """A prod on the card against the CPU's: per row |k - p| <= 2 * n * u *
+    |p| (n the row's terms, u = 2**-24: each product rounds once, in any
+    order) + 1e-30."""
+    lim = 2.0 * deg.clamp(min=1)[:, None].float() * 2.0 ** -24 * p.abs() + 1e-30
+    bad = int(((k - p).abs() > lim).sum())
+    log(f"{what}: max_rel_err={float(((k - p).abs() / p.abs().clamp(min=1e-30)).max()):.3e} "
+        f"over_tolerance={bad}")
+    if bad or not torch.isfinite(k).all():
+        raise AssertionError(f"{what}: the card's prod disagrees with the CPU's")
+
+
+def run_bucketed(dev, card, data):
+    """Phases 30-35: the arxiv GCN over the bucketed BAT route (build, kernel
+    checks, serving, training, timings), with BasicGNN's norms and jumping
+    knowledge, max and prod on the card, and the graph cache. Returns the
+    numbers for the kernels line."""
+    import os
+    import shutil
+    import tempfile
+
+    from geot_tpu_torch.graph.cache import load_graph, save_graph
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES
+    from geot_tpu_torch.graph.plan import row_schedule_of
+    from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import (
+        bat_segment_sum,
+        bat_segment_sum_packed,
+        bucketed_sum,
+        bucketed_sum_plain,
+    )
+    from geot_tpu_torch.ops.sddmm_kernels import edge_dots, sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+
+    counters = {k: getattr(sk, k) for k in (
+        "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr",
+        "plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")}
+    counters.update({"bat_segment_sum": bat_segment_sum,
+                     "bat_segment_sum_packed": bat_segment_sum_packed, "sddmm_bat": sddmm_bat,
+                     "edge_dots": edge_dots, "stream_segment_sum": stream_segment_sum,
+                     "stream_segment_acc": stream_segment_acc})
+    BS = "bat_segment_sum"
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # 30. host build: the arxiv graph with the GCN norm baked in, BAT and
+    # bucketed BAT plans (two buckets of 131,072 rows)
+    arm("bucket_build")
+    n, _, f, c = DATASET_SHAPES["ogbn-arxiv"]
+    t0 = time.perf_counter()
+    g = prepare_graph(data.src, data.dst, n, layouts=("bat",), normalize="gcn",
+                      bucket_table_bytes=1, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if api.dispatch_path(g) != "bucketed" or api.dispatch_path(g, dynamic_w=True) != "bat_dyn":
+        raise AssertionError(f"dispatch_path {api.dispatch_path(g)!r}: expected 'bucketed' "
+                             "(and 'bat_dyn' for per-call weights)")
+    sched = g.build_stats["row_schedule"]
+    log(f"phase 30 graph ({n} nodes, {g.num_edges} edges with self-loops, the GCN norm baked "
+        f"in): prepare_graph {build_s:.2f}s; steps: " + ", ".join(
+            f"{k} {v:.2f}s" for k, v in g.build_stats["seconds"].items()))
+    for name in ("bat", "bat_t", "bat_b", "bat_b_t"):
+        p = getattr(g, name)
+        extra = (f", {len({ch[4] for ch in p.chunks})} buckets of {p.bucket_rows} rows, "
+                 f"{p.n_vblocks} padded value blocks" if name.startswith("bat_b") else "")
+        log(f"phase 30 {name}: {p.num_tiles} tiles of {p.e_tile} x {p.s_tile}, "
+            f"{max(len(p.chunks), 1)} chunks{extra}; edge-row schedule "
+            f"{sched[name]['seconds']:.3f}s, {sched[name]['bytes'] / 1e6:.2f} MB on the card, "
+            f"{p.row_sched.cols.shape[0]} entries")
+    log("phase 30 dispatch_path: 'bucketed' (the graph's own weights), 'bat_dyn' (per-call)")
+
+    # 31. the bucketed sum against its plain version on both directions at
+    # the layers' widths, one launch a plan, three reruns bit-identical
+    arm("bucket_kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    err, n_checks = 0.0, 0
+    for F in (128, c):
+        xf = torch.randn(n, F, generator=gen, device=dev)
+        for d in ("bat_b", "bat_b_t"):
+            bb = getattr(g, d)
+            what = f"phase 31 bucketed_sum {d} F={F}"
+            before = bat_segment_sum.launches
+            k = bucketed_sum(bb, xf)
+            torch.cuda.synchronize()
+            expect_launches(bat_segment_sum.launches - before, 1, f"{what} (one launch)")
+            p = bucketed_sum_plain(bb, xf)
+            a = bucketed_sum_plain(dataclasses.replace(bb, w_pad=bb.w_pad.abs()), xf.abs())
+            err = max(err, check_close_abs_sum(k, p, a, what))
+            for _ in range(3):
+                if not torch.equal(bucketed_sum(bb, xf), k):
+                    raise AssertionError(f"{what}: not deterministic")
+            n_checks += 1
+        del xf, k, p, a
+    log(f"phase 31 {n_checks} bucketed_sum checks within the abs-sum rule, three reruns "
+        "bit-identical each")
+
+    # 32. serve and train the GCN over the bucketed route, and the norm /
+    # jumping-knowledge variants, each against the reference path
+    arm("bucket_serve")
+    x = torch.from_numpy(data.x).to(dev)
+    y = torch.from_numpy(data.y.astype("int64")).to(dev)
+    mask = torch.from_numpy(data.train_mask).to(dev)
+    variants = {"gcn": ({}, REQUESTS, TRAIN_STEPS),
+                "gcn_layer_cat": ({"norm": "layer", "jk": "cat"}, 2, 2),
+                "gcn_batch_max_act_first": ({"norm": "batch", "jk": "max", "act_first": True},
+                                            2, 2)}
+    serve, train, losses, models, steps, req_s = {}, {}, {}, {}, {}, {}
+    for name, (kw, n_req, n_steps) in variants.items():
+        mk = dict(conv_kwargs={"normalize": False}, **kw)
+        model = GCN(f, 128, 3, c, generator=torch.Generator().manual_seed(SEED), device=dev,
+                    **mk).eval()
+        ref_model = GCN(f, 128, 3, c, backend="reference", device=dev, **mk).eval()
+        ref_model.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            ref = ref_model(x, g)
+        want = {k: (3 if k == BS else 0) for k in counters}
+        reset()
+        req_s[name] = []
+        with torch.inference_mode():
+            for i in range(n_req):
+                before = counts()
+                ts = time.perf_counter()
+                out = model(x, g)
+                torch.cuda.synchronize()
+                req_s[name].append(time.perf_counter() - ts)
+                expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                                f"phase 32 {name} request {i}")
+                if out.shape != (n, c) or not torch.isfinite(out).all():
+                    raise AssertionError(f"{name} request {i}: bad output {tuple(out.shape)}")
+                torch.testing.assert_close(out, ref, **MODEL_TOL)
+        serve[name] = counts()
+        log(f"phase 32 {name}: {n_req} requests, launches {serve[name][BS]} bat_segment_sum "
+            f"(3 a request, one bucketed launch a layer), max |kernel path - reference path| "
+            f"{float((out - ref).abs().max()):.3e} (tolerance {MODEL_TOL}); request s: "
+            + ", ".join(f"{t:.4f}" for t in req_s[name]))
+        del out, ref
+        opt = make_optimizer(model, LR, WEIGHT_DECAY)
+        ref_opt = make_optimizer(ref_model, LR, WEIGHT_DECAY)
+        step = make_train_step(model, opt, has_dropout=False)
+        ref_step = make_train_step(ref_model, ref_opt, has_dropout=False)
+        want = {k: (6 if k == BS else 0) for k in counters}
+        reset()
+        losses[name] = []
+        for i in range(n_steps):
+            before = counts()
+            loss = step(x, g, y, mask)
+            torch.cuda.synchronize()
+            expect_launches({k: v - before[k] for k, v in counts().items()}, want,
+                            f"phase 32 {name} step {i}")
+            loss_r = ref_step(x, g, y, mask)
+            if i == 0:
+                # phase 8's rule: atol GRAD_RTOL * max|g_ref| of the tensor;
+                # with a norm, of the model: a norm's backward subtracts
+                # means, so a conv weight's gradient is a cancellation whose
+                # largest entry lies far below the model's, and its rounding
+                # is on the scale of the terms, not of the result
+                pr = dict(ref_model.named_parameters())
+                g_max = max(float(p_.grad.abs().max()) for p_ in pr.values())
+                ratios = []
+                for pname, prm in model.named_parameters():
+                    gr = pr[pname].grad
+                    scale = g_max if kw.get("norm") else float(gr.abs().max())
+                    ratios.append((pname, float((prm.grad - gr).abs().max()) / scale))
+                    torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
+                                               atol=GRAD_RTOL * scale)
+                log(f"phase 32 {name} step 0 gradients: max |kernel - reference| / "
+                    f"{'max|g_ref| of the model' if kw.get('norm') else 'max|g_ref|'}: "
+                    + ", ".join(f"{k} {r:.2e}" for k, r in ratios))
+            lk, lr_ = float(loss), float(loss_r)
+            if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
+                raise AssertionError(f"{name} step {i}: loss {lk} vs reference {lr_}")
+            losses[name].append((lk, lr_))
+        train[name] = counts()
+        log(f"phase 32 {name}: {n_steps} steps (step 0 gradients within rtol {GRAD_RTOL}), "
+            f"losses (kernel, reference) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses[name])
+            + f"; bat_segment_sum {train[name][BS]} (3 forward + 3 over bat_b_t a step)")
+        models[name], steps[name] = model, step
+        del ref_model, ref_opt
+    for name in variants:
+        if not serve[name][BS] or not train[name][BS]:
+            raise AssertionError(f"the bucketed route launched no kernel on {name}")
+
+    # 33. timings: the bucketed SpMM beside the bat_static SpMM on the same
+    # graph and weights, the bound, the plain version, torch.sparse.mm over
+    # the node CSR; a request and a step
+    arm("bucket_timing")
+    nnz = g.num_edges
+    timing = {}
+    for F in (128, c):
+        xf = torch.randn(n, F, generator=gen, device=dev)
+        r = {"F": F}
+        r["ms"] = cuda_ms(lambda: api._spmm_fwd_bucketed(g.bat_b, xf))
+        r["bat_static_ms"] = cuda_ms(lambda: api._spmm_fwd_bat(g.bat, xf, g.src, g.edge_weight))
+        r["plain_ms"] = cuda_ms(lambda: bucketed_sum_plain(g.bat_b, xf), iters=3, warmup=1)
+        r["bound_ms"], r["bound_by"], nb = gathered_bound(n, F, nnz, True,
+                                                          g.bat_b.n_blocks * g.bat_b.s_tile)
+        ncsr = node_csr(g.dst, g.src, g.edge_weight, n)
+        lib = torch.sparse.mm(ncsr, xf)
+        check_close_abs_sum(api._spmm_fwd_bucketed(g.bat_b, xf), lib,
+                            torch.sparse.mm(node_csr(g.dst, g.src, g.edge_weight.abs(), n),
+                                            xf.abs()),
+                            f"phase 33 library yardstick F={F}")
+        r["library_ms"] = cuda_ms(lambda: torch.sparse.mm(ncsr, xf))
+        timing[F] = r
+        log(f"{card} bucketed SpMM (arxiv GCN, F={F}; bucketed_sum over bat_b, x[src[e]] read "
+            f"in the kernel) {r['ms']:.4f} ms; bat_static SpMM on the same graph "
+            f"{r['bat_static_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({nb / 1e9:.4f} GB, x's rows once); plain {r['plain_ms']:.4f} ms; library "
+            f"torch.sparse.mm (node CSR) {r['library_ms']:.4f} ms")
+        del xf, ncsr, lib
+    fwd, stp = {}, {}
+    for name, model in models.items():
+        model.eval()
+        with torch.inference_mode():
+            fwd[name] = cuda_ms(lambda: model(x, g), iters=5)
+        stp[name] = cuda_ms(lambda: steps[name](x, g, y, mask), iters=3, warmup=1)
+        log(f"{card} {name} over the bucketed route: forward {fwd[name]:.4f} ms (request wall "
+            f"{min(req_s[name]) * 1e3:.4f} ms min), training step {stp[name]:.4f} ms")
+
+    # 34. max and prod on the card (the plain route: segment_reduce over the
+    # dst-sorted runs) against the CPU's, reruns bit-identical
+    arm("bucket_reduce")
+    cpu_g = dataclasses.replace(g, src=g.src.cpu(), dst=g.dst.cpu(),
+                                edge_weight=g.edge_weight.cpu())
+    deg = torch.bincount(g.dst.long(), minlength=n).cpu()
+    xr = torch.randn(n, 16, generator=gen, device=dev)
+    xp = 1.0 + 1e-3 * torch.randn(n, 16, generator=gen, device=dev)
+    ones = torch.ones(nnz, device=dev)
+    red_ms = {}
+    for reduce, xx, w in (("max", xr, None), ("prod", xp, ones)):
+        if api.dispatch_path(g, reduce=reduce) != "xla":
+            raise AssertionError(f"reduce={reduce} does not take the plain route")
+        k = api.segment_spmm(g, xx, w, reduce=reduce)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            if not torch.equal(api.segment_spmm(g, xx, w, reduce=reduce), k):
+                raise AssertionError(f"phase 34 segment_spmm {reduce}: not deterministic")
+        p = api.segment_spmm(cpu_g, xx.cpu(), None if w is None else w.cpu(), reduce=reduce)
+        what = f"phase 34 segment_spmm reduce={reduce} F=16 (card vs CPU)"
+        if reduce == "max":
+            if not torch.equal(k.cpu(), p):
+                raise AssertionError(f"{what}: max differs")
+            log(f"{what}: equal")
+        else:
+            prod_close(k.cpu(), p, deg, what)
+        red_ms[reduce] = cuda_ms(lambda: api.segment_spmm(g, xx, w, reduce=reduce), iters=5)
+        log(f"{card} segment_spmm reduce={reduce} F=16 (plain route) {red_ms[reduce]:.4f} ms")
+    log("phase 34 max and prod reruns bit-identical (three runs each)")
+    del cpu_g, xr, xp, ones, k, p
+
+    # 35. save_graph / load_graph of the bucketed graph: loaded on the card
+    # with its schedules, and a request through it bit-identical
+    arm("bucket_cache")
+    tmp = tempfile.mkdtemp(prefix="geot_graph_")
+    try:
+        path = os.path.join(tmp, "arxiv_bucketed.npz")
+        t0 = time.perf_counter()
+        save_graph(g, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        g2 = load_graph(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if g2 is None or not g2.src.is_cuda or not g2.bat_b.row_sched.cols.is_cuda:
+        raise AssertionError("load_graph did not give the graph back on the card")
+    if row_schedule_of(g2.bat_b) is not g2.bat_b.row_sched:
+        raise AssertionError("the loaded bucketed plan's schedule was rebuilt")
+    model = models["gcn"].eval()
+    with torch.inference_mode():
+        a, b = model(x, g), model(x, g2)
+    if not torch.equal(a, b):
+        raise AssertionError("a request through the loaded graph differs from the built one")
+    log(f"phase 35 save_graph {save_s:.2f}s ({size / 1e6:.1f} MB), load_graph {load_s:.2f}s "
+        f"on the card beside the build's {build_s:.2f}s; a request through the loaded graph "
+        "bit-identical to the built one")
+    faulthandler.cancel_dump_traceback_later()
+    return {"serve": serve, "train": train, "err": err, "timing": timing, "losses": losses,
+            "forward_ms": fwd, "train_step_ms": stp, "reduce_ms": red_ms, "build_s": build_s,
+            "load_s": load_s, "save_s": save_s, "file_mb": size / 1e6}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2682,6 +3001,7 @@ def main():
     sl = run_slot(dev, card)
     gd = run_gat_dyn(dev, card)
     nr = run_narrow(dev, card)
+    bk = run_bucketed(dev, card, data)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -2747,8 +3067,10 @@ def main():
                                  "hybrid_serve_requests": hy["serve"]["bat_segment_sum"],
                                  "hybrid_train_steps": hy["train"]["bat_segment_sum"],
                                  "gin_serve_requests": nr["serve"]["gin"]["bat_segment_sum"],
-                                 "gin_train_steps": nr["train"]["gin"]["bat_segment_sum"]},
-            "max_abs_err": max_err,
+                                 "gin_train_steps": nr["train"]["gin"]["bat_segment_sum"],
+                                 **{f"bucketed_{m}_{k}": bk[k][m]["bat_segment_sum"]
+                                    for m in bk["serve"] for k in ("serve", "train")}},
+            "max_abs_err": max(max_err, bk["err"]),
             "ms": t_k,
             "plain_ms": t_p,
             "bound_ms": bound,
@@ -2761,6 +3083,7 @@ def main():
             "backward": t9,
             "backward_spmm_ms": t_bwd,
             "hybrid_remainder": hy["rest_timing"],
+            "bucketed": {f"F{F_}": v for F_, v in bk["timing"].items()},
         }, {
             "name": "sddmm_bat",
             "route": "cuda",
@@ -2829,6 +3152,8 @@ def main():
             "forward_ms": nr["forward_ms"], "train_step_ms": nr["train_step_ms"],
             "losses": nr["losses"],
             "busy_share": {f"{m}_{mode}": v for (m, mode), v in nr["busy"].items()}},
+        "bucketed": {k: bk[k] for k in ("forward_ms", "train_step_ms", "losses", "reduce_ms",
+                                        "build_s", "save_s", "load_s", "file_mb")},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

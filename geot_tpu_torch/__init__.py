@@ -23,13 +23,16 @@ for narrow features and hybrid stream+gather plans:
     layouts=("bat", "stream"): segment_spmm -> _spmm_fwd_hybrid
       -> stream_segment_sum / stream_segment_acc (CUDA, sm_90a) per stream
          family + the BAT path over the remainder
+    bucket_table_bytes=...: segment_spmm -> _spmm_fwd_bucketed
+      -> bucketed_sum (CUDA, sm_90a: the edge-row kernel over the bucketed
+         plan's row schedule)
 
 The backward of every fused SpMM runs the same kernels over the transpose
 plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA, sm_90a:
 a per-edge dot reading both rows itself) over BAT plans and the same
 kernel as `edge_dots` over slot plans, per head for GAT's attention.
 `models.train` holds the trainer and the checkpoints shared with the JAX
-package.
+package; `graph.cache` saves and loads built graphs with their schedules.
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain PyTorch version.

@@ -10,9 +10,10 @@ branch; the native builder gives equal arrays, `tests/test_native.py`),
 `_uniformize_bat_chunks` :560-598, `bat_plan_from_host` (with the packed
 kernel's k-major `dst_km`; the reference's always-None `mask_km` is left
 out),
-`build_bat_plan`, `packed_width` and `build_segment_plan` :622. Given the
-same dst-sorted edges and knobs, the host arrays and meta equal the JAX
-package's exactly.
+`build_bat_plan`, `packed_width`, `build_segment_plan` :622, and
+`BucketedBatPlan` / `build_bucketed_bat_plan` :655-835 (its numpy branch
+only). Given the same dst-sorted edges and knobs, the host arrays and
+meta equal the JAX package's exactly.
 
 Slot layout: tile t holds e_tile slots of consecutive dst-sorted edges
 whose dst all lie in window `out_block[t]`; a window's edges fill its
@@ -25,6 +26,12 @@ the tile reduces the ones whose dst lies in window `out_block[t]` (rows
 
 In both, tiles are ordered by window and every window has at least one
 tile (coverage), so a kernel can write every output row.
+
+Bucketed BAT: the edges re-sorted by (source bucket, dst), each bucket's
+padded to whole value blocks, and BAT tiles per bucket. The reference
+gathers each chunk from its bucket's row slice of x, which runs faster on
+a TPU; the card needs no slicing, and the port sums the plan whole over
+its row schedule, with a global source id per padded entry.
 
 Port-only: a slot plan (with e0) and every BAT plan carry the edge-row
 kernel's schedule (`row_sched`, `graph.row_schedule.RowSchedule`), made
@@ -55,6 +62,10 @@ __all__ = [
     "plan_from_host",
     "plan_tile_bounds",
     "BatPlan",
+    "BucketedBatPlan",
+    "build_bucketed_bat_plan",
+    "build_bucketed_bat_plan_host",
+    "bucketed_plan_from_host",
     "MAX_PREFETCH_TILES",
     "compute_chunks",
     "build_bat_plan_host",
@@ -597,8 +608,8 @@ def _new_schedule(plan, **knobs) -> RowSchedule:
 
 
 def row_schedule_of(plan) -> RowSchedule:
-    """The edge-row kernel's schedule of a slot plan (with e0) or a BAT
-    plan: the one made with the plan, or, for a plan without one or
+    """The edge-row kernel's schedule of a slot plan (with e0), a BAT
+    plan or a bucketed BAT plan: the one made with the plan, or, for a plan without one or
     whose tensors are not those it was made from (a chunk cut out of a
     plan), one made now from the plan's tensors and kept on the plan."""
     s = plan.row_sched
@@ -654,3 +665,205 @@ def build_segment_plan(
     port does not carry (`_k_major_host`)."""
     arrays, meta = build_segment_plan_host(dst, src, num_segments, **kwargs)
     return plan_from_host(arrays, meta, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedBatPlan:
+    """BAT tiles over a (source bucket, dst)-sorted edge list whose buckets
+    are each padded to whole value blocks (torch tensors on one device).
+    Static weights are baked in, in that order.
+
+    out_block: [T] int32 — output window of tile t, non-decreasing within
+      each bucket's tiles (and each chunk).
+    vblock:    [T] int32 — padded value block of tile t (n_vblocks: the
+      all -1 sentinel block that the chunks' pad tiles read).
+    dst3:      [n_vblocks + 1, 1, e_tile] int32 — dst ids, -1 padded.
+    src_local: [(n_vblocks + 1) * e_tile] int32 — each padded entry's
+      source id within its bucket (0 on pads).
+    src:       [(n_vblocks + 1) * e_tile] int32 — the global source id,
+      src_local + bucket * bucket_rows (port only: what the edge-row
+      kernel reads x by).
+    w_pad:     [(n_vblocks + 1) * e_tile] float32 or None — the weights
+      (0 on pads).
+    chunks:    ((t0, t1, w0, w1, row_off), ...) uniform tile ranges, each
+      inside one bucket (row_off = bucket * bucket_rows, its first x row),
+      spanning `chunk_blocks` windows; the reference runs them in order and
+      adds their partials, the port sums the plan whole.
+    row_sched: the edge-row kernel's schedule of the plan's live entries
+      (payload the padded entry id), each row's in bucket order.
+    """
+
+    out_block: torch.Tensor
+    vblock: torch.Tensor
+    dst3: torch.Tensor
+    src_local: torch.Tensor
+    src: torch.Tensor
+    w_pad: Optional[torch.Tensor]
+    e_tile: int
+    s_tile: int
+    num_segments: int
+    n_blocks: int
+    num_edges: int
+    n_vblocks: int
+    bucket_rows: int
+    chunks: tuple = ()
+    chunk_blocks: int = 0
+    row_sched: Optional[RowSchedule] = dataclasses.field(default=None, compare=False,
+                                                         repr=False)
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.out_block.shape[0])
+
+    @property
+    def padded_segments(self) -> int:
+        return self.n_blocks * self.s_tile
+
+    @property
+    def dst_km(self) -> None:
+        """Never packed: the schedule reads dst3, as an unpacked BatPlan's."""
+        return None
+
+
+def build_bucketed_bat_plan_host(
+    gather_idx: np.ndarray,
+    reduce_idx: np.ndarray,
+    num_segments: int,
+    num_gather_rows: int,
+    *,
+    edge_weight: Optional[np.ndarray] = None,
+    e_tile: int = 1024,
+    s_tile: int = 256,
+    bucket_rows: int = 128 * 1024,
+    max_chunk_tiles: int = 2048,
+):
+    """Host arrays + meta of a BucketedBatPlan. `reduce_idx` must be
+    sorted ascending (a dst-sorted edge list); the edges are re-sorted
+    stably by the bucket of `gather_idx` (so (bucket, reduce) order) and
+    `edge_weight` is baked in that order. Each bucket's tiles are the BAT
+    compaction of its edges, with coverage tiles for the empty windows
+    inside its own window span; every chunk is padded to the same tiles
+    and windows (pad tiles read the sentinel block)."""
+    gi = np.asarray(gather_idx, np.int64)
+    ri = np.asarray(reduce_idx, np.int64)
+    nnz = len(gi)
+    if nnz and int(ri.max()) >= num_segments:
+        raise ValueError("reduce_idx out of range")
+    bn = int(bucket_rows)
+    n_buckets = max(_cdiv(max(num_gather_rows, 1), bn), 1)
+    bucket = (gi // bn).astype(np.int32)
+    perm = np.argsort(bucket, kind="stable")
+    gi, ri, bucket = gi[perm], ri[perm], bucket[perm]
+    w = None if edge_weight is None else np.asarray(edge_weight, np.float32)[perm]
+
+    counts = np.bincount(bucket, minlength=n_buckets).astype(np.int64)
+    pad_counts = _cdiv(np.maximum(counts, 0), e_tile) * e_tile
+    pstart = np.zeros(n_buckets + 1, np.int64)
+    np.cumsum(pad_counts, out=pstart[1:])
+    estart = np.zeros(n_buckets + 1, np.int64)
+    np.cumsum(counts, out=estart[1:])
+    n_pad_rows = int(pstart[-1])
+    n_vblocks = max(n_pad_rows // e_tile, 1)
+
+    dst_pad = np.full(n_pad_rows + e_tile, -1, np.int32)  # + the sentinel block
+    src_pad = np.zeros(n_pad_rows + e_tile, np.int32)
+    src_glob = np.zeros(n_pad_rows + e_tile, np.int32)
+    w_pad = None if w is None else np.zeros(n_pad_rows + e_tile, np.float32)
+    obs, vbs, chunks = [], [], []
+    n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
+    for k in range(n_buckets):
+        e0, e1 = int(estart[k]), int(estart[k + 1])
+        if e0 == e1:
+            continue
+        p0 = int(pstart[k])
+        dst_pad[p0 : p0 + (e1 - e0)] = ri[e0:e1]
+        src_pad[p0 : p0 + (e1 - e0)] = (gi[e0:e1] - k * bn).astype(np.int32)
+        src_glob[p0 : int(pstart[k + 1])] = k * bn
+        src_glob[p0 : p0 + (e1 - e0)] = gi[e0:e1]
+        if w_pad is not None:
+            w_pad[p0 : p0 + (e1 - e0)] = w[e0:e1]
+        # the bucket's tiles: build_bat_plan_host's compaction
+        win = ri[e0:e1] // s_tile
+        blk = np.arange(e1 - e0, dtype=np.int64) // e_tile
+        nv = max(_cdiv(e1 - e0, e_tile), 1)
+        key = win * nv + blk
+        head = np.empty(e1 - e0, bool)
+        head[0] = True
+        np.not_equal(key[1:], key[:-1], out=head[1:])
+        uniq = key[head]
+        ob_k = (uniq // nv).astype(np.int32)
+        vb_k = (uniq % nv).astype(np.int32)
+        missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), ob_k)
+        if len(missing):
+            ob_k = np.concatenate([ob_k, missing])
+            vb_k = np.concatenate([vb_k, np.zeros(len(missing), np.int32)])
+            order = np.argsort(ob_k, kind="stable")
+            ob_k, vb_k = ob_k[order], vb_k[order]
+            vb_k = np.maximum.accumulate(vb_k).astype(np.int32)
+        # coverage tiles outside the bucket's own window span go; the gaps
+        # inside it stay
+        w_lo = int(ri[e0]) // s_tile
+        w_hi = int(ri[e1 - 1]) // s_tile
+        keep = (ob_k >= w_lo) & (ob_k <= w_hi)
+        ob_k, vb_k = ob_k[keep], vb_k[keep]
+        vb_k = vb_k + p0 // e_tile
+        base_t = sum(len(o) for o in obs)
+        for t0, t1, w0, w1 in (compute_chunks(ob_k, max_chunk_tiles)
+                               or ((0, len(ob_k), int(ob_k[0]), int(ob_k[-1]) + 1),)):
+            chunks.append((base_t + t0, base_t + t1, w0, w1, k * bn))
+        obs.append(ob_k)
+        vbs.append(vb_k)
+
+    ob = np.concatenate(obs) if obs else np.zeros(1, np.int32)
+    vb = np.concatenate(vbs) if vbs else np.zeros(1, np.int32)
+    if not obs:
+        chunks = [(0, 1, 0, 1, 0)]
+    T_max = max(t1 - t0 for t0, t1, _, _, _ in chunks)
+    W_max = max(w1 - w0 for _, _, w0, w1, _ in chunks)
+    n_c = len(chunks)
+    new_ob = np.zeros(n_c * T_max, np.int32)
+    new_vb = np.full(n_c * T_max, n_vblocks, np.int32)
+    new_chunks = []
+    for i, (t0, t1, w0, w1, roff) in enumerate(chunks):
+        nt = t1 - t0
+        base = i * T_max
+        new_ob[base : base + nt] = ob[t0:t1]
+        new_vb[base : base + nt] = vb[t0:t1]
+        pad_windows = list(range(w1, w0 + W_max))
+        pad_ob = (pad_windows + [w0 + W_max - 1] * T_max)[: T_max - nt]
+        new_ob[base + nt : base + T_max] = np.asarray(pad_ob, np.int32)
+        new_chunks.append((base, base + T_max, int(w0), int(w1), int(roff)))
+
+    arrays = dict(out_block=new_ob, vblock=new_vb, dst3=dst_pad.reshape(-1, 1, e_tile),
+                  src_local=src_pad, src=src_glob)
+    if w_pad is not None:
+        arrays["w_pad"] = w_pad
+    meta = dict(e_tile=int(e_tile), s_tile=int(s_tile), num_segments=int(num_segments),
+                n_blocks=int(n_blocks), num_edges=int(nnz), n_vblocks=int(n_vblocks),
+                bucket_rows=bn, chunks=tuple(new_chunks), chunk_blocks=int(W_max))
+    return arrays, meta
+
+
+def bucketed_plan_from_host(arrays: dict, meta: dict, device=None) -> BucketedBatPlan:
+    """The plan on `device`, with its edge-row schedule (made from the host
+    arrays: the -1 pads, the sentinel block and the pad windows past
+    n_blocks add no entry)."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    ob, vb = arrays["out_block"], arrays["vblock"]
+    _check_window_order(ob, vb, meta["n_vblocks"], meta["chunks"])
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    bp = BucketedBatPlan(out_block=t(ob), vblock=t(vb), dst3=t(arrays["dst3"]),
+                         src_local=t(arrays["src_local"]), src=t(arrays["src"]),
+                         w_pad=t(arrays.get("w_pad")), **meta)
+    return dataclasses.replace(bp, row_sched=_bat_schedule(bp, ob, vb, arrays["dst3"], dev))
+
+
+def build_bucketed_bat_plan(gather_idx, reduce_idx, num_segments: int, num_gather_rows: int,
+                            *, device=None, **kwargs) -> BucketedBatPlan:
+    """A BucketedBatPlan on `device` (see `build_bucketed_bat_plan_host`)."""
+    arrays, meta = build_bucketed_bat_plan_host(gather_idx, reduce_idx, num_segments,
+                                                num_gather_rows, **kwargs)
+    return bucketed_plan_from_host(arrays, meta, device=device)

@@ -1,7 +1,8 @@
-"""Graph format preprocessing: sorting, self-loops, degree, GCN norm.
+"""Graph format preprocessing: CSR/COO conversion, sorting, self-loops,
+degree, GCN norm.
 
-Port of `geot_tpu/graph/preprocess.py` (`sort_edges_by_dst`,
-`add_self_loops`, `degree`, `gcn_norm`) in torch. Inputs may be torch
+Port of `geot_tpu/graph/preprocess.py` (`coo_to_csr`, `csr_to_coo`,
+`sort_edges_by_dst`, `add_self_loops`, `degree`, `gcn_norm`) in torch. Inputs may be torch
 tensors or numpy arrays; outputs are torch tensors on the inputs' device.
 """
 
@@ -12,11 +13,30 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["sort_edges_by_dst", "add_self_loops", "degree", "gcn_norm"]
+__all__ = ["coo_to_csr", "csr_to_coo", "sort_edges_by_dst", "add_self_loops", "degree",
+           "gcn_norm"]
 
 
 def _t(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+
+
+def coo_to_csr(row, num_rows: int) -> torch.Tensor:
+    """Row indices (any order) -> CSR row pointer [num_rows + 1] int32: a
+    histogram and its exclusive cumsum. Rows outside [0, num_rows) are
+    dropped."""
+    row = _t(row).long()
+    row = row[(row >= 0) & (row < num_rows)]
+    hist = torch.bincount(row, minlength=num_rows)
+    return torch.cat([hist.new_zeros(1), torch.cumsum(hist, 0)]).to(torch.int32)
+
+
+def csr_to_coo(indptr, nnz: int) -> torch.Tensor:
+    """CSR row pointer -> the row of each of the nnz nonzeros [nnz] int32
+    (dst-sorted by construction): the pointer values <= e, less one."""
+    indptr = _t(indptr)
+    e = torch.arange(nnz, dtype=indptr.dtype, device=indptr.device)
+    return (torch.searchsorted(indptr, e, right=True) - 1).to(torch.int32)
 
 
 def sort_edges_by_dst(src, dst, *edge_attrs) -> Tuple[torch.Tensor, ...]:

@@ -2,12 +2,13 @@
 
 Port of `geot_tpu/graph/structures.py` (`Graph` :45-121, `_stable_sort_perm`
 :122-131, `_slot_weights_host` :115-119, `build_graph` :140-397, with
-`edge_pos_t` :233-236) for the
-layouts "slot", "bat" and "stream". The JAX builder asks its TPU tuning
-table for tiles, the slot plans' mode hint and the layout preference
-unless all tiles are given, and for a measured verdict on streaming; the
-port reads no table (ROADMAP A.14): it takes every tile and preference
-explicitly, and the cell census alone decides whether a graph streams.
+`edge_pos_t` :233-236 and the bucketed BAT plans `bat_b` / `bat_b_t`
+:79-82, :263-290) for the layouts "slot", "bat" and "stream". The JAX
+`build_graph` asks its TPU tuning table for tiles, the slot plans' mode
+hint and the layout preference unless all tiles are given, and for a measured
+verdict on streaming; the port has no tuning table yet: it takes every
+tile and preference explicitly, and the cell census alone decides whether
+a graph streams.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ import torch
 from geot_tpu_torch.graph.plan import (
     MAX_PREFETCH_TILES,
     BatPlan,
+    BucketedBatPlan,
     SegmentPlan,
     build_bat_plan,
+    build_bucketed_bat_plan,
     build_segment_plan_host,
     packed_width,
     plan_from_host,
@@ -70,6 +73,9 @@ class Graph:
       plan_t (perm_t[plan_t.edge_pos]; pads hold perm_t[0]), so per-call
       weights reach plan_t's slots in one gather; None without the "slot"
       layout.
+    bat_b / bat_b_t: bucketed BAT plans (forward, transpose; the graph's
+      static weights baked in), both set or both None; the fused SpMM's
+      route for the graph's own or no weights where they exist.
     prefer / prefer_dyn: layout preference for graph-weight or unweighted
       SpMM / per-call weights: "bat" or "sr" (the slot layout).
     build_stats: what `build_graph` decided and how long its host steps
@@ -77,8 +83,8 @@ class Graph:
       "stream" ({"forward", "transpose"}: each direction's census
       statistics and remainder edges), "seconds" (per step) and
       "row_schedule" (per plan with an edge-row schedule, the hybrid
-      remainders' too: its host seconds, inside the plan's step, and its
-      bytes). For logging only.
+      remainders' and the bucketed plans' too: its host seconds, inside
+      the plan's step, and its bytes). For logging only.
     """
 
     src: torch.Tensor
@@ -97,6 +103,8 @@ class Graph:
     w_slots: Optional[torch.Tensor] = None
     w_slots_t: Optional[torch.Tensor] = None
     edge_pos_t: Optional[torch.Tensor] = None
+    bat_b: Optional[BucketedBatPlan] = None
+    bat_b_t: Optional[BucketedBatPlan] = None
     prefer: str = "bat"
     prefer_dyn: str = "bat"
     build_stats: dict = dataclasses.field(default_factory=dict, compare=False)
@@ -184,6 +192,8 @@ def build_graph(
     prefer_dyn: str = "bat",
     mode_hint: str = "auto",
     max_chunk_slots: int = 4 << 20,
+    bucket_table_bytes: Optional[int] = None,
+    bucket_rows: int = 128 * 1024,
     device=None,
 ) -> Graph:
     """Host-side preprocessing: sort by dst, build the forward + transpose
@@ -226,11 +236,21 @@ def build_graph(
     remainder's BAT plan stays unpacked: the hybrid path is built only
     past 64 features, as in the reference.
 
+    With "bat" in layouts, `feature_hint` > 64 and a node table of
+    num_nodes * feature_hint * 4 bytes past `bucket_table_bytes`, the
+    bucketed BAT plans `bat_b` and `bat_b_t` are built too (sources in
+    buckets of `bucket_rows` rows; the reference's gate, whose threshold
+    comes from GEOT_BUCKET_TABLE_BYTES and defaults to 2**62, that is off).
+    None, the default, builds none. `bucket_rows` (128 Ki rows) is the
+    reference's TPU pick for its row-sliced gather, not measured on the
+    H100: the card's sum reads x[src[e]] by global ids and needs no
+    slicing, so the buckets only order each row's terms.
+
     Every slot plan and every BAT plan (the hybrid remainder's too)
     carries the edge-row kernel's schedule (`plan.row_sched`, made from the
     plan's own host arrays); `build_stats["row_schedule"]` holds each
     one's host seconds and bytes on the device, under "plan", "plan_t",
-    "bat", "bat_t", "hyb.rest" and "hyb_t.rest".
+    "bat", "bat_t", "bat_b", "bat_b_t", "hyb.rest" and "hyb_t.rest".
     """
     layouts = tuple(layouts)
     if layouts not in LAYOUTS:
@@ -289,6 +309,17 @@ def build_graph(
         bat = build_bat_plan(dst, num_nodes, device=dev, km_pack=km_pack, **bat_kw)
         bat_t = build_bat_plan(src_t, num_nodes, device=dev, km_pack=km_pack, **bat_kw)
         secs["bat_plans"] = time.perf_counter() - t0
+    bat_b = bat_b_t = None
+    table_bytes = num_nodes * max(feature_hint or 0, 1) * 4
+    if ("bat" in layouts and nw == 0 and bucket_table_bytes is not None
+            and table_bytes > bucket_table_bytes):
+        t0 = time.perf_counter()
+        kw = dict(bat_kw, bucket_rows=bucket_rows, device=dev)
+        bat_b = build_bucketed_bat_plan(src, dst, num_nodes, num_nodes, edge_weight=edge_weight,
+                                        **kw)
+        bat_b_t = build_bucketed_bat_plan(dst[perm_t], src_t, num_nodes, num_nodes,
+                                          edge_weight=w_t, **kw)
+        secs["bucketed_plans"] = time.perf_counter() - t0
     hyb = hyb_t = None
     if "stream" in layouts and nw == 0 and len(src):
         kw = dict(feature_hint=feature_hint, bat_kw=bat_kw, knobs=stream_knobs, dev=dev)
@@ -305,7 +336,8 @@ def build_graph(
              if h is not None]
     stats["row_schedule"] = {
         name: {"seconds": p.row_sched.seconds, "bytes": p.row_sched.nbytes}
-        for name, p in [("plan", plan), ("plan_t", plan_t), ("bat", bat), ("bat_t", bat_t)]
+        for name, p in [("plan", plan), ("plan_t", plan_t), ("bat", bat), ("bat_t", bat_t),
+                        ("bat_b", bat_b), ("bat_b_t", bat_b_t)]
         + rests if p is not None and p.row_sched is not None}
     return Graph(
         src=t(src),
@@ -324,6 +356,8 @@ def build_graph(
         w_slots=w_slots,
         w_slots_t=w_slots_t,
         edge_pos_t=edge_pos_t,
+        bat_b=bat_b,
+        bat_b_t=bat_b_t,
         # slot preferences degrade to "bat" when no slot plan was built
         prefer=prefer if plan is not None else "bat",
         prefer_dyn=prefer_dyn if plan is not None else "bat",

@@ -45,6 +45,8 @@ def prepare_graph(
     prefer_dyn: str = "bat",
     mode_hint: str = "auto",
     max_chunk_slots: int = 4 << 20,
+    bucket_table_bytes: Optional[int] = None,
+    bucket_rows: int = 128 * 1024,
     device=None,
 ) -> Graph:
     """One-time host-side adjacency prep: optionally add self-loops (PyG
@@ -54,7 +56,8 @@ def prepare_graph(
     (`normalize='gcn'`), dst-sort and build the plans of `layouts` (the
     reference's default: BAT and slot).
 
-    Tiles, `prefer`, `prefer_dyn` and `mode_hint` are explicit (see
+    Tiles, `prefer`, `prefer_dyn`, `mode_hint` and the bucketed BAT knobs
+    (`bucket_table_bytes`, `bucket_rows`) are explicit (see
     `build_graph`). `layouts=("bat", "stream")` adds the hybrid plans
     where the cell census accepts them. With `normalize='gcn'` and a slot
     layout the norm lives in the graph's slot weights, and
@@ -99,7 +102,7 @@ def prepare_graph(
         bat_s_tile=bat_s_tile, feature_hint=feature_hint, layouts=layouts,
         max_chunk_bytes=max_chunk_bytes, stream_knobs=stream_knobs, prefer=prefer,
         prefer_dyn=prefer_dyn, mode_hint=mode_hint, max_chunk_slots=max_chunk_slots,
-        device=device,
+        bucket_table_bytes=bucket_table_bytes, bucket_rows=bucket_rows, device=device,
     )
 
 

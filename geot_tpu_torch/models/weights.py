@@ -15,10 +15,17 @@ module of the reference, the port's state-dict keys are:
     GINConv_{i}/eps (train_eps)              convs.{i}.eps
     SGConv_{i}/Dense_0/{kernel, bias}        convs.{i}.dense.{weight, bias}
     Dense_{i}/{kernel, bias} (APPNP's MLP)   lins.{i}.{weight, bias}
+    Dense_0/{kernel, bias} (BasicGNN's jk head)
+                                             head.{weight, bias}
+    LayerNorm_{i}/{scale, bias}              norms.{i}.{weight, bias}
+    BatchNorm_{i}/{scale, bias}              norms.{i}.{weight, bias}
+    batch_stats BatchNorm_{i}/{mean, var}    norms.{i}.{running_mean, running_var}
 
 APPNP's `APPNPConv_0` has no parameters (flax leaves it out of the tree).
-A port layer with attention vectors is a GATConv, else a `lin` layer is a
-GCNConv. `params_from_flax` and `params_to_flax` are inverses.
+A top-level `Dense_0` is BasicGNN's jk head where the tree holds conv
+layers, else APPNP's MLP. A port layer with attention vectors is a
+GATConv, else a `lin` layer is a GCNConv; a norm with running averages is
+a BatchNorm. `params_from_flax` and `params_to_flax` are inverses.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ import torch
 
 __all__ = ["params_from_flax", "params_to_flax"]
 
-_MODULE = re.compile(r"^(GCNConv|SAGEConv|GATConv|GINConv|SGConv|Dense|APPNPConv)_(\d+)$")
+_MODULE = re.compile(r"^(GCNConv|SAGEConv|GATConv|GINConv|SGConv|Dense|APPNPConv|LayerNorm"
+                     r"|BatchNorm)_(\d+)$")
+_CONVS = ("GCNConv", "SAGEConv", "GATConv", "GINConv", "SGConv")
 _DENSE = re.compile(r"^Dense_(\d+)$")
 _KB = {"kernel", "bias"}
 
@@ -58,11 +67,14 @@ def _check_keys(name: str, layer: Mapping, allowed, required=()) -> None:
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the port's model from the flax params of the same
+    """State dict for the port's model from the flax variables of the same
     model in the reference, given as nested dicts of numpy arrays (with or
-    without the outer "params" key)."""
+    without the outer "params" key; BatchNorm's running averages under
+    "batch_stats")."""
     tree = params.get("params", params)
+    stats = params.get("batch_stats", {}) if "params" in params else {}
     state: Dict[str, torch.Tensor] = {}
+    has_convs = any(_MODULE.match(k) and _MODULE.match(k).group(1) in _CONVS for k in tree)
     for name, layer in tree.items():
         m = _MODULE.match(name)
         if m is None:
@@ -103,21 +115,47 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         elif kind == "SGConv":
             _check_keys(name, layer, {"Dense_0"}, ("Dense_0",))
             state.update(_dense_leaves(f"{name}/Dense_0", layer["Dense_0"], f"{c}.dense"))
+        elif kind == "Dense" and has_convs:  # BasicGNN's jk head
+            state.update(_dense_leaves(name, layer, "head", required=_KB))
         elif kind == "Dense":  # APPNP's MLP: every Dense has its bias
             state.update(_dense_leaves(name, layer, f"lins.{i}", required=_KB))
+        elif kind in ("LayerNorm", "BatchNorm"):
+            _check_keys(name, layer, {"scale", "bias"}, ("scale", "bias"))
+            state[f"norms.{i}.weight"] = _t(layer["scale"])
+            state[f"norms.{i}.bias"] = _t(layer["bias"])
+            if kind == "BatchNorm":
+                bs = stats.get(name)
+                if bs is None:
+                    raise ValueError(f"{name!r} has no batch_stats (pass the whole variables)")
+                _check_keys(f"batch_stats/{name}", bs, {"mean", "var"}, ("mean", "var"))
+                state[f"norms.{i}.running_mean"] = _t(bs["mean"])
+                state[f"norms.{i}.running_var"] = _t(bs["var"])
         elif layer:  # APPNPConv
             raise ValueError(f"{name!r} has no parameters, got {sorted(layer)}")
     return state
 
 
 # the port's key -> (flax path, leaf is a transposed kernel); GCN or GAT
-# `lin` layers are told apart by their attention vectors
+# `lin` layers are told apart by their attention vectors, Layer and
+# BatchNorms by their running averages
 _KEY = re.compile(r"^(?:convs\.(\d+)\.(lin\.weight|bias|att_src|att_dst|lin_l\.weight"
                   r"|lin_l\.bias|lin_r\.weight|eps|dense\.weight|dense\.bias"
-                  r"|mlp\.lins\.(\d+)\.(?:weight|bias))|lins\.(\d+)\.(weight|bias))$")
+                  r"|mlp\.lins\.(\d+)\.(?:weight|bias))|lins\.(\d+)\.(weight|bias)"
+                  r"|norms\.(\d+)\.(weight|bias|running_mean|running_var)"
+                  r"|head\.(weight|bias))$")
+_NORM_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 
 
-def _flax_path(key: str, m: re.Match, gat: set) -> Tuple[Tuple[str, ...], bool]:
+def _flax_path(key: str, m: re.Match, gat: set, bn: set) -> Tuple[Tuple[str, ...], bool]:
+    if m.group(8) is not None:  # BasicGNN's jk head
+        leaf = m.group(8)
+        return ("Dense_0", "kernel" if leaf == "weight" else "bias"), leaf == "weight"
+    if m.group(6) is not None:  # norms.{i}
+        i, leaf = int(m.group(6)), m.group(7)
+        layer = f"{'BatchNorm' if i in bn else 'LayerNorm'}_{i}"
+        if leaf.startswith("running_"):
+            return ("batch_stats", layer, _NORM_LEAF[leaf]), False
+        return (layer, _NORM_LEAF[leaf]), False
     if m.group(4) is not None:  # APPNP's lins.{i}
         leaf = m.group(5)
         return (f"Dense_{m.group(4)}", "kernel" if leaf == "weight" else "bias"), \
@@ -139,8 +177,9 @@ def _flax_path(key: str, m: re.Match, gat: set) -> Tuple[Tuple[str, ...], bool]:
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """The flax params tree {"params": {...}} of float32 numpy arrays of
-    the reference's model, from the port's state dict of the same model."""
+    """The flax variables {"params": {...}} (and "batch_stats" where the
+    model has BatchNorms) of float32 numpy arrays of the reference's
+    model, from the port's state dict of the same model."""
     matches = []
     for key in state:
         m = _KEY.match(key)
@@ -150,12 +189,17 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
         matches.append(m)
     gat = {int(m.group(1)) for m in matches
            if m.group(2) is not None and m.group(2).startswith("att_")}
+    bn = {int(m.group(6)) for m in matches
+          if m.group(7) is not None and m.group(7).startswith("running_")}
     tree: Dict[str, Dict] = {}
+    stats: Dict[str, Dict] = {}
     for (key, value), m in zip(state.items(), matches):
-        path, kernel = _flax_path(key, m, gat)
-        arr = value.detach().cpu().numpy().astype(np.float32)
+        path, kernel = _flax_path(key, m, gat, bn)
         node = tree
+        if path[0] == "batch_stats":
+            node, path = stats, path[1:]
+        arr = value.detach().cpu().numpy().astype(np.float32)
         for step in path[:-1]:
             node = node.setdefault(step, {})
         node[path[-1]] = np.ascontiguousarray(arr.T) if kernel else arr.copy()
-    return {"params": tree}
+    return {"params": tree, "batch_stats": stats} if stats else {"params": tree}

@@ -9,13 +9,16 @@ Port of `geot_tpu/ops/api.py` (`_pick_mode` :71, `_chunk_plan` :107,
 :698 (its AEB branches), `_spmm_fwd_bat` :750, `_stream_accum` :778,
 `_stream_sum` :825, `_spmm_fwd_hybrid` :845, `_make_spmm_hybrid` :855,
 `_make_gs_bat` :875, `_make_gws_bat` :900, `_mh_fwd` :944,
+`_bucketed_sum` :530 and `_make_spmm_bucketed` :619 (the bucketed route),
 `segment_counts` :981, `_make_gws` :1028, `_make_mh` :1062, `_make_iscat`
 :1092 (BatPlan and AEB branches), `_apply_reduce_post` :1159,
 `index_scatter` :1170, `gather_scatter` :1217, `gather_weight_scatter`
-:1256, `dispatch_path` :1298, `segment_spmm` :1367, `mh_spmm` :1486,
+:1256, `dispatch_path` :1298, `segment_spmm` :1367, `csr_gws` :1449,
+`mh_spmm` :1486,
 `mh_spmm_transposed` :1510, `gat_attention_spmm` :1562 (its fused route,
 `_make_mh_slot` :1523, is the composed one here), `segment_softmax` :1650, `_sddmm_bat_fwd` :1678, `sddmm_coo`
-:1704), the slot_static, slot, slot_dyn, BAT and hybrid routes. The BAT
+:1704), the slot_static, slot, slot_dyn, BAT, bucketed and hybrid routes,
+and the plain route of max, min and prod (`ops.reference`). The BAT
 routes at every width (the hybrid remainder's too), the slot routes at
 every width (sr, sr_packed, and pr where a plan's mode hint asks for it),
 slot_dyn, the multi-head SpMM and both GAT routes hand their sums x and
@@ -44,11 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from geot_tpu_torch.graph.plan import BatPlan, SegmentPlan, packed_width
+from geot_tpu_torch.graph.plan import BatPlan, BucketedBatPlan, SegmentPlan, packed_width
 from geot_tpu_torch.graph.stream_plan import HybridPlan
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.ops import reference as ref
-from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
+from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed, bucketed_sum
 from geot_tpu_torch.ops.sddmm_kernels import edge_dots, sddmm_bat
 from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_mh,
@@ -67,6 +70,7 @@ __all__ = [
     "gather_scatter",
     "gather_weight_scatter",
     "index_scatter",
+    "csr_gws",
     "sddmm_coo",
     "mh_spmm",
     "mh_spmm_transposed",
@@ -368,6 +372,34 @@ class _SpmmHybrid(torch.autograd.Function):
         return dx, None, None
 
 
+def _spmm_fwd_bucketed(bb: BucketedBatPlan, x: torch.Tensor) -> torch.Tensor:
+    """sum_e w_e * x[src_e] by dst over a bucketed BAT plan (weights baked
+    in) through `bucketed_sum`: the edge-row kernel over the whole plan,
+    reading x[src[e]] by global ids, where the reference runs chunk by
+    chunk over each bucket's row slice of x. Returns [num_segments, n]
+    float32."""
+    return bucketed_sum(bb, x.float().contiguous())
+
+
+class _SpmmBucketed(torch.autograd.Function):
+    """Fused SpMM over the bucketed BAT plans, the graph's own (baked) or
+    no weights (`_make_spmm_bucketed`); backward = the same sum over
+    `bat_b_t`, no weight gradient."""
+
+    @staticmethod
+    def forward(ctx, x, bb, bb_t):
+        ctx.bb_t = bb_t
+        return _spmm_fwd_bucketed(bb, x).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _spmm_fwd_bucketed(ctx.bb_t, g).to(g.dtype)
+        return dx, None, None
+
+
 class _GatherWeightScatterBat(torch.autograd.Function):
     """Weighted fused SpMM over the BAT plan (`_make_gws_bat`).
 
@@ -533,15 +565,17 @@ def dispatch_path(
 ) -> str:
     """Which implementation `segment_spmm` runs for this (graph, call):
     'hybrid' (stream families + BAT remainder, the graph's own or no
-    weights; first whenever the graph has hybrid plans), 'bat_static'
-    (graph's own weights over BAT), 'slot_static' (graph's own weights in
-    slot order), 'bat' / 'slot' (unweighted), 'bat_dyn' (per-call
-    weights) or 'xla' (the plain reference; the name is the reference's).
+    weights; first whenever the graph has hybrid plans), 'bucketed'
+    (bucketed BAT plans, the graph's own or no weights, next where the
+    graph has them), 'bat_static' (graph's own weights over BAT),
+    'slot_static' (graph's own weights in slot order), 'bat' / 'slot'
+    (unweighted), 'bat_dyn' (per-call weights) or 'xla' (the plain
+    reference, and every max, min and prod; the name is the reference's).
     The graph's `prefer` (graph or no weights) and `prefer_dyn` (per-call
     weights) choose between BAT and slot where both exist. 'slot_dyn'
     (per-call weights over the slot plans, `gather_weight_scatter`'s route
-    there) is taken as the reference takes it; the reference's bucketed
-    route is not ported (ROADMAP A.6)."""
+    there) is taken as the reference takes it. Per-call weights never take
+    the bucketed route."""
     _check_backend(backend)
     in_sum = reduce in ("sum", "mean")
     if backend == "reference" or not in_sum:
@@ -552,6 +586,8 @@ def dispatch_path(
     use_bat = graph.bat is not None
     if not (have_slot or use_bat):
         raise NotImplementedError("graph has neither slot nor BAT plans")
+    if not dynamic_w and graph.bat_b is not None:
+        return "bucketed"
     if not dynamic_w and graph.edge_weight is not None and use_bat and (
         graph.prefer == "bat" or graph.w_slots is None
     ):
@@ -578,7 +614,8 @@ def segment_spmm(
     `edge_weight` (per call, dst-sorted edge order) overrides the graph's
     static weights. Differentiable in `x` and in a per-call
     `edge_weight`: the backward runs the transpose plan, and dw the SDDMM
-    kernel (over BAT) or the plain per-edge dot (over slot plans)."""
+    kernel (over BAT) or the plain per-edge dot (over slot plans). reduce
+    max, min and prod take the plain route (`dispatch_path` 'xla')."""
     w = edge_weight if edge_weight is not None else graph.edge_weight
     path = dispatch_path(graph, dynamic_w=edge_weight is not None,
                          reduce=reduce, backend=backend)
@@ -590,6 +627,8 @@ def segment_spmm(
         )
     if path == "hybrid":
         out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
+    elif path == "bucketed":
+        out = _SpmmBucketed.apply(x, graph.bat_b, graph.bat_b_t)
     elif path == "slot_static":
         out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
                               graph.w_slots, graph.w_slots_t)
@@ -716,6 +755,36 @@ def gather_weight_scatter(
     return ref.gather_weight_scatter_ref(
         src_index, dst_index, weight, src, num_segments, reduce
     )
+
+
+def csr_gws(
+    csrptr: torch.Tensor,
+    col: torch.Tensor,
+    weight: torch.Tensor,
+    src: torch.Tensor,
+    *,
+    num_rows: Optional[int] = None,
+    graph: Optional[Graph] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """CSR SpMM out[r] = sum over row r's nonzeros e of weight[e] *
+    src[col[e]]. With a prebuilt `graph` (built from this matrix: its
+    plans are the schedule) it is `gather_weight_scatter` over the graph's
+    plans, and a matrix whose nnz differs from the graph's edges, or whose
+    rows exceed its nodes, is refused; otherwise the rows come from the
+    row pointer and `csr_spmm_ref` runs."""
+    _check_backend(backend)
+    if num_rows is None:
+        num_rows = int(csrptr.shape[0]) - 1
+    if graph is not None and backend == "auto":
+        if int(col.shape[0]) != graph.num_edges or num_rows > graph.num_nodes:
+            raise ValueError(
+                f"csr_gws(graph=...): csr has nnz={int(col.shape[0])}, rows={num_rows} but "
+                f"the graph's plan covers nnz={graph.num_edges}, nodes={graph.num_nodes}: "
+                "pass the graph the matrix was built from")
+        return gather_weight_scatter(col, graph.dst, weight, src, num_rows, graph=graph,
+                                     backend=backend)
+    return ref.csr_spmm_ref(csrptr, col, weight, src)
 
 
 def sddmm_coo(

@@ -13,6 +13,13 @@ x[src[e]] in the kernel, and sums a plan whole, chunked or not, in one
 launch. For a tensor on the CPU a wrapper runs its plain version
 (`bat_segment_sum_plain`, `ops.reference.bat_segment_sum_packed_plain`);
 for a CUDA tensor it launches the kernel or raises.
+
+`bucketed_sum` is the same kernel over a `BucketedBatPlan` (the
+reference's `_bucketed_sum`, `geot_tpu/ops/api.py:530-616`, which calls
+`bat_segment_sum` chunk by chunk over each source bucket's row slice of
+x): one launch a plan, reading x[src[e]] by the plan's global source ids
+and its baked weights, counted under `bat_segment_sum.launches`. Its plain
+version, `bucketed_sum_plain`, follows the reference's chunk order.
 """
 
 from __future__ import annotations
@@ -21,11 +28,12 @@ from typing import Optional
 
 import torch
 
-from geot_tpu_torch.graph.plan import BatPlan, row_schedule_of
+from geot_tpu_torch.graph.plan import BatPlan, BucketedBatPlan, row_schedule_of
 from geot_tpu_torch.ops.edge_row_kernels import edge_row_sum
 from geot_tpu_torch.ops.reference import bat_segment_sum_packed_plain, bat_tiles_plain
 
-__all__ = ["bat_segment_sum", "bat_segment_sum_plain", "bat_segment_sum_packed"]
+__all__ = ["bat_segment_sum", "bat_segment_sum_plain", "bat_segment_sum_packed",
+           "bucketed_sum", "bucketed_sum_plain"]
 
 
 def bat_segment_sum_plain(
@@ -126,3 +134,64 @@ def bat_segment_sum_packed(
 
 
 bat_segment_sum_packed.launches = 0
+
+
+def bucketed_sum_plain(bp: BucketedBatPlan, x: torch.Tensor) -> torch.Tensor:
+    """Plain-torch sum over a bucketed BAT plan in the reference's order:
+    chunk by chunk, each chunk's tiles summed into its `chunk_blocks`
+    windows in float32 with `index_add_` (edge e of value block vblock[t]
+    adds w_pad[e] * x[src[e]] into its dst row where that lies in window
+    out_block[t]), the windows past the chunk's own masked, and the
+    partial added into the running sum. x [rows, F]; rows past its end read
+    as zero. Returns [num_segments, F] float32."""
+    E, s, W = bp.e_tile, bp.s_tile, max(bp.chunk_blocks, 1)
+    dev = x.device
+    dst = bp.dst3.reshape(-1).to(dev).long()
+    src = bp.src.to(dev).long()
+    w = None if bp.w_pad is None else bp.w_pad.to(dev).float()
+    ob_all, vb_all = bp.out_block.to(dev).long(), bp.vblock.to(dev).long()
+    out = torch.zeros((bp.n_blocks + W) * s, x.shape[1], dtype=torch.float32, device=dev)
+    xf = x.float()
+    chunks = bp.chunks or ((0, bp.num_tiles, 0, bp.n_blocks, 0),)
+    for t0, t1, w0, w1, _ in chunks:
+        ob, vb = ob_all[t0:t1], vb_all[t0:t1]
+        edges = vb[:, None] * E + torch.arange(E, device=dev)
+        d = dst[edges]
+        local = d - ob[:, None] * s
+        keep = (d >= 0) & (local >= 0) & (local < s)
+        e_idx = edges[keep]
+        rows = (ob[:, None] * s + local)[keep] - w0 * s
+        v = torch.zeros(e_idx.shape[0], x.shape[1], dtype=torch.float32, device=dev)
+        inside = src[e_idx] < x.shape[0]
+        v[inside] = xf.index_select(0, src[e_idx][inside])
+        if w is not None:
+            v = v * w[e_idx][:, None]
+        part = torch.zeros(W * s, x.shape[1], dtype=torch.float32, device=dev)
+        part.index_add_(0, rows, v)
+        part[(w1 - w0) * s:] = 0.0
+        out[w0 * s : (w0 + W) * s] += part
+    return out[: bp.num_segments]
+
+
+def bucketed_sum(bp: BucketedBatPlan, x: torch.Tensor) -> torch.Tensor:
+    """Segment sum over a bucketed BAT plan: out[d] = sum of w_pad[e] *
+    x[src[e]] over the plan's live entries e with dst d (1 where the plan
+    has no weights). x [rows, F] float32. Returns [num_segments, F]
+    float32.
+
+    CPU tensors run `bucketed_sum_plain`; CUDA tensors launch the
+    edge-row kernel over the plan's `row_sched` (the whole plan, each
+    row's entries in bucket order, a fixed order with no atomics) and add
+    one to `bat_segment_sum.launches`."""
+    dev = x.device
+    if dev.type == "cpu":
+        return bucketed_sum_plain(bp, x)
+    if dev.type != "cuda":
+        raise ValueError(f"bucketed_sum: unsupported device {dev}")
+    if tuple(bp.dst3.shape) != (bp.n_vblocks + 1, 1, bp.e_tile):
+        raise ValueError(f"bucketed_sum: dst3 shape {tuple(bp.dst3.shape)} does not match "
+                         "the plan")
+    out = edge_row_sum(row_schedule_of(bp), x, what="bucketed_sum", src=bp.src,
+                       w_edge=bp.w_pad)
+    bat_segment_sum.launches += 1
+    return out[: bp.num_segments]

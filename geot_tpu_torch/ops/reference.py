@@ -1,10 +1,18 @@
 """Plain-torch oracles for the fused gather(-weight)-scatter ops, and the
 plain versions of the slot-layout kernels.
 
-Port of `geot_tpu/ops/reference.py:37-127` (`segment_reduce_ref` for sum
-and mean, `gather_scatter_ref`, `gather_weight_scatter_ref`,
-`mh_spmm_ref`, `sddmm_coo_ref`), and a plain `segment_softmax_ref`. They
+Port of `geot_tpu/ops/reference.py:37-143` (`segment_reduce_ref`,
+`gather_scatter_ref`, `gather_weight_scatter_ref`, `mh_spmm_ref`,
+`sddmm_coo_ref`, `csr_spmm_ref`), and a plain `segment_softmax_ref`. They
 share no code with the tiled path, so tests hold that path against them.
+
+max, min and prod run `torch.segment_reduce` over the dst-sorted runs
+(indices sorted stably first where they are not): a fixed order with no
+atomics, so reruns on the card are bit-identical, where `scatter_reduce_`
+would multiply a prod in any order. An empty segment gives 0 for max and
+min and 1 for prod, as the reference (`jax.ops.segment_prod`'s identity).
+Their gathers add each row's gradient in the same fixed order
+(`_GatherRuns`), so a gradient reruns bit-identical too.
 
 `plan_segment_sum_sr_plain`, `plan_segment_sum_sr_packed_plain`,
 `plan_segment_sum_pr_plain`, `plan_segment_sum_sr2_plain`,
@@ -27,6 +35,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from geot_tpu_torch.graph.preprocess import csr_to_coo
+
 __all__ = [
     "segment_reduce_ref",
     "gather_scatter_ref",
@@ -34,6 +44,7 @@ __all__ = [
     "mh_spmm_ref",
     "sddmm_coo_ref",
     "segment_softmax_ref",
+    "csr_spmm_ref",
     "plan_segment_sum_sr_plain",
     "plan_segment_sum_sr_packed_plain",
     "plan_segment_sum_pr_plain",
@@ -44,22 +55,65 @@ __all__ = [
     "bat_segment_sum_packed_plain",
 ]
 
-VALID_REDUCE = ("sum", "mean")
+VALID_REDUCE = ("sum", "mean", "max", "min", "prod")
 REF_CHUNK_BYTES = 1 << 30
+
+
+def _check_reduce(reduce: str) -> None:
+    if reduce not in VALID_REDUCE:
+        raise ValueError(f"reduce={reduce!r}: one of {VALID_REDUCE}")
+
+
+def _runs_reduce(vals: torch.Tensor, idx: torch.Tensor, num_segments: int,
+                 reduce: str) -> torch.Tensor:
+    """max / min / prod of `vals` by in-range int64 `idx` through
+    `torch.segment_reduce` over the runs of the stably sorted index; empty
+    segments 0 (max, min) or 1 (prod)."""
+    if idx.shape[0] > 1 and not bool((idx[1:] >= idx[:-1]).all()):
+        order = torch.sort(idx, stable=True).indices
+        idx, vals = idx[order], vals[order]
+    lengths = torch.bincount(idx, minlength=num_segments)
+    out = torch.segment_reduce(vals, reduce, lengths=lengths, axis=0)
+    if reduce == "prod":
+        return out
+    empty = (lengths == 0).reshape((-1,) + (1,) * (vals.dim() - 1))
+    return torch.where(empty, torch.zeros_like(out), out)
+
+
+class _GatherRuns(torch.autograd.Function):
+    """rows[idx] along axis 0, whose backward sums each row's gradients
+    over the stably sorted runs of idx with `torch.segment_reduce`: a fixed
+    order, where index_select's backward adds them with atomics on the
+    card."""
+
+    @staticmethod
+    def forward(ctx, rows, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = rows.shape[0]
+        return rows.index_select(0, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        order = torch.sort(idx, stable=True).indices
+        lengths = torch.bincount(idx, minlength=ctx.n_rows)
+        return torch.segment_reduce(g.index_select(0, order), "sum", lengths=lengths, axis=0,
+                                    initial=0.0), None
 
 
 def segment_reduce_ref(
     src: torch.Tensor, index: torch.Tensor, num_segments: int, reduce: str = "sum"
 ) -> torch.Tensor:
-    """out[index[i]] += src[i] along axis 0 (sum or mean). Indices outside
-    [0, num_segments) are dropped."""
-    if reduce not in VALID_REDUCE:
-        raise NotImplementedError(
-            f"reduce={reduce!r}: only sum and mean are ported (ROADMAP A.7)"
-        )
+    """out[index[i]] (+)= src[i] along axis 0, reduce one of VALID_REDUCE,
+    the index in any order. Indices outside [0, num_segments) are
+    dropped."""
+    _check_reduce(reduce)
     index = index.long()
     keep = (index >= 0) & (index < num_segments)
     idx, vals = index[keep], src[keep]
+    if reduce in ("max", "min", "prod"):
+        return _runs_reduce(vals, idx, num_segments, reduce)
     out = torch.zeros((num_segments,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     out.index_add_(0, idx, vals)
@@ -126,11 +180,14 @@ class _GatherScatterRef(torch.autograd.Function):
 
 def _gather_scatter_chunked(src_index, dst_index, weight, src, num_segments, reduce):
     """The fused gather(-weight)-scatter over edge chunks, then the mean's
-    division."""
-    if reduce not in VALID_REDUCE:
-        raise NotImplementedError(
-            f"reduce={reduce!r}: only sum and mean are ported (ROADMAP A.7)"
-        )
+    division; max, min and prod gather every edge's row and reduce them by
+    `segment_reduce_ref`, as the reference does."""
+    _check_reduce(reduce)
+    if reduce in ("max", "min", "prod"):
+        vals = _GatherRuns.apply(src, src_index.long())
+        if weight is not None:
+            vals = vals * weight.to(src.dtype).reshape((-1,) + (1,) * (src.dim() - 1))
+        return segment_reduce_ref(vals, dst_index, num_segments, reduce)
     shape = src.shape
     out = _GatherScatterRef.apply(src.reshape(shape[0], -1), weight, src_index,
                                   dst_index, num_segments)
@@ -206,6 +263,14 @@ def sddmm_coo_ref(
     """Per-edge dot product: out[e] = <a[dst[e]], b[src[e]]> (the weight
     gradient of gather_weight_scatter)."""
     return (a[dst_index.long()] * b[src_index.long()]).sum(dim=-1)
+
+
+def csr_spmm_ref(indptr: torch.Tensor, col: torch.Tensor, weight: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+    """CSR SpMM (`csr_gws` semantics): out[r] = sum over the nonzeros e of
+    row r (from the row pointer) of weight[e] * src[col[e]]."""
+    row = csr_to_coo(indptr, col.shape[0])
+    return gather_weight_scatter_ref(col, row, weight, src, int(indptr.shape[0]) - 1)
 
 
 def plan_segment_sum_sr_plain(plan, vals: torch.Tensor, w_slots: torch.Tensor, *,

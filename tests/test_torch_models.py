@@ -131,10 +131,13 @@ def test_params_from_flax_layout():
 
 
 def test_model_options_and_device_rules():
-    with pytest.raises(NotImplementedError):
-        GCN(4, 4, 2, device="cpu", jk="cat")
-    with pytest.raises(NotImplementedError):
-        GCN(4, 4, 2, device="cpu", norm="layer")
+    # norm, jk and act_first are ported (tests/test_torch_basic_gnn.py);
+    # an option the reference does not know is refused
+    GCN(4, 4, 2, device="cpu", jk="cat", norm="layer", act_first=True)
+    with pytest.raises(ValueError):
+        GCN(4, 4, 2, device="cpu", jk="sum")
+    with pytest.raises(ValueError):
+        GCN(4, 4, 2, device="cpu", norm="group")
     if not torch.cuda.is_available():
         # the default device is the card: no silent CPU fallback
         with pytest.raises(RuntimeError, match="CUDA"):

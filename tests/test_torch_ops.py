@@ -190,8 +190,11 @@ def test_segment_spmm_mean_and_reference_backend(monkeypatch):
     np.testing.assert_allclose(
         r.numpy(), np.asarray(japi.segment_spmm(jg, jnp.asarray(x), backend="reference")),
         **TOL_F32)
-    with pytest.raises(NotImplementedError):
-        tapi.segment_spmm(tg, torch.from_numpy(x), reduce="max")
+    # max takes the plain route in both packages (tests/test_torch_reduce.py)
+    assert tapi.dispatch_path(tg, reduce="max") == "xla"
+    np.testing.assert_array_equal(
+        tapi.segment_spmm(tg, torch.from_numpy(x), reduce="max").numpy(),
+        np.asarray(japi.segment_spmm(jg, jnp.asarray(x), reduce="max", backend="pallas")))
 
 
 def test_plain_version_drops_pad_and_sentinel_edges():
