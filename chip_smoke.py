@@ -4,7 +4,9 @@ GraphSAGE, GAT, GIN and APPNP, time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width. Phases 30-35 serve and train
+Runs the port's main paths at full width. Phases 36-39 drive the native
+host runtime, the tuning sweep and table, the compiler pass and the
+float64 gradient rule of the norm variants. Phases 30-35 serve and train
 the arxiv GCN over bucketed BAT plans (`bucketed_sum`, the edge-row
 kernel), with BasicGNN's norms and jumping knowledge, run max and prod on
 the card and reload the graph from the cache. Phases 25-29 serve and train
@@ -194,9 +196,11 @@ Phases, each printed with its elapsed seconds:
      plan, three reruns bit-identical;
  32. 5 requests and 5 AdamW steps of the GCN (conv_kwargs normalize False)
      over the bucketed route, and 2 of each for GCN with norm "layer" and
-     jk "cat", and with norm "batch", jk "max" and act_first: each against
-     the reference path, launches asserted (bat_segment_sum 3 a request, 6
-     a step; nothing else);
+     jk "cat", and with norm "batch", jk "max" and act_first: each request
+     against the reference path in float64 (the f32 one's distance
+     logged), each step beside the reference path, launches asserted
+     (bat_segment_sum 3 a request, 6 a step; nothing else); the norm
+     variants' step-0 gradients go to phase 39;
  33. CUDA-event timings of the bucketed SpMM beside the bat_static SpMM on
      the same graph at F 128 and 40, its bound, its plain version and
      torch.sparse.mm over the node CSR; each model's forward and step;
@@ -205,7 +209,34 @@ Phases, each printed with its elapsed seconds:
      reruns bit-identical;
  35. save_graph / load_graph of the bucketed graph: the load's seconds
      beside the build's, the graph and its schedules back on the card, and
-     a request through it bit-identical to the built graph's.
+     a request through it bit-identical to the built graph's;
+ 36. the native host runtime (g++, `geot_tpu_torch.native`) built and
+     loaded; phases 1-9's arxiv graph built through it and through numpy
+     (slot plans at pack_align 1, BAT and bucketed BAT plans, both sorts):
+     every array equal, both host times (phases 10, 15, 20, 25 and 30 build
+     through it too);
+ 37. the tuning sweep (`tuning.sweep.sweep_graph`, the fast space: bat,
+     bat_packed, sr, the plain route, hybrid) on the arxiv graph at F 128
+     and 40 for spmm and spmm_dyn into a temporary table, every
+     configuration's time; the hybrid candidate on an arxiv-size clustered
+     graph (the stream kernels); select_config under that table gives each
+     bucket's measured winner, build_graph builds its knobs and its SpMM
+     (graph and per-call weights) is within the abs-sum rule of the plain
+     version; under an empty table prepare_graph gives phase 30's graph;
+ 38. the compiler pass (`compiler.pattern_transform`): a two-layer GCN in
+     plain PyTorch (index_select -> mul -> index_add_) over the arxiv
+     graph, two matches, the rewritten forward within the abs-sum rule of
+     the unrewritten function and of float64, its launches (2
+     bat_segment_sum forward; 2 over bat_t and 2 sddmm_bat backward), its
+     gradients against the unrewritten function's in float64 through the
+     rewritten path's ReLU pattern (the f32 one's distance logged), the
+     rewritten and unrewritten
+     times; the multi-head pattern on the GAT graph (plan_segment_sum_mh,
+     and edge_dots backward);
+ 39. phase 32's norm variants' step-0 gradients held per tensor against the
+     reference path in float64 (ROADMAP C.19): the kernel path's relative
+     distance ||g - g64|| / ||g64|| at most twice the f32 reference
+     path's.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -237,7 +268,7 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "narrow_kernel": 240, "narrow_serve": 180, "narrow_train": 240,
                   "narrow_timing": 240, "bucket_build": 120, "bucket_kernel": 120,
                   "bucket_serve": 240, "bucket_timing": 180, "bucket_reduce": 120,
-                  "bucket_cache": 180}
+                  "bucket_cache": 180, "native": 120, "tune": 300, "compiler": 180, "c19": 60}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -2357,7 +2388,13 @@ def run_bucketed(dev, card, data):
     from geot_tpu_torch.graph.cache import load_graph, save_graph
     from geot_tpu_torch.graph.datasets import DATASET_SHAPES
     from geot_tpu_torch.graph.plan import row_schedule_of
-    from geot_tpu_torch.models import GCN, make_optimizer, make_train_step, prepare_graph
+    from geot_tpu_torch.models import (
+        GCN,
+        cross_entropy_loss,
+        make_optimizer,
+        make_train_step,
+        prepare_graph,
+    )
     from geot_tpu_torch.ops import api
     from geot_tpu_torch.ops import slot_kernels as sk
     from geot_tpu_torch.ops.bat_kernels import (
@@ -2446,15 +2483,21 @@ def run_bucketed(dev, card, data):
                 "gcn_layer_cat": ({"norm": "layer", "jk": "cat"}, 2, 2),
                 "gcn_batch_max_act_first": ({"norm": "batch", "jk": "max", "act_first": True},
                                             2, 2)}
-    serve, train, losses, models, steps, req_s = {}, {}, {}, {}, {}, {}
+    serve, train, losses, models, steps, req_s, c19 = {}, {}, {}, {}, {}, {}, {}
     for name, (kw, n_req, n_steps) in variants.items():
         mk = dict(conv_kwargs={"normalize": False}, **kw)
         model = GCN(f, 128, 3, c, generator=torch.Generator().manual_seed(SEED), device=dev,
                     **mk).eval()
         ref_model = GCN(f, 128, 3, c, backend="reference", device=dev, **mk).eval()
         ref_model.load_state_dict(model.state_dict())
+        # the oracle: the reference path in float64, as phase 12 (ROADMAP
+        # C.7): the f32 reference path's hub rows (92,346 terms) sum in
+        # index_add_'s atomic order, a few 1e-4 from float64 after BatchNorm
+        ref64 = GCN(f, 128, 3, c, backend="reference", device=dev, **mk).double().eval()
+        ref64.load_state_dict(model.state_dict())
         with torch.inference_mode():
-            ref = ref_model(x, g)
+            ref32 = ref_model(x, g)
+            ref = ref64(x.double(), g).float()
         want = {k: (3 if k == BS else 0) for k in counters}
         reset()
         req_s[name] = []
@@ -2472,15 +2515,24 @@ def run_bucketed(dev, card, data):
                 torch.testing.assert_close(out, ref, **MODEL_TOL)
         serve[name] = counts()
         log(f"phase 32 {name}: {n_req} requests, launches {serve[name][BS]} bat_segment_sum "
-            f"(3 a request, one bucketed launch a layer), max |kernel path - reference path| "
-            f"{float((out - ref).abs().max()):.3e} (tolerance {MODEL_TOL}); request s: "
+            f"(3 a request, one bucketed launch a layer), max |kernel path - reference path in "
+            f"float64| {float((out - ref).abs().max()):.3e} (tolerance {MODEL_TOL}; the f32 "
+            f"reference path's: {float((ref32 - ref).abs().max()):.3e}, kernel path - f32 "
+            f"reference path {float((out - ref32).abs().max()):.3e}); request s: "
             + ", ".join(f"{t:.4f}" for t in req_s[name]))
-        del out, ref
+        del out, ref, ref32
         opt = make_optimizer(model, LR, WEIGHT_DECAY)
         ref_opt = make_optimizer(ref_model, LR, WEIGHT_DECAY)
         step = make_train_step(model, opt, has_dropout=False)
         ref_step = make_train_step(ref_model, ref_opt, has_dropout=False)
         want = {k: (6 if k == BS else 0) for k in counters}
+        if kw.get("norm"):
+            # the step-0 gradients on the reference path in float64, from
+            # the same state and in the step's mode, no dropout (phase 39
+            # holds the norm variants to them)
+            cross_entropy_loss(ref64(x.double(), g), y, mask).backward()
+            g64 = {k: p_.grad.clone() for k, p_ in ref64.named_parameters()}
+        del ref64
         reset()
         losses[name] = []
         for i in range(n_steps):
@@ -2490,30 +2542,30 @@ def run_bucketed(dev, card, data):
             expect_launches({k: v - before[k] for k, v in counts().items()}, want,
                             f"phase 32 {name} step {i}")
             loss_r = ref_step(x, g, y, mask)
-            if i == 0:
-                # phase 8's rule: atol GRAD_RTOL * max|g_ref| of the tensor;
-                # with a norm, of the model: a norm's backward subtracts
-                # means, so a conv weight's gradient is a cancellation whose
-                # largest entry lies far below the model's, and its rounding
-                # is on the scale of the terms, not of the result
+            if i == 0 and kw.get("norm"):
+                c19[name] = ({k: p_.grad.clone() for k, p_ in model.named_parameters()},
+                             {k: p_.grad.clone() for k, p_ in ref_model.named_parameters()},
+                             g64)
+            elif i == 0:
+                # phase 8's rule: atol GRAD_RTOL * max|g_ref| of the tensor
                 pr = dict(ref_model.named_parameters())
-                g_max = max(float(p_.grad.abs().max()) for p_ in pr.values())
                 ratios = []
                 for pname, prm in model.named_parameters():
                     gr = pr[pname].grad
-                    scale = g_max if kw.get("norm") else float(gr.abs().max())
+                    scale = float(gr.abs().max())
                     ratios.append((pname, float((prm.grad - gr).abs().max()) / scale))
                     torch.testing.assert_close(prm.grad, gr, rtol=GRAD_RTOL,
                                                atol=GRAD_RTOL * scale)
                 log(f"phase 32 {name} step 0 gradients: max |kernel - reference| / "
-                    f"{'max|g_ref| of the model' if kw.get('norm') else 'max|g_ref|'}: "
-                    + ", ".join(f"{k} {r:.2e}" for k, r in ratios))
+                    "max|g_ref|: " + ", ".join(f"{k} {r:.2e}" for k, r in ratios))
             lk, lr_ = float(loss), float(loss_r)
             if not (abs(lk - lr_) <= LOSS_RTOL * abs(lr_)) or lk != lk:
                 raise AssertionError(f"{name} step {i}: loss {lk} vs reference {lr_}")
             losses[name].append((lk, lr_))
         train[name] = counts()
-        log(f"phase 32 {name}: {n_steps} steps (step 0 gradients within rtol {GRAD_RTOL}), "
+        log(f"phase 32 {name}: {n_steps} steps (step 0 gradients "
+            + ("held per tensor against float64 in phase 39" if kw.get("norm")
+               else f"within rtol {GRAD_RTOL}") + "), "
             f"losses (kernel, reference) "
             + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in losses[name])
             + f"; bat_segment_sum {train[name][BS]} (3 forward + 3 over bat_b_t a step)")
@@ -2622,7 +2674,382 @@ def run_bucketed(dev, card, data):
     faulthandler.cancel_dump_traceback_later()
     return {"serve": serve, "train": train, "err": err, "timing": timing, "losses": losses,
             "forward_ms": fwd, "train_step_ms": stp, "reduce_ms": red_ms, "build_s": build_s,
-            "load_s": load_s, "save_s": save_s, "file_mb": size / 1e6}
+            "load_s": load_s, "save_s": save_s, "file_mb": size / 1e6, "graph": g,
+            "c19": c19}
+
+
+def kernel_counters():
+    """{name: wrapper} of every kernel wrapper that counts its launches."""
+    from geot_tpu_torch.ops import slot_kernels as sk
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
+    from geot_tpu_torch.ops.sddmm_kernels import edge_dots, sddmm_bat
+    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+
+    counters = {k: getattr(sk, k) for k in (
+        "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr",
+        "plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")}
+    counters.update({"bat_segment_sum": bat_segment_sum,
+                     "bat_segment_sum_packed": bat_segment_sum_packed, "sddmm_bat": sddmm_bat,
+                     "edge_dots": edge_dots, "stream_segment_sum": stream_segment_sum,
+                     "stream_segment_acc": stream_segment_acc})
+    return counters
+
+
+def launches_of(fn, counters):
+    """(fn(), {kernel: launches during fn}) with every count set to 0 first."""
+    for k in counters.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in counters.items()}
+
+
+def same_tensors(a, b, what):
+    """Every tensor and static of two graphs (or plans) equal; host seconds
+    and build_stats aside."""
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    elif dataclasses.is_dataclass(a):
+        if type(a) is not type(b):
+            raise AssertionError(f"{what}: {type(a).__name__} vs {type(b).__name__}")
+        for fld in dataclasses.fields(a):
+            if fld.name not in ("build_stats", "seconds"):
+                same_tensors(getattr(a, fld.name), getattr(b, fld.name), f"{what}.{fld.name}")
+    elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: lengths {len(a)} vs {len(b)}")
+        for i, (u, v) in enumerate(zip(a, b)):
+            same_tensors(u, v, f"{what}.{i}")
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} vs {b!r}")
+
+
+def run_native(dev, data):
+    """Phase 36: the native host runtime built and loaded; the arxiv graph's
+    plans built through it and through numpy, equal, with both host times."""
+    import numpy as np
+
+    from geot_tpu_torch import native
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES
+    from geot_tpu_torch.models import prepare_graph
+
+    arm("native")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native runtime did not build or load (g++)")
+    log(f"phase 36 native runtime built and loaded in {time.perf_counter() - t0:.2f}s "
+        f"({native._lib_path().name})")
+    n = DATASET_SHAPES["ogbn-arxiv"][0]
+    kw = dict(layouts=("bat", "slot"), normalize="gcn", bucket_table_bytes=1, device=dev)
+    built, secs = {}, {}
+    for how in ("native", "numpy"):
+        t0 = time.perf_counter()
+        if how == "native":
+            g = prepare_graph(data.src, data.dst, n, **kw)
+        else:
+            with native.disabled():
+                g = prepare_graph(data.src, data.dst, n, **kw)
+        torch.cuda.synchronize()
+        secs[how] = time.perf_counter() - t0
+        built[how] = g
+        log(f"phase 36 arxiv graph through {how}: prepare_graph {secs[how]:.2f}s; steps "
+            + ", ".join(f"{k} {v:.2f}s" for k, v in g.build_stats["seconds"].items())
+            + "; edge-row schedules " + ", ".join(
+                f"{k} {v['seconds']:.3f}s" for k, v in g.build_stats["row_schedule"].items()))
+    same_tensors(built["native"], built["numpy"], "phase 36 graph")
+    dst = np.sort(data.dst).astype(np.int32)
+    want = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    if not np.array_equal(native.coo_to_csr_host(dst, n), want):
+        raise AssertionError("phase 36 coo_to_csr_host differs from numpy")
+    log(f"phase 36 every plan array equal (slot plans at pack_align 1, BAT, bucketed BAT, both "
+        f"sorts); host build native {secs['native']:.2f}s, numpy {secs['numpy']:.2f}s")
+    return secs
+
+
+def run_tuning(dev, card, data, g30):
+    """Phase 37: the tuning sweep on the card (the fast space, arxiv, F 128
+    and 40, spmm and spmm_dyn) into a temporary table; select_config and
+    build_graph under it; an empty table gives phase 30's graph."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_clustered_graph
+    from geot_tpu_torch.graph.structures import _table_knobs, build_graph
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops import api
+    from geot_tpu_torch.ops import reference as ref_ops
+    from geot_tpu_torch.tuning import heuristics as H
+    from geot_tpu_torch.tuning import sweep
+
+    arm("tune")
+    counters = kernel_counters()
+    n, e, _, c = DATASET_SHAPES["ogbn-arxiv"]
+    feats, ops = (128, c), ("spmm", "spmm_dyn")
+    tmp = tempfile.mkdtemp(prefix="geot_tune_")
+    old_env = os.environ.pop(H.TABLE_ENV, None)
+    try:
+        table = os.path.join(tmp, "table.json")
+        t0 = time.perf_counter()
+        (best, rows), launches = launches_of(lambda: sweep.sweep_graph(
+            "ogbn-arxiv", data.src, data.dst, n, list(feats), ops=ops, iters=20,
+            verbose=False, out_path=table, fast=True, device=dev), counters)
+        sweep_s = time.perf_counter() - t0
+        for r in rows:
+            log(f"{card} phase 37 sweep {r.op} F={r.n_features} {r.cfg.key()}: "
+                f"{r.seconds * 1e3:.4f} ms")
+        for op in ops:
+            for F in feats:
+                want = [cfg for cfg in sweep.config_space(op, F, fast=True)
+                        if cfg.mode != "hybrid"]
+                got = [r.cfg for r in rows if r.op == op and r.n_features == F]
+                missing = [cfg.key() for cfg in want if cfg not in got]
+                if missing:
+                    raise AssertionError(f"phase 37 {op} F={F}: not measured {missing}")
+        hyb = [r for r in rows if r.cfg.mode == "hybrid"]
+        log(f"phase 37 sweep: {len(rows)} configurations in {sweep_s:.1f}s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }; hybrid on arxiv: "
+            + (f"{hyb[0].seconds * 1e3:.4f} ms" if hyb else "inapplicable (the census does "
+                                                           "not stream this graph)"))
+        # the hybrid candidate on an arxiv-size graph of small communities,
+        # which the census streams in both directions
+        dc = synthetic_clustered_graph(n, e, mixing=0.02, mean_community=32, power=1.0,
+                                       seed=SEED)
+        t_hyb, hyb_launch = launches_of(lambda: sweep.measure_config(
+            H.KernelConfig("hybrid"), dc.src, dc.dst, n, 128, iters=20, device=dev), counters)
+        if t_hyb is None:
+            raise AssertionError("phase 37: the hybrid candidate did not run on the clustered "
+                                 "graph")
+        expect_launches(hyb_launch["stream_segment_sum"] > 0, True,
+                        "phase 37 hybrid candidate: stream_segment_sum launched")
+        launches["hybrid_clustered"] = {k: v for k, v in hyb_launch.items() if v}
+        log(f"{card} phase 37 hybrid candidate, arxiv-size clustered graph ({dc.num_edges} "
+            f"edges) F=128: {t_hyb * 1e3:.4f} ms; launches {launches['hybrid_clustered']}")
+
+        os.environ[H.TABLE_ENV] = table
+        nnz = len(data.src)
+        for op in ops:
+            for F in feats:
+                kb = f"{op}:{H.bucket_key(F, nnz, n)}"
+                got, source = H.select_config_ex(F, nnz, n, op=op)
+                if got != best[kb][0] or source != "table":
+                    raise AssertionError(f"phase 37 select_config {kb}: {got} ({source}), "
+                                         f"measured winner {best[kb][0]}")
+        log("phase 37 select_config under the swept table: each bucket's measured winner ("
+            + ", ".join(f"{k} {v[0].key()} {v[1] * 1e3:.4f} ms" for k, v in best.items()) + ")")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+        w_np = np.random.default_rng(SEED).random(nnz).astype(np.float32)
+        for F in feats:
+            knobs, unpack = _table_knobs(F, nnz, n)
+            g = build_graph(data.src, data.dst, n, edge_weight=w_np, feature_hint=F,
+                            layouts=("bat", "slot"), device=dev)
+            built = dict(e_tile=g.plan.e_tile, s_tile=g.plan.s_tile, mode_hint=g.plan.mode_hint,
+                         bat_e_tile=g.bat.e_tile, bat_s_tile=g.bat.s_tile, prefer=g.prefer,
+                         prefer_dyn=g.prefer_dyn)
+            for k, v in knobs.items():
+                if built[k] != v:
+                    raise AssertionError(f"phase 37 F={F}: {k} {built[k]}, the table says {v}")
+            xf = torch.randn(n, F, generator=gen, device=dev)
+            wd = torch.rand(nnz, generator=gen, device=dev)
+            for label, w in (("graph weights", None), ("per-call weights", wd)):
+                out = api.segment_spmm(g, xf, w)
+                ww = g.edge_weight if w is None else w
+                p = ref_ops.gather_weight_scatter_ref(g.src, g.dst, ww, xf, n)
+                a = ref_ops.gather_weight_scatter_ref(g.src, g.dst, ww.abs(), xf.abs(), n)
+                check_close_abs_sum(out, p, a, f"phase 37 F={F} {label} under the table "
+                                    f"(route {api.dispatch_path(g, dynamic_w=w is not None)})")
+            log(f"phase 37 build_graph F={F} under the table: knobs {built} (the table's "
+                f"{knobs}, unpacked BAT {unpack}; km_pack {g.bat.km_pack})")
+            del g, xf, wd
+        empty = os.path.join(tmp, "empty.json")
+        with open(empty, "w") as fh:
+            fh.write("{}")
+        os.environ[H.TABLE_ENV] = empty
+        g_e = prepare_graph(data.src, data.dst, n, layouts=("bat",), normalize="gcn",
+                            bucket_table_bytes=1, device=dev)
+        same_tensors(g_e, g30, "phase 37 empty-table graph vs phase 30's")
+        log("phase 37 an empty table: prepare_graph's plans equal phase 30's build")
+    finally:
+        os.environ.pop(H.TABLE_ENV, None)
+        if old_env is not None:
+            os.environ[H.TABLE_ENV] = old_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    faulthandler.cancel_dump_traceback_later()
+    return {"rows": [dict(op=r.op, F=r.n_features, config=r.cfg.key(), ms=r.seconds * 1e3)
+                     for r in rows],
+            "best": {k: [v[0].key(), v[1] * 1e3] for k, v in best.items()},
+            "hybrid_clustered_ms": t_hyb * 1e3, "launches": launches, "sweep_s": sweep_s}
+
+
+def run_compiler(dev, card, g, x):
+    """Phase 38: the compiler pass over a two-layer GCN written in plain
+    PyTorch on the arxiv graph, and the multi-head pattern on the GAT
+    graph: matches, outputs against the unrewritten function and float64,
+    the kernels' launches, timings."""
+    from geot_tpu_torch.compiler import count_matches, pattern_transform
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_graph
+    from geot_tpu_torch.models import gcn_edge_weight
+    from geot_tpu_torch.profile_gcn import flickr_graph
+
+    arm("compiler")
+    counters = kernel_counters()
+    n, c = g.num_nodes, DATASET_SHAPES["ogbn-arxiv"][3]
+    src, dst = g.src, g.dst
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    w1 = (torch.randn(x.shape[1], 128, generator=gen, device=dev) * 0.1).requires_grad_()
+    w2 = (torch.randn(128, c, generator=gen, device=dev) * 0.1).requires_grad_()
+    ew = gcn_edge_weight(g).detach().requires_grad_()
+
+    def agg(h, ew):
+        return torch.zeros(n, h.shape[1], dtype=h.dtype, device=h.device).index_add_(
+            0, dst, h.index_select(0, src) * ew[:, None])
+
+    def gcn2(x, ew, w1, w2):
+        return agg(torch.relu(agg(x @ w1, ew)) @ w2, ew)
+
+    args = (x, ew, w1, w2)
+    matches = count_matches(gcn2, g, *args)
+    if matches != 2:
+        raise AssertionError(f"phase 38 count_matches {matches}, expected 2")
+    fused = pattern_transform(gcn2, g)
+    t0 = time.perf_counter()
+    out, fwd = launches_of(lambda: fused(*args), counters)
+    trace_s = time.perf_counter() - t0
+    fwd = {k: v for k, v in fwd.items() if v}
+    expect_launches(fwd, {"bat_segment_sum": 2}, "phase 38 rewritten forward")
+    with torch.no_grad():
+        plain = gcn2(*args)
+        d64 = [a.detach().double() for a in args]
+        ref64 = gcn2(*d64).float()
+        absum = gcn2(*[a.abs() for a in d64]).float()
+    err_p = check_close_abs_sum(out.detach(), plain, absum,
+                                "phase 38 rewritten GCN vs the unrewritten function")
+    err_64 = check_close_abs_sum(out.detach(), ref64, absum, "phase 38 rewritten GCN vs float64")
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    grads, bwd = launches_of(lambda: torch.autograd.grad((out * cot).sum(), (ew, w1, w2)),
+                             counters)
+    bwd = {k: v for k, v in bwd.items() if v}
+    expect_launches(bwd, {"bat_segment_sum": 2, "sddmm_bat": 2},
+                    "phase 38 rewritten backward (the transpose sums and dw)")
+    want = torch.autograd.grad((gcn2(*args) * cot).sum(), (ew, w1, w2))
+    # the oracle: the unrewritten function in float64 (as phases 12 and 32,
+    # ROADMAP C.7, C.21: the f32 one sums arxiv's hub rows with
+    # index_add_'s atomics in any order) through the rewritten path's own
+    # ReLU pattern (phase 18's rule, C.10: a hidden pre-activation within
+    # rounding of 0 may take the other sign in float64, and relu' then
+    # differs there by the whole upstream gradient)
+    with torch.no_grad():
+        z_kernel = pattern_transform(lambda x, ew, w1: agg(x @ w1, ew), g)(x, ew, w1)
+    a64 = [a.detach().double().requires_grad_(a.requires_grad) for a in args]
+    z64 = agg(a64[0] @ a64[2], a64[1])
+    flips = relu_flips([z_kernel], [z64.detach().float()], "phase 38 (float64 oracle)")
+    out64 = agg((z64 * (z_kernel > 0)) @ a64[3], a64[1])
+    want64 = torch.autograd.grad((out64 * cot.double()).sum(), a64[1:])
+    gerr = {}
+    for name, a, b, h in zip(("ew", "w1", "w2"), grads, want, want64):
+        h = h.float()
+        gerr[name] = (float((a - h).abs().max()), float((b - h).abs().max()))
+        torch.testing.assert_close(a, h, rtol=GRAD_RTOL, atol=GRAD_RTOL * float(h.abs().max()),
+                                   msg=lambda m: f"phase 38 gradient {name}: {m}")
+    del a64, z64, out64, want64, z_kernel
+    fused(*args)
+    if len(fused.cache) != 1:
+        raise AssertionError("phase 38: a second call with the same shapes traced again")
+    log(f"phase 38 two-layer GCN in plain PyTorch (index_select -> mul -> index_add_): "
+        f"count_matches 2; first call (trace + rewrite + run) {trace_s:.2f}s; forward "
+        f"launches {fwd.get('bat_segment_sum', 0)} bat_segment_sum, backward "
+        f"{bwd.get('bat_segment_sum', 0)} bat_segment_sum (over bat_t) + "
+        f"{bwd.get('sddmm_bat', 0)} sddmm_bat; "
+        f"max |err| vs the unrewritten function {err_p:.3e}, vs float64 {err_64:.3e}; "
+        f"gradients against float64 through the rewritten path's ReLU pattern ({flips[0]} "
+        f"flip(s), the largest at {flips[1]:.2e} * max|z|) within phase 8's rule (max "
+        "|rewritten - f64|, max |unrewritten f32 (its own ReLU pattern) - f64|): "
+        + ", ".join(f"{k} ({u:.3e}, {v:.3e})" for k, (u, v) in gerr.items()))
+    with torch.no_grad():
+        t_fused = cuda_ms(lambda: fused(*args))
+        t_plain = cuda_ms(lambda: gcn2(*args))
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad((fn(*args) * cot).sum(), (ew, w1, w2))
+
+    t_fused_step, t_plain_step = cuda_ms(fwd_bwd(fused)), cuda_ms(fwd_bwd(gcn2))
+    log(f"{card} phase 38 GCN forward: rewritten {t_fused:.4f} ms, unrewritten {t_plain:.4f} ms; "
+        f"forward + backward: rewritten {t_fused_step:.4f} ms, unrewritten {t_plain_step:.4f} ms")
+    del out, plain, ref64, absum, grads, want
+
+    # the multi-head pattern on the GAT graph (flickr, slot plans)
+    nf, ef, ff, _ = DATASET_SHAPES["flickr"]
+    data = synthetic_graph(nf, ef, power=1.0, feat_dim=8, num_classes=2, seed=SEED)
+    gg = flickr_graph(data, "gat", dev)
+    H, D, e_g = 4, 64, gg.num_edges
+    xh = torch.randn(nf, H, D, generator=gen, device=dev).requires_grad_()
+    att = torch.rand(e_g, H, generator=gen, device=dev).requires_grad_()
+    s_g, d_g = gg.src, gg.dst
+
+    def mh(xh, att):
+        return torch.zeros(nf, H, D, device=xh.device).index_add_(
+            0, d_g, xh[s_g] * att.unsqueeze(-1))
+
+    if count_matches(mh, gg, xh, att) != 1:
+        raise AssertionError("phase 38: the multi-head pattern did not match")
+    fused_mh = pattern_transform(mh, gg)
+    out, fwd_mh = launches_of(lambda: fused_mh(xh, att), counters)
+    fwd_mh = {k: v for k, v in fwd_mh.items() if v}
+    expect_launches(fwd_mh, {"plan_segment_sum_mh": 1}, "phase 38 multi-head forward")
+    with torch.no_grad():
+        plain = mh(xh, att)
+        absum = mh(xh.abs(), att.abs())
+    err_mh = check_close_abs_sum(out.detach(), plain, absum,
+                                 "phase 38 multi-head rewritten vs unrewritten")
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    _, bwd_mh = launches_of(lambda: torch.autograd.grad((out * cot).sum(), (xh, att)), counters)
+    bwd_mh = {k: v for k, v in bwd_mh.items() if v}
+    expect_launches(bwd_mh, {"plan_segment_sum_mh": 1, "edge_dots": 1},
+                    "phase 38 multi-head backward")
+    with torch.no_grad():
+        t_mh, t_mh_plain = cuda_ms(lambda: fused_mh(xh, att)), cuda_ms(lambda: mh(xh, att))
+    log(f"{card} phase 38 multi-head (flickr GAT graph, {e_g} edges, H*D {H * D}): launches "
+        f"forward {fwd_mh.get('plan_segment_sum_mh', 0)} plan_segment_sum_mh, backward "
+        f"{bwd_mh.get('plan_segment_sum_mh', 0)} plan_segment_sum_mh (over plan_t) + "
+        f"{bwd_mh.get('edge_dots', 0)} edge_dots; max |err| {err_mh:.3e}; rewritten {t_mh:.4f} ms, "
+        f"unrewritten {t_mh_plain:.4f} ms")
+    faulthandler.cancel_dump_traceback_later()
+    return {"launches": {"compiler_gcn_forward": fwd, "compiler_gcn_backward": bwd,
+                         "compiler_mh_forward": fwd_mh, "compiler_mh_backward": bwd_mh},
+            "gcn_forward_ms": t_fused, "gcn_forward_unrewritten_ms": t_plain,
+            "gcn_step_ms": t_fused_step, "gcn_step_unrewritten_ms": t_plain_step,
+            "mh_ms": t_mh, "mh_unrewritten_ms": t_mh_plain,
+            "max_abs_err": max(err_p, err_mh)}
+
+
+def check_c19(c19):
+    """Phase 39: the norm variants' step-0 gradients of phase 32 held per
+    tensor against float64 (ROADMAP C.19): the kernel path's relative
+    distance ||g - g64|| / ||g64|| at most twice the f32 reference path's."""
+    arm("c19")
+    out = {}
+    for name, (kern, ref32, g64) in c19.items():
+        model = max(float(h.abs().max()) for h in g64.values())
+        rows, worst = [], 0.0
+        for k, h in g64.items():
+            norm = max(float(h.norm()), 1e-12 * model)
+            e_k = float((kern[k].double() - h).norm()) / norm
+            e_r = float((ref32[k].double() - h).norm()) / norm
+            if not e_k <= 2 * e_r:
+                raise AssertionError(f"phase 39 {name} {k}: relative distance from float64 "
+                                     f"{e_k:.3e}, past twice the f32 reference path's {e_r:.3e}")
+            rows.append((k, e_k, e_r))
+            worst = max(worst, e_k / e_r if e_r else 0.0)
+        out[name] = {"worst_ratio": worst, "tensors": {k: [e_k, e_r] for k, e_k, e_r in rows}}
+        log(f"phase 39 {name} step 0 gradients per tensor against float64 (||kernel - f64|| / "
+            "||f64||, ||f32 reference - f64|| / ||f64||): "
+            + ", ".join(f"{k} ({a:.2e}, {b:.2e})" for k, a, b in rows)
+            + f"; worst kernel / reference {worst:.3f} (limit 2)")
+    faulthandler.cancel_dump_traceback_later()
+    return out
 
 
 def main():
@@ -3002,6 +3429,10 @@ def main():
     gd = run_gat_dyn(dev, card)
     nr = run_narrow(dev, card)
     bk = run_bucketed(dev, card, data)
+    nat = run_native(dev, data)
+    tu = run_tuning(dev, card, data, bk.pop("graph"))
+    co = run_compiler(dev, card, g, x)
+    c19 = check_c19(bk.pop("c19"))
 
     def hyb_entry(name, key, source_line):
         return {
@@ -3053,8 +3484,7 @@ def main():
         return entry
 
     log(f"total {time.perf_counter() - T0:.2f}s")
-    print(json.dumps({
-        "kernels": [{
+    kernels = [{
             "name": "bat_segment_sum",
             "route": "cuda",
             "source": "geot_tpu_torch/ops/csrc/edge_row_sum.cu",
@@ -3131,7 +3561,20 @@ def main():
             **nr["timing"][("gin", "bat")],
             "appnp_F8": nr["timing"][("appnp", "bat")],
             "backward": {m: nr["timing"][(m, "bat_t")] for m in ("gin", "appnp")},
-        }],
+        }]
+    # the launches of phases 37 (the sweep; the hybrid candidate) and 38
+    # (the compiler pass), per kernel; edge_dots is sddmm_bat's entry
+    paths = {"tune_sweep": tu["launches"], **{k: v for k, v in co["launches"].items()}}
+    paths["tune_hybrid_clustered"] = tu["launches"].pop("hybrid_clustered")
+    for entry in kernels:
+        for path, counts in paths.items():
+            name = entry["name"]
+            if counts.get(name):
+                entry["launches_by_path"][path] = counts[name]
+            if name == "sddmm_bat" and counts.get("edge_dots"):
+                entry["edge_dots"]["launches_by_path"][path] = counts["edge_dots"]
+    print(json.dumps({
+        "kernels": kernels,
         "card": smi,
         "forward_ms": t_fwd,
         "spmm_ms": t_spmm,
@@ -3154,6 +3597,10 @@ def main():
             "busy_share": {f"{m}_{mode}": v for (m, mode), v in nr["busy"].items()}},
         "bucketed": {k: bk[k] for k in ("forward_ms", "train_step_ms", "losses", "reduce_ms",
                                         "build_s", "save_s", "load_s", "file_mb")},
+        "native_build_s": nat,
+        "tuning": {k: tu[k] for k in ("rows", "best", "hybrid_clustered_ms", "sweep_s")},
+        "compiler": {k: v for k, v in co.items() if k != "launches"},
+        "c19": c19,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

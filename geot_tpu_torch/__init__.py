@@ -27,20 +27,52 @@ for narrow features and hybrid stream+gather plans:
       -> bucketed_sum (CUDA, sm_90a: the edge-row kernel over the bucketed
          plan's row schedule)
 
+    pattern_transform(fn, graph) (`compiler`): a plain PyTorch function's
+      x[src] * w[:, None] -> index_add_ / scatter_add_ rewritten to
+      gather_weight_scatter -> bat_segment_sum (or plan_segment_sum_sr2 /
+      _packed2 on a slot_dyn graph; sddmm_bat for dw), the unweighted form
+      to gather_scatter (BAT, stream or slot kernels), the 3-D multi-head
+      form to mh_spmm -> plan_segment_sum_mh
+
 The backward of every fused SpMM runs the same kernels over the transpose
 plans; the gradient of per-call edge weights runs `sddmm_bat` (CUDA, sm_90a:
 a per-edge dot reading both rows itself) over BAT plans and the same
 kernel as `edge_dots` over slot plans, per head for GAT's attention.
 `models.train` holds the trainer and the checkpoints shared with the JAX
 package; `graph.cache` saves and loads built graphs with their schedules.
+`build_graph` (and `prepare_graph`) take the tiles, the layout
+preferences and the slot mode hint they are not given from the port's
+tuning table (`tuning`, shipped empty: the defaults hold until an H100
+sweep fills it), and a measured verdict on streaming from it; `native`
+is the C++ host runtime the plan builders use where g++ is there.
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain PyTorch version.
 """
 
 from geot_tpu_torch.utils.device import resolve_device
-from geot_tpu_torch.graph import Graph, build_graph
-from geot_tpu_torch.ops import segment_spmm, dispatch_path
+from geot_tpu_torch.graph import (
+    Graph,
+    SegmentPlan,
+    add_self_loops,
+    build_graph,
+    build_segment_plan,
+    coo_to_csr,
+    csr_to_coo,
+    gcn_norm,
+    sort_edges_by_dst,
+)
+from geot_tpu_torch.ops import (
+    csr_gws,
+    dispatch_path,
+    gather_scatter,
+    gather_weight_scatter,
+    index_scatter,
+    mh_spmm,
+    mh_spmm_transposed,
+    sddmm_coo,
+    segment_spmm,
+)
 from geot_tpu_torch.models import (
     APPNP,
     GAT,
@@ -59,10 +91,24 @@ __version__ = "0.1.0"
 
 __all__ = [
     "resolve_device",
-    "Graph",
-    "build_graph",
+    "index_scatter",
+    "gather_scatter",
+    "gather_weight_scatter",
+    "csr_gws",
+    "mh_spmm",
+    "mh_spmm_transposed",
+    "sddmm_coo",
     "segment_spmm",
     "dispatch_path",
+    "Graph",
+    "SegmentPlan",
+    "build_graph",
+    "build_segment_plan",
+    "coo_to_csr",
+    "csr_to_coo",
+    "sort_edges_by_dst",
+    "add_self_loops",
+    "gcn_norm",
     "GCN",
     "GCNConv",
     "GraphSAGE",

@@ -13,10 +13,14 @@ and bucketed plan, and each stream family's schedule.
 
 The port keeps its own format and directory; a file of another version,
 of another package or of a layout whose fields are not today's classes'
-is a miss (`load_graph` returns None) and `cached_build` rebuilds it. The
-reference's cache key also holds its tuning table's fingerprint; the port
-has no tuning table yet, so its key holds the caller's key and the
-version only (the table's fingerprint joins it with the table).
+is a miss (`load_graph` returns None) and `cached_build` rebuilds it. As in
+the reference, the file name holds the caller's key, the format version
+and the fingerprint of the port's tuning table
+(`tuning.heuristics.table_fingerprint`): the table picks tiles and
+layouts, so a graph built under another table is not served. The
+directory is `cache_dir`, else GEOT_GRAPH_CACHE_DIR, else
+~/.cache/geot_tpu_torch/graphs; "off" (either way) builds every time and
+writes nothing.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from geot_tpu_torch.graph.plan import BatPlan, BucketedBatPlan, SegmentPlan, _sc
 from geot_tpu_torch.graph.row_schedule import RowSchedule
 from geot_tpu_torch.graph.stream_plan import HybridPlan, StreamPlan
 from geot_tpu_torch.graph.structures import Graph
+from geot_tpu_torch.tuning.heuristics import table_fingerprint
 from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = ["FORMAT_VERSION", "save_graph", "load_graph", "cached_build"]
@@ -140,15 +145,19 @@ def load_graph(path: str, device=None) -> Optional[Graph]:
 
 def cached_build(cache_key: str, build_fn: Callable[[], Graph],
                  cache_dir: Optional[str] = None, device=None) -> Graph:
-    """The graph of `cache_key` from `cache_dir` (default
-    ~/.cache/geot_tpu_torch/graphs), loaded on `device` (default: the CUDA
-    card); or, where there is none or it is stale, `build_fn()`, saved
-    there. A file that fails to load is rebuilt; a failed write leaves
-    the built graph as it is. `build_stats["cache"]` says which it was and
-    how long the load or build took."""
-    cache_dir = cache_dir or os.path.expanduser("~/.cache/geot_tpu_torch/graphs")
+    """The graph of `cache_key` from `cache_dir` (default: the
+    GEOT_GRAPH_CACHE_DIR variable, else ~/.cache/geot_tpu_torch/graphs),
+    loaded on `device` (default: the CUDA card); or, where there is none
+    or it is stale, `build_fn()`, saved there. "off" returns `build_fn()`
+    and writes nothing. A file that fails to load is rebuilt; a failed
+    write leaves the built graph as it is. `build_stats["cache"]` says
+    which it was and how long the load or build took."""
+    cache_dir = cache_dir or os.environ.get(
+        "GEOT_GRAPH_CACHE_DIR", os.path.expanduser("~/.cache/geot_tpu_torch/graphs"))
+    if cache_dir == "off":
+        return build_fn()
     path = os.path.join(cache_dir,
-                        f"{cache_key}-v{FORMAT_VERSION}.npz")
+                        f"{cache_key}-v{FORMAT_VERSION}-{table_fingerprint()}.npz")
     if os.path.exists(path):
         t0 = time.perf_counter()
         try:

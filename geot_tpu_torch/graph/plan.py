@@ -3,17 +3,17 @@ block-aligned tiles (`BatPlan`).
 
 Port of `geot_tpu/graph/plan.py`: `SegmentPlan` :56-141,
 `compute_chunks` :147-179, `_uniformize_chunks` :182-229,
-`plan_tile_bounds` :232, `build_segment_plan_host` :242-384 (its numpy
-branch; the native builder gives equal arrays, `tests/test_native.py`),
+`plan_tile_bounds` :232, `build_segment_plan_host` :242-384,
 `_k_major_host` :387, `plan_from_host` :397, `BatPlan` :419-463,
-`build_bat_plan_host` :466-557 (its numpy branch only),
-`_uniformize_bat_chunks` :560-598, `bat_plan_from_host` (with the packed
-kernel's k-major `dst_km`; the reference's always-None `mask_km` is left
-out),
-`build_bat_plan`, `packed_width`, `build_segment_plan` :622, and
-`BucketedBatPlan` / `build_bucketed_bat_plan` :655-835 (its numpy branch
-only). Given the same dst-sorted edges and knobs, the host arrays and
-meta equal the JAX package's exactly.
+`build_bat_plan_host` :466-557, `_uniformize_bat_chunks` :560-598,
+`bat_plan_from_host` (with the packed kernel's k-major `dst_km`; the
+reference's always-None `mask_km` is left out), `build_bat_plan`,
+`packed_width`, `build_segment_plan` :622, and `BucketedBatPlan` /
+`build_bucketed_bat_plan` :655-835. As in the reference, the slot arrays
+at pack_align 1, the BAT tiles and the bucket sort come from the native
+runtime (`geot_tpu_torch.native`) where it is built, else from numpy: the
+same arrays either way. Given the same dst-sorted edges and knobs, the
+host arrays and meta equal the JAX package's exactly.
 
 Slot layout: tile t holds e_tile slots of consecutive dst-sorted edges
 whose dst all lie in window `out_block[t]`; a window's edges fill its
@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from geot_tpu_torch import native
 from geot_tpu_torch.graph.row_schedule import (
     RowSchedule,
     bat_plan_entries,
@@ -326,6 +327,22 @@ def build_segment_plan_host(
         pack_align=int(pack),
     )
 
+    # the native runtime builds the pack_align 1 layout: slot j of tile t
+    # holds edge e0[t] + j and every tile of a window but its last is full,
+    # so e0 is the exclusive cumsum of the tiles' real edges
+    nat = native.build_plan_arrays(dst, src_arr if src is not None else None,
+                                   num_segments, e_tile, s_tile) if pack == 1 else None
+    if nat is not None:
+        src_sl, dst_sl, ep, mk, ob = nat
+        n_real = mk.sum(axis=1).astype(np.int64)
+        e0 = np.concatenate([[0], np.cumsum(n_real)[:-1]]).astype(np.int32)
+        meta["n_value_blocks"] = int(e0.max() if len(e0) else 0) // e_tile + 2
+        meta["chunks"] = compute_chunks(ob, max_chunk_slots // e_tile)
+        arrays = dict(src_slots=src_sl, dst_slots=dst_sl, edge_pos=ep, mask=mk, out_block=ob,
+                      e0=e0)
+        _uniformize_chunks(arrays, meta)
+        return arrays, meta
+
     block_of_edge = dst // s_tile if nnz else np.zeros(0, dtype=np.int64)
     cnt = np.bincount(block_of_edge, minlength=n_blocks).astype(np.int64)
     edge_start_of_block = np.zeros(n_blocks + 1, dtype=np.int64)
@@ -403,6 +420,42 @@ def plan_from_host(arrays: dict, meta: dict, device=None) -> SegmentPlan:
         plan, arrays["dst_slots"], arrays["mask"], arrays["e0"], dev))
 
 
+def _bat_tiles(dst: np.ndarray, num_segments: int, e_tile: int, s_tile: int):
+    """(out_block, vblock) int32 of a BAT plan over dst-sorted edges: the
+    (window, value block) pairs that hold edges, in order, with one
+    coverage tile for each empty window (it inherits the running block,
+    so vblock stays non-decreasing). The native runtime's, else numpy's:
+    the same arrays."""
+    nnz = len(dst)
+    nat = native.build_bat_tiles(dst, num_segments, e_tile, s_tile) if nnz else None
+    if nat is not None:
+        return nat
+    dst = np.asarray(dst, np.int64)
+    n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
+    n_vblocks = max(_cdiv(nnz, e_tile), 1)
+    win = dst // s_tile
+    blk = np.arange(nnz, dtype=np.int64) // e_tile
+    key = win * n_vblocks + blk  # lexicographic (win, blk); non-decreasing
+    # key is already sorted: O(n) run-compaction
+    if nnz:
+        head = np.empty(nnz, bool)
+        head[0] = True
+        np.not_equal(key[1:], key[:-1], out=head[1:])
+        uniq = key[head]
+    else:
+        uniq = key
+    ob = (uniq // n_vblocks).astype(np.int32)
+    vb = (uniq % n_vblocks).astype(np.int32)
+    missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), ob, assume_unique=False)
+    if len(missing):
+        ob = np.concatenate([ob, missing])
+        vb = np.concatenate([vb, np.zeros(len(missing), np.int32)])
+        order = np.argsort(ob, kind="stable")
+        ob, vb = ob[order], vb[order]
+        vb = np.maximum.accumulate(vb).astype(np.int32)
+    return ob, vb
+
+
 def build_bat_plan_host(
     dst: np.ndarray,
     num_segments: int,
@@ -427,30 +480,7 @@ def build_bat_plan_host(
     n_blocks = max(_cdiv(max(num_segments, 1), s_tile), 1)
     n_vblocks = max(_cdiv(nnz, e_tile), 1)
 
-    win = dst // s_tile
-    blk = np.arange(nnz, dtype=np.int64) // e_tile
-    key = win * n_vblocks + blk  # lexicographic (win, blk); non-decreasing
-    # key is already sorted: O(n) run-compaction
-    if nnz:
-        head = np.empty(nnz, bool)
-        head[0] = True
-        np.not_equal(key[1:], key[:-1], out=head[1:])
-        uniq = key[head]
-    else:
-        uniq = key
-    ob = (uniq // n_vblocks).astype(np.int32)
-    vb = (uniq % n_vblocks).astype(np.int32)
-    # coverage tiles for empty windows (the kernel writes every out block)
-    missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), ob,
-                           assume_unique=False)
-    if len(missing):
-        ob = np.concatenate([ob, missing])
-        vb = np.concatenate([vb, np.zeros(len(missing), np.int32)])
-        order = np.argsort(ob, kind="stable")
-        ob, vb = ob[order], vb[order]
-        # coverage tiles inherit the running block: vblock stays
-        # non-decreasing
-        vb = np.maximum.accumulate(vb).astype(np.int32)
+    ob, vb = _bat_tiles(dst, num_segments, e_tile, s_tile)
 
     # one extra all--1 dst block at index n_vblocks: the sentinel target
     # for pad tiles — matches no window, adds nothing
@@ -752,7 +782,9 @@ def build_bucketed_bat_plan_host(
     bn = int(bucket_rows)
     n_buckets = max(_cdiv(max(num_gather_rows, 1), bn), 1)
     bucket = (gi // bn).astype(np.int32)
-    perm = np.argsort(bucket, kind="stable")
+    perm = native.sort_by_key(bucket, n_buckets)
+    if perm is None:
+        perm = np.argsort(bucket, kind="stable")
     gi, ri, bucket = gi[perm], ri[perm], bucket[perm]
     w = None if edge_weight is None else np.asarray(edge_weight, np.float32)[perm]
 
@@ -783,23 +815,7 @@ def build_bucketed_bat_plan_host(
         if w_pad is not None:
             w_pad[p0 : p0 + (e1 - e0)] = w[e0:e1]
         # the bucket's tiles: build_bat_plan_host's compaction
-        win = ri[e0:e1] // s_tile
-        blk = np.arange(e1 - e0, dtype=np.int64) // e_tile
-        nv = max(_cdiv(e1 - e0, e_tile), 1)
-        key = win * nv + blk
-        head = np.empty(e1 - e0, bool)
-        head[0] = True
-        np.not_equal(key[1:], key[:-1], out=head[1:])
-        uniq = key[head]
-        ob_k = (uniq // nv).astype(np.int32)
-        vb_k = (uniq % nv).astype(np.int32)
-        missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), ob_k)
-        if len(missing):
-            ob_k = np.concatenate([ob_k, missing])
-            vb_k = np.concatenate([vb_k, np.zeros(len(missing), np.int32)])
-            order = np.argsort(ob_k, kind="stable")
-            ob_k, vb_k = ob_k[order], vb_k[order]
-            vb_k = np.maximum.accumulate(vb_k).astype(np.int32)
+        ob_k, vb_k = _bat_tiles(ri[e0:e1], num_segments, e_tile, s_tile)
         # coverage tiles outside the bucket's own window span go; the gaps
         # inside it stay
         w_lo = int(ri[e0]) // s_tile

@@ -3,12 +3,13 @@
 Port of `geot_tpu/graph/structures.py` (`Graph` :45-121, `_stable_sort_perm`
 :122-131, `_slot_weights_host` :115-119, `build_graph` :140-397, with
 `edge_pos_t` :233-236 and the bucketed BAT plans `bat_b` / `bat_b_t`
-:79-82, :263-290) for the layouts "slot", "bat" and "stream". The JAX
-`build_graph` asks its TPU tuning table for tiles, the slot plans' mode
-hint and the layout preference unless all tiles are given, and for a measured
-verdict on streaming; the port has no tuning table yet: it takes every
-tile and preference explicitly, and the cell census alone decides whether
-a graph streams.
+:79-82, :263-290) for the layouts "slot", "bat" and "stream". As the JAX
+`build_graph` does, the port's asks its tuning table
+(`geot_tpu_torch.tuning`) for the tiles, the slot plans' mode hint and the
+layout preferences it is not given, and for a measured verdict on
+streaming. The port's table is its own and ships empty, so by default the
+knobs are `DEFAULT_KNOBS` and the cell census alone decides whether a
+graph streams.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from geot_tpu_torch import native
 from geot_tpu_torch.graph.plan import (
     MAX_PREFETCH_TILES,
     BatPlan,
@@ -37,16 +39,26 @@ from geot_tpu_torch.graph.stream_plan import (
     build_stream_split_host,
     stream_plan_from_host,
 )
+from geot_tpu_torch.tuning.heuristics import (
+    DEFAULT_KNOBS,
+    bucket_key,
+    load_table,
+    select_config_ex,
+)
 from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Graph", "build_graph"]
 
 
-# layout preferences `build_graph` takes for the fused SpMM (the reference's
-# table also answers 'packed', which routes as 'sr'; 'bat_packed', which
-# routes as 'bat' (a narrow `feature_hint` packs the BAT plans); and 'xla',
-# its TPU latency floor)
-PREFERENCES = ("bat", "sr")
+# layout preferences `build_graph` takes for the fused SpMM: BAT, the slot
+# plans, or the plain route ("xla", the reference's name)
+PREFERENCES = ("bat", "sr", "xla")
+# the preference of each table mode: 'bat_packed' routes as 'bat' (a narrow
+# `feature_hint` packs the BAT plans), 'packed' and 'pr' as 'sr' (the slot
+# plans' kernels choose by width), 'hybrid' as 'bat' (the hybrid plans,
+# where the census builds them, come first whatever the preference)
+_PREFERENCE_OF_MODE = {"bat": "bat", "bat_packed": "bat", "hybrid": "bat", "sr": "sr",
+                       "packed": "sr", "pr": "sr", "xla": "xla"}
 LAYOUTS = (("bat",), ("bat", "stream"), ("stream",), ("slot",), ("bat", "slot"),
            ("bat", "slot", "stream"))
 
@@ -118,11 +130,39 @@ class Graph:
         return self.src.device
 
 
-def _stable_sort_perm(key: np.ndarray) -> np.ndarray:
-    """Stable sort permutation of `key` (the reference uses a native
-    counting sort when built; a stable permutation is unique, so both give
-    the same array)."""
+def _stable_sort_perm(key: np.ndarray, num_keys: int) -> np.ndarray:
+    """Stable sort permutation of `key` in [0, num_keys): the native
+    runtime's counting sort where it is built, else numpy's argsort (a
+    stable permutation is unique, so both give the same array)."""
+    perm = native.sort_by_key(np.asarray(key, np.int32), int(num_keys))
+    if perm is not None:
+        return perm
     return np.argsort(np.asarray(key), kind="stable")
+
+
+def _table_knobs(feature_hint: int, nnz: int, num_nodes: int) -> Tuple[dict, bool]:
+    """The tuning table's answers for `build_graph`'s knobs, as the
+    reference takes them (`geot_tpu/graph/structures.py:150-175`): the
+    "spmm" and "spmm_dyn" picks give `prefer` / `prefer_dyn`, the first
+    slot pick the slot tiles and `mode_hint`, the first BAT pick the BAT
+    tiles. Only measured picks count (source "table" or "near"): an empty
+    table answers nothing. Returns (knobs, unpack): unpack where the
+    measured pick of the graph's SpMM (else of per-call weights, where the
+    first is the plain route) is the unpacked "bat" or "sr"."""
+    out, picks = {}, []
+    for op, knob in (("spmm", "prefer"), ("spmm_dyn", "prefer_dyn")):
+        cfg, source = select_config_ex(feature_hint, nnz, num_nodes, op=op)
+        if source != "default":
+            out[knob] = _PREFERENCE_OF_MODE[cfg.mode]
+            picks.append(cfg)
+    slot = [cfg for cfg in picks if cfg.mode in ("sr", "packed")]
+    bat = [cfg for cfg in picks if cfg.mode.startswith("bat")]
+    if slot:
+        out.update(e_tile=slot[0].e_tile, s_tile=slot[0].s_tile, mode_hint=slot[0].mode)
+    if bat:
+        out.update(bat_e_tile=bat[0].e_tile, bat_s_tile=bat[0].s_tile)
+    modes = [cfg.mode for cfg in picks if cfg.mode != "xla"]
+    return out, bool(modes) and modes[0] in ("bat", "sr")
 
 
 def _slot_weights_host(arrays: dict, w: np.ndarray) -> np.ndarray:
@@ -179,18 +219,18 @@ def build_graph(
     num_nodes: int,
     edge_weight=None,
     *,
-    e_tile: int = 512,
-    s_tile: int = 256,
-    bat_e_tile: int = 1024,
-    bat_s_tile: int = 256,
+    e_tile: Optional[int] = None,
+    s_tile: Optional[int] = None,
+    bat_e_tile: Optional[int] = None,
+    bat_s_tile: Optional[int] = None,
     feature_hint: int = 128,
     assume_sorted: bool = False,
     layouts: Tuple[str, ...] = ("bat", "slot", "stream"),
     max_chunk_bytes: int = 1 << 30,
     stream_knobs: StreamKnobs = StreamKnobs(),
-    prefer: str = "bat",
-    prefer_dyn: str = "bat",
-    mode_hint: str = "auto",
+    prefer: Optional[str] = None,
+    prefer_dyn: Optional[str] = None,
+    mode_hint: Optional[str] = None,
     max_chunk_slots: int = 4 << 20,
     bucket_table_bytes: Optional[int] = None,
     bucket_rows: int = 128 * 1024,
@@ -207,21 +247,27 @@ def build_graph(
     builds the BAT plans (bat_e_tile x bat_s_tile); "stream" builds the
     hybrid stream+gather plans `hyb` and `hyb_t` when the cell census
     (`stream_knobs`) accepts streaming in both directions and
-    `feature_hint` > 64. The reference also consults its TPU tuning table
-    for a measured verdict on streaming (one entry, `spmm_hyb:7:13:1`:
-    feature 128, 8-16 k edges, average degree 2-4, vetoes it); the port
-    has no table, so on graphs of that bucket the two packages can differ.
+    `feature_hint` > 64. A measured verdict in the tuning table
+    (`spmm_hyb:<bucket>`, where the sweep timed the hybrid route on the
+    graph's bucket) vetoes streaming, or endorses it with the census's
+    margin waived; `build_stats["stream_decided_by"]` says which decided
+    ("census", "table_veto", "table_endorse").
 
-    What the reference takes from its table is explicit here: the tiles,
-    `prefer` / `prefer_dyn` (one of PREFERENCES: which layout the fused
-    SpMM takes for graph or no weights / per-call weights; a slot
-    preference degrades to "bat" without a slot plan) and the slot plans'
-    `mode_hint` ("auto", "sr" or "pr"). The defaults are the reference's
-    answer when all tiles are given. All of them are TPU picks, not
-    measured on H100. `max_chunk_slots` caps a slot plan's chunk;
-    `max_chunk_bytes` caps one chunk's gathered [tiles*bat_e_tile,
-    feature_hint] f32 block (the reference's GEOT_MAX_CHUNK_BYTES budget,
-    `structures.py:257`), for the BAT plans and the stream remainder alike.
+    The tiles, `prefer` / `prefer_dyn` (one of PREFERENCES: which route the
+    fused SpMM takes for graph or no weights / per-call weights; a slot
+    preference degrades to "bat" without a slot plan, "xla" takes the
+    plain route) and the slot plans' `mode_hint` ("auto", "sr", "pr"; a
+    table's "packed" is kept as the reference keeps it) come from the
+    caller, else from the tuning table's measured "spmm" / "spmm_dyn"
+    picks for (feature_hint, edges, nodes) (`_table_knobs`), else from
+    `DEFAULT_KNOBS`: 512 x 256 slot tiles, 1024 x 256 BAT tiles, "bat",
+    "bat", "auto" — the reference's answer when all tiles are given, TPU
+    picks not measured on the H100. The shipped table is empty, so the
+    defaults hold until an H100 sweep fills it. `max_chunk_slots` caps a
+    slot plan's chunk; `max_chunk_bytes` caps one chunk's gathered
+    [tiles*bat_e_tile, feature_hint] f32 block (the reference's
+    GEOT_MAX_CHUNK_BYTES budget, `structures.py:257`), for the BAT plans
+    and the stream remainder alike.
 
     With `feature_hint` <= 64 the BAT plans are packed for the narrow
     kernel (`bat_segment_sum_packed`): km_pack = 128 //
@@ -229,10 +275,9 @@ def build_graph(
     it divides `bat_e_tile`, and `dst_km` in each plan (reference
     `structures.py:198-209`). The reference then also takes `bat_e_tile`
     = `e_tile` (512) unless a tile is given (`structures.py:252-254`), a
-    TPU pick not measured on the H100; here the tiles stay explicit. Its
-    tuning table may answer "bat" for a narrow graph, and then it builds
-    unpacked plans (`table_picked`, `structures.py:200-208`); the port has
-    no table, so a narrow `feature_hint` always packs. The stream
+    TPU pick not measured on the H100; here the default stays 1024. A
+    measured table winner "bat" or "sr" builds unpacked plans at any width
+    (the reference's `table_picked`, `structures.py:200-208`). The stream
     remainder's BAT plan stays unpacked: the hybrid path is built only
     past 64 features, as in the reference.
 
@@ -255,25 +300,34 @@ def build_graph(
     layouts = tuple(layouts)
     if layouts not in LAYOUTS:
         raise NotImplementedError(f"layouts={layouts!r}: one of {LAYOUTS}")
-    for name, p in (("prefer", prefer), ("prefer_dyn", prefer_dyn)):
-        if p not in PREFERENCES:
-            raise ValueError(f"{name}={p!r}: one of {PREFERENCES}")
-    nw = packed_width(feature_hint) if feature_hint else 0
-    km_pack = 128 // nw if nw else 0
     dev = resolve_device(device)
     stats: dict = {"stream": {}, "seconds": {}}
     secs = stats["seconds"]
     t0 = time.perf_counter()
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
+    knobs = dict(e_tile=e_tile, s_tile=s_tile, bat_e_tile=bat_e_tile, bat_s_tile=bat_s_tile,
+                 prefer=prefer, prefer_dyn=prefer_dyn, mode_hint=mode_hint)
+    tuned, unpack = {}, False
+    if None in knobs.values():
+        tuned, unpack = _table_knobs(feature_hint, len(src), num_nodes)
+    e_tile, s_tile, bat_e_tile, bat_s_tile, prefer, prefer_dyn, mode_hint = (
+        v if v is not None else tuned.get(k, DEFAULT_KNOBS[k]) for k, v in knobs.items())
+    for name, p in (("prefer", prefer), ("prefer_dyn", prefer_dyn)):
+        if p not in PREFERENCES:
+            raise ValueError(f"{name}={p!r}: one of {PREFERENCES}")
+    nw = packed_width(feature_hint) if feature_hint else 0
+    # a measured "bat" or "sr" winner is an unpacked layout: its BAT plans
+    # stay unpacked at any width (the reference's `table_picked`)
+    km_pack = 128 // nw if nw and not unpack else 0
     if edge_weight is not None:
         edge_weight = np.asarray(edge_weight, dtype=np.float32)
     if not assume_sorted:
-        order = _stable_sort_perm(dst)
+        order = _stable_sort_perm(dst, num_nodes)
         src, dst = src[order], dst[order]
         if edge_weight is not None:
             edge_weight = edge_weight[order]
-    perm_t = _stable_sort_perm(src)
+    perm_t = _stable_sort_perm(src, num_nodes)
     src_t = src[perm_t]
     w_t = None if edge_weight is None else edge_weight[perm_t]
     # chunk cap by gather bytes (reference structures.py:245-260)
@@ -322,15 +376,25 @@ def build_graph(
         secs["bucketed_plans"] = time.perf_counter() - t0
     hyb = hyb_t = None
     if "stream" in layouts and nw == 0 and len(src):
-        kw = dict(feature_hint=feature_hint, bat_kw=bat_kw, knobs=stream_knobs, dev=dev)
-        hyb = _build_hybrid(dst, src, edge_weight, num_nodes, "forward", stats, **kw)
-        if hyb is not None:
-            hyb_t = _build_hybrid(src_t, dst[perm_t], w_t, num_nodes, "transpose", stats,
-                                  **kw)
-            if hyb_t is None:
-                # the forward streams but the transpose does not: autograd
-                # needs the pair, so both stay on the gather path
-                hyb = None
+        # a measured verdict on this bucket ('spmm_hyb:<bucket>', written by
+        # the sweep where it timed the hybrid route) vetoes the census, or
+        # endorses it without the census's margin; else the census decides
+        verdict = load_table().get(f"spmm_hyb:{bucket_key(feature_hint, len(src), num_nodes)}")
+        decided = ("census" if verdict is None else
+                   "table_endorse" if verdict.mode == "hybrid" else "table_veto")
+        stats["stream_decided_by"] = decided
+        if decided != "table_veto":
+            if decided == "table_endorse":
+                stream_knobs = dataclasses.replace(stream_knobs, margin=1.0)
+            kw = dict(feature_hint=feature_hint, bat_kw=bat_kw, knobs=stream_knobs, dev=dev)
+            hyb = _build_hybrid(dst, src, edge_weight, num_nodes, "forward", stats, **kw)
+            if hyb is not None:
+                hyb_t = _build_hybrid(src_t, dst[perm_t], w_t, num_nodes, "transpose", stats,
+                                      **kw)
+                if hyb_t is None:
+                    # the forward streams but the transpose does not: autograd
+                    # needs the pair, so both stay on the gather path
+                    hyb = None
 
     rests = [(f"{name}.rest", h.rest) for name, h in (("hyb", hyb), ("hyb_t", hyb_t))
              if h is not None]
@@ -359,7 +423,7 @@ def build_graph(
         bat_b=bat_b,
         bat_b_t=bat_b_t,
         # slot preferences degrade to "bat" when no slot plan was built
-        prefer=prefer if plan is not None else "bat",
-        prefer_dyn=prefer_dyn if plan is not None else "bat",
+        prefer=prefer if plan is not None or prefer != "sr" else "bat",
+        prefer_dyn=prefer_dyn if plan is not None or prefer_dyn != "sr" else "bat",
         build_stats=stats,
     )

@@ -33,17 +33,17 @@ def prepare_graph(
     edge_weight=None,
     normalize: Optional[str] = None,
     improved: bool = False,
-    e_tile: int = 512,
-    s_tile: int = 256,
-    bat_e_tile: int = 1024,
-    bat_s_tile: int = 256,
+    e_tile: Optional[int] = None,
+    s_tile: Optional[int] = None,
+    bat_e_tile: Optional[int] = None,
+    bat_s_tile: Optional[int] = None,
     feature_hint: int = 128,
     layouts=("bat", "slot"),
     max_chunk_bytes: int = 1 << 30,
     stream_knobs: StreamKnobs = StreamKnobs(),
-    prefer: str = "bat",
-    prefer_dyn: str = "bat",
-    mode_hint: str = "auto",
+    prefer: Optional[str] = None,
+    prefer_dyn: Optional[str] = None,
+    mode_hint: Optional[str] = None,
     max_chunk_slots: int = 4 << 20,
     bucket_table_bytes: Optional[int] = None,
     bucket_rows: int = 128 * 1024,
@@ -56,9 +56,10 @@ def prepare_graph(
     (`normalize='gcn'`), dst-sort and build the plans of `layouts` (the
     reference's default: BAT and slot).
 
-    Tiles, `prefer`, `prefer_dyn`, `mode_hint` and the bucketed BAT knobs
-    (`bucket_table_bytes`, `bucket_rows`) are explicit (see
-    `build_graph`). `layouts=("bat", "stream")` adds the hybrid plans
+    Tiles, `prefer`, `prefer_dyn` and `mode_hint` left unset come from the
+    tuning table, else from `build_graph`'s defaults (the shipped table is
+    empty); the bucketed BAT knobs (`bucket_table_bytes`, `bucket_rows`)
+    are explicit (see `build_graph`). `layouts=("bat", "stream")` adds the hybrid plans
     where the cell census accepts them. With `normalize='gcn'` and a slot
     layout the norm lives in the graph's slot weights, and
     `GCNConv(normalize=True)` takes it as it is. On a graph without slot

@@ -41,6 +41,7 @@ as the reference's kernels do.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -62,6 +63,7 @@ from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_sr_packed,
 )
 from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+from geot_tpu_torch.tuning.heuristics import select_config
 
 __all__ = [
     "segment_spmm",
@@ -572,7 +574,8 @@ def dispatch_path(
     (unweighted), 'bat_dyn' (per-call weights) or 'xla' (the plain
     reference, and every max, min and prod; the name is the reference's).
     The graph's `prefer` (graph or no weights) and `prefer_dyn` (per-call
-    weights) choose between BAT and slot where both exist. 'slot_dyn'
+    weights) choose between BAT and slot where both exist, or the plain
+    route ("xla", a tuning table's pick) after the hybrid route. 'slot_dyn'
     (per-call weights over the slot plans, `gather_weight_scatter`'s route
     there) is taken as the reference takes it. Per-call weights never take
     the bucketed route."""
@@ -582,6 +585,8 @@ def dispatch_path(
         return "xla"
     if not dynamic_w and graph.hyb is not None:
         return "hybrid"
+    if (graph.prefer_dyn if dynamic_w else graph.prefer) == "xla":
+        return "xla"
     have_slot = graph.plan is not None
     use_bat = graph.bat is not None
     if not (have_slot or use_bat):
@@ -668,15 +673,20 @@ def index_scatter(
     With a `BatPlan` or a `SegmentPlan` over `index` (sum or mean) the rows
     stream in edge order through the BAT kernel or the aligned-edge-block
     slot kernels (packed2 for narrow rows on a pack-aligned plan, else
-    sr2); otherwise the plain reference runs. The
-    reference also asks its TPU tuning table whether a small call should
-    take the plain path instead; that table is a TPU measurement and is not
-    carried over. `sorted` is the reference's hint and changes nothing."""
+    sr2); otherwise the plain reference runs. As in the reference, a
+    tuning table's "xla" pick for op "index_scatter" at this shape takes
+    the plain route too (the port's table is its own, and empty until an
+    H100 sweep fills it). `sorted` is the reference's hint and changes
+    nothing."""
     del sorted
     _check_backend(backend)
     if axis != 0:
         src = src.movedim(axis, 0)
-    if plan is not None and backend == "auto" and reduce in ("sum", "mean"):
+    use_plan = plan is not None and backend == "auto" and reduce in ("sum", "mean")
+    if use_plan:
+        use_plan = select_config(math.prod(src.shape[1:]), int(src.shape[0]), num_segments,
+                                 op="index_scatter").mode != "xla"
+    if use_plan:
         if not isinstance(plan, (BatPlan, SegmentPlan)):
             raise TypeError(f"plan must be a BatPlan or a SegmentPlan, got {type(plan)}")
         if num_segments != plan.num_segments:
@@ -711,7 +721,8 @@ def gather_scatter(
     slot plans, with the transpose-plan backward; otherwise the plain
     reference."""
     _check_backend(backend)
-    if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
+    if (graph is not None and backend == "auto" and reduce in ("sum", "mean")
+            and graph.prefer != "xla"):
         if graph.hyb is not None and graph.edge_weight is None:
             out = _SpmmHybrid.apply(src, graph.hyb, graph.hyb_t)
         elif graph.bat is not None or graph.plan is None:
@@ -741,7 +752,8 @@ def gather_weight_scatter(
     the slot plans (`slot_dyn`, dweight the plain per-edge dot); dsrc over
     the transpose plan."""
     _check_backend(backend)
-    if graph is not None and backend == "auto" and reduce in ("sum", "mean"):
+    if (graph is not None and backend == "auto" and reduce in ("sum", "mean")
+            and graph.prefer_dyn != "xla"):
         if dispatch_path(graph, dynamic_w=True) == "slot_dyn":
             out = _GatherWeightScatterSlot.apply(src, weight, graph.src, graph.dst,
                                                  graph.dst_t, graph.plan, graph.plan_t,

@@ -5,11 +5,16 @@ The flax variables of `geot_tpu.models` (params and, for BatchNorm,
 `batch_stats`, set to random running averages) are carried into the port
 by `params_from_flax`; the JAX models run on their reference path and the
 port's over BAT plans on the CPU: f32 sums of the same terms in other
-orders, so rtol/atol 2e-4 (tests/test_ops.py's SpMM bound) for outputs,
-and for gradients rtol 2e-4 with atol 2e-4 times the model's largest
-gradient (the bias of a conv ahead of a training-mode BatchNorm has a
-gradient of exactly 0, rounding noise in both packages, so its own scale
-is none). BatchNorm in training mode is
+orders, so rtol/atol 2e-4 (tests/test_ops.py's SpMM bound) for outputs.
+Gradients are held per tensor (`_check_grads`, ROADMAP C.19) against
+JAX's at rtol 2e-4 and atol 2e-4 times the tensor's own float64 scale,
+with JAX's f32 gradients held to the port's float64 reference path by
+the same rule (a fault the port's paths share cannot hide), and the
+port's f32 gradient no farther from float64 than its f32 reference
+path's, a factor 2 at most, in the relative (Frobenius) distance. Only a
+tensor whose exact gradient is 0 (the bias of a conv ahead of a
+training-mode BatchNorm) takes the model's largest gradient as its scale.
+BatchNorm in training mode is
 held against `model.apply(..., deterministic=False,
 mutable=["batch_stats"])`: its output, gradients and updated running
 averages (flax's momentum 0.99 and biased variance).
@@ -86,13 +91,51 @@ def _models(kind, norm, jk, act_first, x, jg, rng, width=16):
     return jm, v, tm
 
 
-def _check_grads(tm, jgrads, batch_stats):
+def _ref_grads(tm, kind, norm, jk, act_first, x, tg, cot, dtype, width=16):
+    """Every parameter's gradient of <model(x), cot> on the port's
+    reference path in `dtype`, from tm's state and in tm's mode (tm as
+    `_models` builds it)."""
+    m = MODELS[kind][1](x.shape[1], width, 3, 5, norm=norm, jk=jk, act_first=act_first,
+                        backend="reference", device="cpu").to(dtype)
+    m.load_state_dict(tm.state_dict())
+    m.train(tm.training)
+    out = m(torch.from_numpy(x).to(dtype), tg)
+    (out * torch.from_numpy(cot).to(dtype)).sum().backward()
+    return {k: p.grad for k, p in m.named_parameters()}
+
+
+def _check_grads(tm, jgrads, batch_stats, args):
+    """Per tensor (ROADMAP C.19), with `args` (kind, norm, jk, act_first,
+    x, tg, cot) for the port's reference path in float64 and float32:
+
+    - the port's f32 gradient against JAX's, rtol 2e-4 and atol 2e-4 times
+      the tensor's largest float64 entry;
+    - JAX's f32 gradient against float64 by the same rule, so a fault the
+      port's kernel and reference paths share cannot hide;
+    - the port's f32 gradient no farther from float64 than the port's f32
+      reference path, a factor 2 at most, in ||g - g64|| / ||g64||.
+
+    A tensor whose exact gradient is 0 (the bias of a conv ahead of a
+    training-mode BatchNorm: float64 leaves ~1e-15) has no scale of its
+    own and takes the model's largest float64 entry."""
     want = params_from_flax({"params": jgrads, "batch_stats": batch_stats})
     got = {k: p.grad for k, p in tm.named_parameters()}
-    assert set(got) <= set(want)
-    scale = max(float(want[k].abs().max()) for k in got)
+    g64 = _ref_grads(tm, *args, dtype=torch.float64)
+    g32 = _ref_grads(tm, *args, dtype=torch.float32)
+    assert set(got) <= set(want) and set(got) == set(g64) == set(g32)
+    model = max(float(g64[k].abs().max()) for k in got)
     for k, g in got.items():
-        torch.testing.assert_close(g, want[k], rtol=2e-4, atol=2e-4 * scale)
+        h = g64[k]
+        own = float(h.abs().max())
+        scale = own if own > 1e-12 * model else model
+        tol = dict(rtol=2e-4, atol=2e-4 * scale, msg=lambda m: f"{k}: {m}")
+        torch.testing.assert_close(g, want[k], **tol)
+        torch.testing.assert_close(want[k].double(), h, **tol)
+        norm = max(float(h.norm()), 1e-12 * model)
+        e_kernel = float((g.double() - h).norm()) / norm
+        e_ref = float((g32[k].double() - h).norm()) / norm
+        assert e_kernel <= 2 * e_ref, (f"{k}: relative distance from float64 {e_kernel:.3e}, "
+                                       f"past twice the f32 reference path's {e_ref:.3e}")
 
 
 CASES = ([(n, j, False) for n in ("layer", "batch") for j in (None, "last", "cat", "max")]
@@ -116,7 +159,7 @@ def test_gcn_norm_jk_vs_flax(norm, jk, act_first):
     rest = {k: v[k] for k in v if k != "params"}
     gj = jax.grad(lambda p: jnp.vdot(jm.apply({"params": p, **rest}, jnp.asarray(x), jg),
                                      cot))(v["params"])
-    _check_grads(tm, _np(gj), v.get("batch_stats", {}))
+    _check_grads(tm, _np(gj), v.get("batch_stats", {}), ("gcn", norm, jk, act_first, x, tg, cot))
 
 
 @pytest.mark.parametrize("kind", ["gcn", "graphsage"])
@@ -139,7 +182,7 @@ def test_batchnorm_training_mode_vs_flax(kind, jk, act_first):
 
     (_, (j, upd)), gj = jax.value_and_grad(f, has_aux=True)(v["params"])
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(j), **TOL)
-    _check_grads(tm, _np(gj), v["batch_stats"])
+    _check_grads(tm, _np(gj), v["batch_stats"], (kind, "batch", jk, act_first, x, tg, cot))
     want = params_from_flax({"params": v["params"], "batch_stats": _np(upd["batch_stats"])})
     for k, t in tm.state_dict().items():
         if "running_" in k:

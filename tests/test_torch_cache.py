@@ -12,7 +12,10 @@ roofline helpers and the package's exports, against the JAX package.
   tests/test_block_format.py's checks, mirrored).
 - `rmat_graph`, `synthetic_classification_graph` and `load_npz` (the
   karate and lesmis fixtures) bit-equal to the reference's; `get_dataset`.
-- The graph and ops `__all__` hold every name of the reference's.
+- The `__all__` of the top level, graph, ops, models, native, tuning and
+  compiler hold every name of the reference's.
+- `cached_build` honours GEOT_GRAPH_CACHE_DIR ("off": no cache) and keys
+  its files by the port's tuning-table fingerprint.
 """
 
 import dataclasses
@@ -41,6 +44,7 @@ from geot_tpu_torch.graph import reorder as tre
 from geot_tpu_torch.graph.plan import _sched_key, row_schedule_of
 from geot_tpu_torch.graph.structures import build_graph as tbuild_graph
 from geot_tpu_torch.ops import api as tapi
+from geot_tpu_torch.tuning import heuristics as theur
 from geot_tpu_torch.utils import roofline as troof
 from geot_tpu_torch.utils.timing import timeit
 
@@ -179,6 +183,68 @@ def test_cached_build_hits_and_misses(tmp_path):
         assert tcache.load_graph(path, device="cpu") is not None
 
 
+def _counting_build(calls):
+    def build():
+        calls.append(1)
+        d = tds.synthetic_graph(300, 2500, seed=4)
+        return tbuild_graph(d.src, d.dst, 300, layouts=("bat",), device="cpu", **TILES)
+    return build
+
+
+def test_cache_dir_variable_moves_the_cache(tmp_path, monkeypatch):
+    """GEOT_GRAPH_CACHE_DIR moves the cache; an explicit cache_dir wins."""
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("GEOT_GRAPH_CACHE_DIR", str(tmp_path / "moved"))
+    calls = []
+    g1 = tcache.cached_build("kv", _counting_build(calls), device="cpu")
+    g2 = tcache.cached_build("kv", _counting_build(calls), device="cpu")
+    assert len(calls) == 1 and g2.build_stats["cache"]["hit"] is True
+    assert os.path.dirname(g1.build_stats["cache"]["path"]) == str(tmp_path / "moved")
+    g3 = tcache.cached_build("kv", _counting_build(calls), cache_dir=str(tmp_path / "given"),
+                             device="cpu")
+    assert len(calls) == 2 and os.path.dirname(g3.build_stats["cache"]["path"]) == str(
+        tmp_path / "given")
+    assert not (tmp_path / "home").exists()
+
+
+@pytest.mark.parametrize("how", ["variable", "argument"])
+def test_cache_off_builds_every_call_and_writes_nothing(tmp_path, monkeypatch, how):
+    """"off" (the variable, or cache_dir) returns build_fn() each call and
+    writes no file, the default directory included."""
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if how == "variable":
+        monkeypatch.setenv("GEOT_GRAPH_CACHE_DIR", "off")
+    else:
+        monkeypatch.delenv("GEOT_GRAPH_CACHE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    calls = []
+    for i in range(3):
+        g = tcache.cached_build("koff", _counting_build(calls),
+                                cache_dir="off" if how == "argument" else None, device="cpu")
+        assert len(calls) == i + 1 and "cache" not in g.build_stats
+    assert sorted(os.listdir(tmp_path)) == []
+
+
+def test_cache_file_name_changes_with_the_table(tmp_path, monkeypatch):
+    """The file name holds the port's table fingerprint: another table is
+    another file, a miss; the same table again is a hit."""
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.delenv("GEOT_GRAPH_CACHE_DIR", raising=False)
+    table = tmp_path / "table.json"
+    calls, paths = [], []
+    for content in ("{}", '{"spmm:0:0:0": {"mode": "bat", "e_tile": 64, "s_tile": 32, '
+                    '"f_tile": 128}}', "{}"):
+        table.write_text(content)
+        monkeypatch.setenv(theur.TABLE_ENV, str(table))
+        g = tcache.cached_build("kt", _counting_build(calls), cache_dir=str(tmp_path / "c"),
+                                device="cpu")
+        paths.append(g.build_stats["cache"]["path"])
+    assert len(calls) == 2 and paths[0] == paths[2] != paths[1]
+    assert theur.table_fingerprint() in paths[2]
+    monkeypatch.setenv(theur.TABLE_ENV, str(tmp_path / "none.json"))
+    assert theur.table_fingerprint() == "notable"
+
+
 def test_jax_cache_file_is_a_miss(tmp_path):
     rng = np.random.default_rng(4)
     dst = np.sort(rng.integers(0, 300, 2500)).astype(np.int32)
@@ -309,11 +375,31 @@ def test_roofline_and_timing():
 
 
 def test_exports_cover_the_reference():
-    """Every name of the reference's graph and ops `__all__` is exported
-    by the port's package of the same name (nothing of them is queued)."""
-    for jmod, tmod in ((jgraph, tgraph), (jops, tops)):
-        assert set(jmod.__all__) <= set(tmod.__all__), sorted(set(jmod.__all__)
-                                                              - set(tmod.__all__))
+    """Every name of the reference's `__all__` is exported by the port's
+    package of the same name: the top level, graph, ops, models, native,
+    tuning (and its heuristics) and compiler (the reference's parallel
+    package is still to port)."""
+    import geot_tpu
+    import geot_tpu.compiler
+    import geot_tpu.models
+    import geot_tpu.native
+    import geot_tpu.tuning
+    import geot_tpu.tuning.heuristics
+    import geot_tpu_torch
+    import geot_tpu_torch.compiler
+    import geot_tpu_torch.models
+    import geot_tpu_torch.native
+    import geot_tpu_torch.tuning
+    import geot_tpu_torch.tuning.heuristics
+
+    pairs = ((geot_tpu, geot_tpu_torch), (jgraph, tgraph), (jops, tops),
+             (geot_tpu.models, geot_tpu_torch.models), (geot_tpu.native, geot_tpu_torch.native),
+             (geot_tpu.tuning, geot_tpu_torch.tuning),
+             (geot_tpu.tuning.heuristics, geot_tpu_torch.tuning.heuristics),
+             (geot_tpu.compiler, geot_tpu_torch.compiler))
+    for jmod, tmod in pairs:
+        assert set(jmod.__all__) <= set(tmod.__all__), (tmod.__name__, sorted(
+            set(jmod.__all__) - set(tmod.__all__)))
         for name in tmod.__all__:
             getattr(tmod, name)
     assert tops.reference.csr_spmm_ref is not None and jnp is not None

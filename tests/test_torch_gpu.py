@@ -1490,3 +1490,79 @@ def test_max_min_prod_rerun_bit_identical(cuda, reduce):
         assert torch.equal(a, b)
     for a, b in zip(runs[0], runs[2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_compiler_rewritten_model_on_card_matches_cpu(cuda, weighted):
+    """A two-layer GCN in plain PyTorch through the compiler pass: on the
+    card both aggregations run bat_segment_sum (two launches forward; two
+    over bat_t, and with learned edge weights two sddmm_bat, backward),
+    and the output and gradients equal the same pass on the CPU."""
+    from geot_tpu_torch.compiler import count_matches, pattern_transform
+
+    rng = np.random.default_rng(8)
+    n = 1500
+    src, dst = _hubby(rng, n, 12000, 1000)
+    x = rng.standard_normal((n, 48)).astype(np.float32)
+    w1 = rng.standard_normal((48, 64)).astype(np.float32) * 0.1
+    w2 = rng.standard_normal((64, 7)).astype(np.float32) * 0.1
+    ew = rng.random(len(src)).astype(np.float32)
+    res = []
+    for dev in (cuda, "cpu"):
+        g = build_graph(src, dst, n, layouts=("bat",), bat_e_tile=128, bat_s_tile=64,
+                        device=dev)
+        gs, gd = g.src, g.dst
+
+        def gcn2(x, ew, w1, w2):
+            h = x @ w1
+            msg = h.index_select(0, gs) * ew[:, None] if weighted else h[gs]
+            h = torch.zeros(n, 64, device=h.device).index_add_(0, gd, msg)
+            h = torch.relu(h) @ w2
+            msg = h.index_select(0, gs) * ew[:, None] if weighted else h[gs]
+            return torch.zeros(n, 7, device=h.device).index_add_(0, gd, msg)
+
+        args = [torch.from_numpy(a).to(dev).requires_grad_() for a in (x, ew, w1, w2)]
+        assert count_matches(gcn2, g, *args) == 2
+        before = {k.__name__: k.launches for k in (bat_segment_sum, sddmm_bat)}
+        out = pattern_transform(gcn2, g)(*args)
+        grads = torch.autograd.grad(out.sum(), args[1:] if weighted else args[2:])
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert bat_segment_sum.launches - before["bat_segment_sum"] == 4
+            assert sddmm_bat.launches - before["sddmm_bat"] == (2 if weighted else 0)
+        res.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    for k, p in zip(*res):
+        torch.testing.assert_close(k, p, **TOL_HUB)
+
+
+def test_native_plans_on_card_equal_numpy(cuda):
+    """The native runtime builds on the card's machine, and a graph built
+    through it (slot plans at pack_align 1, BAT, bucketed BAT, both
+    sorts) equals the numpy build tensor for tensor, on the card."""
+    from geot_tpu_torch import native
+
+    assert native.available()
+    rng = np.random.default_rng(9)
+    n = 2000
+    src, dst = _hubby(rng, n, 20000, 2500)
+    w = rng.random(len(src)).astype(np.float32)
+    kw = dict(edge_weight=w, layouts=("bat", "slot"), e_tile=128, s_tile=64, bat_e_tile=128,
+              bat_s_tile=64, bucket_table_bytes=1, bucket_rows=500, device=cuda)
+    g_nat = build_graph(src, dst, n, **kw)
+    with native.disabled():
+        g_np = build_graph(src, dst, n, **kw)
+
+    def same(a, b, what):
+        if isinstance(a, torch.Tensor):
+            assert a.is_cuda and torch.equal(a, b), what
+        elif dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                if f.name not in ("build_stats", "seconds"):
+                    same(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+        elif isinstance(a, (tuple, list)):
+            for i, (u, v) in enumerate(zip(a, b)):
+                same(u, v, f"{what}.{i}")
+        else:
+            assert a == b, what
+
+    same(g_nat, g_np, "graph")
