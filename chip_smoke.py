@@ -4,7 +4,11 @@ GraphSAGE, GAT, GIN and APPNP, time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width. Phases 36-39 drive the native
+Runs the port's main paths at full width. Phases 40-42 drive the parallel
+package: the arxiv graph partitioned into 2 and 4 parts, each part's
+reduces, then 2 ranks spawned on the one card in a gloo group running the
+halo SpMM and 5 requests and 5 Adam steps of the distributed 3-layer GCN,
+and NCCL at world size 1. Phases 36-39 drive the native
 host runtime, the tuning sweep and table, the compiler pass and the
 float64 gradient rule of the norm variants. Phases 30-35 serve and train
 the arxiv GCN over bucketed BAT plans (`bucketed_sum`, the edge-row
@@ -236,7 +240,35 @@ Phases, each printed with its elapsed seconds:
  39. phase 32's norm variants' step-0 gradients held per tensor against the
      reference path in float64 (ROADMAP C.19): the kernel path's relative
      distance ||g - g64|| / ||g64|| at most twice the f32 reference
-     path's.
+     path's;
+ 40. `parallel.partition_graph` of phases 1-9's arxiv graph (the GCN norm
+     of the whole graph as edge weights) into 2 and 4 parts by layout
+     "auto" (it must pick "slot") and "bat", and of phase 37's clustered
+     graph (arxiv size, communities of 32, mixing 0.02; self-loops and the
+     GCN norm) into 2 parts by "hybrid" (the census must stream): each
+     one's host seconds, halo H, interior share of the edges, tiles and
+     chunks;
+ 41. every part's reduces of those partitions on the card against their
+     plain versions, both directions, at F 128 and 40: the slot plans' sr
+     and sr_packed (x[src[e]] read in the edge-row kernel), the BAT
+     families' bat_segment_sum (each part's equalized plan whole), the
+     streamed cells' stream_segment_sum and stream_segment_acc; the
+     abs-sum rule; three reruns bit-identical;
+ 42. 2 ranks spawned on cuda:0 in a gloo group (`parallel.spawn_ranks`;
+     gloo stages CUDA tensors through the host, and NCCL takes one rank a
+     card): halo_spmm forward and x gradient over each layout's 2-part
+     partition against the same rank on the reference backend and the
+     whole graph's SpMM in float64 (the blocked pad rows 0, reruns
+     bit-identical); 5 requests and 5 Adam steps (lr 0.01) of the GCN 128
+     -> 128 -> 128 -> 40 over the slot partition, launches per request
+     and per step asserted, each request against the whole graph's GCN in
+     float64 (MODEL_TOL), each step's loss against float64 from the same
+     state, the step-0 gradients through the kernel path's ReLU pattern
+     (gathered from both ranks), the losses bit-identical across ranks;
+     CUDA-event times of a request, a step, one exchange alone (gloo,
+     host-staged) at F 128 and 40, one halo_spmm and its interior reduce;
+     rank 0 then runs halo_spmm over a 1-part partition in a 1-rank NCCL
+     group, against float64, and times its exchange.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -268,7 +300,8 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "narrow_kernel": 240, "narrow_serve": 180, "narrow_train": 240,
                   "narrow_timing": 240, "bucket_build": 120, "bucket_kernel": 120,
                   "bucket_serve": 240, "bucket_timing": 180, "bucket_reduce": 120,
-                  "bucket_cache": 180, "native": 120, "tune": 300, "compiler": 180, "c19": 60}
+                  "bucket_cache": 180, "native": 120, "tune": 300, "compiler": 180, "c19": 60,
+                  "par_build": 180, "par_kernel": 240, "par_run": 600}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -3052,6 +3085,459 @@ def check_c19(c19):
     return out
 
 
+def partition_stats(pg):
+    """(interior share of the edges, tiles, chunks) of a partition: the
+    slot plans' live slots and tiles, or the BAT and stream families'
+    live edges, tiles and chunk counts (boundary, interior, boundary_t,
+    interior_t, then the stream families)."""
+    if pg.plan is not None:
+        fams = (pg.plan, pg.plan_int, pg.plan_t, pg.plan_int_t)
+        live = [int((f.mask != 0).sum()) for f in fams]
+        tiles = [int(f.out_block.shape[1]) for f in fams]
+        chunks = [1] * 4
+    else:
+        fams = (pg.bat, pg.bat_int, pg.bat_t, pg.bat_int_t)
+        live = [int((f.dst3 >= 0).sum()) for f in fams]
+        tiles = [f.C * f.T_c for f in fams]
+        chunks = [f.C for f in fams]
+        if pg.stream_int is not None:
+            live[1] += int((pg.stream_int.dst3 >= 0).sum())
+        for s in (pg.stream_int, pg.stream_int_t):
+            if s is not None:
+                tiles.append(s.C * s.T_c)
+                chunks.append(s.C)
+    return live[1] / max(live[0] + live[1], 1), tiles, chunks
+
+
+PARTITIONS = (("slot2", "arxiv", 2, "auto"), ("slot4", "arxiv", 4, "auto"),
+              ("bat2", "arxiv", 2, "bat"), ("bat4", "arxiv", 4, "bat"),
+              ("hybrid2", "clustered", 2, "hybrid"))
+
+
+def run_partition(g, w_gcn, n, e):
+    """Phase 40: partition the arxiv graph (the GCN norm of the whole
+    graph as edge weights) into 2 and 4 parts by layout "auto" (which must
+    pick the slot layout) and "bat", and an arxiv-size clustered graph
+    (phase 37's: communities of 32, mixing 0.02; self-loops and the GCN
+    norm) into 2 parts by "hybrid", whose census must stream; each one's
+    seconds, halo, interior share, tiles and chunks. Returns ({label: pg},
+    {graph: (src, dst, w) numpy}, stats)."""
+    from geot_tpu_torch.graph.datasets import synthetic_clustered_graph
+    from geot_tpu_torch.graph.preprocess import gcn_norm
+    from geot_tpu_torch.parallel import partition_graph
+
+    arm("par_build")
+    dc = synthetic_clustered_graph(n, e, mixing=0.02, mean_community=32, power=1.0, seed=SEED)
+    graphs = {"arxiv": (g.src.cpu().numpy(), g.dst.cpu().numpy(), w_gcn.cpu().numpy()),
+              "clustered": tuple(t.numpy() for t in gcn_norm(dc.src, dc.dst, n))}
+    pgs, stats = {}, {}
+    for label, gname, P, layout in PARTITIONS:
+        src, dst, w = graphs[gname]
+        t0 = time.perf_counter()
+        pg = partition_graph(src, dst, n, P, edge_weight=w, layout=layout)
+        secs = time.perf_counter() - t0
+        want = "slot" if layout == "auto" else layout
+        if pg.layout != want:
+            raise AssertionError(f"phase 40 {label}: layout {pg.layout}, expected {want}")
+        if want == "hybrid" and (pg.stream_int is None or pg.stream_int_t is None):
+            raise AssertionError(f"phase 40 {label}: the census streamed no interior cells")
+        share, tiles, chunks = partition_stats(pg)
+        pgs[label] = pg
+        stats[label] = dict(seconds=secs, halo=pg.halo, nodes_per_part=pg.nodes_per_part,
+                            edges=len(src), interior_share=share, tiles=tiles, chunks=chunks)
+        log(f"phase 40 {label} ({gname}, layout {layout!r} -> {pg.layout}): partition_graph "
+            f"{secs:.2f}s, {len(src)} edges, nodes_per_part {pg.nodes_per_part}, halo H="
+            f"{pg.halo} ({P * pg.halo} receive rows a part), interior share {share:.4f}, "
+            f"tiles (boundary, interior, boundary_t, interior_t{', streams' * (want == 'hybrid')}"
+            f") {tiles}, chunks {chunks}")
+    faulthandler.cancel_dump_traceback_later()
+    return pgs, graphs, stats
+
+
+def run_part_reduces(dev, pgs):
+    """Phase 41: every part's reduces of every partition of phase 40 on the
+    card against their plain versions, both directions, at F 128 and 40:
+    the slot plans' sr / sr_packed (x[src[e]] read in the edge-row
+    kernel), the BAT families' bat_segment_sum and the streamed cells'
+    stream_segment_sum / _acc; the abs-sum rule; each reduce one launch
+    of its kernel; three reruns bit-identical. Returns (max error per
+    kernel, views' build seconds)."""
+    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum_plain
+    from geot_tpu_torch.ops.reference import plan_segment_sum_sr_plain
+    from geot_tpu_torch.ops.stream_kernels import (
+        stream_segment_acc_plain,
+        stream_segment_sum_plain,
+    )
+    from geot_tpu_torch.parallel.bat_partition import PartBat, part_bat_reduce
+    from geot_tpu_torch.parallel.halo_spmm import part_slot_reduce
+    from geot_tpu_torch.parallel.stream_partition import part_stream_reduce
+
+    arm("par_kernel")
+    counters = kernel_counters()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    errs, n_checks, view_s = {}, 0, 0.0
+
+    def held(name, run, plain, plain_abs, what):
+        nonlocal n_checks
+        k, launches = launches_of(run, counters)
+        expect_launches({c: v for c, v in launches.items() if v}, {name: 1}, what)
+        err = check_close_abs_sum(k, plain(), plain_abs(), what)
+        errs[name] = max(errs.get(name, 0.0), err)
+        for _ in range(3):
+            if not torch.equal(run(), k):
+                raise AssertionError(f"{what}: a rerun differs")
+        n_checks += 1
+
+    for label, pg in pgs.items():
+        P, H, npp = pg.num_parts, pg.halo, pg.nodes_per_part
+        for r in range(P):
+            t0 = time.perf_counter()
+            view = pg.part(r, dev)
+            torch.cuda.synchronize()
+            view_s += time.perf_counter() - t0
+            for F in (128, 40):
+                for fam_name in ("boundary", "interior", "boundary_t", "interior_t"):
+                    fam = getattr(view, fam_name)
+                    rows = P * H if fam_name == "boundary" else npp
+                    x = torch.randn(rows, F, generator=gen, device=dev)
+                    what = f"phase 41 {label} part {r} {fam_name} F={F}"
+                    if isinstance(fam, PartBat):
+                        bp, m = fam.plan, fam.plan.num_segments
+                        w_abs = None if fam.w is None else fam.w.abs()
+                        held("bat_segment_sum", lambda: part_bat_reduce(fam, x),
+                             lambda: bat_segment_sum_plain(bp, x, fam.w, src=fam.src)[:m],
+                             lambda: bat_segment_sum_plain(bp, x.abs(), w_abs, src=fam.src)[:m],
+                             what)
+                    else:
+                        pl, m = fam.plan, fam.plan.num_segments
+                        name = "plan_segment_sum_sr" if F > 64 else "plan_segment_sum_sr_packed"
+                        held(name, lambda: part_slot_reduce(fam, x),
+                             lambda: plan_segment_sum_sr_plain(pl, x, fam.w, src=fam.src)[:m],
+                             lambda: plan_segment_sum_sr_plain(pl, x.abs(), fam.w.abs(),
+                                                               src=fam.src)[:m], what)
+                for sp, tag in ((view.stream, "stream"), (view.stream_t, "stream_t")):
+                    if sp is None:
+                        continue
+                    x = torch.randn(npp, F, generator=gen, device=dev)
+                    carry = torch.randn(sp.n_blocks * sp.s_tile, F, generator=gen, device=dev)
+                    w_abs = dataclasses.replace(sp, vals=None if sp.vals is None
+                                                else sp.vals.abs(),
+                                                w3=None if sp.w3 is None else sp.w3.abs())
+                    what = f"phase 41 {label} part {r} {tag} F={F}"
+                    held("stream_segment_sum", lambda: part_stream_reduce(sp, x),
+                         lambda: stream_segment_sum_plain(sp, x),
+                         lambda: stream_segment_sum_plain(w_abs, x.abs()), what + " sum")
+                    held("stream_segment_acc",
+                         lambda: part_stream_reduce(sp, x, carry=carry.clone()),
+                         lambda: stream_segment_acc_plain(sp, x, carry.clone()),
+                         lambda: stream_segment_acc_plain(w_abs, x.abs(), carry.abs()),
+                         what + " acc")
+            del view
+    log(f"phase 41 {n_checks} part-local reduces on the card, each one launch of its kernel, "
+        f"within the abs-sum rule of their plain versions, three reruns each bit-identical; max errors {errs}; the parts' views "
+        f"(plans, schedules, halo indices moved once) built in {view_s:.2f}s")
+    faulthandler.cancel_dump_traceback_later()
+    return errs, view_s
+
+
+def gcn_dense(params, x, src, dst, w, n, dtype, masks=None):
+    """The GCN of `dist_train.gcn_forward` on the whole graph in `dtype`
+    (plain index_add_ sums): (output, hidden pre-activations); with
+    `masks` the ReLU takes their pattern."""
+    h, zs = x.to(dtype), []
+    L = len(params) // 2
+    for i in range(L):
+        h = h @ params[f"w{i}"].to(dtype)
+        h = torch.zeros(n, h.shape[1], dtype=dtype, device=h.device).index_add_(
+            0, dst, h.index_select(0, src) * w.to(dtype)[:, None]) + params[f"b{i}"].to(dtype)
+        if i + 1 < L:
+            zs.append(h)
+            h = torch.relu(h) if masks is None else h * masks[i].to(dtype)
+    return h, zs
+
+
+def masked_nll(logits, y, m, count):
+    return (torch.nn.functional.cross_entropy(logits, y, reduction="none") * m).sum() / count
+
+
+def parallel_rank(rank, world, job):
+    """Phase 42 on one rank of a gloo group, a spawned process on cuda:0:
+    halo_spmm forward and x gradient per layout against the same rank on
+    the reference backend and the whole graph's SpMM in float64; 5
+    requests and 5 Adam steps of the GCN over the slot partition against
+    float64; timings; rank 0 also runs halo_spmm over a 1-part partition
+    in a 1-rank NCCL group. Returns its results (numbers only)."""
+    import torch.distributed as dist
+
+    from geot_tpu_torch.parallel import (
+        block_nodes,
+        gcn_forward,
+        halo_spmm,
+        init_gcn_params,
+        make_dist_train_step,
+        node_sharding,
+        partition_graph,
+        shard_inputs,
+        unblock_nodes,
+    )
+    from geot_tpu_torch.parallel.halo_spmm import _interior_reduce
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    # NCCL at world size 1 (rank 0's own group; every rank takes part in
+    # making it): NCCL takes one rank a card
+    nccl = dist.new_group([0], backend="nccl") if dev.type == "cuda" else None
+    counters = kernel_counters()
+    n = job["n"]
+    res = {"rank": rank, "halo": {}, "launches": {}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    F = 128
+
+    def dense(edges):
+        s, d, w = (torch.from_numpy(a).to(dev) for a in edges)
+        return s.long(), d.long(), w.double()
+
+    def spmm64(x, s, d, w):
+        out = torch.zeros(n, x.shape[1], dtype=torch.float64, device=dev)
+        return out.index_add_(0, d, x.double().index_select(0, s) * w[:, None])
+
+    views = {}
+    for layout, gname in (("slot", "arxiv"), ("bat", "arxiv"), ("hybrid", "clustered")):
+        t0 = time.perf_counter()
+        edges = job["graphs"][gname]
+        pg = partition_graph(*edges[:2], n, world, edge_weight=edges[2], layout=layout)
+        view = pg.part(rank, dev)
+        views[layout] = (pg, view)
+        build_s = time.perf_counter() - t0
+        s, d, w = dense(edges)
+        rows = node_sharding(pg, rank)
+        x = torch.randn(n, F, generator=gen, device=dev)
+        cot = torch.randn(n, F, generator=gen, device=dev)
+        xl, cl = block_nodes(x, pg)[rows].contiguous(), block_nodes(cot, pg)[rows].contiguous()
+
+        def run(backend):
+            xx = xl.clone().requires_grad_()
+            out = halo_spmm(xx, view, backend=backend)
+            (out * cl).sum().backward()
+            return out.detach(), xx.grad
+
+        (out, grad), launches = launches_of(lambda: run("auto"), counters)
+        launches = {k: v for k, v in launches.items() if v}
+        streams = (view.stream is not None) + (view.stream_t is not None)
+        want = {"slot": {"plan_segment_sum_sr": 4}, "bat": {"bat_segment_sum": 4},
+                "hybrid": {"bat_segment_sum": 4, "stream_segment_acc": streams}}[layout]
+        expect_launches(launches, {k: v for k, v in want.items() if v},
+                        f"phase 42 rank {rank} {layout} forward + x gradient")
+        out_r, grad_r = run("reference")
+        out2, grad2 = run("auto")
+        if not (torch.equal(out2, out) and torch.equal(grad2, grad)):
+            raise AssertionError(f"phase 42 rank {rank} {layout}: a rerun differs")
+        blk = lambda t: block_nodes(t, pg)[rows]  # noqa: E731
+        o64, oabs = spmm64(x, s, d, w), spmm64(x.abs(), s, d, w.abs())
+        g64, gabs = spmm64(cot, d, s, w), spmm64(cot.abs(), d, s, w.abs())
+        what = f"phase 42 rank {rank} {layout}"
+        err = {
+            "out_vs_f64": check_close_abs_sum(out, blk(o64).float(), blk(oabs).float(),
+                                              what + " forward vs float64"),
+            "out_vs_reference": check_close_abs_sum(out, out_r, blk(oabs).float(),
+                                                    what + " forward vs reference backend"),
+            "grad_vs_f64": check_close_abs_sum(grad, blk(g64).float(), blk(gabs).float(),
+                                               what + " x gradient vs float64"),
+            "grad_vs_reference": check_close_abs_sum(grad, grad_r, blk(gabs).float(),
+                                                     what + " x gradient vs reference backend"),
+        }
+        width = pg.part_start[rank + 1] - pg.part_start[rank]
+        if bool(out[width:].any()):
+            raise AssertionError(f"{what}: a blocked pad row is not 0")
+        res["halo"][layout] = dict(err=err, build_s=build_s, halo=pg.halo, launches=launches)
+        del x, cot, o64, oabs, g64, gabs, s, d, w
+
+    # the GCN over the 2-part slot partition, phases 1-9's widths
+    pg, view = views["slot"]
+    s, d, w = dense(job["graphs"]["arxiv"])
+    dims = [job["x"].shape[1], 128, 128, job["classes"]]
+    params = init_gcn_params(dims, generator=torch.Generator(device=dev).manual_seed(SEED + 43),
+                             device=dev)
+    x, y, m = shard_inputs(job["x"], job["y"], job["train_mask"], pg, rank, dev)
+    y, mf = y.long(), m.float()
+    xg = torch.from_numpy(job["x"]).to(dev)
+    yg = torch.from_numpy(job["y"]).to(dev).long()
+    mg = torch.from_numpy(job["train_mask"]).to(dev).double()
+    rows = node_sharding(pg, rank)
+    per_request = {"plan_segment_sum_sr": 4, "plan_segment_sum_sr_packed": 2}
+    per_step = {k: 2 * v for k, v in per_request.items()}
+    req_s, req_err, serve = [], 0.0, {}
+    with torch.no_grad():
+        ref = block_nodes(gcn_dense(params, xg, s, d, w, n, torch.float64)[0], pg)[rows]
+        for i in range(REQUESTS):
+            ts = time.perf_counter()
+            out, launches = launches_of(lambda: gcn_forward(params, x, view), counters)
+            req_s.append(time.perf_counter() - ts)
+            expect_launches({k: v for k, v in launches.items() if v}, per_request,
+                            f"phase 42 rank {rank} request {i}")
+            serve = {k: serve.get(k, 0) + v for k, v in launches.items() if v}
+            if out.shape != (pg.nodes_per_part, dims[-1]) or not torch.isfinite(out).all():
+                raise AssertionError(f"phase 42 rank {rank} request {i}: bad output")
+            torch.testing.assert_close(out, ref.float(), **MODEL_TOL)
+            req_err = max(req_err, float((out.double() - ref).abs().max()))
+    res["launches"]["serve"] = serve
+
+    # step 0's gradients against float64 through the kernel path's ReLU
+    # pattern (gathered from both ranks over the CPU), as phase 18
+    with torch.no_grad():
+        h, z_kernel = x, []
+        for i in range(len(dims) - 1):
+            h = halo_spmm(h @ params[f"w{i}"], view) + params[f"b{i}"]
+            if i + 2 < len(dims):
+                z_kernel.append(h)
+                h = torch.relu(h)
+    masks = []
+    for z in z_kernel:
+        parts = [torch.empty(z.shape, dtype=torch.uint8) for _ in range(world)]
+        dist.all_gather(parts, (z > 0).to(torch.uint8).cpu())
+        masks.append(unblock_nodes(torch.cat(parts).to(dev), pg).bool())
+    p64 = {k: v.detach().double().requires_grad_() for k, v in params.items()}
+    logits, _ = gcn_dense(p64, xg, s, d, w, n, torch.float64, masks)
+    masked_nll(logits, yg, mg, mg.sum().clamp(min=1.0)).backward()
+    g64 = {k: v.grad for k, v in p64.items()}
+    with torch.no_grad():
+        _, z64 = gcn_dense(params, xg, s, d, w, n, torch.float64)
+    flips = relu_flips(z_kernel, [blk_z[rows].float() for blk_z in
+                                  (block_nodes(z, pg) for z in z64)],
+                       f"phase 42 rank {rank} step 0 (float64)")
+    step = make_dist_train_step(torch.optim.Adam(params.values(), lr=LR), view)
+    losses, step_s, train = [], [], {}
+    for i in range(TRAIN_STEPS):
+        with torch.no_grad():
+            loss64 = float(masked_nll(gcn_dense(params, xg, s, d, w, n, torch.float64)[0],
+                                      yg, mg, mg.sum().clamp(min=1.0)))
+        ts = time.perf_counter()
+        loss, launches = launches_of(lambda: step(params, x, y, m), counters)
+        step_s.append(time.perf_counter() - ts)
+        expect_launches({k: v for k, v in launches.items() if v}, per_step,
+                        f"phase 42 rank {rank} step {i}")
+        train = {k: train.get(k, 0) + v for k, v in launches.items() if v}
+        lk = float(loss)
+        if not abs(lk - loss64) <= LOSS_RTOL * abs(loss64):
+            raise AssertionError(f"phase 42 rank {rank} step {i}: loss {lk} vs float64 "
+                                 f"{loss64}")
+        if i == 0:
+            for k, p in params.items():
+                gr = g64[k].float()
+                torch.testing.assert_close(p.grad, gr, rtol=GRAD_RTOL,
+                                           atol=GRAD_RTOL * float(gr.abs().max()))
+        losses.append((lk, loss64))
+    res["launches"]["train"] = train
+
+    # timings: a request, a step, the exchange alone, one SpMM and the
+    # interior reduce alone (the same loops on every rank: they exchange)
+    send = x.new_zeros(world * pg.halo, 128)
+    recv = torch.empty_like(send)
+    xh = torch.randn(pg.nodes_per_part, 128, generator=gen, device=dev)
+    with torch.no_grad():
+        t_req = cuda_ms(lambda: gcn_forward(params, x, view), iters=5, warmup=1)
+        t_spmm = cuda_ms(lambda: halo_spmm(xh, view), iters=5, warmup=1)
+        t_int = cuda_ms(lambda: _interior_reduce(view, xh, "auto"), iters=10, warmup=2)
+    t_x = cuda_ms(lambda: dist.all_to_all_single(recv, send), iters=10, warmup=2)
+    send40, recv40 = send[:, :40].contiguous(), recv[:, :40].contiguous()
+    t_x40 = cuda_ms(lambda: dist.all_to_all_single(recv40, send40), iters=10, warmup=2)
+    t_step = cuda_ms(lambda: step(params, x, y, m), iters=3, warmup=1)
+    res["gcn"] = dict(request_ms=t_req, step_ms=t_step, exchange_ms=t_x, exchange40_ms=t_x40,
+                      exchange_share_request=(2 * t_x + t_x40) / t_req,
+                      exchange_share_step=2 * (2 * t_x + t_x40) / t_step, spmm_ms=t_spmm,
+                      interior_ms=t_int, request_wall_s=req_s, step_wall_s=step_s,
+                      losses=losses, request_err=req_err, flips=flips, halo=pg.halo,
+                      exchange_mb=send.numel() * 4 / 1e6)
+
+    if rank == 0 and nccl is not None:
+        # halo_spmm over a 1-part partition of the arxiv graph in the NCCL
+        # group: every edge interior, the exchange of 8 empty slots
+        t0 = time.perf_counter()
+        pg1 = partition_graph(*job["graphs"]["arxiv"][:2], n, 1,
+                              edge_weight=job["graphs"]["arxiv"][2])
+        view1 = pg1.part(0, dev)
+        build_s = time.perf_counter() - t0
+        xb = block_nodes(torch.randn(n, F, generator=gen, device=dev), pg1)
+        cb = block_nodes(torch.randn(n, F, generator=gen, device=dev), pg1)
+
+        def run1():
+            xx = xb.clone().requires_grad_()
+            out = halo_spmm(xx, view1, nccl)
+            (out * cb).sum().backward()
+            return out.detach(), xx.grad
+
+        (out, grad), launches = launches_of(run1, counters)
+        launches = {k: v for k, v in launches.items() if v}
+        expect_launches(launches, {"plan_segment_sum_sr": 4},
+                        "phase 42 NCCL 1-part forward + x gradient")
+        xg_, cg_ = unblock_nodes(xb, pg1), unblock_nodes(cb, pg1)
+        blk = lambda t: block_nodes(t, pg1)  # noqa: E731
+        err = {"out_vs_f64": check_close_abs_sum(
+                   out, blk(spmm64(xg_, s, d, w)).float(),
+                   blk(spmm64(xg_.abs(), s, d, w.abs())).float(),
+                   "phase 42 NCCL 1-part forward vs float64"),
+               "grad_vs_f64": check_close_abs_sum(
+                   grad, blk(spmm64(cg_, d, s, w)).float(),
+                   blk(spmm64(cg_.abs(), d, s, w.abs())).float(),
+                   "phase 42 NCCL 1-part x gradient vs float64")}
+        send1 = xb.new_zeros(pg1.halo, 128)
+        recv1 = torch.empty_like(send1)
+        t_x1 = cuda_ms(lambda: dist.all_to_all_single(recv1, send1, group=nccl), iters=10,
+                       warmup=2)
+        res["nccl"] = dict(err=err, build_s=build_s, exchange_ms=t_x1,
+                           launches=launches, backend=dist.get_backend(nccl))
+    return res
+
+
+def run_parallel(dev, card, graphs, data, c):
+    """Phase 42: 2 ranks on cuda:0 in a gloo group (`parallel_rank`), their
+    results checked (losses bit-identical across ranks) and logged."""
+    from geot_tpu_torch.parallel import spawn_ranks
+
+    arm("par_run")
+    job = dict(device=str(dev), n=data.num_nodes, graphs=graphs, x=data.x.astype("float32"),
+               y=data.y.astype("int64"), train_mask=data.train_mask, classes=c)
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(parallel_rank, 2, job, backend="gloo",
+                           timeout=PHASE_BUDGET_S["par_run"] - 30)
+    secs = time.perf_counter() - t0
+    losses = [[lk for lk, _ in r["gcn"]["losses"]] for r in per_rank]
+    if losses[1] != losses[0]:
+        raise AssertionError(f"phase 42 losses differ across ranks: {losses}")
+    for r in per_rank:
+        for layout, h in r["halo"].items():
+            log(f"phase 42 rank {r['rank']} halo_spmm {layout}: partition and view "
+                f"{h['build_s']:.2f}s, H={h['halo']}, launches (forward + x gradient) "
+                f"{h['launches']}, max errors "
+                + ", ".join(f"{k} {v:.3e}" for k, v in h["err"].items()))
+        gc = r["gcn"]
+        log(f"phase 42 rank {r['rank']} GCN ({REQUESTS} requests, {TRAIN_STEPS} Adam steps, "
+            f"lr {LR}): launches {r['launches']}; max |request - float64| "
+            f"{gc['request_err']:.3e}; losses (kernel, float64) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in gc["losses"])
+            + f"; step-0 ReLU flips vs float64 {gc['flips']}")
+        log(f"{card} phase 42 rank {r['rank']} (gloo, host-staged exchange): request "
+            f"{gc['request_ms']:.4f} ms, training step {gc['step_ms']:.4f} ms, one "
+            f"all_to_all_single of [{2 * gc['halo']}, 128] float32 ({gc['exchange_mb']:.1f} MB) "
+            f"{gc['exchange_ms']:.4f} ms (at F 40 {gc['exchange40_ms']:.4f} ms; a request's three "
+            f"exchanges {gc['exchange_share_request']:.3f} of it, a step's six "
+            f"{gc['exchange_share_step']:.3f}), one halo_spmm at F 128 {gc['spmm_ms']:.4f} ms, its "
+            f"interior reduce alone {gc['interior_ms']:.4f} ms; request wall s "
+            + ", ".join(f"{t:.4f}" for t in gc["request_wall_s"]) + "; step wall s "
+            + ", ".join(f"{t:.4f}" for t in gc["step_wall_s"]))
+    nc = per_rank[0]["nccl"]
+    log(f"{card} phase 42 NCCL ({nc['backend']}) world size 1, 1-part arxiv partition: "
+        f"partition and view {nc['build_s']:.2f}s, launches {nc['launches']}, max errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in nc["err"].items())
+        + f"; one all_to_all_single of 8 empty slots {nc['exchange_ms']:.4f} ms")
+    log(f"phase 42 done in {secs:.1f}s (2 spawned ranks, losses bit-identical across ranks)")
+    faulthandler.cancel_dump_traceback_later()
+    return per_rank
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3433,6 +3919,10 @@ def main():
     tu = run_tuning(dev, card, data, bk.pop("graph"))
     co = run_compiler(dev, card, g, x)
     c19 = check_c19(bk.pop("c19"))
+    pgs, pgraphs, p40 = run_partition(g, w_gcn, n, e)
+    p41, p41_view_s = run_part_reduces(dev, pgs)
+    del pgs
+    p42 = run_parallel(dev, card, pgraphs, data, c)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -3566,7 +4056,15 @@ def main():
     # (the compiler pass), per kernel; edge_dots is sddmm_bat's entry
     paths = {"tune_sweep": tu["launches"], **{k: v for k, v in co["launches"].items()}}
     paths["tune_hybrid_clustered"] = tu["launches"].pop("hybrid_clustered")
+    # phase 42's (rank 0's): halo_spmm forward and x gradient per layout,
+    # the GCN's requests and steps, the NCCL run
+    par = p42[0]
+    paths.update({f"parallel_halo_{k}": h["launches"] for k, h in par["halo"].items()})
+    paths["parallel_gcn_serve_requests"] = par["launches"]["serve"]
+    paths["parallel_gcn_train_steps"] = par["launches"]["train"]
+    paths["parallel_nccl_halo"] = par["nccl"]["launches"]
     for entry in kernels:
+        entry["max_abs_err"] = max(entry["max_abs_err"], p41.get(entry["name"], 0.0))
         for path, counts in paths.items():
             name = entry["name"]
             if counts.get(name):
@@ -3601,6 +4099,12 @@ def main():
         "tuning": {k: tu[k] for k in ("rows", "best", "hybrid_clustered_ms", "sweep_s")},
         "compiler": {k: v for k, v in co.items() if k != "launches"},
         "c19": c19,
+        "parallel": {
+            "partitions": p40, "part_reduce_errs": p41, "part_views_s": p41_view_s,
+            "ranks": [{"halo": {k: {"err": h["err"], "build_s": h["build_s"]}
+                                for k, h in r["halo"].items()},
+                       "gcn": {k: v for k, v in r["gcn"].items()}} for r in p42],
+            "nccl": {k: v for k, v in par["nccl"].items() if k != "launches"}},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

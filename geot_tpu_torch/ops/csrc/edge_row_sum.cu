@@ -427,7 +427,8 @@ extern "C" int geot_edge_row_sum(const void* vals, int64_t n_rows, int F, const 
                                  const int* fix_levels, int n_levels, void* part, void* out,
                                  void* stream) {
   if (F <= 0) return (int)cudaSuccess;
-  if (n_rows >= kNoRow || ((by_slot || w_slots != nullptr) && slot == nullptr))
+  // a schedule with no unit reads no slot: an empty slot array may be null
+  if (n_rows >= kNoRow || (n_units > 0 && (by_slot || w_slots != nullptr) && slot == nullptr))
     return (int)cudaErrorInvalidValue;
   if (w_heads != nullptr && (H < 1 || head_dim < 1 || w_slots != nullptr || w_edge != nullptr))
     return (int)cudaErrorInvalidValue;

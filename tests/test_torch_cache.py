@@ -377,18 +377,22 @@ def test_roofline_and_timing():
 def test_exports_cover_the_reference():
     """Every name of the reference's `__all__` is exported by the port's
     package of the same name: the top level, graph, ops, models, native,
-    tuning (and its heuristics) and compiler (the reference's parallel
-    package is still to port)."""
+    tuning (and its heuristics), compiler and parallel (and its
+    dist_train)."""
     import geot_tpu
     import geot_tpu.compiler
     import geot_tpu.models
     import geot_tpu.native
+    import geot_tpu.parallel
+    import geot_tpu.parallel.dist_train
     import geot_tpu.tuning
     import geot_tpu.tuning.heuristics
     import geot_tpu_torch
     import geot_tpu_torch.compiler
     import geot_tpu_torch.models
     import geot_tpu_torch.native
+    import geot_tpu_torch.parallel
+    import geot_tpu_torch.parallel.dist_train
     import geot_tpu_torch.tuning
     import geot_tpu_torch.tuning.heuristics
 
@@ -396,7 +400,9 @@ def test_exports_cover_the_reference():
              (geot_tpu.models, geot_tpu_torch.models), (geot_tpu.native, geot_tpu_torch.native),
              (geot_tpu.tuning, geot_tpu_torch.tuning),
              (geot_tpu.tuning.heuristics, geot_tpu_torch.tuning.heuristics),
-             (geot_tpu.compiler, geot_tpu_torch.compiler))
+             (geot_tpu.compiler, geot_tpu_torch.compiler),
+             (geot_tpu.parallel, geot_tpu_torch.parallel),
+             (geot_tpu.parallel.dist_train, geot_tpu_torch.parallel.dist_train))
     for jmod, tmod in pairs:
         assert set(jmod.__all__) <= set(tmod.__all__), (tmod.__name__, sorted(
             set(jmod.__all__) - set(tmod.__all__)))

@@ -26,6 +26,7 @@ in order).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1566,3 +1567,111 @@ def test_native_plans_on_card_equal_numpy(cuda):
             assert a == b, what
 
     same(g_nat, g_np, "graph")
+
+
+def _parallel_case(layout, P):
+    """A small graph and partition keywords of each layout (hybrid: part-
+    aligned communities, which the per-part census streams)."""
+    rng = np.random.default_rng({"slot": 1, "bat": 2, "hybrid": 3}[layout] + P)
+    if layout == "hybrid":
+        n, npp = 512, 512 // P
+        p_of = rng.integers(0, P, 12_000)
+        dst = np.concatenate([p_of * npp + rng.integers(0, npp, 12_000),
+                              rng.integers(0, n, 1_200)])
+        src = np.concatenate([p_of * npp + rng.integers(0, npp, 12_000),
+                              rng.integers(0, n, 1_200)])
+        kw = dict(s_tile=32, layout="hybrid", bat_e_tile=256, max_chunk_tiles=8)
+    else:
+        n = 300
+        src, dst = _hubby(rng, n, 2000, 600)
+        kw = (dict(e_tile=64, s_tile=64) if layout == "slot"
+              else dict(s_tile=32, layout="bat", bat_e_tile=32, max_chunk_tiles=4))
+    w = rng.standard_normal(len(src)).astype(np.float32)
+    return src.astype(np.int32), dst.astype(np.int32), n, w, kw
+
+
+@pytest.mark.parametrize("layout", ["slot", "bat", "hybrid"])
+@pytest.mark.parametrize("F", [128, 40])
+def test_part_reduces_on_card_match_plain(cuda, layout, F):
+    """Every part's reduces (both directions; the hybrid layout's streamed
+    cells into a carry) launch their kernels on the card and match the
+    same part's plain route on the CPU; reruns bit-identical."""
+    from geot_tpu_torch.parallel import partition_graph
+    from geot_tpu_torch.parallel.halo_spmm import _interior_reduce, _reduce
+
+    src, dst, n, w, kw = _parallel_case(layout, 2)
+    pg = partition_graph(src, dst, n, 2, edge_weight=w, **kw)
+    rng = np.random.default_rng(F)
+    counters = (tslot.plan_segment_sum_sr, tslot.plan_segment_sum_sr_packed, bat_segment_sum,
+                stream_segment_acc)
+    for r in range(2):
+        vc, vh = pg.part(r, cuda), pg.part(r)
+        before = [k.launches for k in counters]
+        for fam, rows in (("boundary", 2 * pg.halo), ("boundary_t", pg.nodes_per_part)):
+            x = torch.from_numpy(rng.standard_normal((rows, F)).astype(np.float32))
+            k = _reduce(getattr(vc, fam), x.to(cuda), "auto")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k.cpu(), _reduce(getattr(vh, fam), x, "auto"), **TOL_HUB)
+            assert torch.equal(_reduce(getattr(vc, fam), x.to(cuda), "auto"), k)
+        x = torch.from_numpy(rng.standard_normal((pg.nodes_per_part, F)).astype(np.float32))
+        for t in (False, True):
+            k = _interior_reduce(vc, x.to(cuda), "auto", transpose=t)
+            torch.testing.assert_close(k.cpu(), _interior_reduce(vh, x, "auto", transpose=t),
+                                       **TOL_HUB)
+            assert torch.equal(_interior_reduce(vc, x.to(cuda), "auto", transpose=t), k)
+        got = [k.launches - b for k, b in zip(counters, before)]
+        # four reduces, each run twice
+        if layout == "slot":
+            want = [8, 0, 0, 0] if F > 64 else [0, 8, 0, 0]
+        elif layout == "bat":
+            want = [0, 0, 8, 0]
+        else:
+            want = [0, 0, 8, sum(s is not None for s in (vc.stream, vc.stream_t)) * 2]
+        assert got == want, (r, got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _two_ranks(device):
+    from geot_tpu_torch.parallel import spawn_ranks
+    from torch_parallel_worker import halo_cases
+
+    cases = []
+    for layout in ("slot", "bat", "hybrid"):
+        src, dst, n, w, kw = _parallel_case(layout, 2)
+        rng = np.random.default_rng(5)
+        cases.append(dict(name=layout, src=src, dst=dst, num_nodes=n, w=w, kw=kw,
+                          x=rng.standard_normal((n, 40)).astype(np.float32),
+                          cot=rng.standard_normal((n, 40)).astype(np.float32),
+                          backends=("auto",)))
+    return spawn_ranks(halo_cases, 2, cases, device, timeout=300.0)
+
+
+@pytest.mark.parametrize("layout", ["slot", "bat", "hybrid"])
+def test_halo_spmm_two_gloo_ranks_on_card(cuda, layout):
+    """halo_spmm forward and x gradient in a 2-rank gloo group on cuda:0
+    (the exchange staged through the host by gloo) against the same ranks
+    on the CPU."""
+    on_card, on_cpu = _two_ranks("cuda"), _two_ranks("cpu")
+    for rc, rh in zip(on_card, on_cpu):
+        for k_, h_ in zip(rc[(layout, "auto")], rh[(layout, "auto")]):
+            torch.testing.assert_close(torch.from_numpy(k_), torch.from_numpy(h_), **TOL_HUB)
+
+
+@pytest.mark.parametrize("F", [128, 40])
+def test_sums_over_plans_without_edges(cuda, F):
+    """A plan with no edge (a part's boundary plans in a 1-part partition,
+    the plans of a part that has no edges) launches and writes zeros: an
+    empty schedule's slot array is a null pointer, which the kernel must
+    not refuse."""
+    none = np.zeros(0, np.int32)
+    plan = tplan.build_segment_plan(none, none, 100, e_tile=64, s_tile=32, device=cuda)
+    bp = tplan.build_bat_plan(none, 100, e_tile=64, s_tile=32, device=cuda)
+    x = torch.randn(10, F, device=cuda)
+    src = torch.zeros(0, dtype=torch.int32, device=cuda)
+    fn = tslot.plan_segment_sum_sr if F > 64 else tslot.plan_segment_sum_sr_packed
+    before = fn.launches
+    out = fn(plan, x, plan.mask, src=src)
+    assert fn.launches == before + 1
+    assert out.shape == (plan.n_blocks * 32, F) and not out.any()
+    out = bat_segment_sum(bp, x, None, src=src)
+    assert out.shape == (bp.n_blocks * 32, F) and not out.any()
