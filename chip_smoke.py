@@ -4,7 +4,11 @@ GraphSAGE, GAT, GIN and APPNP, time it all.
 
     python3 chip_smoke.py
 
-Runs the port's main paths at full width. Phases 40-42 drive the parallel
+Runs the port's main paths at full width. Phases 43-44 run the two
+command-line scripts (`geot_tpu_torch.scripts.train`, `.train_dist`) as a
+user would, on an ogbn-arxiv-shaped labelled data file: 200 epochs of GCN
+training with checkpoint, every model's forward timing, and 20 epochs of
+the distributed GCN on 2 gloo ranks and 1 NCCL rank. Phases 40-42 drive the parallel
 package: the arxiv graph partitioned into 2 and 4 parts, each part's
 reduces, then 2 ranks spawned on the one card in a gloo group running the
 halo SpMM and 5 requests and 5 Adam steps of the distributed 3-layer GCN,
@@ -269,6 +273,29 @@ Phases, each printed with its elapsed seconds:
      host-staged) at F 128 and 40, one halo_spmm and its interior reduce;
      rank 0 then runs halo_spmm over a 1-part partition in a 1-rank NCCL
      group, against float64, and times its exchange.
+ 43. the training script `geot_tpu_torch.scripts.train`, called in-process
+     on a data file written for it (`synthetic_classification_graph` at
+     ogbn-arxiv's shape, 40 homophilous classes, 128 features, in
+     `load_npz`'s format): 200 epochs of the GCN (hidden 128, 3 layers,
+     AdamW, evaluations every 10 epochs, the best validation's parameters,
+     a checkpoint) on the kernel path and on the reference path; train
+     accuracy > 0.9 and validation > 0.75, the two runs' accuracies within
+     0.01 and final losses within 1e-2 relative, the kernel run's launches
+     (bat_segment_sum 6 a step and 3 an evaluation) and none on the
+     reference path; the checkpoint loaded into a fresh GCN giving the
+     same accuracies bit for bit; `--time-only` of every model of MODELS
+     (10 warm-up and 100 timed forwards, launches a multiple of 110) into
+     one CSV under one header; and `python -m
+     geot_tpu_torch.scripts.train --time-only` as a subprocess (started
+     before the training runs, waited for before the timings), exit 0;
+ 44. the distributed script `geot_tpu_torch.scripts.train_dist`
+     in-process on the same file (hidden 128, 3 layers, 20 epochs): 2
+     gloo ranks sharing cuda:0 and 1 NCCL rank, both over the slot
+     partition; losses at epochs 10 and 20 within 1e-3 relative and
+     accuracies within 0.01 of each other, the loss at epoch 20 below
+     epoch 10's and ln 40, each rank's launches per step and per
+     evaluation phase 42's (plan_segment_sum_sr 8 and _sr_packed 4 a
+     step; 4 and 2 an evaluation).
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -280,8 +307,10 @@ import copy
 import dataclasses
 import faulthandler
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -301,7 +330,8 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "narrow_timing": 240, "bucket_build": 120, "bucket_kernel": 120,
                   "bucket_serve": 240, "bucket_timing": 180, "bucket_reduce": 120,
                   "bucket_cache": 180, "native": 120, "tune": 300, "compiler": 180, "c19": 60,
-                  "par_build": 180, "par_kernel": 240, "par_run": 600}
+                  "par_build": 180, "par_kernel": 240, "par_run": 600,
+                  "cli_train": 300, "cli_dist": 300}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -2713,19 +2743,9 @@ def run_bucketed(dev, card, data):
 
 def kernel_counters():
     """{name: wrapper} of every kernel wrapper that counts its launches."""
-    from geot_tpu_torch.ops import slot_kernels as sk
-    from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_packed
-    from geot_tpu_torch.ops.sddmm_kernels import edge_dots, sddmm_bat
-    from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
+    from geot_tpu_torch.ops import COUNTED_KERNELS
 
-    counters = {k: getattr(sk, k) for k in (
-        "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr",
-        "plan_segment_sum_mh", "plan_segment_sum_sr2", "plan_segment_sum_packed2")}
-    counters.update({"bat_segment_sum": bat_segment_sum,
-                     "bat_segment_sum_packed": bat_segment_sum_packed, "sddmm_bat": sddmm_bat,
-                     "edge_dots": edge_dots, "stream_segment_sum": stream_segment_sum,
-                     "stream_segment_acc": stream_segment_acc})
-    return counters
+    return dict(COUNTED_KERNELS)
 
 
 def launches_of(fn, counters):
@@ -3538,6 +3558,213 @@ def run_parallel(dev, card, graphs, data, c):
 
 
 
+CLI_EPOCHS, CLI_DIST_EPOCHS, CLI_ITERS = 200, 20, 100
+CLI_WIDTH = ["--hidden", "128", "--num-layers", "3"]
+
+
+def write_cli_dataset(tmp):
+    """Phase 43's data file: `synthetic_classification_graph` at
+    ogbn-arxiv's shape (169,343 nodes, 1,166,243 edges, 128 features, 40
+    classes; homophilous labels, 60/20/20 splits) in `load_npz`'s format,
+    as `tmp`/ogbn-arxiv.npz."""
+    import os
+
+    import numpy as np
+
+    from geot_tpu_torch.graph.datasets import DATASET_SHAPES, synthetic_classification_graph
+
+    n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
+    d = synthetic_classification_graph(n, e, c, feat_dim=f, seed=SEED, name="ogbn-arxiv")
+    np.savez(os.path.join(tmp, "ogbn-arxiv.npz"), src=d.src, dst=d.dst, num_nodes=np.int64(n),
+             x=d.x, y=d.y, train_mask=d.train_mask, val_mask=d.val_mask, test_mask=d.test_mask)
+
+
+def run_cli_train(dev, card, tmp):
+    """Phase 43: `geot_tpu_torch.scripts.train` on phase 43's data file,
+    in-process: 200 epochs of the GCN (hidden 128, 3 layers) on the kernel
+    path and on the reference path (accuracy bars, the two runs agreeing,
+    the kernel run's launches, the checkpoint read back into a fresh model
+    bit for bit), `--time-only` of every model of MODELS into one CSV, and
+    one `python -m` run as a subprocess, started before the training runs
+    and waited for before the timings."""
+    import ast
+    import os
+
+    from geot_tpu_torch.models import MODELS, accuracy, load_checkpoint
+    from geot_tpu_torch.scripts import train as cli
+
+    arm("cli_train")
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    write_cli_dataset(tmp)
+    log(f"phase 43 data file ogbn-arxiv.npz written in {time.perf_counter() - t0:.2f}s")
+    base = ["--dataset", "ogbn-arxiv", "--data-dir", tmp] + CLI_WIDTH
+    res = {"train": {}, "time_only": {}, "launches": {}}
+    # `python -m` in a process of its own, started now: its start (importing
+    # torch) runs beside the training runs; it is waited for before the
+    # timings
+    t_sub = time.perf_counter()
+    sub = subprocess.Popen([sys.executable, "-m", "geot_tpu_torch.scripts.train", *base,
+                            "--model", "gcn", "--time-only", "--iters", "10"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        for backend in ("auto", "reference"):
+            ck = os.path.join(tmp, f"gcn_{backend}.npz")
+            t0 = time.perf_counter()
+            row, launches = launches_of(lambda: cli.main(
+                base + ["--model", "gcn", "--epochs", str(CLI_EPOCHS), "--backend", backend,
+                        "--checkpoint", ck, "--csv", os.path.join(tmp, "train.csv")]),
+                counters)
+            launches = {k: v for k, v in launches.items() if v}
+            meta = load_checkpoint(ck)[1]
+            res["train"][backend] = dict(row=row, seconds=time.perf_counter() - t0, meta=meta)
+            res["launches"][f"cli_train_gcn_{backend}"] = launches
+            log(f"{card} phase 43 train.py gcn --backend {backend} ({CLI_EPOCHS} epochs): "
+                f"{res['train'][backend]['seconds']:.2f}s with the graph's build, row {row}, "
+                f"final loss {meta['loss']!r}, launches {launches}")
+        # per epoch a step (3 layers forward, 3 over bat_t backward); 21
+        # evaluations (every 10th epoch, then the best validation's parameters)
+        expect_launches(res["launches"]["cli_train_gcn_auto"],
+                        {"bat_segment_sum": CLI_EPOCHS * 6 + 21 * 3},
+                        "phase 43 train.py gcn (auto)")
+        expect_launches(res["launches"]["cli_train_gcn_reference"], {},
+                        "phase 43 train.py gcn (reference)")
+        k_meta, r_meta = res["train"]["auto"]["meta"], res["train"]["reference"]["meta"]
+        if not (k_meta["train_acc"] > 0.9 and k_meta["val_acc"] > 0.75):
+            raise AssertionError(f"phase 43: accuracy below the bar (train > 0.9, "
+                                 f"val > 0.75): {k_meta}")
+        diffs = {k: abs(k_meta[k] - r_meta[k]) for k in k_meta}
+        if any(diffs[k] > 0.01 for k in ("train_acc", "val_acc", "test_acc")):
+            raise AssertionError(f"phase 43: accuracies differ from the reference path's by "
+                                 f"more than 0.01: {diffs}")
+        if not diffs["loss"] <= 1e-2 * abs(r_meta["loss"]):
+            raise AssertionError(f"phase 43: final loss {k_meta['loss']} vs the reference "
+                                 f"path's {r_meta['loss']}")
+        log(f"phase 43 kernel path vs reference path: |differences| {diffs}")
+        # the checkpoint read back into a fresh model gives the same accuracies
+        data = cli.load_data("ogbn-arxiv", tmp)
+        g = cli.build_graph_for("gcn", data, 128, dev)
+        state, meta = load_checkpoint(os.path.join(tmp, "gcn_auto.npz"))
+        fresh = cli.build_model("gcn", data.x.shape[1], 128, 3, int(data.y.max()) + 1,
+                                seed=SEED + 1, device=dev).eval()
+        fresh.load_state_dict(state)
+        x = torch.from_numpy(data.x).to(dev)
+        y = torch.from_numpy(data.y).to(dev).long()
+        with torch.no_grad():
+            logits = fresh(x, g)
+        for split in ("train", "val", "test"):
+            mask = torch.from_numpy(getattr(data, f"{split}_mask")).to(dev)
+            got = float(accuracy(logits, y, mask))
+            if got != meta[f"{split}_acc"]:
+                raise AssertionError(f"phase 43 checkpoint read back: {split}_acc {got!r}, "
+                                     f"{meta[f'{split}_acc']!r} at the end of training")
+        log("phase 43 checkpoint loaded into a fresh GCN: train / val / test accuracies "
+            "bit-identical to the trained model's")
+        del g, fresh, x, y, logits, data
+
+        out, err = sub.communicate(timeout=PHASE_BUDGET_S["cli_train"])
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.communicate()
+    if sub.returncode != 0:
+        raise AssertionError(f"phase 43 python -m geot_tpu_torch.scripts.train exited "
+                             f"{sub.returncode}:\n{err[-3000:]}")
+    row = ast.literal_eval(out.strip().splitlines()[-1])
+    if not (row["fwd_ms"] > 0 and row["device"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"phase 43 python -m row: {row}")
+    res["subprocess_s"] = time.perf_counter() - t_sub
+    log(f"phase 43 python -m geot_tpu_torch.scripts.train --time-only: exit 0, "
+        f"{res['subprocess_s']:.2f}s after its start, row {row}")
+
+    times_csv = os.path.join(tmp, "times.csv")
+    calls = 10 + CLI_ITERS
+    # one forward's launches of each model (3 layers, hidden 128): GCN and
+    # GIN a sum a layer, SGC one a propagation (k = 3), APPNP its 10 steps;
+    # GraphSAGE's mean adds its degree over the slot plan; GAT sums its
+    # heads over the slot plan
+    per_forward = {
+        "appnp": {"bat_segment_sum": 10},
+        "gat": {"plan_segment_sum_mh": 3},
+        "gcn": {"bat_segment_sum": 3},
+        "gin": {"bat_segment_sum": 3},
+        "graphsage": {"bat_segment_sum": 3, "plan_segment_sum_pr": 3},
+        "sgc": {"bat_segment_sum": 3},
+    }
+    if sorted(per_forward) != sorted(MODELS):
+        raise AssertionError(f"phase 43: expected launches for {sorted(per_forward)}, "
+                             f"MODELS holds {sorted(MODELS)}")
+    for m in sorted(MODELS):
+        row, launches = launches_of(lambda: cli.main(
+            base + ["--model", m, "--time-only", "--iters", str(CLI_ITERS), "--csv",
+                    times_csv]), counters)
+        launches = {k: v for k, v in launches.items() if v}
+        expect_launches(launches, {k: v * calls for k, v in per_forward[m].items()},
+                        f"phase 43 --time-only {m} ({calls} forward passes)")
+        res["launches"][f"cli_time_only_{m}"] = launches
+        res["time_only"][m] = dict(fwd_ms=row["fwd_ms"],
+                                   per_forward={k: v // calls for k, v in launches.items()})
+        log(f"{card} phase 43 train.py --time-only {m} (hidden 128, 3 layers): fwd_ms "
+            f"{row['fwd_ms']!r}, launches per forward {res['time_only'][m]['per_forward']}")
+    with open(times_csv) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 1 + len(MODELS) or lines[0] != ",".join(row):
+        raise AssertionError(f"phase 43 --csv: {lines[:2]}... ({len(lines)} lines)")
+    faulthandler.cancel_dump_traceback_later()
+    return res
+
+
+def run_cli_dist(card, tmp):
+    """Phase 44: `geot_tpu_torch.scripts.train_dist` on phase 43's data
+    file (hidden 128, 3 layers, 20 epochs), in-process: 2 gloo ranks
+    sharing cuda:0 and 1 NCCL rank; the two runs' losses and accuracies
+    agreeing, the loss falling, and each rank's launches per step and
+    evaluation those of phase 42's GCN."""
+    import math
+
+    from geot_tpu_torch.scripts import train_dist as cli_dist
+
+    arm("cli_dist")
+    base = ["--dataset", "ogbn-arxiv", "--data-dir", tmp, "--epochs", str(CLI_DIST_EPOCHS)]
+    per_request = {"plan_segment_sum_sr": 4, "plan_segment_sum_sr_packed": 2}
+    runs = {}
+    for label, extra in (("gloo2", ["--parts", "2", "--dist-backend", "gloo"]),
+                         ("nccl1", ["--parts", "1", "--dist-backend", "nccl"])):
+        t0 = time.perf_counter()
+        out = cli_dist.main(base + CLI_WIDTH + extra)
+        out["seconds"] = time.perf_counter() - t0
+        runs[label] = out
+        if out["layout"] != "slot":
+            raise AssertionError(f"phase 44 {label}: layout {out['layout']}, expected slot")
+        for r, launches in enumerate(out["launches"]):
+            expect_launches(launches["train"],
+                            {k: 2 * v * CLI_DIST_EPOCHS for k, v in per_request.items()},
+                            f"phase 44 {label} rank {r} training ({CLI_DIST_EPOCHS} steps)")
+            expect_launches(launches["eval"], per_request, f"phase 44 {label} rank {r} eval")
+        log(f"{card} phase 44 train_dist.py {label}: {out['seconds']:.2f}s in all, partition "
+            f"{out['partition_s']:.2f}s, H={out['halo']}, nodes/part {out['nodes_per_part']}, "
+            f"mean epoch time {out['epoch_ms']!r} ms (the first {out['first_epoch_ms']!r} ms), "
+            f"losses {out['losses']}, accuracies "
+            + ", ".join(f"{k} {out[k]!r}" for k in ("train_acc", "val_acc", "test_acc"))
+            + f", launches per rank {out['launches']}")
+    a, b = runs["gloo2"], runs["nccl1"]
+    for epoch in (10, 20):
+        if not abs(a["losses"][epoch] - b["losses"][epoch]) <= 1e-3 * abs(b["losses"][epoch]):
+            raise AssertionError(f"phase 44 epoch {epoch}: loss {a['losses'][epoch]} (2 parts) "
+                                 f"vs {b['losses'][epoch]} (1 part)")
+    for k in ("train_acc", "val_acc", "test_acc"):
+        if abs(a[k] - b[k]) > 0.01:
+            raise AssertionError(f"phase 44 {k}: {a[k]} (2 parts) vs {b[k]} (1 part)")
+    for label, out in runs.items():
+        if not out["losses"][20] < min(out["losses"][10], math.log(40)):
+            raise AssertionError(f"phase 44 {label}: losses {out['losses']} do not fall "
+                                 f"below ln 40")
+    log(f"phase 44 2 gloo parts vs 1 NCCL part: losses {a['losses']} vs {b['losses']}")
+    faulthandler.cancel_dump_traceback_later()
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3923,6 +4150,12 @@ def main():
     p41, p41_view_s = run_part_reduces(dev, pgs)
     del pgs
     p42 = run_parallel(dev, card, pgraphs, data, c)
+    cli_tmp = tempfile.mkdtemp(prefix="geot_cli_")
+    try:
+        p43 = run_cli_train(dev, card, cli_tmp)
+        p44 = run_cli_dist(card, cli_tmp)
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -4063,6 +4296,12 @@ def main():
     paths["parallel_gcn_serve_requests"] = par["launches"]["serve"]
     paths["parallel_gcn_train_steps"] = par["launches"]["train"]
     paths["parallel_nccl_halo"] = par["nccl"]["launches"]
+    # phases 43-44: the scripts' runs (per run; per rank for train_dist)
+    paths.update(p43["launches"])
+    for label, out in p44.items():
+        for r, launches in enumerate(out["launches"]):
+            for k, v in launches.items():
+                paths[f"cli_dist_{label}_rank{r}_{k}"] = v
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], p41.get(entry["name"], 0.0))
         for path, counts in paths.items():
@@ -4105,6 +4344,12 @@ def main():
                                 for k, h in r["halo"].items()},
                        "gcn": {k: v for k, v in r["gcn"].items()}} for r in p42],
             "nccl": {k: v for k, v in par["nccl"].items() if k != "launches"}},
+        "cli": {
+            "train": {k: {"row": v["row"], "seconds": v["seconds"], "final_loss": v["meta"]["loss"]}
+                      for k, v in p43["train"].items()},
+            "time_only": p43["time_only"], "subprocess_s": p43["subprocess_s"],
+            "dist": {label: {k: v for k, v in out.items() if k != "launches"}
+                     for label, out in p44.items()}},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

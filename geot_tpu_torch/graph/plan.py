@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from geot_tpu_torch import native
+from geot_tpu_torch.utils.device import resolve_device
 from geot_tpu_torch.graph.row_schedule import (
     RowSchedule,
     bat_plan_entries,
@@ -657,8 +658,11 @@ def with_row_schedule(plan, **knobs):
 
 
 def build_bat_plan(dst, num_segments: int, *, device=None, **kwargs) -> BatPlan:
+    """A BatPlan on `device` (`resolve_device`: the card by default; see
+    `build_bat_plan_host`)."""
+    dev = resolve_device(device)
     arrays, meta = build_bat_plan_host(dst, num_segments, **kwargs)
-    return bat_plan_from_host(arrays, meta, device=device)
+    return bat_plan_from_host(arrays, meta, device=dev)
 
 
 def with_chunks(bp: BatPlan, chunks: tuple) -> BatPlan:
@@ -690,11 +694,13 @@ def build_segment_plan(
     device=None,
     **kwargs,
 ) -> SegmentPlan:
-    """A SegmentPlan over dst-sorted edges (see `build_segment_plan_host`).
-    The reference's `feature_hint` only adds the k-major copies, which the
-    port does not carry (`_k_major_host`)."""
+    """A SegmentPlan over dst-sorted edges on `device` (`resolve_device`:
+    the card by default; see `build_segment_plan_host`). The reference's
+    `feature_hint` only adds the k-major copies, which the port does not
+    carry (`_k_major_host`)."""
+    dev = resolve_device(device)
     arrays, meta = build_segment_plan_host(dst, src, num_segments, **kwargs)
-    return plan_from_host(arrays, meta, device=device)
+    return plan_from_host(arrays, meta, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -879,7 +885,9 @@ def bucketed_plan_from_host(arrays: dict, meta: dict, device=None) -> BucketedBa
 
 def build_bucketed_bat_plan(gather_idx, reduce_idx, num_segments: int, num_gather_rows: int,
                             *, device=None, **kwargs) -> BucketedBatPlan:
-    """A BucketedBatPlan on `device` (see `build_bucketed_bat_plan_host`)."""
+    """A BucketedBatPlan on `device` (`resolve_device`: the card by
+    default; see `build_bucketed_bat_plan_host`)."""
+    dev = resolve_device(device)
     arrays, meta = build_bucketed_bat_plan_host(gather_idx, reduce_idx, num_segments,
                                                 num_gather_rows, **kwargs)
-    return bucketed_plan_from_host(arrays, meta, device=device)
+    return bucketed_plan_from_host(arrays, meta, device=dev)

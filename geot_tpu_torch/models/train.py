@@ -11,8 +11,8 @@ Checkpoints keep the reference's file format, so a file written by either
 package loads in the other: an `.npz` of `leaf_i` arrays in the order of
 `jax.tree_util` (dict keys sorted), a `__paths__` JSON manifest of key
 paths and a `__meta__` JSON object, both stored as bytes and read with
-`allow_pickle=False`. The tree is the flax layout of the GCN params
-(`params_to_flax`).
+`allow_pickle=False`. The tree is the flax layout of the model's params
+(`params_to_flax`, which carries every model of `MODELS`).
 """
 
 from __future__ import annotations
@@ -159,8 +159,8 @@ def _flatten(tree, path=()):
 
 def save_checkpoint(path: str, state: Mapping[str, torch.Tensor],
                     metadata: Optional[dict] = None) -> None:
-    """Pickle-free checkpoint of the port's GCN state dict, as the flax
-    params tree, in the reference's format (module docstring)."""
+    """Pickle-free checkpoint of the state dict of any model of `MODELS`,
+    as the flax params tree, in the reference's format (module docstring)."""
     flat = list(_flatten(params_to_flax(state)))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(
@@ -172,10 +172,11 @@ def save_checkpoint(path: str, state: Mapping[str, torch.Tensor],
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
-    """(state dict for the port's GCN, metadata) from a checkpoint written
-    by this module or by the reference's `save_checkpoint`. The tree is
-    rebuilt from the manifest; a GCN tree holds only dicts (the reference
-    also writes list and attribute steps, which no GCN tree has)."""
+    """(state dict for the port's model, metadata) from a checkpoint
+    written by this module or by the reference's `save_checkpoint`, of any
+    model of `MODELS`. The tree is rebuilt from the manifest; their trees
+    hold only dicts (the reference also writes list and attribute steps,
+    which none of them has)."""
     d = np.load(path if path.endswith(".npz") else path + ".npz", allow_pickle=False)
     manifest = json.loads(d["__paths__"].tobytes().decode())
     meta = json.loads(d["__meta__"].tobytes().decode())

@@ -50,7 +50,28 @@ from geot_tpu_torch.ops.stream_kernels import (
     stream_segment_sum_plain,
 )
 
+# the kernel wrappers that count their launches (`<wrapper>.launches`, one
+# a launch of the kernel and nowhere else; `bucketed_sum` counts under
+# `bat_segment_sum`, the kernel it launches)
+COUNTED_KERNELS = {
+    f.__name__: f for f in (
+        bat_segment_sum, bat_segment_sum_packed, sddmm_bat, edge_dots, stream_segment_sum,
+        stream_segment_acc, plan_segment_sum_sr, plan_segment_sum_sr_packed,
+        plan_segment_sum_pr, plan_segment_sum_mh, plan_segment_sum_sr2,
+        plan_segment_sum_packed2)
+}
+
+
+def launch_counts() -> dict:
+    """{kernel: its launches so far in this process}, of every counted
+    wrapper (`COUNTED_KERNELS`); the difference of two readings is what ran
+    between them."""
+    return {name: f.launches for name, f in COUNTED_KERNELS.items()}
+
+
 __all__ = [
+    "COUNTED_KERNELS",
+    "launch_counts",
     "reference",
     "csr_gws",
     "dispatch_path",

@@ -36,6 +36,7 @@ from geot_tpu_torch.graph.plan import (
     build_bat_plan_host,
 )
 from geot_tpu_torch.ops.bat_kernels import bat_segment_sum, bat_segment_sum_plain
+from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = ["PartBatFamily", "PartBat", "build_part_bat_family", "part_bat_reduce"]
 
@@ -88,7 +89,8 @@ class PartBatFamily:
     W_c: int
 
     def unbatch(self, rank: int, device=None) -> PartBat:
-        """Part `rank`'s plan on `device`: a BatPlan over its equalized
+        """Part `rank`'s plan on `device` (`resolve_device`: the card by
+        default, the CPU only when asked for): a BatPlan over its equalized
         tiles (checked by `bat_plan_from_host` chunk by chunk) with the
         edge-row schedule, its sources and weights."""
         w0, w1 = self.chunk_w0[rank].tolist(), self.chunk_w1[rank].tolist()
@@ -101,7 +103,7 @@ class PartBatFamily:
             chunks=tuple((i * self.T_c, (i + 1) * self.T_c, w0[i], w1[i]) for i in range(self.C)),
             chunk_blocks=self.W_c,
         )
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
         return PartBat(plan=bat_plan_from_host(arrays, meta, device=dev),
                        src=self.src[rank].to(dev),
                        w=None if self.w is None else self.w[rank].to(dev))

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from geot_tpu_torch.parallel.halo_spmm import block_nodes, halo_spmm, node_sharding
 from geot_tpu_torch.parallel.partition import PartitionedGraph, PartView
+from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = ["init_gcn_params", "params_from_jax", "gcn_forward", "make_dist_train_step",
            "shard_inputs"]
@@ -33,20 +34,25 @@ def init_gcn_params(dims: Sequence[int], *, generator: torch.Generator, device=N
                     dtype=torch.float32) -> dict:
     """Plain GCN parameters {"w{i}": [a, b], "b{i}": [b]} for dims = [in,
     hidden..., out]: weights normal times sqrt(2 / (a + b)), drawn from
-    `generator` on its device, biases zero; leaves that require grad."""
+    `generator` on its device, biases zero; leaves that require grad, on
+    `device` (`resolve_device`: the card by default, the CPU only when
+    asked for)."""
+    dev = resolve_device(device)
     params = {}
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
         w = torch.randn(a, b, generator=generator, dtype=dtype,
                         device=generator.device) * math.sqrt(2.0 / (a + b))
-        params[f"w{i}"] = w.to(device).requires_grad_()
-        params[f"b{i}"] = torch.zeros(b, dtype=dtype, device=device).requires_grad_()
+        params[f"w{i}"] = w.to(dev).requires_grad_()
+        params[f"b{i}"] = torch.zeros(b, dtype=dtype, device=dev).requires_grad_()
     return params
 
 
 def params_from_jax(params: dict, device=None) -> dict:
     """The JAX package's `init_gcn_params` tree (the same names, arrays
-    brought to numpy) as the port's parameters on `device`."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device).requires_grad_()
+    brought to numpy) as the port's parameters on `device`
+    (`resolve_device`: the card by default)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev).requires_grad_()
             for k, v in params.items()}
 
 
@@ -66,12 +72,13 @@ def gcn_forward(params: dict, x_local: torch.Tensor, part: PartView, group=None,
 
 def shard_inputs(x, y, mask, pg: PartitionedGraph, rank: int, device=None):
     """The rank's blocked rows of node features, labels and mask, on
-    `device`."""
+    `device` (`resolve_device`: the card by default)."""
+    dev = resolve_device(device)
     rows = node_sharding(pg, rank)
 
     def put(a):
         a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
-        return block_nodes(a, pg)[rows].to(device)
+        return block_nodes(a, pg)[rows].to(dev)
 
     return put(x), put(y), put(mask)
 

@@ -49,6 +49,7 @@ from geot_tpu_torch.graph.plan import (
     build_segment_plan_host,
     plan_from_host,
 )
+from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = ["PartitionedGraph", "PartView", "SlotPart", "partition_graph"]
 
@@ -262,14 +263,15 @@ class PartitionedGraph:
         return "bat" if self.stream_int is None and self.stream_int_t is None else "hybrid"
 
     def part(self, rank: int, device=None) -> PartView:
-        """Part `rank`'s local view on `device` (default the CPU): its
-        unbatched plans with their edge-row schedules (built here, once),
-        its BAT and stream families, and its row of the halo schedule,
-        each moved once. Keep the view for every call of `halo_spmm`."""
+        """Part `rank`'s local view on `device` (`resolve_device`: the card
+        by default, the CPU only when asked for): its unbatched plans with
+        their edge-row schedules (built here, once), its BAT and stream
+        families, and its row of the halo schedule, each moved once. Keep
+        the view for every call of `halo_spmm`."""
         P, H, npp = self.num_parts, self.halo, self.nodes_per_part
         if not 0 <= rank < P:
             raise ValueError(f"rank {rank} outside [0, {P})")
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
         if self.bat is None:
             fams = [self._slot_part(p, s, w, rank, dev) for p, s, w in (
                 (self.plan, self.src, self.w_slots), (self.plan_int, self.src_int, self.w_int),

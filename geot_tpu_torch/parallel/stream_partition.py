@@ -42,6 +42,7 @@ from geot_tpu_torch.ops.stream_kernels import (
     stream_segment_sum,
     stream_segment_sum_plain,
 )
+from geot_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "PartStreamFamily",
@@ -194,7 +195,8 @@ def build_part_stream_family(
 
 
 def part_stream_plan(fam: PartStreamFamily, rank: int, device=None) -> Optional[StreamPlan]:
-    """Part `rank`'s StreamPlan on `device`, over its live tiles (those
+    """Part `rank`'s StreamPlan on `device` (`resolve_device`: the card by
+    default, the CPU only when asked for), over its live tiles (those
     holding an edge) in the family's order, with the kernel's schedule;
     None where the part streams nothing. The pad tiles and all-pad chunks
     are left out: they add nothing, and the all-pad chunks' window 0 after
@@ -210,7 +212,7 @@ def part_stream_plan(fam: PartStreamFamily, rank: int, device=None) -> Optional[
     meta = dict(e_tile=fam.e_tile, s_tile=fam.s_tile, x_rows=fam.x_rows,
                 num_segments=fam.num_segments, n_blocks=fam.n_blocks, n_xblocks=fam.n_xblocks,
                 num_edges=int((dst3 >= 0).sum()))
-    return stream_plan_from_host(arrays, meta, device=device)
+    return stream_plan_from_host(arrays, meta, device=resolve_device(device))
 
 
 def part_stream_reduce(sp: StreamPlan, x_local: torch.Tensor, backend: str = "auto",

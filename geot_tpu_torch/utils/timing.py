@@ -3,7 +3,9 @@
 Port of `geot_tpu/utils/timing.py` (`timeit`): warm-up calls, then the
 mean over `iters` calls between two CUDA events on the current stream
 (the reference times TPU calls on the host clock around a device fence).
-CPU callables are timed on the host clock with `time.perf_counter`.
+The device is resolved as every entry point's is (`resolve_device`): the
+card unless the caller asks for the CPU, whose calls are timed on the host
+clock with `time.perf_counter`.
 """
 
 from __future__ import annotations
@@ -13,17 +15,18 @@ from typing import Callable, Optional
 
 import torch
 
+from geot_tpu_torch.utils.device import resolve_device
+
 __all__ = ["timeit"]
 
 
 def timeit(fn: Callable, *args, warmup: int = 10, iters: int = 100,
            device: Optional[torch.device] = None) -> float:
-    """Mean seconds per call of `fn(*args)`. On a CUDA `device` (default:
-    the card where CUDA is available) the calls are timed by CUDA events
+    """Mean seconds per call of `fn(*args)`. On a CUDA `device` (the
+    default; it raises without one) the calls are timed by CUDA events
     recorded before the first and after the last, after `warmup` calls and
-    a synchronize; on the CPU by the host clock."""
-    dev = torch.device(device) if device is not None else (
-        torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
+    a synchronize; on an explicit CPU device by the host clock."""
+    dev = resolve_device(device)
     for _ in range(warmup):
         fn(*args)
     if dev.type != "cuda":

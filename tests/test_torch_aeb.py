@@ -79,7 +79,7 @@ def _kernel_plan(rng, pack_align, e_tile=64):
     src, dst = src[order], dst[order]
     kw = dict(e_tile=e_tile, s_tile=128, pack_align=pack_align, num_src_nodes=n)
     jp = jplan.build_segment_plan(dst, src, n + 100, **kw)
-    tp = tplan.build_segment_plan(dst, src, n + 100, **kw)
+    tp = tplan.build_segment_plan(dst, src, n + 100, **kw, device="cpu")
     return jp, tp, len(dst)
 
 
@@ -245,7 +245,7 @@ def test_dynamic_weight_chunked_aeb(n_feat, feature_hint):
 
 def _iscat_pair(idx, n_seg, **kw):
     return (jplan.build_segment_plan(idx, None, n_seg, **kw),
-            tplan.build_segment_plan(idx, None, n_seg, **kw))
+            tplan.build_segment_plan(idx, None, n_seg, **kw, device="cpu"))
 
 
 @pytest.mark.parametrize("n_feat,reduce", [(4, "sum"), (32, "mean"), (100, "sum")])

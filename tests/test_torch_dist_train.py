@@ -115,11 +115,12 @@ def test_dist_forward_part_count_invariance():
 def test_init_gcn_params_from_a_generator():
     """Normal weights scaled by sqrt(2 / (a + b)), zero biases, leaves that
     require grad; the same generator seed gives the same parameters."""
-    a = init_gcn_params(DIMS, generator=torch.Generator().manual_seed(3))
-    b = init_gcn_params(DIMS, generator=torch.Generator().manual_seed(3))
+    a = init_gcn_params(DIMS, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = init_gcn_params(DIMS, generator=torch.Generator().manual_seed(3), device="cpu")
     assert sorted(a) == ["b0", "b1", "w0", "w1"]
     for k in a:
         assert a[k].requires_grad and torch.equal(a[k], b[k])
     assert a["w0"].shape == (8, 16) and not a["b1"].any()
-    big = init_gcn_params([256, 256], generator=torch.Generator().manual_seed(0))["w0"].detach()
+    big = init_gcn_params([256, 256], generator=torch.Generator().manual_seed(0),
+                          device="cpu")["w0"].detach()
     assert abs(float(big.std()) - (2.0 / 512) ** 0.5) < 0.01

@@ -131,7 +131,7 @@ def _pr_plans(rng, chunked):
     kw = dict(e_tile=64, s_tile=128, num_src_nodes=n,
               max_chunk_slots=64 * 4 if chunked else 4 << 20)
     jp = dataclasses.replace(jplan.build_segment_plan(dst, src, n + 100, **kw), mode_hint="pr")
-    tp = tplan.build_segment_plan(dst, src, n + 100, **kw)
+    tp = tplan.build_segment_plan(dst, src, n + 100, **kw, device="cpu")
     assert bool(tp.chunks) == chunked
     if chunked:
         assert any(b[2] < a[3] for a, b in zip(tp.chunks[:-1], tp.chunks[1:]))

@@ -1605,7 +1605,7 @@ def test_part_reduces_on_card_match_plain(cuda, layout, F):
     counters = (tslot.plan_segment_sum_sr, tslot.plan_segment_sum_sr_packed, bat_segment_sum,
                 stream_segment_acc)
     for r in range(2):
-        vc, vh = pg.part(r, cuda), pg.part(r)
+        vc, vh = pg.part(r, cuda), pg.part(r, "cpu")
         before = [k.launches for k in counters]
         for fam, rows in (("boundary", 2 * pg.halo), ("boundary_t", pg.nodes_per_part)):
             x = torch.from_numpy(rng.standard_normal((rows, F)).astype(np.float32))

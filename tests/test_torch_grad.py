@@ -270,7 +270,7 @@ def test_bat_index_scatter_vs_jax(chunked, reduce):
 def test_index_scatter_axis_and_checks():
     rng = np.random.default_rng(3)
     idx = np.sort(rng.integers(0, 50, 300)).astype(np.int32)
-    bp = tplan.build_bat_plan(idx, 50, e_tile=TILE, s_tile=TILE)
+    bp = tplan.build_bat_plan(idx, 50, e_tile=TILE, s_tile=TILE, device="cpu")
     vals = torch.from_numpy(rng.standard_normal((3, 300, 5)).astype(np.float32))
     out = tapi.index_scatter(vals, torch.from_numpy(idx), 50, plan=bp, axis=1)
     exp = jref.segment_reduce_ref(jnp.asarray(np.moveaxis(vals.numpy(), 1, 0)),

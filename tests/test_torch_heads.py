@@ -58,7 +58,7 @@ def _plans(rng, n=400, e_tile=64, pack_align=1):
     src, dst = _hubby_sorted(rng, n, 1500, 500)
     kw = dict(e_tile=e_tile, s_tile=128, pack_align=pack_align, num_src_nodes=n)
     return (jplan.build_segment_plan(dst, src, n + 100, **kw),
-            tplan.build_segment_plan(dst, src, n + 100, **kw), src, dst)
+            tplan.build_segment_plan(dst, src, n + 100, **kw, device="cpu"), src, dst)
 
 
 def _np(t):

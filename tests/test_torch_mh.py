@@ -63,7 +63,7 @@ def test_plain_mh_matches_pallas_interpret(H, D):
     src, dst = _graph_edges(rng, n, 1500)
     kw = dict(e_tile=64, s_tile=128, num_src_nodes=n)
     jp = jplan.build_segment_plan(dst, src, n, **kw)
-    tp = tplan.build_segment_plan(dst, src, n, **kw)
+    tp = tplan.build_segment_plan(dst, src, n, **kw, device="cpu")
     T, E, F = tp.num_tiles, tp.e_tile, H * D
     mask = tp.mask.numpy().reshape(-1, 1)
     w = (rng.standard_normal((T * E, H)) * mask).astype(np.float32)

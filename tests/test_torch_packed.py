@@ -148,7 +148,7 @@ def test_packed_plain_vs_pallas(km_pack, weighted, ragged):
 def test_packed_wrapper_rules():
     rng = np.random.default_rng(1)
     dst = np.sort(rng.integers(0, 50, 300)).astype(np.int32)
-    bp = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16, km_pack=4)
+    bp = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16, km_pack=4, device="cpu")
     vals = torch.zeros(300, 32)
     assert bat_segment_sum_packed(bp, vals).shape == (bp.n_blocks * 16, 32)
     for bad in (torch.zeros(300, 16), torch.zeros(300, 7)):
@@ -158,7 +158,7 @@ def test_packed_wrapper_rules():
         bat_segment_sum_packed(dataclasses.replace(bp, dst_km=None), vals)
     # a wide plan, or a width the plan is not packed for: the fused ops run
     # the wide sum at the rows' own width (packed width 0)
-    wide = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16)
+    wide = tplan.build_bat_plan(dst, 50, e_tile=32, s_tile=16, device="cpu")
     assert tapi._bat_packed(wide, 32) == 0 and tapi._bat_packed(bp, 32) == 32
     assert tapi._bat_packed(bp, 20) == 32 and tapi._bat_packed(bp, 40) == 0
     assert tapi._bat_packed(bp, 100) == 0

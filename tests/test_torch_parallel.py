@@ -189,7 +189,7 @@ def test_partition_arrays_equal(layout, nparts):
         assert tp.stream_int is not None
     _same_partition(jp, tp)
     for r in range(nparts):  # every part's view builds (the schedules check the plans)
-        tp.part(r)
+        tp.part(r, "cpu")
 
 
 @pytest.mark.parametrize("nparts", [2, 4])
@@ -204,7 +204,7 @@ def test_partition_arrays_equal_empty_parts(layout, nparts):
     edges_per_part = np.diff(np.searchsorted(np.sort(dst), tp.part_start))
     assert list(edges_per_part) == [200] + [0] * (nparts - 1)
     for r in range(nparts):
-        tp.part(r)
+        tp.part(r, "cpu")
 
 
 @pytest.mark.parametrize("layout", ["slot", "bat"])
@@ -253,7 +253,7 @@ def test_part_reduces_vs_jax(layout, nparts):
     rng = np.random.default_rng(7)
     streamed = 0
     for r in range(nparts):
-        view = tp.part(r)
+        view = tp.part(r, "cpu")
         for F in (16, 100) if layout == "slot" else (16,):
             for fam, (jplan, jw, jbat) in {
                 "boundary": (jp.plan, jp.w_slots, jp.bat),
@@ -307,7 +307,7 @@ def test_part_view_schedules_skip_pads():
     tp = partition_graph(src, dst, n, 4, edge_weight=w, **kw)
     fam = tp.bat_int
     for r in range(4):
-        pb = fam.unbatch(r)
+        pb = fam.unbatch(r, "cpu")
         bp = pb.plan
         assert bp.n_vblocks == fam.n_vblocks and len(bp.chunks) == fam.C
         assert [c[1] - c[0] for c in bp.chunks] == [fam.T_c] * fam.C
@@ -318,7 +318,7 @@ def test_part_view_schedules_skip_pads():
         assert bool((bp.out_block[pad] <= bp.n_blocks).all())
     hyb = partition_graph(*_case("hybrid", 4)[:2], 512, 4, **HYB_KW)
     for r in range(4):
-        sp = hyb.part(r).stream
+        sp = hyb.part(r, "cpu").stream
         assert sp is not None and bool((sp.out_block[1:] >= sp.out_block[:-1]).all())
         assert int((sp.dst3 >= 0).sum()) == int((hyb.stream_int.dst3[r] >= 0).sum())
 

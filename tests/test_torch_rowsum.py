@@ -158,7 +158,7 @@ def test_slot_row_schedule_vs_brute_force(knobs, chunked):
     rng = np.random.default_rng(3 + chunked)
     src, dst = _hubby_sorted(rng, 300, 1500, 600, hub=5)
     plan = tplan.build_segment_plan(dst, src, 400, e_tile=64, s_tile=32, pack_align=16,
-                                    max_chunk_slots=64 * 4 if chunked else 4 << 20)
+                                    max_chunk_slots=64 * 4 if chunked else 4 << 20, device="cpu")
     assert bool(plan.chunks) == chunked
     if knobs:
         plan = tplan.with_row_schedule(plan, **knobs)
@@ -190,7 +190,7 @@ def test_bat_row_schedule_vs_brute_force(knobs, pack, chunked):
     rng = np.random.default_rng(pack + chunked)
     _, dst = _hubby_sorted(rng, 200, 1000, 700, hub=3)
     bp = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32, km_pack=pack,
-                              max_chunk_tiles=6 if chunked else 8192)
+                              max_chunk_tiles=6 if chunked else 8192, device="cpu")
     assert bool(bp.chunks) == chunked and bp.row_sched is not None
     if knobs:
         bp = tplan.with_row_schedule(bp, **knobs)
@@ -207,7 +207,7 @@ def test_row_schedule_made_for_a_chunk_cut_out_of_a_plan():
     rng = np.random.default_rng(1)
     src, dst = _hubby_sorted(rng, 300, 1500, 600, hub=5)
     plan = tplan.build_segment_plan(dst, src, 300, e_tile=64, s_tile=32,
-                                    max_chunk_slots=64 * 4)
+                                    max_chunk_slots=64 * 4, device="cpu")
     c = plan.chunks[1]
     cp = tapi._chunk_plan(plan, c)
     assert not cp.row_sched.matches(tplan._sched_key(cp))
@@ -216,13 +216,13 @@ def test_row_schedule_made_for_a_chunk_cut_out_of_a_plan():
     assert tplan.row_schedule_of(plan) is plan.row_sched
     row, edge = _slot_brute(cp)
     _check_schedule(s, row, edge, cp.n_blocks * cp.s_tile)
-    bp = tplan.build_bat_plan(dst, 300, e_tile=64, s_tile=32, km_pack=4)
+    bp = tplan.build_bat_plan(dst, 300, e_tile=64, s_tile=32, km_pack=4, device="cpu")
     moved = bp.to("cpu")
     assert moved.row_sched.matches(tplan._sched_key(moved))
     assert tplan.row_schedule_of(moved) is moved.row_sched
     # an unpacked plan carries one too, keyed by dst3; a plan holding other
     # tiles (here the first half) gets its own on first use
-    wide = tplan.build_bat_plan(dst, 300, e_tile=64, s_tile=32)
+    wide = tplan.build_bat_plan(dst, 300, e_tile=64, s_tile=32, device="cpu")
     assert wide.row_sched is not None and tplan.row_schedule_of(wide) is wide.row_sched
     half = dataclasses.replace(wide, out_block=wide.out_block[: wide.num_tiles // 2],
                                vblock=wide.vblock[: wide.num_tiles // 2])
@@ -293,7 +293,7 @@ def _aeb_plans(rng, pack_align, e_tile=128, n=400):
     src, dst = _hubby_sorted(rng, n, 1500, 500)
     kw = dict(e_tile=e_tile, s_tile=128, pack_align=pack_align, num_src_nodes=n)
     return (jplan.build_segment_plan(dst, src, n + 100, **kw),
-            tplan.build_segment_plan(dst, src, n + 100, **kw), src, dst)
+            tplan.build_segment_plan(dst, src, n + 100, **kw, device="cpu"), src, dst)
 
 
 @pytest.mark.parametrize("knobs", [{}, SMALL])
@@ -395,7 +395,7 @@ def test_walk_chunked_plans_whole():
     x = rng.standard_normal((300, 16)).astype(np.float32)
     kw = dict(e_tile=128, s_tile=64, pack_align=16, num_src_nodes=300)
     jp = jplan.build_segment_plan(dst, src, 300, **kw)
-    tc = tplan.build_segment_plan(dst, src, 300, max_chunk_slots=128 * 3, **kw)
+    tc = tplan.build_segment_plan(dst, src, 300, max_chunk_slots=128 * 3, **kw, device="cpu")
     assert len(tc.chunks) > 2 and any(b[2] < a[3] for a, b in zip(tc.chunks[:-1],
                                                                    tc.chunks[1:]))
     j = jps.plan_segment_sum_packed2(jp, jnp.asarray(x[src]), w_edge=jnp.asarray(we),
@@ -530,7 +530,7 @@ def test_wide_bat_row_schedule_vs_brute_force(knobs, kind):
     rng = np.random.default_rng(len(kind) + len(knobs))
     _, dst = _hubby_sorted(rng, 200, 1000, 700, hub=3)
     cap = _uniformized_cap(dst, 260, 64, 32) if kind == "uniformized" else 8192
-    bp = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32, max_chunk_tiles=cap)
+    bp = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32, max_chunk_tiles=cap, device="cpu")
     assert bp.dst_km is None and bp.row_sched is not None
     if kind == "chunked":
         ch = tplan.compute_chunks(bp.out_block.numpy(), 4)
@@ -541,7 +541,7 @@ def test_wide_bat_row_schedule_vs_brute_force(knobs, kind):
         ob = bp.out_block.numpy()
         assert np.any(ob[1:] < ob[:-1]) and (bp.vblock.numpy() == bp.n_vblocks).any()
         # the same entries as the unchunked plan's, so the same sums bit for bit
-        whole = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32).row_sched
+        whole = tplan.build_bat_plan(dst, 260, e_tile=64, s_tile=32, device="cpu").row_sched
         for k in ("cols", "unit_dest", "tasks", "zero_runs", "fix"):
             assert torch.equal(getattr(bp.row_sched, k), getattr(whole, k)), k
     if knobs:

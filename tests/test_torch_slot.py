@@ -101,7 +101,7 @@ def _kernel_plan(rng, pack_align):
     src, dst = src[order], dst[order]
     kw = dict(e_tile=64, s_tile=128, pack_align=pack_align, num_src_nodes=n)
     jp = jplan.build_segment_plan(dst, src, n + 100, **kw)
-    tp = tplan.build_segment_plan(dst, src, n + 100, **kw)
+    tp = tplan.build_segment_plan(dst, src, n + 100, **kw, device="cpu")
     return jp, tp
 
 

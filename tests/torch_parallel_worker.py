@@ -80,7 +80,7 @@ def exchange_order(rank, world, cases):
     for c in cases:
         pg = partition_graph(c["src"], c["dst"], c["num_nodes"], world, edge_weight=c["w"],
                              **c["kw"])
-        view = pg.part(rank)
+        view = pg.part(rank, "cpu")
         xl = _blocked(c["x"], pg, rank, "cpu").requires_grad_()
         events.clear()
         y = hs.halo_spmm(xl, view)
@@ -95,7 +95,7 @@ def mismatched_parts(rank, world, c):
     """halo_spmm over a 3-part partition in this `world`-rank group (it
     raises)."""
     pg = partition_graph(c["src"], c["dst"], c["num_nodes"], 3, edge_weight=c["w"], **c["kw"])
-    return halo_spmm(torch.zeros(pg.nodes_per_part, 4), pg.part(rank))
+    return halo_spmm(torch.zeros(pg.nodes_per_part, 4), pg.part(rank, "cpu"))
 
 
 def dist_train(rank, world, g, params_np, steps, device="cpu"):
