@@ -38,6 +38,7 @@ from geot_tpu_torch.models.conv import (
     _dense,
 )
 from geot_tpu_torch.utils.device import resolve_device
+from geot_tpu_torch.utils.trace import span
 
 __all__ = ["BasicGNN", "GCN", "GIN", "GraphSAGE", "GAT", "SGC", "APPNP", "MODELS",
            "FlaxLayerNorm", "FlaxBatchNorm"]
@@ -49,7 +50,8 @@ JKS = (None, "last", "cat", "max")
 def flax_dropout(x: torch.Tensor, rate: float, training: bool,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax `nn.Dropout`: keep with probability 1 - rate, scale kept values
-    by 1 / (1 - rate); the identity out of training or at rate 0."""
+    by 1 / (1 - rate); the identity out of training or at rate 0. Under a
+    profiler a drawn dropout is the span "geot.dropout"."""
     if not training or rate == 0.0:
         return x
     if generator is None:
@@ -58,11 +60,12 @@ def flax_dropout(x: torch.Tensor, rate: float, training: bool,
         raise ValueError(f"dropout generator is on {generator.device}, "
                          f"activations on {x.device}: pass a generator on "
                          f"the activations' device")
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    keep = u >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    with span("geot.dropout"):
+        if rate >= 1.0:
+            return torch.zeros_like(x)
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        keep = u >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _promoted(x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
@@ -93,7 +96,7 @@ class FlaxBatchNorm(nn.Module):
     and 1). In training mode it normalizes by the batch's mean and biased
     variance and moves the averages to momentum * average + (1 - momentum)
     * batch statistic (momentum 0.99); in eval mode it normalizes by the
-    averages."""
+    averages. Under a profiler its forward is the span "geot.norm.batch"."""
 
     def __init__(self, width: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -104,17 +107,18 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _promoted(x, self.weight)
-        if self.training:
-            mean = x.mean(dim=0)
-            var = x.var(dim=0, unbiased=False)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean.detach())
-                self.running_var.mul_(m).add_((1 - m) * var.detach())
-        else:
-            mean, var = self.running_mean, self.running_var
-        return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
+        with span("geot.norm.batch"):
+            x = _promoted(x, self.weight)
+            if self.training:
+                mean = x.mean(dim=0)
+                var = x.var(dim=0, unbiased=False)
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                    self.running_var.mul_(m).add_((1 - m) * var.detach())
+            else:
+                mean, var = self.running_mean, self.running_var
+            return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
 
 
 class BasicGNN(nn.Module):

@@ -4,6 +4,9 @@ Port of `geot_tpu/models/conv.py:47-357` (`prepare_graph`,
 `gcn_edge_weight`, `GCNConv`, `SAGEConv`, `MLP`, `GINConv`, `GATConv`,
 `SGConv`, `APPNPConv`). The aggregation is a direct call into
 `segment_spmm` (GAT: `gat_attention_spmm`) over a prebuilt `Graph`.
+Under a profiler each conv's forward is the span "geot.conv.<name>"
+(gcn, sage, gat, gin, sg, appnp), and GAT's per-node attention terms the
+span "geot.gat.logits".
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from geot_tpu_torch.graph.stream_plan import StreamKnobs
 from geot_tpu_torch.graph.structures import Graph, build_graph
 from geot_tpu_torch.ops.api import gat_attention_spmm, segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
+from geot_tpu_torch.utils.trace import span
 
 __all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "GATConv", "MLP",
            "GINConv", "SGConv", "APPNPConv", "glorot_uniform_", "lecun_normal_"]
@@ -223,15 +227,18 @@ class GCNConv(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        if self.dtype is None:
-            x = self.lin(x)
-        else:
-            x = torch.nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
-        w = gcn_edge_weight(graph, x.dtype) if self.normalize and graph.w_slots is None else None
-        out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return out
+        with span("geot.conv.gcn"):
+            if self.dtype is None:
+                x = self.lin(x)
+            else:
+                x = torch.nn.functional.linear(x.to(self.dtype),
+                                               self.lin.weight.to(self.dtype))
+            w = (gcn_edge_weight(graph, x.dtype)
+                 if self.normalize and graph.w_slots is None else None)
+            out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
+            if self.bias is not None:
+                out = out + self.bias.to(out.dtype)
+            return out
 
 
 class SAGEConv(nn.Module):
@@ -272,16 +279,17 @@ class SAGEConv(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        agg = segment_spmm(graph, x, reduce=self.aggr, backend=self.backend)
-        out = _linear(self.lin_l, agg, self.dtype)
-        if self.lin_r is not None:
-            out = out + _linear(self.lin_r, x, self.dtype)
-        if self.normalize:
-            out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
-                                    min=1e-12)
-        return out
+        with span("geot.conv.sage"):
+            if self.dtype is not None:
+                x = x.to(self.dtype)
+            agg = segment_spmm(graph, x, reduce=self.aggr, backend=self.backend)
+            out = _linear(self.lin_l, agg, self.dtype)
+            if self.lin_r is not None:
+                out = out + _linear(self.lin_r, x, self.dtype)
+            if self.normalize:
+                out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
+                                        min=1e-12)
+            return out
 
 
 class GATConv(nn.Module):
@@ -332,19 +340,22 @@ class GATConv(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
         H, D = self.heads, self.features
-        if self.dtype is None:
-            xh = self.lin(x)
-        else:
-            xh = torch.nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
-        xh = xh.reshape(-1, H, D)
-        alpha_src = (xh * self.att_src.to(xh.dtype)).sum(dim=-1)  # [nodes, H]
-        alpha_dst = (xh * self.att_dst.to(xh.dtype)).sum(dim=-1)
-        out = gat_attention_spmm(graph, xh, alpha_src, alpha_dst,
-                                 negative_slope=self.negative_slope, backend=self.backend)
-        out = out.reshape(-1, H * D) if self.concat else out.mean(dim=1)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return out
+        with span("geot.conv.gat"):
+            if self.dtype is None:
+                xh = self.lin(x)
+            else:
+                xh = torch.nn.functional.linear(x.to(self.dtype),
+                                                self.lin.weight.to(self.dtype))
+            xh = xh.reshape(-1, H, D)
+            with span("geot.gat.logits"):
+                alpha_src = (xh * self.att_src.to(xh.dtype)).sum(dim=-1)  # [nodes, H]
+                alpha_dst = (xh * self.att_dst.to(xh.dtype)).sum(dim=-1)
+            out = gat_attention_spmm(graph, xh, alpha_src, alpha_dst,
+                                     negative_slope=self.negative_slope, backend=self.backend)
+            out = out.reshape(-1, H * D) if self.concat else out.mean(dim=1)
+            if self.bias is not None:
+                out = out + self.bias.to(out.dtype)
+            return out
 
 
 class MLP(nn.Module):
@@ -411,12 +422,13 @@ class GINConv(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        agg = segment_spmm(graph, x, reduce="sum", backend=self.backend)
-        eps = (self.eps.to(x.dtype) if self.eps is not None
-               else torch.tensor(self.eps_value, dtype=x.dtype, device=x.device))
-        return self.mlp((1.0 + eps) * x + agg)
+        with span("geot.conv.gin"):
+            if self.dtype is not None:
+                x = x.to(self.dtype)
+            agg = segment_spmm(graph, x, reduce="sum", backend=self.backend)
+            eps = (self.eps.to(x.dtype) if self.eps is not None
+                   else torch.tensor(self.eps_value, dtype=x.dtype, device=x.device))
+            return self.mlp((1.0 + eps) * x + agg)
 
 
 class SGConv(nn.Module):
@@ -447,10 +459,11 @@ class SGConv(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
-        for _ in range(self.k):
-            x = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
-        return self.dense(x)
+        with span("geot.conv.sg"):
+            w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
+            for _ in range(self.k):
+                x = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
+            return self.dense(x)
 
 
 class APPNPConv(nn.Module):
@@ -464,9 +477,10 @@ class APPNPConv(nn.Module):
         self.k, self.alpha, self.backend = int(k), float(alpha), backend
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
-        h = x
-        for _ in range(self.k):
-            x = (1.0 - self.alpha) * segment_spmm(graph, x, edge_weight=w,
-                                                  backend=self.backend) + self.alpha * h
-        return x
+        with span("geot.conv.appnp"):
+            w = None if graph.w_slots is not None else gcn_edge_weight(graph, x.dtype)
+            h = x
+            for _ in range(self.k):
+                x = (1.0 - self.alpha) * segment_spmm(graph, x, edge_weight=w,
+                                                      backend=self.backend) + self.alpha * h
+            return x

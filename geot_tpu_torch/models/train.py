@@ -26,6 +26,7 @@ import torch
 
 from geot_tpu_torch.graph.structures import Graph
 from geot_tpu_torch.models.weights import params_from_flax, params_to_flax
+from geot_tpu_torch.utils.trace import setup_phase, span
 
 __all__ = [
     "cross_entropy_loss",
@@ -56,9 +57,12 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> 
 
 def make_optimizer(model: torch.nn.Module, lr: float, weight_decay: float):
     """optax.adamw(lr, weight_decay=weight_decay) with its defaults
-    (b1 0.9, b2 0.999, eps 1e-8), over every parameter in one group."""
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=weight_decay)
+    (b1 0.9, b2 0.999, eps 1e-8), over every parameter in one group. Its
+    construction is the set-up phase "optimizer" (a process's first
+    `torch.optim` constructor imports `torch._dynamo`)."""
+    with setup_phase("optimizer"):
+        return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=weight_decay)
 
 
 def make_train_step(
@@ -68,16 +72,25 @@ def make_train_step(
     forward, backward and optimizer update of `model` in place. With
     `has_dropout` the model runs in training mode and draws its dropout
     masks from `generator`; without, dropout is off (the reference's
-    `deterministic=True`). The loss comes back detached, on the device."""
+    `deterministic=True`). The loss comes back detached, on the device.
+    Under a profiler the step is the span "geot.train.step", and its
+    phases "geot.train.zero_grad", ".forward", ".loss", ".backward" and
+    ".optimizer"."""
 
     def step(x, graph: Graph, y, mask, generator: Optional[torch.Generator] = None):
-        model.train(has_dropout)
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(x, graph, generator if has_dropout else None)
-        loss = cross_entropy_loss(logits, y, mask)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with span("geot.train.step"):
+            model.train(has_dropout)
+            with span("geot.train.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("geot.train.forward"):
+                logits = model(x, graph, generator if has_dropout else None)
+            with span("geot.train.loss"):
+                loss = cross_entropy_loss(logits, y, mask)
+            with span("geot.train.backward"):
+                loss.backward()
+            with span("geot.train.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 

@@ -4,7 +4,8 @@ Each source under `ops/csrc/` has a plain C interface and is compiled on
 first use, one `nvcc` per source (all started together), into a shared
 library under `<checkout>/build/geot_tpu_torch/`, named by a hash of the
 source, the headers under `ops/csrc/` and the flags so that a stale library
-is never loaded:
+is never loaded (each build and load is timed as the set-up phase
+"kernels", `utils.trace`):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
@@ -25,6 +26,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+from geot_tpu_torch.utils.trace import setup_phase
 
 __all__ = ["SOURCES", "build_kernels", "load_kernel"]
 
@@ -119,10 +122,12 @@ def build_kernels(names=None, verbose: bool = True) -> Dict[str, Tuple[float, st
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel `name`, building it if needed."""
+    """The loaded shared library of kernel `name`, building it if needed
+    (the set-up phase "kernels": the build and the load)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_kernels([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        with setup_phase("kernels"):
+            build_kernels([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib

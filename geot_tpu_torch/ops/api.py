@@ -36,6 +36,13 @@ SDDMM kernel: `sddmm_bat` over BAT plans, `edge_dots` (the same kernel)
 over slot plans, where the reference takes a plain per-edge dot. A gradient is computed only for the inputs
 that ask for one. Every op returns its input's dtype and sums in float32,
 as the reference's kernels do.
+
+Under a profiler (`utils.trace.span`) `segment_spmm` is the span
+"geot.spmm.<route>" (the name `dispatch_path` gives), `mh_spmm`
+"geot.mh_spmm", a segment softmax's statistics and normalisation
+"geot.softmax", and GAT's per-edge logits "geot.gat.logits". Backward
+work carries no span: the profiler ties each backward node to the
+forward op that made it by its sequence number.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from geot_tpu_torch.ops.slot_kernels import (
 )
 from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
 from geot_tpu_torch.tuning.heuristics import select_config
+from geot_tpu_torch.utils.trace import span
 
 __all__ = [
     "segment_spmm",
@@ -624,38 +632,39 @@ def segment_spmm(
     w = edge_weight if edge_weight is not None else graph.edge_weight
     path = dispatch_path(graph, dynamic_w=edge_weight is not None,
                          reduce=reduce, backend=backend)
-    if path == "xla":
-        if w is None:
-            return ref.gather_scatter_ref(graph.src, graph.dst, x, graph.num_nodes, reduce)
-        return ref.gather_weight_scatter_ref(
-            graph.src, graph.dst, w, x, graph.num_nodes, reduce
-        )
-    if path == "hybrid":
-        out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
-    elif path == "bucketed":
-        out = _SpmmBucketed.apply(x, graph.bat_b, graph.bat_b_t)
-    elif path == "slot_static":
-        out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
-                              graph.w_slots, graph.w_slots_t)
-    elif path == "slot":
-        out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
-                              graph.plan.mask, graph.plan_t.mask)
-    elif path == "bat_static":
-        out = _GatherWeightScatterBat.apply(
-            x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
-            graph.edge_weight_t, graph.bat, graph.bat_t, True,
-        )
-    elif path == "bat":
-        out = _GatherScatterBat.apply(x, graph.src, graph.dst_t, graph.bat, graph.bat_t)
-    elif path == "slot_dyn":
-        out = _GatherWeightScatterSlot.apply(x, w, graph.src, graph.dst, graph.dst_t,
-                                             graph.plan, graph.plan_t, graph.edge_pos_t)
-    else:  # bat_dyn
-        out = _GatherWeightScatterBat.apply(
-            x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
-            graph.bat, graph.bat_t, False,
-        )
-    return _apply_reduce_post(out, _plan_of(graph), reduce, graph.dst)
+    with span(f"geot.spmm.{path}"):
+        if path == "xla":
+            if w is None:
+                return ref.gather_scatter_ref(graph.src, graph.dst, x, graph.num_nodes, reduce)
+            return ref.gather_weight_scatter_ref(
+                graph.src, graph.dst, w, x, graph.num_nodes, reduce
+            )
+        if path == "hybrid":
+            out = _SpmmHybrid.apply(x, graph.hyb, graph.hyb_t)
+        elif path == "bucketed":
+            out = _SpmmBucketed.apply(x, graph.bat_b, graph.bat_b_t)
+        elif path == "slot_static":
+            out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
+                                  graph.w_slots, graph.w_slots_t)
+        elif path == "slot":
+            out = _SlotSpmm.apply(x, graph.src, graph.dst_t, graph.plan, graph.plan_t,
+                                  graph.plan.mask, graph.plan_t.mask)
+        elif path == "bat_static":
+            out = _GatherWeightScatterBat.apply(
+                x, graph.edge_weight, graph.src, graph.dst, graph.dst_t,
+                graph.edge_weight_t, graph.bat, graph.bat_t, True,
+            )
+        elif path == "bat":
+            out = _GatherScatterBat.apply(x, graph.src, graph.dst_t, graph.bat, graph.bat_t)
+        elif path == "slot_dyn":
+            out = _GatherWeightScatterSlot.apply(x, w, graph.src, graph.dst, graph.dst_t,
+                                                 graph.plan, graph.plan_t, graph.edge_pos_t)
+        else:  # bat_dyn
+            out = _GatherWeightScatterBat.apply(
+                x, w, graph.src, graph.dst, graph.dst_t, graph.perm_t,
+                graph.bat, graph.bat_t, False,
+            )
+        return _apply_reduce_post(out, _plan_of(graph), reduce, graph.dst)
 
 
 def index_scatter(
@@ -887,13 +896,14 @@ def mh_spmm(
     if reduce != "sum":
         raise ValueError("mh_spmm supports sum (matching the reference kernel)")
     _check_backend(backend)
-    if graph is not None and backend == "auto":
-        if graph.plan is None:
-            raise NotImplementedError("mh_spmm over a graph runs on its slot plans: build "
-                                      "it with 'slot' in layouts")
-        return _MhSpmm.apply(src, weight, graph.src, graph.dst, graph.dst_t, graph.plan,
-                             graph.plan_t, graph.perm_t)
-    return ref.mh_spmm_ref(src_index, dst_index, weight, src, num_segments)
+    with span("geot.mh_spmm"):
+        if graph is not None and backend == "auto":
+            if graph.plan is None:
+                raise NotImplementedError("mh_spmm over a graph runs on its slot plans: "
+                                          "build it with 'slot' in layouts")
+            return _MhSpmm.apply(src, weight, graph.src, graph.dst, graph.dst_t, graph.plan,
+                                 graph.plan_t, graph.perm_t)
+        return ref.mh_spmm_ref(src_index, dst_index, weight, src, num_segments)
 
 
 def mh_spmm_transposed(
@@ -1023,9 +1033,10 @@ def segment_softmax(
         out = torch.empty_like(logits)
         out[order] = segment_softmax(logits[order], index[order], num_segments)
         return out
-    idx, offsets = index.long(), _runs(index, num_segments)
-    e, s = _softmax_stats(logits, idx, offsets)
-    return e / _gather_rows(torch.clamp(s, min=1e-16), idx, offsets=offsets)
+    with span("geot.softmax"):
+        idx, offsets = index.long(), _runs(index, num_segments)
+        e, s = _softmax_stats(logits, idx, offsets)
+        return e / _gather_rows(torch.clamp(s, min=1e-16), idx, offsets=offsets)
 
 
 def gat_attention_spmm(
@@ -1069,15 +1080,18 @@ def gat_attention_spmm(
     by the mask and gives NaN where a pad's logit overflows, C.11)."""
     _check_backend(backend)
     n = graph.num_nodes
-    src_l, dst_l, perm_t = graph.src.long(), graph.dst.long(), graph.perm_t.long()
-    off_dst = _runs(graph.dst, n)
-    off_src = _runs(graph.src.index_select(0, perm_t), n)
-    logit = F.leaky_relu(_gather_rows(alpha_src, src_l, perm_t, off_src)
-                         + _gather_rows(alpha_dst, dst_l, offsets=off_dst),
-                         negative_slope)  # [nnz, H]
-    if backend == "reference":
-        att = ref.segment_softmax_ref(logit, graph.dst, n)
-        return ref.mh_spmm_ref(graph.src, graph.dst, att.to(xh.dtype), xh, n)
-    e, s = _softmax_stats(logit, dst_l, off_dst)
-    att = e / _gather_rows(torch.clamp(s, min=1e-16), dst_l, offsets=off_dst)
+    with span("geot.gat.logits"):
+        src_l, dst_l, perm_t = graph.src.long(), graph.dst.long(), graph.perm_t.long()
+        off_dst = _runs(graph.dst, n)
+        off_src = _runs(graph.src.index_select(0, perm_t), n)
+        logit = F.leaky_relu(_gather_rows(alpha_src, src_l, perm_t, off_src)
+                             + _gather_rows(alpha_dst, dst_l, offsets=off_dst),
+                             negative_slope)  # [nnz, H]
+    with span("geot.softmax"):
+        if backend == "reference":
+            att = ref.segment_softmax_ref(logit, graph.dst, n)
+        else:
+            e, s = _softmax_stats(logit, dst_l, off_dst)
+            att = e / _gather_rows(torch.clamp(s, min=1e-16), dst_l, offsets=off_dst)
+    # backend "reference": mh_spmm's plain route (`mh_spmm_ref`)
     return mh_spmm(graph.src, graph.dst, att.to(xh.dtype), xh, n, graph=graph, backend=backend)
