@@ -142,12 +142,13 @@ Phases, each printed with its elapsed seconds:
      edges in both forms; each one's route over a plan chunked so that
      its hub window splits (sr2 / packed2 / mh: the whole plan in one
      launch);
- 22. 5 requests per model, launches per request asserted (GAT: mh 3; GCN:
-     packed2 3 / sr2 3), each against the same model on the reference path
-     in float64;
+ 22. 5 requests per model, launches per request asserted (GAT: mh 3 and
+     edge_softmax 3; GCN: packed2 3 / sr2 3), each against the same model
+     on the reference path in float64;
  23. 5 AdamW steps per model beside the reference path (launches per step:
-     GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, and
-     edge_dots 3, the attention's gradient; GCN packed2 3 / sr2 3 and
+     GAT mh 6, 3 forward and 3 for the xh gradient over plan_t, edge_dots
+     3, the attention's gradient, edge_softmax 3 and edge_softmax_grad 3;
+     GCN packed2 3 / sr2 3 and
      sr_packed 3 over plan_t), the step-0 gradients against the reference
      path in float32 and in float64 through the kernel path's ReLU
      pattern; then gat_attention_spmm's composed route (fused_max_edges 0)
@@ -296,6 +297,21 @@ Phases, each printed with its elapsed seconds:
      epoch 10's and ln 40, each rank's launches per step and per
      evaluation phase 42's (plan_segment_sum_sr 8 and _sr_packed 4 a
      step; 4 and 2 an evaluation).
+ 45. the edge softmax (`ops/csrc/edge_softmax.cu`) on the arxiv-gat
+     benchmark cell's graph (ogbn-arxiv's 169,343 nodes and 1,166,243
+     Zipf(1.0) edges, bidirected, deduplicated, self-loops: 2,428,629
+     edges, a 71,237-edge hub row) with 3 heads, and on a small random
+     graph with a hub row cut into many chunks at 1, 3 and 8 heads: both
+     entry points (GAT's per-node terms, `segment_softmax`'s per-edge
+     logits), forward and both gradients against the plain version on the
+     card in float64 from the same float32 inputs (att within 1e-6
+     relative per element, the gradients within 1e-5 of their largest
+     element; the plain version's own float32 distance logged beside: its
+     index_add_ sums run in any order), three reruns bit-identical, one
+     counted launch a call; then device times of the forward and the
+     backward alone at the cell's shapes (torch.profiler, per kernel; three
+     rounds, with the card's SM clock read before each) and back to back
+     (CUDA events), beside the plain version's and the bound.
 
 Prints one JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0); a phase
@@ -331,7 +347,7 @@ PHASE_BUDGET_S = {"build": 200, "kernel": 120, "serve": 180, "timing": 120,
                   "bucket_serve": 240, "bucket_timing": 180, "bucket_reduce": 120,
                   "bucket_cache": 180, "native": 120, "tune": 300, "compiler": 180, "c19": 60,
                   "par_build": 180, "par_kernel": 240, "par_run": 600,
-                  "cli_train": 300, "cli_dist": 300}
+                  "cli_train": 300, "cli_dist": 300, "softmax": 300}
 # kernel vs plain: two f32 sums of the same terms in different orders (the
 # kernel in edge order or lane by lane, the plain version with index_add_
 # or sum). Allowed error per element: 1e-4 * sum|terms| + 1e-5, about 1700
@@ -1495,6 +1511,7 @@ def run_gat_dyn(dev, card):
     from geot_tpu_torch.ops import slot_kernels as sk
     from geot_tpu_torch.ops.bat_kernels import bat_segment_sum
     from geot_tpu_torch.ops.sddmm_kernels import edge_dots, edge_dots_plain, sddmm_bat
+    from geot_tpu_torch.ops.softmax_kernels import edge_softmax, edge_softmax_grad
     from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
     from geot_tpu_torch.profile_gcn import FLICKR_GAT, FLICKR_HIDDEN, flickr_graph, trace
 
@@ -1503,7 +1520,8 @@ def run_gat_dyn(dev, card):
         "plan_segment_sum_sr", "plan_segment_sum_sr_packed", "plan_segment_sum_pr")}
     counters.update({"bat_segment_sum": bat_segment_sum, "sddmm_bat": sddmm_bat,
                      "edge_dots": edge_dots, "stream_segment_sum": stream_segment_sum,
-                     "stream_segment_acc": stream_segment_acc})
+                     "stream_segment_acc": stream_segment_acc, "edge_softmax": edge_softmax,
+                     "edge_softmax_grad": edge_softmax_grad})
 
     def reset():
         for fn in counters.values():
@@ -1734,10 +1752,11 @@ def run_gat_dyn(dev, card):
     mk = {"gat": lambda **kw: GAT(f, FLICKR_HIDDEN, 3, c, conv_kwargs=FLICKR_GAT, **kw),
           "gcn_dyn64": lambda **kw: GCN(f, FLICKR_HIDDEN, 3, c, **kw),
           "gcn_dyn128": lambda **kw: GCN(f, FLICKR_HIDDEN, 3, c, **kw)}
-    per_request = {"gat": {"plan_segment_sum_mh": 3},
+    per_request = {"gat": {"plan_segment_sum_mh": 3, "edge_softmax": 3},
                    "gcn_dyn64": {"plan_segment_sum_packed2": 3},
                    "gcn_dyn128": {"plan_segment_sum_sr2": 3}}
-    per_step = {"gat": {"plan_segment_sum_mh": 6, "edge_dots": 3},
+    per_step = {"gat": {"plan_segment_sum_mh": 6, "edge_dots": 3, "edge_softmax": 3,
+                        "edge_softmax_grad": 3},
                 "gcn_dyn64": {"plan_segment_sum_packed2": 3, "plan_segment_sum_sr_packed": 3},
                 "gcn_dyn128": {"plan_segment_sum_sr2": 3, "plan_segment_sum_sr_packed": 3}}
     models, ref_models, serve, train, req_s, step_s, losses = {}, {}, {}, {}, {}, {}, {}
@@ -3682,11 +3701,11 @@ def run_cli_train(dev, card, tmp):
     calls = 10 + CLI_ITERS
     # one forward's launches of each model (3 layers, hidden 128): GCN and
     # GIN a sum a layer, SGC one a propagation (k = 3), APPNP its 10 steps;
-    # GraphSAGE's mean adds its degree over the slot plan; GAT sums its
-    # heads over the slot plan
+    # GraphSAGE's mean adds its degree over the slot plan; GAT takes its
+    # edge softmax and sums its heads over the slot plan
     per_forward = {
         "appnp": {"bat_segment_sum": 10},
-        "gat": {"plan_segment_sum_mh": 3},
+        "gat": {"plan_segment_sum_mh": 3, "edge_softmax": 3},
         "gcn": {"bat_segment_sum": 3},
         "gin": {"bat_segment_sum": 3},
         "graphsage": {"bat_segment_sum": 3, "plan_segment_sum_pr": 3},
@@ -3765,6 +3784,181 @@ def run_cli_dist(card, tmp):
     return runs
 
 
+def softmax_graph(dev):
+    """The arxiv-gat benchmark cell's graph over slot plans: ogbn-arxiv's
+    nodes and edges from `synthetic_graph` (Zipf(1.0), seed 0, the edges as
+    the benchmark's frozen copy draws them), each edge and its reverse,
+    duplicates dropped, then self-loops."""
+    import numpy as np
+
+    from geot_tpu_torch.graph.datasets import synthetic_graph
+    from geot_tpu_torch.models import prepare_graph
+
+    n = 169_343
+    data = synthetic_graph(n, 1_166_243, seed=0)
+    s = np.concatenate([data.src, data.dst]).astype(np.int64)
+    d = np.concatenate([data.dst, data.src]).astype(np.int64)
+    key = np.unique(d * n + s)
+    return prepare_graph((key % n).astype(np.int32), (key // n).astype(np.int32), n,
+                         add_self_loops=True, layouts=("slot",), device=dev)
+
+
+def run_softmax(dev, card):
+    """Phase 45: the edge softmax against its plain version, then its
+    times beside the plain version's and the bound (module docstring)."""
+    import numpy as np
+
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops.softmax_kernels import (
+        edge_softmax,
+        edge_softmax_grad,
+        edge_softmax_grad_plain,
+        edge_softmax_plain,
+    )
+    from geot_tpu_torch.profile_gcn import trace
+
+    arm("softmax")
+    res = {"checks": {}}
+    t0 = time.perf_counter()
+    big = softmax_graph(dev)
+    deg = torch.diff(big.dst_ptr)
+    log(f"phase 45 graph: {big.num_nodes} nodes, {big.num_edges} edges, max in-degree "
+        f"{int(deg.max())}, {int((deg > 1024).sum())} rows over 1,024 edges holding "
+        f"{int(deg[deg > 1024].sum())}, median {int(deg.float().median())}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(45)
+    n_s = 3000
+    dst_s = np.concatenate([np.full(4000, 5, np.int32),
+                            rng.integers(0, n_s - 200, 20000).astype(np.int32)])
+    src_s = rng.integers(0, n_s, len(dst_s)).astype(np.int32)
+    small = prepare_graph(src_s, dst_s, n_s, add_self_loops=False, layouts=("slot",),
+                          e_tile=512, s_tile=256, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+
+    def rel_elem(k, p):
+        return float(((k.double() - p).abs() / p.abs().clamp(min=1e-30)).max())
+
+    def rel_norm(k, p):
+        return float((k.double() - p).abs().max() / p.abs().max().clamp(min=1e-30))
+
+    def abs_err(k, p):
+        return float((k.double() - p).abs().max())
+
+    def check(label, g, H, node):
+        E, n = g.num_edges, g.num_nodes
+        a_s = 0.5 * torch.randn(n, H, generator=gen, device=dev)
+        a_d = 0.5 * torch.randn(n, H, generator=gen, device=dev)
+        a_s[int(g.src[0])] = -a_d[int(g.dst[0])]  # a pre-activation exactly 0
+        lg = 0.7 * torch.randn(E, H, generator=gen, device=dev)
+        gg = torch.randn(E, H, generator=gen, device=dev)
+        idx = (g.dst, g.dst_ptr)
+        kw = (dict(alpha_src=a_s, alpha_dst=a_d, src=g.src) if node else {})
+        kw64 = (dict(alpha_src=a_s.double(), alpha_dst=a_d.double(), src=g.src)
+                if node else {})
+        logits = None if node else lg
+        bk = edge_softmax.launches
+        att = edge_softmax(*idx, logits, **kw)
+        torch.cuda.synchronize()
+        expect_launches(edge_softmax.launches - bk, 1, f"{label} forward")
+        p64 = edge_softmax_plain(*idx, None if node else lg.double(), **kw64)
+        e_f, e_abs = rel_elem(att, p64), abs_err(att, p64)
+        e_32 = rel_elem(att, edge_softmax_plain(*idx, logits, **kw).double())
+        rows = torch.zeros(n, H, dtype=torch.float64, device=dev).index_add_(
+            0, g.dst.long(), att.double())
+        nonempty = torch.diff(g.dst_ptr) > 0
+        e_sum = float((rows[nonempty] - 1).abs().max())
+        runs = dict(perm_t=g.perm_t, src_t=g.src.index_select(0, g.perm_t.long()),
+                    src_ptr=g.src_ptr)
+        tkw = dict(kw, **runs) if node else {}
+        tkw64 = dict(kw64, **runs) if node else {}
+        bg = edge_softmax_grad.launches
+        grads = edge_softmax_grad(*idx, att, gg, **tkw)
+        torch.cuda.synchronize()
+        expect_launches(edge_softmax_grad.launches - bg, 1, f"{label} backward")
+        grads32 = edge_softmax_grad_plain(*idx, att, gg, **tkw)
+        grads64 = edge_softmax_grad_plain(*idx, att.double(), gg.double(), **tkw64)
+        grads, grads32, grads64 = ((x if node else (x,)) for x in (grads, grads32, grads64))
+        e_g = max(rel_norm(k, p) for k, p in zip(grads, grads64))
+        e_abs = max([e_abs] + [abs_err(k, p) for k, p in zip(grads, grads64)])
+        e_g32 = max(rel_norm(k, p.double()) for k, p in zip(grads, grads32))
+        for _ in range(2):
+            again = edge_softmax(*idx, logits, **kw)
+            g2 = edge_softmax_grad(*idx, again, gg, **tkw)
+            g2 = g2 if node else (g2,)
+            if not torch.equal(again, att) or not all(torch.equal(a, b)
+                                                      for a, b in zip(g2, grads)):
+                raise AssertionError(f"{label}: reruns are not bit-identical")
+        log(f"phase 45 {label}: att rel err {e_f:.3e} (the plain version in float32 "
+            f"{e_32:.3e}; rows sum to 1 within {e_sum:.1e}), gradients {e_g:.3e} of their "
+            f"largest (float32: {e_g32:.3e})")
+        if not (e_f <= 1e-6 and e_g <= 1e-5 and e_sum <= 1e-5):
+            raise AssertionError(f"{label}: kernel disagrees with its plain version")
+        res["checks"][label] = {"att_rel": e_f, "grad_rel": e_g, "row_sum": e_sum, "abs": e_abs,
+                                "att_rel_plain_f32": e_32, "grad_rel_plain_f32": e_g32}
+
+    for label, g, H in (("cell_H3", big, 3), ("small_H1", small, 1), ("small_H3", small, 3),
+                        ("small_H8", small, 8)):
+        check(f"{label}_node_terms", g, H, True)
+        check(f"{label}_logits", g, H, False)
+
+    # times at the cell's shapes: 3 heads, the forward alone and the
+    # backward alone (both gradients), beside the plain versions
+    g, H = big, 3
+    a_s = torch.randn(g.num_nodes, H, generator=gen, device=dev)
+    a_d = torch.randn(g.num_nodes, H, generator=gen, device=dev)
+    gg = torch.randn(g.num_edges, H, generator=gen, device=dev)
+    kw = dict(alpha_src=a_s, alpha_dst=a_d, src=g.src)
+    att = edge_softmax(g.dst, g.dst_ptr, **kw)
+    tkw = dict(kw, perm_t=g.perm_t, src_t=g.src.index_select(0, g.perm_t.long()),
+               src_ptr=g.src_ptr)
+    fwd = lambda: edge_softmax(g.dst, g.dst_ptr, **kw)  # noqa: E731
+    bwd = lambda: edge_softmax_grad(g.dst, g.dst_ptr, att, gg, **tkw)  # noqa: E731
+
+    def device_ms(fn, iters=20):
+        _, _, busy, events = trace(fn, iters, warmup=3)
+        by = {}
+        for ev in events:
+            k = ev.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            k = k.split("(")[0].split("<")[0].split("::")[-1][:60]
+            by[k] = by.get(k, 0.0) + ev.time_range.elapsed_us() / 1e3 / iters
+        return busy / 1e3 / iters, dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+    def sm_clock():
+        return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+
+    t = {"rounds": []}
+    for r in range(3):
+        row = {"sm_clock": sm_clock()}
+        for name, fn in (("fwd", fwd), ("bwd", bwd)):
+            busy, by = device_ms(fn)
+            row[name] = {"device_ms": busy, "events_ms": cuda_ms(fn, iters=50),
+                         "kernels_ms": {k: round(v, 5) for k, v in by.items()}}
+            log(f"phase 45 round {r} time {name} (SM clock {row['sm_clock']}): device "
+                f"{busy:.4f} ms a call, back to back {row[name]['events_ms']:.4f} ms; {by}")
+        t["rounds"].append(row)
+    for name in ("fwd", "bwd"):  # the median round, and the rounds' range
+        ms = sorted(row[name]["device_ms"] for row in t["rounds"])
+        t[f"{name}_ms"], t[f"{name}_range_ms"] = ms[1], (ms[0], ms[-1])
+    t["plain_fwd_ms"] = cuda_ms(lambda: edge_softmax_plain(g.dst, g.dst_ptr, **kw))
+    t["plain_bwd_ms"] = cuda_ms(lambda: edge_softmax_grad_plain(g.dst, g.dst_ptr, att, gg, **tkw))
+    E, n = g.num_edges, g.num_nodes
+    # least bytes: forward reads src, dst_ptr and both node terms and
+    # writes att; backward reads the same, att and g, and perm_t and
+    # src_ptr for the src-sorted sum, and writes both gradients (the
+    # logits' gradient stays on chip in the least)
+    fwd_bytes = E * 4 + (n + 1) * 4 + 2 * n * H * 4 + E * H * 4
+    bwd_bytes = E * 8 + 2 * (n + 1) * 4 + 2 * n * H * 4 + 2 * E * H * 4 + 2 * n * H * 4
+    t["bound_fwd_ms"], _ = bound_ms(fwd_bytes, 0)
+    t["bound_bwd_ms"], _ = bound_ms(bwd_bytes, 0)
+    log(f"phase 45 {card}: forward {t['fwd_ms']:.4f} ms (bound {t['bound_fwd_ms']:.4f} ms, "
+        f"{fwd_bytes} B; plain {t['plain_fwd_ms']:.4f} ms), backward {t['bwd_ms']:.4f} ms "
+        f"(bound {t['bound_bwd_ms']:.4f} ms, {bwd_bytes} B; plain {t['plain_bwd_ms']:.4f} ms)")
+    res["timing"] = t
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3809,7 +4003,6 @@ def main():
         for line in rep.splitlines():  # per kernel: registers, smem, spills
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("    " + line.strip())
-
     # graph + model (host build is set-up, outside the phases' checks)
     arm("serve")
     n, e, f, c = DATASET_SHAPES["ogbn-arxiv"]
@@ -4156,6 +4349,7 @@ def main():
         p44 = run_cli_dist(card, cli_tmp)
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
+    sm = run_softmax(dev, card)
 
     def hyb_entry(name, key, source_line):
         return {
@@ -4284,6 +4478,25 @@ def main():
             **nr["timing"][("gin", "bat")],
             "appnp_F8": nr["timing"][("appnp", "bat")],
             "backward": {m: nr["timing"][(m, "bat_t")] for m in ("gin", "appnp")},
+        }, {
+            "name": "edge_softmax",
+            "route": "cuda",
+            "source": "geot_tpu_torch/ops/csrc/edge_softmax.cu",
+            "replaces": "geot_tpu/ops/api.py:1562 (GAT's softmax in plain XLA; no TPU kernel)",
+            "launches": gd["train"]["gat"]["edge_softmax"],
+            "launches_by_path": {"gat_serve_requests": gd["serve"]["gat"]["edge_softmax"],
+                                 "gat_train_steps": gd["train"]["gat"]["edge_softmax"]},
+            "max_abs_err": max(c["abs"] for c in sm["checks"].values()),
+            "ms": sm["timing"]["fwd_ms"],
+            "plain_ms": sm["timing"]["plain_fwd_ms"],
+            "bound_ms": sm["timing"]["bound_fwd_ms"],
+            "bound_by": "bytes",
+            "backward": {
+                "name": "edge_softmax_grad",
+                "launches_by_path": {"gat_train_steps": gd["train"]["gat"]["edge_softmax_grad"]},
+                "ms": sm["timing"]["bwd_ms"],
+                "plain_ms": sm["timing"]["plain_bwd_ms"],
+                "bound_ms": sm["timing"]["bound_bwd_ms"]},
         }]
     # the launches of phases 37 (the sweep; the hybrid candidate) and 38
     # (the compiler pass), per kernel; edge_dots is sddmm_bat's entry
@@ -4310,6 +4523,8 @@ def main():
                 entry["launches_by_path"][path] = counts[name]
             if name == "sddmm_bat" and counts.get("edge_dots"):
                 entry["edge_dots"]["launches_by_path"][path] = counts["edge_dots"]
+            if name == "edge_softmax" and counts.get("edge_softmax_grad"):
+                entry["backward"]["launches_by_path"][path] = counts["edge_softmax_grad"]
     print(json.dumps({
         "kernels": kernels,
         "card": smi,
@@ -4338,6 +4553,7 @@ def main():
         "tuning": {k: tu[k] for k in ("rows", "best", "hybrid_clustered_ms", "sweep_s")},
         "compiler": {k: v for k, v in co.items() if k != "launches"},
         "c19": c19,
+        "edge_softmax": sm,
         "parallel": {
             "partitions": p40, "part_reduce_errs": p41, "part_views_s": p41_view_s,
             "ranks": [{"halo": {k: {"err": h["err"], "build_s": h["build_s"]}

@@ -74,6 +74,9 @@ class Graph:
       SpMM).
     perm_t: [nnz] int32 — dst-sorted position of the e-th src-sorted edge.
     dst_t, edge_weight_t: dst[perm_t], edge_weight[perm_t].
+    dst_ptr, src_ptr: [num_nodes + 1] int32 — the run boundaries of dst
+      (row i's edges are dst_ptr[i] .. dst_ptr[i + 1] - 1) and of
+      src[perm_t] (the src-sorted order). The edge softmax walks both.
     hyb / hyb_t: hybrid stream+gather plans (forward, transpose), both set
       or both None (None when the cell census rejects streaming in either
       direction); static weights are baked into them.
@@ -120,6 +123,8 @@ class Graph:
     prefer: str = "bat"
     prefer_dyn: str = "bat"
     build_stats: dict = dataclasses.field(default_factory=dict, compare=False)
+    dst_ptr: Optional[torch.Tensor] = None
+    src_ptr: Optional[torch.Tensor] = None
 
     @property
     def num_edges(self) -> int:
@@ -138,6 +143,13 @@ def _stable_sort_perm(key: np.ndarray, num_keys: int) -> np.ndarray:
     if perm is not None:
         return perm
     return np.argsort(np.asarray(key), kind="stable")
+
+
+def _run_ptr(key: np.ndarray, num_keys: int) -> np.ndarray:
+    """The [num_keys + 1] int32 run boundaries of a sorted key array."""
+    ptr = np.zeros(num_keys + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key, minlength=num_keys)[:num_keys], out=ptr[1:])
+    return ptr.astype(np.int32)
 
 
 def _table_knobs(feature_hint: int, nnz: int, num_nodes: int) -> Tuple[dict, bool]:
@@ -426,4 +438,6 @@ def build_graph(
         prefer=prefer if plan is not None or prefer != "sr" else "bat",
         prefer_dyn=prefer_dyn if plan is not None or prefer_dyn != "sr" else "bat",
         build_stats=stats,
+        dst_ptr=t(_run_ptr(dst, num_nodes)),
+        src_ptr=t(_run_ptr(src_t, num_nodes)),
     )

@@ -43,6 +43,12 @@ from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_sr2,
     plan_segment_sum_sr_packed,
 )
+from geot_tpu_torch.ops.softmax_kernels import (
+    edge_softmax,
+    edge_softmax_grad,
+    edge_softmax_grad_plain,
+    edge_softmax_plain,
+)
 from geot_tpu_torch.ops.stream_kernels import (
     stream_segment_acc,
     stream_segment_acc_plain,
@@ -58,7 +64,7 @@ COUNTED_KERNELS = {
         bat_segment_sum, bat_segment_sum_packed, sddmm_bat, edge_dots, stream_segment_sum,
         stream_segment_acc, plan_segment_sum_sr, plan_segment_sum_sr_packed,
         plan_segment_sum_pr, plan_segment_sum_mh, plan_segment_sum_sr2,
-        plan_segment_sum_packed2)
+        plan_segment_sum_packed2, edge_softmax, edge_softmax_grad)
 }
 
 
@@ -111,4 +117,8 @@ __all__ = [
     "plan_segment_sum_packed2_plain",
     "plan_segment_sum_mh",
     "plan_segment_sum_mh_plain",
+    "edge_softmax",
+    "edge_softmax_plain",
+    "edge_softmax_grad",
+    "edge_softmax_grad_plain",
 ]

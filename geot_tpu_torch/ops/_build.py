@@ -45,6 +45,7 @@ SOURCES: Dict[str, str] = {
     "stream_segment": "stream_segment.cu",
     "slot_segment_sum": "slot_segment_sum.cu",
     "edge_row_sum": "edge_row_sum.cu",
+    "edge_softmax": "edge_softmax.cu",
 }
 
 # loaded libraries of this process, by kernel name

@@ -39,8 +39,9 @@ as the reference's kernels do.
 
 Under a profiler (`utils.trace.span`) `segment_spmm` is the span
 "geot.spmm.<route>" (the name `dispatch_path` gives), `mh_spmm`
-"geot.mh_spmm", a segment softmax's statistics and normalisation
-"geot.softmax", and GAT's per-edge logits "geot.gat.logits". Backward
+"geot.mh_spmm", and a segment softmax or GAT's attention from its
+per-node terms "geot.softmax" (`models.conv` names the per-node terms'
+dots "geot.gat.logits"). Backward
 work carries no span: the profiler ties each backward node to the
 forward op that made it by its sequence number.
 """
@@ -69,6 +70,7 @@ from geot_tpu_torch.ops.slot_kernels import (
     plan_segment_sum_sr2,
     plan_segment_sum_sr_packed,
 )
+from geot_tpu_torch.ops.softmax_kernels import edge_softmax, edge_softmax_grad
 from geot_tpu_torch.ops.stream_kernels import stream_segment_acc, stream_segment_sum
 from geot_tpu_torch.tuning.heuristics import select_config
 from geot_tpu_torch.utils.trace import span
@@ -918,102 +920,59 @@ def mh_spmm_transposed(
     return mh_spmm(src_index, dst_index, weight_t.t(), src, num_segments, **kw)
 
 
-class _GatherRows(torch.autograd.Function):
-    """t[idx] along axis 0 ([n] or [n, H] of a few columns): a 2-D gather
-    is one 1-D gather per column over the transpose. A row gather costs
-    about the same per row from 16 bytes to 1 KB wide (1.09 M rows of
-    [89,250, 4] float32: 0.66 ms, as 1-D gathers 0.02 ms; NVIDIA H100 80GB
-    HBM3, 700 W, torch 2.11, `python -m geot_tpu_torch.probe_slot
-    gathers`).
-
-    Backward: each row's sum of g over the entries that name it. Given
-    `offsets`, the n + 1 run boundaries of idx[order] (sorted; `order`
-    None: idx itself is sorted), it is the fixed-order segment sum of
-    g[order] (`_segment_reduce_cols`), so reruns are bit-identical.
-    Without, it is `index_add_` (atomics on the card): bit-identical only
-    where each row takes at most one nonzero term."""
+class _EdgeSoftmax(torch.autograd.Function):
+    """The edge softmax over a dst-sorted edge list (`edge_softmax`): of
+    per-edge logits, or of GAT's per-node terms (the logits
+    leaky_relu(alpha_src[src] + alpha_dst[dst]) made in the kernel).
+    `rows` holds the list's index tensors: dst, dst_ptr and src, and for
+    alpha_src's gradient perm_t and src_ptr (the backward gathers src_t =
+    src[perm_t], the src-sorted keys, for its src pass). Backward: one
+    `edge_softmax_grad` call, every sum in a fixed order with no atomics,
+    so reruns are bit-identical. Returns float32 (float64 for float64
+    inputs on the CPU: `_f32`)."""
 
     @staticmethod
-    def forward(ctx, t, idx, order, offsets):
-        ctx.save_for_backward(idx, order, offsets)
-        ctx.n_rows = t.shape[0]
-        if t.dim() == 1:
-            return t.index_select(0, idx)
-        return t.t().contiguous().index_select(1, idx).t()
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        idx, order, offsets = ctx.saved_tensors
-        if offsets is not None:
-            gs = g if order is None else g.index_select(0, order)
-            return (_segment_reduce_cols(gs.float().contiguous(), offsets, "sum").to(g.dtype),
-                    None, None, None)
-        out = g.new_zeros((ctx.n_rows,) + tuple(g.shape[1:]))
-        return out.index_add_(0, idx, g.contiguous()), None, None, None
-
-
-def _gather_rows(t: torch.Tensor, idx: torch.Tensor, order: Optional[torch.Tensor] = None,
-                 offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """t[idx] along axis 0 ([n] or [n, H] with few columns; the result of
-    a 2-D gather is a transposed view), through `_GatherRows`."""
-    return _GatherRows.apply(t, idx, order, offsets)
-
-
-def _runs(index: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """The run boundaries [num_segments + 1] of a sorted index."""
-    nodes = torch.arange(num_segments + 1, dtype=index.dtype, device=index.device)
-    return torch.searchsorted(index, nodes)
-
-
-def _segment_reduce_cols(v: torch.Tensor, offsets: torch.Tensor, reduce: str) -> torch.Tensor:
-    """Per-column `reduce` over the runs of a sorted index ([nnz] or [nnz,
-    H] -> [S] or [S, H]) with one 1-D `torch.segment_reduce` over all
-    columns' segments: in a fixed order, with no atomics. Over 2-D data
-    segment_reduce walks each segment with one thread per column, 3 ms a
-    call on the flickr graph's 75 k-edge hub row (NVIDIA H100 80GB HBM3,
-    700 W, `profile_gcn --model gat`)."""
-    kw = {"initial": 0.0} if reduce == "sum" else {}
-    if v.dim() == 1:
-        return torch.segment_reduce(v, reduce, offsets=offsets, **kw)
-    S = offsets.shape[0] - 1
-    nnz, H = v.shape
-    # column h's segments are segments h*S .. h*S + S - 1 of the [H, nnz] copy
-    flat = torch.cat([(offsets[:-1][None, :]
-                       + nnz * torch.arange(H, device=v.device)[:, None]).reshape(-1),
-                      offsets.new_full((1,), nnz * H)])
-    return torch.segment_reduce(v.t().reshape(-1), reduce, offsets=flat, **kw).reshape(H, S).t()
-
-
-class _SegmentSum(torch.autograd.Function):
-    """`_segment_reduce_cols(v, offsets, "sum")`; backward: the output
-    gradient gathered back by the index (segment_reduce's own backward
-    walks each segment serially: 1.8 ms a call on the flickr graph's
-    75 k-edge hub, NVIDIA H100 80GB HBM3, 700 W, `profile_gcn --model
-    gat`)."""
-
-    @staticmethod
-    def forward(ctx, v, index, offsets):
-        ctx.save_for_backward(index)
-        return _segment_reduce_cols(v, offsets, "sum")
+    def forward(ctx, logits, alpha_src, alpha_dst, rows, slope):
+        ctx.rows, ctx.slope = rows, slope
+        dst, dst_ptr, src = rows[:3]
+        if logits is not None:
+            att = edge_softmax(dst, dst_ptr, _f32(logits))
+            ctx.save_for_backward(att)
+            ctx.dtypes = (logits.dtype,)
+        else:
+            a_s, a_d = _f32(alpha_src), _f32(alpha_dst)
+            att = edge_softmax(dst, dst_ptr, alpha_src=a_s, alpha_dst=a_d, src=src,
+                               negative_slope=slope)
+            ctx.save_for_backward(att, a_s, a_d)
+            ctx.dtypes = (alpha_src.dtype, alpha_dst.dtype)
+        return att
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        (index,) = ctx.saved_tensors
-        return _gather_rows(g, index), None, None
+        dst, dst_ptr, src, perm_t, src_ptr = ctx.rows
+        g = _f32(g)
+        if len(ctx.saved_tensors) == 1:  # per-edge logits
+            (att,) = ctx.saved_tensors
+            gl = edge_softmax_grad(dst, dst_ptr, att, g)
+            return gl.to(ctx.dtypes[0]), None, None, None, None
+        att, a_s, a_d = ctx.saved_tensors
+        src_kw = {}
+        if ctx.needs_input_grad[1]:
+            src_kw = dict(perm_t=perm_t, src_t=src.index_select(0, perm_t.long()),
+                          src_ptr=src_ptr)
+        das, dad = edge_softmax_grad(dst, dst_ptr, att, g, alpha_src=a_s, alpha_dst=a_d,
+                                     src=src, negative_slope=ctx.slope, **src_kw)
+        return (None, None if das is None else das.to(ctx.dtypes[0]),
+                dad.to(ctx.dtypes[1]) if ctx.needs_input_grad[2] else None, None, None)
 
 
-def _softmax_stats(logits: torch.Tensor, index: torch.Tensor, offsets: torch.Tensor):
-    """(e, s) of a segment softmax over dst-sorted `index` (int64, run
-    boundaries `offsets`; [nnz] or [nnz, H] logits): e = exp(logits -
-    m[index]) with m the segment max (0 for an empty segment, and detached:
-    the softmax does not depend on it), s the segment sum of e. Both
-    reductions are `_segment_reduce_cols`, in a fixed order."""
-    m = _segment_reduce_cols(logits.detach(), offsets, "max")
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    e = torch.exp(logits - _gather_rows(m, index))
-    return e, _SegmentSum.apply(e, index, offsets)
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t as the edge softmax takes it, contiguous: float32, but float64 on
+    the CPU (the plain versions' float64 path). On the card float64 runs
+    in float32, as `mh_spmm`'s kernel does."""
+    keep = t.dtype == torch.float64 and t.device.type == "cpu"
+    return (t if keep else t.float()).contiguous()
 
 
 def segment_softmax(
@@ -1024,19 +983,24 @@ def segment_softmax(
     indices_are_sorted: bool = True,
 ) -> torch.Tensor:
     """Softmax of per-edge logits [nnz] or [nnz, H] within each destination
-    segment, stabilised by the segment max (empty segments: max 0). The max
-    and the sum run over the dst-sorted runs with `torch.segment_reduce`,
-    and so does the gradient: no atomics. Unsorted indices are sorted first
-    (stably) and the result put back in their order."""
+    segment (index values in [0, num_segments)), stabilised by the segment
+    max. Sorted indices run the edge softmax (`edge_softmax`: the kernel on
+    the card, its plain version on the CPU) over their run boundaries, and
+    so does the gradient: no atomics. Unsorted indices are sorted first
+    (stably) and the result put back in their order. Returns the logits'
+    dtype."""
     if not indices_are_sorted:
         order = torch.argsort(index, stable=True)
         out = torch.empty_like(logits)
         out[order] = segment_softmax(logits[order], index[order], num_segments)
         return out
     with span("geot.softmax"):
-        idx, offsets = index.long(), _runs(index, num_segments)
-        e, s = _softmax_stats(logits, idx, offsets)
-        return e / _gather_rows(torch.clamp(s, min=1e-16), idx, offsets=offsets)
+        nodes = torch.arange(num_segments + 1, dtype=index.dtype, device=index.device)
+        rows = (index.int().contiguous(), torch.searchsorted(index, nodes, out_int32=True),
+                None, None, None)
+        lg = logits if logits.dim() == 2 else logits[:, None]
+        att = _EdgeSoftmax.apply(lg, None, None, rows, 0.0)
+        return att.reshape(logits.shape).to(logits.dtype)
 
 
 def gat_attention_spmm(
@@ -1054,8 +1018,9 @@ def gat_attention_spmm(
     * xh[j, h]. xh [nodes, H, D]; alpha_src / alpha_dst [nodes, H].
     Differentiable in all three.
 
-    The attention is taken in edge order: the softmax's max and sum run
-    over the dst-sorted runs (`segment_softmax`'s statistics). It is then
+    The attention is taken in edge order by the edge softmax
+    (`edge_softmax`: one kernel from the per-node terms to the attention,
+    the logits made in it, over the graph's dst runs `dst_ptr`). It is then
     summed with xh by `mh_spmm` over the graph's slot plans: the mh kernel
     reads xh[src[e]] and att[e] itself, over `plan`, and over `plan_t` for
     the xh gradient; the attention's gradient is the per-edge, per-head
@@ -1070,28 +1035,23 @@ def gat_attention_spmm(
     backend="reference" runs the plain edge-space softmax and
     `mh_spmm_ref` (edge order, no plan).
 
-    Each gather of per-node terms into edge order has a fixed-order
-    backward (`_gather_rows` with run boundaries; the src-indexed one
-    through `perm_t`, the src-sorted order), and the sums and dots are in
-    a fixed order with no atomics (the reference's fused route added slot
+    The softmax's backward (`edge_softmax_grad`) sums alpha_dst's gradient
+    over the dst runs and alpha_src's over the src-sorted runs (`src_ptr`,
+    through `perm_t`), and the sums and dots are in a fixed
+    order with no atomics (the reference's fused route added slot
     terms with index_add_, ROADMAP C.12), so every gradient is
     bit-identical across reruns. Pad slots add nothing: the attention
     lives on real edges only (the reference multiplies its slot placement
     by the mask and gives NaN where a pad's logit overflows, C.11)."""
     _check_backend(backend)
     n = graph.num_nodes
-    with span("geot.gat.logits"):
-        src_l, dst_l, perm_t = graph.src.long(), graph.dst.long(), graph.perm_t.long()
-        off_dst = _runs(graph.dst, n)
-        off_src = _runs(graph.src.index_select(0, perm_t), n)
-        logit = F.leaky_relu(_gather_rows(alpha_src, src_l, perm_t, off_src)
-                             + _gather_rows(alpha_dst, dst_l, offsets=off_dst),
-                             negative_slope)  # [nnz, H]
     with span("geot.softmax"):
         if backend == "reference":
+            logit = F.leaky_relu(alpha_src[graph.src.long()] + alpha_dst[graph.dst.long()],
+                                 negative_slope)  # [nnz, H]
             att = ref.segment_softmax_ref(logit, graph.dst, n)
         else:
-            e, s = _softmax_stats(logit, dst_l, off_dst)
-            att = e / _gather_rows(torch.clamp(s, min=1e-16), dst_l, offsets=off_dst)
+            rows = (graph.dst, graph.dst_ptr, graph.src, graph.perm_t, graph.src_ptr)
+            att = _EdgeSoftmax.apply(None, alpha_src, alpha_dst, rows, negative_slope)
     # backend "reference": mh_spmm's plain route (`mh_spmm_ref`)
     return mh_spmm(graph.src, graph.dst, att.to(xh.dtype), xh, n, graph=graph, backend=backend)

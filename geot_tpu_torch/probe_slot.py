@@ -8,8 +8,8 @@ BAT paths.
 
 `gathers`: a gather of 1.09 M rows (Zipf-distributed indices, the flickr
 slot plan's size) from [89,250, H] float32, H 4 and 256, as a row gather
-(`index_select` along axis 0) and as 1-D gathers over the transpose (what
-`ops.api._gather_rows` does), and the backward scatters: `index_add_`
+(`index_select` along axis 0) and as 1-D gathers over the transpose (one
+per column), and the backward scatters: `index_add_`
 along axis 0 and along the transpose's axis 1, and `index_put_` with
 accumulation (advanced indexing's backward).
 

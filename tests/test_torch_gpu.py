@@ -1025,10 +1025,14 @@ def test_gat_and_slot_dyn_models_on_card_match_cpu(cuda, model, chunked):
 def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
     """The gradients of alpha_src and alpha_dst sum in a fixed order (the
     attention's gradient is the per-edge, per-head dot in edge order, and
-    the gathers' backward runs over the dst- or src-sorted runs), so reruns
-    give the same bits; so does the xh gradient on both routes (the mh
-    kernel over plan_t; the fused route added slot terms with index_add_
-    once, ROADMAP C.12). Both routes are one computation on the card."""
+    the edge softmax's backward sums over the dst runs and the src-sorted
+    runs with no atomics), so reruns give the same bits; so does the xh
+    gradient on both routes (the mh kernel over plan_t; the fused route
+    added slot terms with index_add_ once, ROADMAP C.12). Both routes are
+    one computation on the card, through the edge softmax kernel (one
+    forward and one backward launch a call)."""
+    from geot_tpu_torch.ops.softmax_kernels import edge_softmax, edge_softmax_grad
+
     from geot_tpu_torch.models import prepare_graph
 
     rng = np.random.default_rng(21)
@@ -1044,8 +1048,11 @@ def test_gat_attention_gradients_rerun_bit_identical(cuda, route):
     grads = []
     for _ in range(3):
         args = [t.clone().requires_grad_() for t in (xh, a_s, a_d)]
+        before = edge_softmax.launches, edge_softmax_grad.launches
         out = api.gat_attention_spmm(g, *args, **route)
         torch.vdot(out.reshape(-1), co.reshape(-1)).backward()
+        assert (edge_softmax.launches, edge_softmax_grad.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
         grads.append([t.grad for t in args])
     for later in grads[1:]:
         assert torch.equal(later[1], grads[0][1]) and torch.equal(later[2], grads[0][2])
@@ -1675,3 +1682,143 @@ def test_sums_over_plans_without_edges(cuda, F):
     assert out.shape == (plan.n_blocks * 32, F) and not out.any()
     out = bat_segment_sum(bp, x, None, src=src)
     assert out.shape == (bp.n_blocks * 32, F) and not out.any()
+
+
+@pytest.mark.parametrize("entry", ["node_terms", "logits"])
+@pytest.mark.parametrize("graph,H", [("small", 1), ("small", 3), ("small", 8), ("cell", 3)])
+def test_edge_softmax_matches_plain(cuda, graph, H, entry):
+    """The edge softmax kernel (forward: main pass and the cut rows'
+    fix-up; backward: the dst pass, its fix-up, the src pass and the cut
+    rows' sums) against its plain version on the card in float64 from the
+    same float32 inputs: att within 1e-6 relative per element (the f32
+    logits' rounding in exp's argument, expf's and the row sums'), both
+    gradients within 1e-5 of their largest element (sums of up to 71,237
+    f32 terms; the plain version in float32 sums them with index_add_'s
+    atomics, in any order, and lies further off float64 than that); one
+    counted launch a call, reruns bit-identical. Graphs: a small one with
+    a 4,000-edge hub row (cut into 16 chunks), empty rows and a
+    pre-activation exactly 0, at 1, 3 and 8 heads, and the benchmark
+    cell's at its 3 heads."""
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops.softmax_kernels import (
+        edge_softmax,
+        edge_softmax_grad,
+        edge_softmax_grad_plain,
+        edge_softmax_plain,
+    )
+
+    if graph == "cell":
+        from chip_smoke import softmax_graph  # the arxiv-gat cell's graph
+
+        g = softmax_graph(cuda)
+        assert int(torch.diff(g.dst_ptr).max()) == 71_237
+    else:
+        rng = np.random.default_rng(H)
+        n = 3000
+        src, dst = _hubby(rng, n - 200, 20000, 4000, hub=5)
+        g = prepare_graph(src, dst, n, add_self_loops=False, layouts=("slot",), e_tile=512,
+                          s_tile=256, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    E, n = g.num_edges, g.num_nodes
+    a_s = 0.5 * torch.randn(n, H, generator=gen, device=cuda)
+    a_d = 0.5 * torch.randn(n, H, generator=gen, device=cuda)
+    a_s[int(g.src[0])] = -a_d[int(g.dst[0])]
+    lg = 0.7 * torch.randn(E, H, generator=gen, device=cuda)
+    gg = torch.randn(E, H, generator=gen, device=cuda)
+    node = entry == "node_terms"
+    kw = dict(alpha_src=a_s, alpha_dst=a_d, src=g.src) if node else {}
+    logits = None if node else lg
+    runs = dict(perm_t=g.perm_t, src_t=g.src.index_select(0, g.perm_t.long()),
+                src_ptr=g.src_ptr)
+    tkw = dict(kw, **runs) if node else {}
+    before = edge_softmax.launches, edge_softmax_grad.launches
+    att = edge_softmax(g.dst, g.dst_ptr, logits, **kw)
+    grads = edge_softmax_grad(g.dst, g.dst_ptr, att, gg, **tkw)
+    torch.cuda.synchronize()
+    assert (edge_softmax.launches, edge_softmax_grad.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    kw64 = {k: v.double() if v.is_floating_point() else v for k, v in kw.items()}
+    p = edge_softmax_plain(g.dst, g.dst_ptr, None if node else lg.double(), **kw64)
+    rel = ((att - p).abs() / p.abs().clamp(min=1e-30)).max()
+    assert float(rel) <= 1e-6, float(rel)
+    tkw64 = dict(tkw, **kw64)
+    want = edge_softmax_grad_plain(g.dst, g.dst_ptr, att.double(), gg.double(), **tkw64)
+    grads, want = (grads, want) if node else ((grads,), (want,))
+    for k, w in zip(grads, want):
+        err = (k - w).abs().max() / w.abs().max()
+        assert float(err) <= 1e-5, float(err)
+    for _ in range(2):
+        again = edge_softmax(g.dst, g.dst_ptr, logits, **kw)
+        g2 = edge_softmax_grad(g.dst, g.dst_ptr, again, gg, **tkw)
+        g2 = g2 if node else (g2,)
+        assert torch.equal(again, att) and all(torch.equal(a, b) for a, b in zip(g2, grads))
+
+
+def test_edge_softmax_refuses_what_it_does_not_take(cuda):
+    """dtype, shape and device of every index and value."""
+    from geot_tpu_torch.ops.softmax_kernels import edge_softmax, edge_softmax_grad
+
+    dst = torch.tensor([0, 0, 1, 3], dtype=torch.int32, device=cuda)
+    ptr = torch.tensor([0, 2, 3, 3, 4], dtype=torch.int32, device=cuda)
+    lg = torch.randn(4, 2, device=cuda)
+    with pytest.raises(ValueError, match="dst_ptr must be torch.int32"):
+        edge_softmax(dst, ptr.long(), lg)
+    with pytest.raises(ValueError, match="logits must be torch.float32"):
+        edge_softmax(dst, ptr, lg.double())
+    with pytest.raises(ValueError, match="dst must be torch.int32"):
+        edge_softmax(dst.long(), ptr, lg)
+    with pytest.raises(ValueError, match="alpha_dst must have shape"):
+        edge_softmax(dst, ptr, alpha_src=torch.randn(4, 2, device=cuda),
+                     alpha_dst=torch.randn(3, 2, device=cuda), src=dst)
+    with pytest.raises(ValueError, match="is on cpu"):
+        edge_softmax(dst, ptr, lg.cpu())
+    att = edge_softmax(dst, ptr, lg)
+    torch.testing.assert_close(att[:2].sum(0), torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="g must have shape"):
+        edge_softmax_grad(dst, ptr, att, torch.randn(4, 3, device=cuda))
+
+
+def test_softmax_routes_take_float64(cuda):
+    """`segment_softmax` and `gat_attention_spmm` over float64 tensors on
+    the card: the edge softmax kernel runs them in float32 (as `mh_spmm`'s
+    kernel does) and hands back float64, within float32's rounding of the
+    reference route in float64, forward and gradients; one counted launch
+    each way a call."""
+    from geot_tpu_torch.models import prepare_graph
+    from geot_tpu_torch.ops.softmax_kernels import edge_softmax, edge_softmax_grad
+
+    rng = np.random.default_rng(64)
+    n, H, D = 3000, 3, 8
+    src, dst = _hubby(rng, n - 200, 20000, 4000, hub=5)
+    g = prepare_graph(src, dst, n, add_self_loops=False, layouts=("slot",), e_tile=512,
+                      s_tile=256, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    f64 = dict(generator=gen, device=cuda, dtype=torch.float64)
+    lg, co_e = torch.randn(g.num_edges, H, **f64), torch.randn(g.num_edges, H, **f64)
+    xh, a_s, a_d = torch.randn(n, H, D, **f64), torch.randn(n, H, **f64), torch.randn(n, H, **f64)
+    co = torch.randn(n, H, D, **f64)
+
+    def softmax(lg_, backend="auto"):
+        if backend == "reference":
+            return tref.segment_softmax_ref(lg_, g.dst, n)
+        return api.segment_softmax(lg_, g.dst, n)
+
+    cases = ((softmax, [lg], co_e),
+             (functools.partial(api.gat_attention_spmm, g), [xh, a_s, a_d], co))
+    for fn, inputs, cot in cases:
+        outs = []
+        for kw in ({}, {"backend": "reference"}):
+            args = [t.clone().requires_grad_() for t in inputs]
+            before = edge_softmax.launches, edge_softmax_grad.launches
+            out = fn(*args, **kw)
+            torch.vdot(out.reshape(-1), cot.reshape(-1)).backward()
+            torch.cuda.synchronize()
+            ran = (edge_softmax.launches - before[0], edge_softmax_grad.launches - before[1])
+            assert ran == ((1, 1) if not kw else (0, 0)), ran
+            assert out.dtype == torch.float64 and all(t.grad.dtype == torch.float64
+                                                      for t in args)
+            outs.append((out.detach(), [t.grad for t in args]))
+        (o_k, g_k), (o_r, g_r) = outs
+        torch.testing.assert_close(o_k, o_r, rtol=1e-5, atol=1e-5 * float(o_r.abs().max()))
+        for a, b in zip(g_k, g_r):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))

@@ -109,7 +109,7 @@ def test_gat_step_records_every_span_nested():
     fwd = ["geot.train.forward"] + step
     conv = ["geot.conv.gat"] + fwd
     want = {"geot.train.step": (1, []), "geot.conv.gat": (2, fwd),
-            "geot.gat.logits": (4, conv), "geot.softmax": (2, conv),
+            "geot.gat.logits": (2, conv), "geot.softmax": (2, conv),
             "geot.mh_spmm": (2, conv), "geot.norm.batch": (1, fwd), "geot.dropout": (1, fwd),
             **{p: (1, step) for p in PHASES}}
     assert counts == {k: c for k, (c, _) in want.items()}
