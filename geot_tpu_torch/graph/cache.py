@@ -37,7 +37,7 @@ import torch
 from geot_tpu_torch.graph.plan import BatPlan, BucketedBatPlan, SegmentPlan, _sched_key
 from geot_tpu_torch.graph.row_schedule import RowSchedule
 from geot_tpu_torch.graph.stream_plan import HybridPlan, StreamPlan
-from geot_tpu_torch.graph.structures import Graph
+from geot_tpu_torch.graph.structures import Graph, count_stream_split
 from geot_tpu_torch.tuning.heuristics import table_fingerprint
 from geot_tpu_torch.utils.device import resolve_device
 
@@ -130,7 +130,9 @@ def _load(spec, z, dev):
 
 def load_graph(path: str, device=None) -> Optional[Graph]:
     """The Graph saved at `path`, on `device` (default: the CUDA card), or
-    None where the file is of another format, version or layout."""
+    None where the file is of another format, version or layout. A graph
+    with hybrid plans adds its split to the process's counter record, as
+    `build_graph` does."""
     dev = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
@@ -140,7 +142,10 @@ def load_graph(path: str, device=None) -> Optional[Graph]:
             g = _load(meta["graph"], z, dev)
         except _Stale:
             return None
-    return g if isinstance(g, Graph) else None
+    if not isinstance(g, Graph):
+        return None
+    count_stream_split(g.hyb, g.hyb_t)
+    return g
 
 
 def cached_build(cache_key: str, build_fn: Callable[[], Graph],

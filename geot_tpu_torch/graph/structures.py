@@ -46,8 +46,9 @@ from geot_tpu_torch.tuning.heuristics import (
     select_config_ex,
 )
 from geot_tpu_torch.utils.device import resolve_device
+from geot_tpu_torch.utils.trace import count
 
-__all__ = ["Graph", "build_graph"]
+__all__ = ["Graph", "build_graph", "count_stream_split"]
 
 
 # layout preferences `build_graph` takes for the fused SpMM: BAT, the slot
@@ -223,6 +224,20 @@ def _build_hybrid(
             rest_w = torch.from_numpy(w_e[rest_mask].astype(np.float32)).to(dev)
     build_stats["seconds"][f"rest_bat_plan_{direction}"] = time.perf_counter() - t0
     return HybridPlan(sp, rest, rest_src, rest_w)
+
+
+def count_stream_split(hyb: Optional[HybridPlan], hyb_t: Optional[HybridPlan]) -> None:
+    """Adds each direction's streamed and total edges of a graph's hybrid
+    plans to the process's counter record (`utils.trace.count`), under
+    `stream.<forward|transpose>.streamed_edges` and `.edges`. Nothing for
+    a graph without hybrid plans."""
+    for direction, h in (("forward", hyb), ("transpose", hyb_t)):
+        if h is None:
+            continue
+        streamed = sum(int(sp.num_edges) for sp in h.stream)
+        rest = 0 if h.rest_src is None else int(h.rest_src.numel())
+        count(f"stream.{direction}.streamed_edges", streamed)
+        count(f"stream.{direction}.edges", streamed + rest)
 
 
 def build_graph(
@@ -407,6 +422,7 @@ def build_graph(
                     # the forward streams but the transpose does not: autograd
                     # needs the pair, so both stay on the gather path
                     hyb = None
+            count_stream_split(hyb, hyb_t)
 
     rests = [(f"{name}.rest", h.rest) for name, h in (("hyb", hyb), ("hyb_t", hyb_t))
              if h is not None]

@@ -272,10 +272,13 @@ def _stream_sum(plans: tuple, x: torch.Tensor) -> torch.Tensor:
 def _spmm_fwd_hybrid(hyb: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     """Streamed cells + BAT+gather remainder; the partial sums add.
     Weights, if any, were baked into both parts when the graph was built.
-    Returns [num_segments, n] float32."""
-    out = _stream_sum(hyb.stream, x)
+    Returns [num_segments, n] float32. Spans `geot.spmm.hybrid.stream`
+    and `geot.spmm.hybrid.rest` mark the two parts."""
+    with span("geot.spmm.hybrid.stream"):
+        out = _stream_sum(hyb.stream, x)
     if hyb.rest is not None:
-        out += _spmm_fwd_bat(hyb.rest, x, hyb.rest_src, hyb.rest_w)
+        with span("geot.spmm.hybrid.rest"):
+            out += _spmm_fwd_bat(hyb.rest, x, hyb.rest_src, hyb.rest_w)
     return out
 
 

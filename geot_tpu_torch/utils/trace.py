@@ -15,6 +15,11 @@ returns. The record is per process because what it times is: a library
 loaded once serves every caller of the process. The graph's set-up is
 timed by `Graph.build_stats`, not here.
 
+`count(name, n)` adds n to the counter `name` of the process's counter
+record, which `counter_record()` returns: counts that the program decides
+once, at set-up (the hybrid plans' streamed and total edges, written where
+a graph is built or loaded from the cache), never on the step path.
+
 Span names start with "geot.".
 """
 
@@ -28,12 +33,14 @@ from typing import Dict, Iterator
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["span", "setup_phase", "setup_record"]
+__all__ = ["span", "setup_phase", "setup_record", "count", "counter_record"]
 
 _OFF = contextlib.nullcontext()
 _LOCK = threading.Lock()
 # phase -> host seconds
 _SETUP: Dict[str, float] = {}
+# counter -> count
+_COUNTS: Dict[str, int] = {}
 
 
 def span(name: str):
@@ -61,3 +68,15 @@ def setup_record() -> Dict[str, float]:
     """A copy of the process's set-up record: {phase: host seconds}."""
     with _LOCK:
         return dict(_SETUP)
+
+
+def count(name: str, n: int) -> None:
+    """Adds n to the counter `name` of the process's counter record."""
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counter_record() -> Dict[str, int]:
+    """A copy of the process's counter record: {counter: count}."""
+    with _LOCK:
+        return dict(_COUNTS)
