@@ -5,8 +5,9 @@ Port of `geot_tpu/models/conv.py:47-357` (`prepare_graph`,
 `SGConv`, `APPNPConv`). The aggregation is a direct call into
 `segment_spmm` (GAT: `gat_attention_spmm`) over a prebuilt `Graph`.
 Under a profiler each conv's forward is the span "geot.conv.<name>"
-(gcn, sage, gat, gin, sg, appnp), and GAT's per-node attention terms the
-span "geot.gat.logits".
+(gcn, sage, gat, gin, sg, appnp), GAT's per-node attention terms the
+span "geot.gat.logits", and a widening GCN layer's backward sum
+"geot.conv.gcn.recompute".
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from geot_tpu_torch.graph.stream_plan import StreamKnobs
 from geot_tpu_torch.graph.structures import Graph, build_graph
 from geot_tpu_torch.ops.api import gat_attention_spmm, segment_spmm
 from geot_tpu_torch.utils.device import resolve_device
-from geot_tpu_torch.utils.trace import span
+from geot_tpu_torch.utils.trace import count, span
 
 __all__ = ["prepare_graph", "gcn_edge_weight", "GCNConv", "SAGEConv", "GATConv", "MLP",
            "GINConv", "SGConv", "APPNPConv", "glorot_uniform_", "lecun_normal_"]
@@ -187,7 +189,14 @@ def _linear(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
 
 
 class GCNConv(nn.Module):
-    """Graph convolution out = A_hat @ (X W) + b, A_hat = D^-1/2 (A+I) D^-1/2.
+    """Graph convolution out = A_hat X W + b, A_hat = D^-1/2 (A+I) D^-1/2.
+
+    The order of the two products follows the widths the layer was built
+    with: a layer that widens (`in_features < features`) sums first,
+    (A_hat X) W, so that the SpMM runs at the narrower input width
+    (`_AggregateFirst`, which recomputes the sum in the backward instead of
+    holding it); any other layer multiplies first, A_hat (X W). Both are
+    the same mathematics; the sums differ only in rounding.
 
     `lin` is a bias-free `nn.Linear` (weight [out, in] = the flax kernel
     transposed) and `bias` a separate parameter, as in the reference's
@@ -202,6 +211,8 @@ class GCNConv(nn.Module):
     cast to it for the product, and the SpMM returns it (summing in
     float32); None keeps the input's dtype. Parameters are drawn on the
     CPU from `generator` and moved to `device` (default: the CUDA card).
+    Each layer built adds 1 to the counter `gcn.layers` of the process's
+    counter record, and one that sums first 1 to `gcn.aggregate_first`.
     """
 
     def __init__(
@@ -224,21 +235,63 @@ class GCNConv(nn.Module):
         self.lin = nn.Linear(in_features, features, bias=False)
         glorot_uniform_(self.lin.weight, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.aggregate_first = in_features < features
+        count("gcn.layers", 1)
+        if self.aggregate_first:
+            count("gcn.aggregate_first", 1)
         self.to(dev)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
         with span("geot.conv.gcn"):
-            if self.dtype is None:
-                x = self.lin(x)
-            else:
-                x = torch.nn.functional.linear(x.to(self.dtype),
-                                               self.lin.weight.to(self.dtype))
+            weight = self.lin.weight
+            if self.dtype is not None:
+                x, weight = x.to(self.dtype), weight.to(self.dtype)
             w = (gcn_edge_weight(graph, x.dtype)
                  if self.normalize and graph.w_slots is None else None)
-            out = segment_spmm(graph, x, edge_weight=w, backend=self.backend)
-            if self.bias is not None:
-                out = out + self.bias.to(out.dtype)
-            return out
+
+            def aggregate(h: torch.Tensor) -> torch.Tensor:
+                return segment_spmm(graph, h, edge_weight=w, backend=self.backend)
+
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            if self.aggregate_first:
+                return _AggregateFirst.apply(x, weight, bias, aggregate)
+            out = aggregate(torch.nn.functional.linear(x, weight))
+            return out if bias is None else out + bias
+
+
+class _AggregateFirst(torch.autograd.Function):
+    """out = (A_hat x) W^T + b, the SpMM at x's width, for a GCN layer that
+    widens. Saves only x and W: the backward sums A_hat x again, once, at
+    x's width over the forward's route and plan, under the span
+    "geot.conv.gcn.recompute", for dW = g^T (A_hat x); db = g summed over
+    rows; dx = A_hat^T (g W) through the SpMM's own backward. So the layer
+    holds no [N, in] or [N, out] intermediate from its forward to its
+    backward. `aggregate` is the layer's SpMM (graph, per-call weights and
+    route fixed)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, aggregate):
+        ctx.aggregate = aggregate
+        ctx.save_for_backward(x, weight)
+        return torch.nn.functional.linear(aggregate(x), weight, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if need_x or need_w:
+            with span("geot.conv.gcn.recompute"), torch.enable_grad():
+                xd = x.detach().requires_grad_(need_x)
+                agg = ctx.aggregate(xd)
+            if need_w:
+                dw = g.t().mm(agg.detach())
+            if need_x:
+                (dx,) = torch.autograd.grad(agg, xd, g.mm(weight))
+        if need_b:
+            db = g.sum(0)
+        return dx, dw, db, None
 
 
 class SAGEConv(nn.Module):

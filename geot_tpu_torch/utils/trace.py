@@ -18,7 +18,9 @@ timed by `Graph.build_stats`, not here.
 `count(name, n)` adds n to the counter `name` of the process's counter
 record, which `counter_record()` returns: counts that the program decides
 once, at set-up (the hybrid plans' streamed and total edges, written where
-a graph is built or loaded from the cache), never on the step path.
+a graph is built or loaded from the cache; `gcn.layers` and
+`gcn.aggregate_first`, written where a `GCNConv` is built), never on the
+step path.
 
 Span names start with "geot.".
 """

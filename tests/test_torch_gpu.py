@@ -1822,3 +1822,105 @@ def test_softmax_routes_take_float64(cuda):
         torch.testing.assert_close(o_k, o_r, rtol=1e-5, atol=1e-5 * float(o_r.abs().max()))
         for a, b in zip(g_k, g_r):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_gcn_aggregate_first_step_on_card(cuda):
+    """OGB products' GCN widths (100 -> 256 -> 256 -> 47) over a hybrid
+    graph of ~4.1 M edges (products' shape at 60,000 nodes: communities of
+    ~2,000, 30% of edges across, Zipf(0.5) in-degrees, both directions; the
+    census's margin waived at this size). The first layer widens, so it
+    sums first and recomputes its sum in the backward. One training step
+    against the multiply-first form written out here: the same hybrid
+    launches (six sums a step); the step's peak device memory no higher;
+    each leaf's gradient no farther from a float64 step (`torch.sparse.mm`
+    over the same weights, through the form's own ReLU pattern: ROADMAP
+    C.10) than twice the multiply-first form's distance from its float64
+    step (ROADMAP C.19's rule), or the products configuration's `grad_gap`
+    limit 5e-6 of the leaf's float64 norm."""
+    import torch.nn.functional as F
+
+    from geot_tpu_torch.graph.datasets import synthetic_clustered_graph
+    from geot_tpu_torch.models import prepare_graph
+
+    n = 60_000
+    d = synthetic_clustered_graph(n, 2_000_000, mixing=0.3, mean_community=2000, power=0.5,
+                                  seed=24)
+    src, dst = np.concatenate([d.src, d.dst]), np.concatenate([d.dst, d.src])
+    g = prepare_graph(src, dst, n, normalize="gcn", layouts=("bat", "stream"),
+                      stream_knobs=tsp.StreamKnobs(margin=1.0), device=cuda)
+    assert api.dispatch_path(g) == "hybrid"
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn(n, 100, generator=gen, device=cuda)
+    y = torch.randint(0, 47, (n,), generator=gen, device=cuda)
+    model = GCN(100, 256, 3, 47, conv_kwargs={"normalize": False},
+                generator=torch.Generator().manual_seed(24), device=cuda)
+    assert [c.aggregate_first for c in model.convs] == [True, False, False]
+    with torch.no_grad():
+        for c in model.convs:
+            c.bias.copy_(0.1 * torch.randn(c.bias.shape, generator=gen, device=cuda))
+    lin = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    masks = {"program": {}, "linear_first": {}}  # the hidden layers' ReLU patterns
+
+    def linear_first(p, h, keep=None):
+        for i in range(3):
+            h = api.segment_spmm(g, F.linear(h, p[f"convs.{i}.lin.weight"]))
+            h = h + p[f"convs.{i}.bias"]
+            if i < 2:
+                if keep is not None:
+                    keep[i] = h.detach() > 0
+                h = torch.relu(h)
+        return h
+
+    def step_program():
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x, g), y).backward()
+
+    def step_linear_first(keep=None):
+        for p in lin.values():
+            p.grad = None
+        F.cross_entropy(linear_first(lin, x, keep), y).backward()
+
+    def run(step):
+        """(stream launches, peak bytes above the resident) of one step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = stream_segment_sum.launches
+        step()
+        torch.cuda.synchronize()
+        return stream_segment_sum.launches - before, torch.cuda.max_memory_allocated() - resident
+
+    for step in (step_program, step_linear_first):  # warm up
+        step()
+    launches_p, peak_p = run(step_program)
+    launches_l, peak_l = run(step_linear_first)
+    assert launches_p == launches_l == 6
+    assert peak_p <= peak_l, (peak_p, peak_l)
+
+    # the gradients again, with each form's ReLU pattern kept
+    hooks = [c.register_forward_hook(
+        lambda mod, inp, out, i=i: masks["program"].__setitem__(i, out.detach() > 0))
+        for i, c in enumerate(model.convs[:2])]
+    step_program()
+    for h in hooks:
+        h.remove()
+    step_linear_first(masks["linear_first"])
+    a64 = torch.sparse_coo_tensor(torch.stack([g.dst.long(), g.src.long()]),
+                                  g.edge_weight.double(), (n, n)).coalesce()
+
+    def grads64(keep):
+        p64 = {k: v.detach().double().requires_grad_() for k, v in lin.items()}
+        h = x.double()
+        for i in range(3):
+            h = torch.sparse.mm(a64, F.linear(h, p64[f"convs.{i}.lin.weight"]))
+            h = h + p64[f"convs.{i}.bias"]
+            if i < 2:
+                h = h * keep[i]
+        F.cross_entropy(h, y).backward()
+        return {k: p.grad for k, p in p64.items()}
+
+    ref_p, ref_l = grads64(masks["program"]), grads64(masks["linear_first"])
+    for k, p in model.named_parameters():
+        e_prog = float((p.grad.double() - ref_p[k]).norm() / ref_p[k].norm())
+        e_lin = float((lin[k].grad.double() - ref_l[k]).norm() / ref_l[k].norm())
+        assert e_prog <= max(2 * e_lin, 5e-6), (k, e_prog, e_lin)

@@ -106,8 +106,9 @@ def test_configuration_states_the_published_model():
 @pytest.mark.parametrize("loop", ["train", "serve"])
 def test_small_copy_runs_the_hybrid_route_and_is_correct(tmp_path, monkeypatch, loop):
     """The harness's whole run on the CPU: correct within the
-    configuration's limits, every aggregation forward (and, in training,
-    over `hyb_t`) on the hybrid route."""
+    configuration's limits, every aggregation on the hybrid route: forward
+    over `hyb`; in training the backward over `hyb_t`, and the first
+    layer's recomputed sum over `hyb`."""
     graphs, calls = [], []
     build, fwd = system.build_graph, api._spmm_fwd_hybrid
 
@@ -132,11 +133,13 @@ def test_small_copy_runs_the_hybrid_route_and_is_correct(tmp_path, monkeypatch, 
     assert dispatch_path(g) == "hybrid"
     assert g.hyb.rest is not None and g.hyb_t.rest is not None  # both halves carry edges
     if loop == "train":
-        # three layers a step, forward over hyb and backward over hyb_t: the
-        # three checked steps and the window's
+        # three layers a step, forward over hyb; backward over hyb_t, but
+        # the first layer (100 -> 256) sums first and sums over hyb again
+        # in its backward: the three checked steps and the window's
         steps = 3 + r["attempted"]
         assert len(calls) == 6 * steps
-        assert sum(h is g.hyb for h in calls) == sum(h is g.hyb_t for h in calls) == 3 * steps
+        assert sum(h is g.hyb for h in calls) == 4 * steps
+        assert sum(h is g.hyb_t for h in calls) == 2 * steps
     else:
         # three layers a request: the warm-up requests and the window's
         assert len(calls) == 3 * (cell.traffic["warmup_requests"] + r["attempted"])
